@@ -1,0 +1,454 @@
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds every kernel of the main path from the sources in this checkout
+(``nvcc``, one process per generated source, all started together), then
+runs in phases; any failed check raises and the script exits non-zero:
+
+0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+1. kernel K1 (``stencil.apply``) against its plain PyTorch version on the
+   card, bitwise: heat stars (so 2/4/8, 2D 16384², 3D 1024³), the wave
+   apply, a random star and a 3-D box;
+2. the main path at the paper's fig-7 sizes: heat 16384² (so 2/4/8) and
+   1024³ (so 4), ``Operator(Eq(u.dt, 0.5*u.laplace))`` → ``Target(backend=
+   "cuda")`` → 8 steps, bitwise against ``Target(backend="torch")``, K1
+   launches counted; then small grids against the independent oracles of
+   ``kernels/ref.py``;
+3. deep-halo epochs without the epoch kernel: heat 16384² so4 with
+   ``exchange_every=4`` (4 K1 launches per epoch), bitwise against k=1;
+4. wave (fig. 7b) 16384² so4, two-buffer rotation, bitwise against torch;
+5. where a step's device time goes: ``torch.profiler`` over 4 steps of
+   heat 16384² so4 and 1024³ so4 (device time by kernel, busy share).
+
+The line before the last is ``{"kernels": [...]}``: per main-path case,
+K1's launches in that case's counted run, its time per launch, the plain
+version's time, the least time the card could take (bytes over 3.35 TB/s
+or float32 operations over 67 TFLOP/s, whichever is larger) and, for
+single-operand linear applies, the time of ``F.conv2d``/``F.conv3d`` with
+the same star (a yardstick only; the port never calls it).  The last line
+is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+STEPS = 8
+SEED = 0
+REPLACES = "src/repro/kernels/stencil_apply.py:81"
+SOURCE = "src/repro_torch/kernels/stencil_apply.py"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch.nn.functional as F
+
+    from repro_torch import api
+    from repro_torch.api import Target
+    from repro_torch.core import ir
+    from repro_torch.core.dialects import stencil
+    from repro_torch.core.fd import laplacian_star, radius
+    from repro_torch.core.lowering import eval_apply_body
+    from repro_torch.frontends.devito_like import Eq, Grid, Operator, TimeFunction
+    from repro_torch.kernels import dispatch_stats, ops, ref, reset_dispatch_stats
+    from repro_torch.kernels import stencil_apply as k1
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+
+    # -- phase 0: the card --------------------------------------------------
+    card = card_line()
+    log(card)
+    log(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
+        f"torch={torch.__version__} cuda={torch.version.cuda} "
+        f"python={sys.version.split()[0]} nvcc={k1.find_nvcc()}")
+
+    # -- the programs and applies of every phase ------------------------------
+    def heat_op(shape, so):
+        g = Grid(shape=shape, extent=tuple(float(n) for n in shape))  # spacing 1
+        u = TimeFunction(name="u", grid=g, space_order=so)
+        return Operator(Eq(u.dt, 0.5 * u.laplace), dt=0.1, boundary="zero")
+
+    def wave_op(shape, so):
+        g = Grid(shape=shape, extent=tuple(float(n) for n in shape))
+        u = TimeFunction(name="u", grid=g, space_order=so, time_order=2)
+        return Operator(Eq(u.dt2, 1.0 * u.laplace), dt=0.1, boundary="zero")
+
+    def spec_of(apply_op):
+        return (
+            apply_op,
+            [tuple(o.type.bounds.shape) for o in apply_op.operands],
+            [tuple(o.type.bounds.lb) for o in apply_op.operands],
+            apply_op.result_bounds,
+        )
+
+    def star_spec(coeffs, core, halo):
+        apply_op, _ = ops.star_apply_ir(coeffs, core, halo)
+        return spec_of(apply_op)
+
+    def heat_star(rank, so, alpha=0.05):
+        star = {k: alpha * v for k, v in laplacian_star(rank, so).items()}
+        star[(0,) * rank] = star.get((0,) * rank, 0.0) + 1.0
+        return star
+
+    n2, n3 = 16384, 1024
+    rng = torch.Generator().manual_seed(SEED)
+    rand_star = {(0, 0): 0.3}
+    for d in range(2):
+        for o in (-3, -2, -1, 1, 2, 3):
+            off = tuple(o if k == d else 0 for k in range(2))
+            rand_star[off] = float(torch.randn((), generator=rng))
+    box = {(i, j, k): 1.0 / 27.0 for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)}
+
+    main_cases = [  # (name, op, target kwargs)
+        (f"heat2d_so{so} {n2}x{n2}", heat_op((n2, n2), so), {}) for so in (2, 4, 8)
+    ] + [(f"heat3d_so4 {n3}x{n3}x{n3}", heat_op((n3,) * 3, 4), {})]
+    epoch_case = (f"heat2d_so4 {n2}x{n2} exchange_every=4", main_cases[1][1], {"exchange_every": 4})
+    wave_case = (f"wave2d_so4 {n2}x{n2}", wave_op((n2, n2), 4), {})
+    small = [
+        ("heat2d_so4 64x64", heat_op((64, 64), 4)),
+        ("heat3d_so4 24x20x28", heat_op((24, 20, 28), 4)),
+        ("wave2d_so4 64x48", wave_op((64, 48), 4)),
+    ]
+
+    def compiled(op, **kw):
+        return api.compile(op.program, Target(backend="cuda", **kw))
+
+    wave_apply = compiled(wave_case[1]).kernel_applies()[0]
+    phase1 = [(f"heat2d_so{so} {n2}x{n2}", star_spec(heat_star(2, so), (n2, n2), (radius(so),) * 2))
+              for so in (2, 4, 8)]
+    phase1 += [(f"heat3d_so{so} {n3}^3", star_spec(heat_star(3, so), (n3,) * 3, (radius(so),) * 3))
+               for so in (2, 4, 8)]
+    phase1 += [
+        (f"wave2d_so4 {n2}x{n2} (program apply)", spec_of(wave_apply)),
+        (f"random star r3 {n2}x{n2}", star_spec(rand_star, (n2, n2), (3, 3))),
+        (f"box27 {n3}^3", star_spec(box, (n3,) * 3, (1, 1, 1))),
+    ]
+    sources = [k1.emit_apply_cuda(*s) for _, s in phase1]
+    for _, op, kw in main_cases + [epoch_case, wave_case]:
+        sources += [k1.emit_apply_cuda(*spec_of(a)) for a in compiled(op, **kw).kernel_applies()]
+    for _, op in small:
+        sources += [k1.emit_apply_cuda(*spec_of(a)) for a in compiled(op).kernel_applies()]
+    sources = list(dict.fromkeys(sources))
+    t0 = time.perf_counter()
+    paths = k1.build(sources)
+    log(f"build: {len(sources)} K1 sources with nvcc in {time.perf_counter() - t0:.1f} s "
+        f"(flags {' '.join(k1.NVCC_FLAGS)})")
+    regs = set()
+    for p in paths:
+        log_path = p.with_suffix(".log")
+        if log_path.exists():
+            regs.update(
+                line.split("Used", 1)[1].split(",")[0].strip()
+                for line in log_path.read_text().splitlines()
+                if "Used" in line and "registers" in line
+            )
+    log(f"build: ptxas register use per thread: {sorted(regs)}")
+
+    # -- shared measurement helpers ----------------------------------------------
+    def cuda_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    arith = (ir.AddOp, ir.SubOp, ir.MulOp, ir.DivOp, ir.NegOp, ir.AbsOp, ir.SqrtOp,
+             ir.ExpOp, ir.SelectGeZeroOp, stencil.IndexOp)
+
+    def bound(spec):
+        apply_op, shapes, _, rb = spec
+        points = 1
+        for n in rb.shape:
+            points *= n
+        n_bytes = 4 * (sum(_numel(s) for s in shapes) + points * len(apply_op.results))
+        n_ops = points * sum(isinstance(op, arith) for op in apply_op.body.ops)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, n_ops
+
+    def conv_weights(spec):
+        """The star of a one-operand linear apply, from its impulse responses
+        (plain version on the CPU), as a conv weight; None otherwise."""
+        apply_op, shapes, origins, rb = spec
+        if len(apply_op.operands) != 1 or len(apply_op.results) != 1:
+            return None
+        lo, hi = apply_op.access_extents()[0]
+        h = max(max(-l for l in lo), max(hi))
+        rank = rb.rank
+        one = stencil.Bounds((0,) * rank, (1,) * rank)
+        org = [(-h,) * rank]
+
+        def at(x):
+            return eval_apply_body(apply_op, [x], org, one)[0].reshape(())
+
+        zero = torch.zeros((2 * h + 1,) * rank)
+        w = torch.zeros((2 * h + 1,) * rank)
+        base = at(zero)
+        for op in apply_op.body.ops:
+            if isinstance(op, stencil.AccessOp):
+                idx = tuple(h + o for o in op.offset)
+                e = zero.clone()
+                e[idx] = 1.0
+                w[idx] = at(e) - base
+        # linear and homogeneous: f(x) == conv(x, w) at a random point
+        x = torch.randn((2 * h + 1,) * rank, generator=rng)
+        if base != 0 or abs(float(at(x)) - float((w * x).sum())) > 1e-4 * (1 + float(x.abs().sum())):
+            return None
+        return w.reshape((1, 1) + w.shape).to(dev)
+
+    def kernel_record(name, specs, launches):
+        """Time K1, its plain version and the conv yardstick on random
+        operands of the main path's shapes; hold K1 against the plain
+        version (bitwise)."""
+        ms = plain_ms = lib_ms = bound_ms = 0.0
+        err = 0.0
+        by = set()
+        lib_ok = True
+        for spec in specs:
+            apply_op, shapes, origins, rb = spec
+            gen.manual_seed(SEED)
+            arrays = [torch.randn(s, device=dev, generator=gen) for s in shapes]
+            got = k1.run_apply_cuda(apply_op, arrays, origins, rb)
+            want = eval_apply_body(apply_op, arrays, origins, rb)
+            torch.cuda.synchronize()
+            for g_, w_ in zip(got, want):
+                err = max(err, float((g_ - w_).abs().max()))
+                check(torch.equal(g_, w_), f"{name}: K1 differs from its plain version")
+            del got, want
+            ms += cuda_ms(lambda: k1.run_apply_cuda(apply_op, arrays, origins, rb), 10)
+            plain_ms += cuda_ms(lambda: eval_apply_body(apply_op, arrays, origins, rb), 2)
+            b_ms, b_by, _, _ = bound(spec)
+            bound_ms += b_ms
+            by.add(b_by)
+            w = conv_weights(spec) if lib_ok else None
+            if w is None:
+                lib_ok = False
+            else:
+                conv = F.conv2d if rb.rank == 2 else F.conv3d
+                x = arrays[0].reshape((1, 1) + arrays[0].shape)
+                try:
+                    lib_ms += cuda_ms(lambda: conv(x, w), 3)
+                except RuntimeError as e:  # cuDNN may refuse a shape: no yardstick then
+                    log(f"  {name}: conv yardstick failed: {str(e).splitlines()[0]}")
+                    lib_ok = False
+            del arrays
+            torch.cuda.empty_cache()
+        rec = {
+            "name": f"stencil_apply[{name}]", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if by == {"bytes"} else "operations",
+            "library_ms": lib_ms if lib_ok else None,
+        }
+        log(f"  K1 {name}: {ms:.4f} ms/launch-set, bound {bound_ms:.4f} ms ({rec['bound_by']}), "
+            f"plain {plain_ms:.3f} ms, conv {rec['library_ms']}, max|err| {err}")
+        return rec
+
+    # -- phase 1: K1 against its plain version on the card -----------------------
+    log("phase 1: K1 vs plain version on the card (bitwise)")
+    for name, spec in phase1:
+        apply_op, shapes, origins, rb = spec
+        gen.manual_seed(SEED)
+        arrays = [torch.randn(s, device=dev, generator=gen) for s in shapes]
+        reset_dispatch_stats()
+        got = k1.run_apply_cuda(apply_op, arrays, origins, rb)
+        torch.cuda.synchronize()
+        launches = dispatch_stats().apply_launches
+        want = eval_apply_body(apply_op, arrays, origins, rb)
+        torch.cuda.synchronize()
+        err = max(float((g_ - w_).abs().max()) for g_, w_ in zip(got, want))
+        check(launches == 1, f"{name}: {launches} K1 launches, expected 1")
+        check(all(torch.equal(g_, w_) for g_, w_ in zip(got, want)),
+              f"{name}: K1 differs from its plain version (max |err| {err})")
+        log(f"  {name}: bitwise, max|err| {err}, apply_launches {launches}")
+        del arrays, got, want
+        torch.cuda.empty_cache()
+
+    kernels = []
+
+    def drive(name, op, kw):
+        """The counted main-path run: Operator.apply through Target(backend=
+        "cuda"), counts zeroed just before and read just after."""
+        prog = op.program
+        step = compiled(op, **kw)
+        applies_per_call = len(step.kernel_applies())
+        gen.manual_seed(SEED)
+        state = tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
+                      for f in prog.input_fields)
+        step.advance(state)  # warm-up epoch: loads the built kernels
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        reset_dispatch_stats()
+        a.record()
+        out = op.apply(state, timesteps=STEPS, target=Target(backend="cuda", **kw))
+        b.record()
+        b.synchronize()
+        launches = dispatch_stats().apply_launches
+        expect = step.epochs(STEPS) * applies_per_call
+        check(launches == expect, f"{name}: {launches} K1 launches, expected {expect}")
+        sec = a.elapsed_time(b) / 1e3
+        points = _numel(prog.field_args[0].type.bounds.shape)
+        log(f"  {name}: {STEPS} steps, {sec / STEPS * 1e3:.3f} ms/step, "
+            f"{points * STEPS / sec / 1e9:.3f} GPts/s, apply_launches {launches}, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        for t in out:
+            check(tuple(t.shape) == tuple(prog.field_args[0].type.bounds.shape), f"{name}: shape")
+            check(bool(torch.isfinite(t).all()), f"{name}: non-finite values")
+        return state, out, launches, [spec_of(x) for x in step.kernel_applies()]
+
+    def same(name, out, other, what):
+        diff = max(float((x - y).abs().max()) for x, y in zip(out, other))
+        check(len(out) == len(other) and all(torch.equal(x, y) for x, y in zip(out, other)),
+              f"{name}: differs from {what} (max |diff| {diff})")
+        log(f"  {name}: bitwise equal to {what}")
+
+    # -- phase 2: the main path at the paper's sizes ---------------------------
+    log("phase 2: heat main path, backend cuda vs backend torch")
+    for name, op, kw in main_cases:
+        state, out, launches, specs = drive(name, op, kw)
+        other = api.compile(op.program, Target(backend="torch", **kw)).time_loop(state, STEPS)
+        same(name, out, other, "Target(backend='torch')")
+        del state, out, other
+        torch.cuda.empty_cache()
+        kernels.append(kernel_record(name, specs, launches))
+
+    log("phase 2b: small grids against the oracles of kernels/ref.py (rtol=atol=1e-5)")
+    for name, op in small:
+        prog = op.program
+        so = op.updates[0][0].space_order
+        h = radius(so)
+        gen.manual_seed(SEED)
+        state = tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
+                      for f in prog.input_fields)
+        out = op.apply(state, timesteps=STEPS, target=Target(backend="cuda"))
+        want = list(state)
+        for _ in range(STEPS):
+            padded = [F.pad(s, [h, h] * s.ndim) for s in want]
+            if len(want) == 1:
+                want = [ref.heat_step_ref(padded[0], 0.1 * 0.5, so, h)]
+            else:
+                want = [want[1], ref.wave_step_ref(padded[1], padded[0], 0.1 ** 2, so, h)]
+        for x, y in zip(out, want):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+        log(f"  {name}: matches the oracle over {STEPS} steps "
+            f"(max |diff| {max(float((x - y).abs().max()) for x, y in zip(out, want))})")
+
+    # -- phase 3: epochs without the epoch kernel --------------------------------
+    log("phase 3: heat exchange_every=4 (4 K1 launches per epoch) vs exchange_every=1")
+    name, op, kw = epoch_case
+    state, out, launches, specs = drive(name, op, kw)
+    base = op.apply(state, timesteps=STEPS, target=Target(backend="cuda"))
+    same(name, out, base, "the exchange_every=1 run")
+    del state, out, base
+    torch.cuda.empty_cache()
+    kernels.append(kernel_record(name, specs, launches))
+
+    # -- phase 4: wave, two-buffer rotation --------------------------------------
+    log("phase 4: wave main path, backend cuda vs backend torch")
+    name, op, kw = wave_case
+    state, out, launches, specs = drive(name, op, kw)
+    other = api.compile(op.program, Target(backend="torch")).time_loop(state, STEPS)
+    same(name, out, other, "Target(backend='torch')")
+    del state, out, other
+    torch.cuda.empty_cache()
+    kernels.append(kernel_record(name, specs, launches))
+
+    # -- phase 5: where a step's device time goes ---------------------------
+    log("phase 5: device time by kernel over 4 main-path steps (torch.profiler)")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, op, kw in (main_cases[1], main_cases[3]):
+        step = compiled(op, **kw)
+        gen.manual_seed(SEED)
+        state = tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
+                      for f in op.program.input_fields)
+        step.advance(state)
+        torch.cuda.synchronize()
+        # host clock: the time to enqueue 8 steps (nothing in the cuda
+        # route waits for the card), then the wall time until they finish
+        t0 = time.perf_counter()
+        step.time_loop(state, STEPS)
+        t_host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter() - t0
+        log(f"  {name}: host enqueue {t_host / STEPS * 1e3:.3f} ms/step, "
+            f"untraced wall {t_wall / STEPS * 1e3:.3f} ms/step")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step.time_loop(state, 4)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for e in prof.key_averages():
+            # device kernels only: a CPU op (aten::copy_) reports its
+            # kernels' time again, and the tracer's own buffer requests
+            # are no work of the program
+            if e.device_type != DeviceType.CUDA or e.key == "Activity Buffer Request":
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                rows.append((us / 1e3, e.key, e.count))
+        busy = sum(r[0] for r in rows)
+        log(f"  {name}: traced wall {wall_ms / 4:.3f} ms/step, device busy "
+            f"{busy / 4:.3f} ms/step ({100 * busy / wall_ms:.1f} % of wall)")
+        for ms_, key, count in sorted(rows, reverse=True)[:8]:
+            log(f"    {ms_ / 4:8.3f} ms/step  {count // 4:3d}/step  {key[:90]}")
+        del state
+        torch.cuda.empty_cache()
+
+    log(card_line())
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def _numel(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,470 @@
+"""Executing the comm-level IR on PyTorch tensors (port of
+``repro.core.lowering``).
+
+The rank-local function — after the canonical dmp→comm lowering
+(``core/passes/lower_comm.py``), so it holds comm ops and never
+``dmp.swap`` — is executed op by op on tensors.  Two compute backends
+share the body evaluator:
+
+- ``torch`` — shifted slice reads evaluated eagerly (the reference);
+- ``cuda``  — each full or interior ``stencil.apply`` goes to the
+  hand-written CUDA kernel of ``kernels/stencil_apply.py``; thin boundary
+  frames stay on the evaluator.
+
+Halo exchanges run on one device only in this package: every grid axis
+has size 1, so ``comm.exchange_start`` emulates the exchange locally
+(the patch itself for periodic wrap, zeros for zero BC) and
+``comm.wait`` inserts the patches.
+
+Tensors are never written in place unless this interpreter allocated
+them in the same call and no later op reads them in their old state; a
+caller's tensor is never written.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import ir
+from repro_torch.core.dialects import comm, dmp, stencil
+
+# --------------------------------------------------------------------------
+# Shared point-function evaluator (the plain version of kernel K1)
+# --------------------------------------------------------------------------
+
+_UNARY = {
+    ir.NegOp: torch.neg,
+    ir.AbsOp: torch.abs,
+    ir.SqrtOp: torch.sqrt,
+    ir.ExpOp: torch.exp,
+}
+_BINARY = {
+    ir.AddOp: torch.add,
+    ir.SubOp: torch.sub,
+    ir.MulOp: torch.mul,
+    ir.DivOp: torch.div,
+}
+
+
+def _last_uses(ops: Sequence[ir.Operation]) -> dict:
+    """Index of the last op in ``ops`` that reads each value."""
+    last: dict = {}
+    for i, op in enumerate(ops):
+        for o in op.operands:
+            last[o] = i
+    return last
+
+
+def eval_apply_body(
+    apply_op: stencil.ApplyOp,
+    operand_arrays: Sequence[torch.Tensor],
+    operand_origins: Sequence[tuple],
+    result_bounds: stencil.Bounds,
+    device: Optional[torch.device] = None,
+) -> list:
+    """Evaluate an apply's point function vectorized over ``result_bounds``.
+
+    ``operand_arrays[k]`` covers logical coords starting at
+    ``operand_origins[k]``; an access at offset ``o`` of operand ``k``
+    becomes a slice view.  Every op is one float32 tensor op, rounded on
+    its own, which is what the CUDA kernel computes point by point.
+    ``device`` is only read when the apply has no operands.
+
+    Intermediates are dropped after their last use, so the live set stays
+    a few result-sized tensors however long the body is.
+    """
+    rb = result_bounds
+    shape = rb.shape
+    if operand_arrays:
+        device = operand_arrays[0].device
+    device = torch.device(device or "cpu")
+    f32 = torch.float32
+    ops = apply_op.body.ops
+    last = _last_uses(ops)
+    env: dict[ir.SSAValue, Any] = {}
+    # results of arithmetic on result-sized inputs are fresh tensors; any
+    # other value (a slice view of an operand, a constant, an index ramp)
+    # is copied before it is returned
+    fresh: set = set()
+
+    def operand_slice(k: int, offset: tuple):
+        idx = tuple(
+            slice(rl + o - og, rl + o - og + n)
+            for rl, o, og, n in zip(rb.lb, offset, operand_origins[k], shape)
+        )
+        return operand_arrays[k][idx]
+
+    for i, op in enumerate(ops):
+        if isinstance(op, stencil.StencilReturnOp):
+            outs = []
+            for o in op.operands:
+                v = env[o]
+                if o not in fresh or tuple(v.shape) != shape or any(
+                    v is w for w in outs
+                ):
+                    v = torch.broadcast_to(v, shape).clone(
+                        memory_format=torch.contiguous_format
+                    )
+                outs.append(v)
+            return outs
+        res = op.results[0] if op.results else None
+        if isinstance(op, stencil.AccessOp):
+            env[res] = operand_slice(op.temp.index, op.offset)
+        elif isinstance(op, stencil.IndexOp):
+            d = op.dim
+            view = [1] * len(shape)
+            view[d] = shape[d]
+            io = torch.arange(shape[d], dtype=f32, device=device).reshape(view)
+            env[res] = io + torch.tensor(rb.lb[d], dtype=f32, device=device)
+        elif isinstance(op, ir.ConstantOp):
+            env[res] = torch.tensor(op.value, dtype=f32, device=device)
+        elif type(op) in _BINARY:
+            a, b = (env[o] for o in op.operands)
+            env[res] = _BINARY[type(op)](a, b)
+            if torch.broadcast_shapes(a.shape, b.shape) == shape:
+                fresh.add(res)
+        elif type(op) in _UNARY:
+            a = env[op.operands[0]]
+            env[res] = _UNARY[type(op)](a)
+            if tuple(a.shape) == shape:
+                fresh.add(res)
+        elif isinstance(op, ir.SelectGeZeroOp):
+            p, a, b = (env[o] for o in op.operands)
+            env[res] = torch.where(p >= 0, a, b)
+            if torch.broadcast_shapes(p.shape, a.shape, b.shape) == shape:
+                fresh.add(res)
+        else:
+            raise NotImplementedError(f"apply body op {op.name}")
+        for o in op.operands:
+            if last.get(o) == i:
+                env.pop(o, None)
+    raise AssertionError("apply body missing stencil.return")
+
+
+# --------------------------------------------------------------------------
+# Boundary-condition fill
+# --------------------------------------------------------------------------
+
+
+def _pad_with_bc(x, lo: tuple, hi: tuple, grid: dmp.GridAttr, boundary: str):
+    """Grow ``x`` by halo widths; wrap-fill periodic *undecomposed* dims
+    locally, everything else zeros (decomposed dims are filled by
+    exchanges)."""
+    rank = x.ndim
+    zero_dims = range(rank)
+    if boundary == "periodic":
+        wrap_dims = [
+            d
+            for d in range(rank)
+            if grid.axis_of_dim(d) is None and (lo[d] or hi[d])
+        ]
+        for d in wrap_dims:
+            # the wrap of jnp.pad(mode="wrap"): logical index i reads i mod n
+            n = x.shape[d]
+            idx = torch.arange(-lo[d], n + hi[d], device=x.device) % n
+            x = x.index_select(d, idx)
+        zero_dims = [d for d in range(rank) if d not in wrap_dims]
+    pad: list[int] = []
+    for d in reversed(range(rank)):  # F.pad lists the last dim first
+        pad += [lo[d], hi[d]] if d in zero_dims else [0, 0]
+    if any(pad):
+        x = F.pad(x, pad)
+    return x
+
+
+# --------------------------------------------------------------------------
+# Function interpreter — one op-dispatch level, comm ops only
+# --------------------------------------------------------------------------
+
+
+class StencilInterpreter:
+    """Interprets a rank-local, comm-lowered stencil function on tensors.
+
+    Calling convention: positional float32 tensors for every *field*
+    argument of the function, all on one device; returns the updated
+    tensors of every stored-to field, in first-store order.  ``dmp.swap``
+    is rejected — run the dmp→comm pipeline (``lower-comm``) first.
+    """
+
+    def __init__(
+        self,
+        func: ir.FuncOp,
+        axis_sizes: dict[str, int],
+        distributed: bool = False,
+        backend: str = "torch",
+    ) -> None:
+        if backend not in ("torch", "cuda"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if distributed:
+            raise NotImplementedError(
+                "distributed execution is not ported yet (ROADMAP Queue 1 "
+                "item 6): run on one device"
+            )
+        self.func = func
+        self.axis_sizes = dict(axis_sizes)
+        self.backend = backend
+        self.output_fields: list[ir.SSAValue] = []
+        for op in func.body.ops:
+            if isinstance(op, stencil.StoreOp) and op.field not in self.output_fields:
+                self.output_fields.append(op.field)
+        self._last_use = _last_uses(func.body.ops)
+
+    # -- public --------------------------------------------------------
+    def __call__(self, *arrays):
+        fields = [
+            a for a in self.func.body.args if isinstance(a.type, stencil.FieldType)
+        ]
+        if len(arrays) != len(fields):
+            raise ValueError(
+                f"expected {len(fields)} field tensors, got {len(arrays)}"
+            )
+        field_state: dict[ir.SSAValue, Any] = {}
+        for arg, arr in zip(fields, arrays):
+            expect = tuple(arg.type.bounds.shape)
+            if tuple(arr.shape) != expect:
+                raise ValueError(
+                    f"field {arg.name_hint}: tensor shape {tuple(arr.shape)} "
+                    f"!= local bounds shape {expect}"
+                )
+            field_state[arg] = arr
+        device = _common_device(arrays)
+        env: dict[ir.SSAValue, Any] = {}
+        owned: set = set()
+        for i, op in enumerate(self.func.body.ops):
+            self._exec(op, env, field_state, owned, i, device)
+        return tuple(field_state[f] for f in self.output_fields)
+
+    def kernel_applies(self) -> list:
+        """The ``stencil.apply`` ops this interpreter hands to kernel K1,
+        in execution order (empty for the ``torch`` backend)."""
+        return [
+            op
+            for op in self.func.body.ops
+            if isinstance(op, stencil.ApplyOp) and self._routes_to_kernel(op)
+        ]
+
+    # -- helpers ---------------------------------------------------------
+    def _routes_to_kernel(self, op: stencil.ApplyOp) -> bool:
+        part = op.attributes.get("part")
+        return self.backend == "cuda" and (
+            part is None or part.value == "interior"
+        )
+
+    def _dead_after(self, value: ir.SSAValue, i: int) -> bool:
+        return self._last_use.get(value, -1) <= i
+
+    # -- op execution ---------------------------------------------------
+    def _exec(self, op: ir.Operation, env, field_state, owned, i: int,
+              device: torch.device) -> None:
+        if isinstance(op, stencil.LoadOp):
+            env[op.results[0]] = field_state[op.field]
+        elif isinstance(op, stencil.ApplyOp):
+            arrays = [env[o] for o in op.operands]
+            origins = [o.type.bounds.lb for o in op.operands]
+            outs = self._apply_backend(
+                op, arrays, origins, op.result_bounds, device
+            )
+            for res, arr in zip(op.results, outs):
+                env[res] = arr
+                owned.add(res)
+        elif isinstance(op, stencil.CombineOp):
+            env[op.results[0]] = self._exec_combine(op, env)
+            owned.add(op.results[0])
+        elif isinstance(op, stencil.StoreOp):
+            temp = env[op.temp]
+            tb: stencil.Bounds = op.temp.type.bounds
+            fb: stencil.Bounds = op.field.type.bounds
+            sb: stencil.Bounds = op.bounds
+            patch = temp[
+                tuple(
+                    slice(s - t, s - t + n) for s, t, n in zip(sb.lb, tb.lb, sb.shape)
+                )
+            ]
+            # the stored tensor may be a view of ``temp`` and goes back to
+            # the caller: no later op may write into ``temp`` in place
+            owned.discard(op.temp)
+            if sb == fb:
+                # the next call hands this tensor to a kernel, which takes
+                # contiguous tensors only
+                field_state[op.field] = patch.contiguous()
+            else:
+                # functional update: the field tensor may be the caller's
+                new = field_state[op.field].clone()
+                new[
+                    tuple(
+                        slice(s - f, s - f + n)
+                        for s, f, n in zip(sb.lb, fb.lb, sb.shape)
+                    )
+                ] = patch
+                field_state[op.field] = new
+        elif isinstance(op, comm.HaloPadOp):
+            x = env[op.operands[0]]
+            y = _exec_halo_pad(op, x)
+            env[op.results[0]] = y
+            if y is not x:
+                owned.add(op.results[0])
+        elif isinstance(op, comm.ExchangeStartOp):
+            env[op.results[0]] = self._exec_comm_start(op, env[op.temp])
+        elif isinstance(op, comm.WaitOp):
+            self._exec_comm_wait(op, env, owned, i)
+        elif isinstance(op, comm.BoundaryMaskOp):
+            x = env[op.temp]
+            y = self._exec_boundary_mask(op, x, device)
+            env[op.results[0]] = y
+            if y is not x:
+                owned.add(op.results[0])
+        elif isinstance(op, stencil.FusedEpochOp):
+            self._exec_fused_epoch(op, env)
+        elif isinstance(op, comm.AllReduceOp):
+            # one device: the reduction over a size-1 mesh is the value
+            env[op.results[0]] = env[op.operands[0]]
+        elif isinstance(op, ir.ReturnOp):
+            pass
+        elif isinstance(op, dmp.SwapOp):
+            raise NotImplementedError(
+                "dmp.swap reached the interpreter — run the canonical "
+                "dmp→comm pipeline (lower-comm pass) before execution"
+            )
+        else:
+            raise NotImplementedError(f"function-level op {op.name}")
+
+    # -- apply backends -------------------------------------------------
+    def _apply_backend(self, op, arrays, origins, rb, device):
+        if self._routes_to_kernel(op):
+            from repro_torch.kernels.stencil_apply import run_apply_cuda
+
+            return run_apply_cuda(op, arrays, origins, rb, device=device)
+        # thin boundary frames go through the evaluator: identical
+        # elementwise arithmetic, no per-slab kernel launch
+        return eval_apply_body(op, arrays, origins, rb, device=device)
+
+    def _exec_combine(self, op: stencil.CombineOp, env):
+        rb = op.result_bounds
+        parts = [env[o] for o in op.operands]
+        out = torch.zeros(rb.shape, dtype=parts[0].dtype, device=parts[0].device)
+        for val, part in zip(op.operands, parts):
+            pb: stencil.Bounds = val.type.bounds
+            out[
+                tuple(
+                    slice(l - b, l - b + n)
+                    for l, b, n in zip(pb.lb, rb.lb, pb.shape)
+                )
+            ] = part
+        return out
+
+    # -- comm ops (local emulation: every grid axis has size 1) ----------
+    def _exec_comm_start(self, op: comm.ExchangeStartOp, x):
+        origin = op.temp.type.bounds.lb
+        idx = tuple(
+            slice(o - g, o - g + s)
+            for o, g, s in zip(op.send_offset, origin, op.size)
+        )
+        patch = x[idx]
+        periodic = bool(op.attributes.get("periodic", ir.IntAttr(0)).value)
+        # a copy, not a view: the wait may write into ``x`` in place
+        return patch.clone() if periodic else torch.zeros_like(patch)
+
+    def _boundary_keep(self, op: comm.BoundaryMaskOp, shape: tuple, device):
+        """Boolean keep-mask broadcastable to ``shape`` for a boundary_mask
+        op (True = inside the physical global domain), or ``None`` when
+        every point is inside.  One device: this rank's grid coordinate
+        is 0 on every axis."""
+        vb: stencil.Bounds = op.temp.type.bounds
+        core: stencil.Bounds = op.core
+        grid: dmp.GridAttr = op.grid
+        keep = None
+        for d in range(vb.rank):
+            if core.lb[d] <= vb.lb[d] and vb.ub[d] <= core.ub[d]:
+                continue  # no points outside this shard's core along d
+            gax = grid.axis_of_dim(d)
+            n = core.ub[d] - core.lb[d]
+            grid_extent = grid.shape[gax] if gax is not None else 1
+            view = [1] * len(shape)
+            view[d] = shape[d]
+            pos = torch.arange(
+                shape[d], dtype=torch.int32, device=device
+            ).reshape(view) + (vb.lb[d] - core.lb[d])
+            k = (pos >= 0) & (pos < grid_extent * n)
+            keep = k if keep is None else keep & k
+        return keep
+
+    def _exec_boundary_mask(self, op: comm.BoundaryMaskOp, x, device):
+        """Zero every point outside the physical (global) domain — the
+        temporal-tiling analogue of the zero-BC halo_pad, applied to
+        redundantly-computed epoch intermediates."""
+        keep = self._boundary_keep(op, tuple(x.shape), device)
+        if keep is None:
+            return x
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def _exec_fused_epoch(self, op: stencil.FusedEpochOp, env) -> None:
+        raise NotImplementedError(
+            "stencil.fused_epoch needs the epoch megakernel (K2), which is "
+            "not ported yet (ROADMAP Queue 2, K2)"
+        )
+
+    def _exec_comm_wait(self, op: comm.WaitOp, env, owned, i: int) -> None:
+        x = env[op.temp]
+        if op.temp in owned and self._dead_after(op.temp, i):
+            # allocated here and read by no later op: fill its halo in place
+            out = x
+        else:
+            out = x.clone()
+        origin = op.temp.type.bounds.lb
+        for p in op.patches:
+            rect: stencil.Bounds = p.type.bounds
+            out[
+                tuple(
+                    slice(o - g, o - g + n)
+                    for o, g, n in zip(rect.lb, origin, rect.shape)
+                )
+            ] = env[p]
+        env[op.results[0]] = out
+        owned.add(op.results[0])
+
+
+def _common_device(tensors) -> torch.device:
+    """The one device of ``tensors``, all float32 (no implicit cast or
+    move); the CPU when there are none."""
+    devices = {t.device for t in tensors}
+    if len(devices) > 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(
+                f"stencil tensors must be float32, got {t.dtype} (no implicit cast)"
+            )
+    return devices.pop() if devices else torch.device("cpu")
+
+
+def _exec_halo_pad(op: comm.HaloPadOp, x):
+    ib: stencil.Bounds = op.operands[0].type.bounds
+    ob: stencil.Bounds = op.results[0].type.bounds
+    lo = tuple(i - o for i, o in zip(ib.lb, ob.lb))
+    hi = tuple(o - i for o, i in zip(ob.ub, ib.ub))
+    return _pad_with_bc(
+        x, lo, hi, op.attributes["grid"], op.attributes["boundary"].value
+    )
+
+
+def run_func_dataflow(
+    func: ir.FuncOp,
+    inputs: Sequence[Any],
+    axis_sizes: dict[str, int],
+    distributed: bool = False,
+) -> tuple:
+    """Execute a *value-returning* comm-level function (temp args in,
+    ``func.return`` values out) on one device."""
+    interp = StencilInterpreter(
+        func, axis_sizes=axis_sizes, distributed=distributed
+    )
+    device = _common_device(inputs)
+    env: dict[ir.SSAValue, Any] = dict(zip(func.body.args, inputs))
+    owned: set = set()
+    for i, op in enumerate(func.body.ops):
+        if isinstance(op, ir.ReturnOp):
+            return tuple(env[o] for o in op.operands)
+        interp._exec(op, env, {}, owned, i, device)
+    raise AssertionError(f"{func.sym_name}: missing func.return")

@@ -1,0 +1,47 @@
+"""Kernel layer: hand-written CUDA kernels for the stencil hot spots.
+
+Shared here (imported by ``api``, ``core.lowering`` and the kernels):
+
+- :func:`has_cuda` — whether PyTorch sees a CUDA device.  There is no
+  interpret flag: a kernel wrapper takes its plain PyTorch version only
+  for tensors that lie on the CPU, and launches its kernel (or raises)
+  for CUDA tensors.
+- :func:`dispatch_stats` — per-process kernel counters.  ``apply_calls``
+  counts calls of the ``stencil.apply`` wrapper on any device (as the
+  reference counts traced ``pallas_call``s); ``apply_launches`` counts
+  CUDA launches only, so a run can show that its path went through the
+  kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def has_cuda() -> bool:
+    """True when PyTorch sees at least one CUDA device."""
+    return torch.cuda.is_available()
+
+
+@dataclasses.dataclass
+class DispatchStats:
+    """Counts of kernel-wrapper calls and CUDA launches since the last reset."""
+
+    apply_calls: int = 0     # stencil.apply wrapper calls (kernels/stencil_apply.py)
+    apply_launches: int = 0  # of those, CUDA kernel launches
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+_DISPATCH = DispatchStats()
+
+
+def dispatch_stats() -> DispatchStats:
+    return _DISPATCH
+
+
+def reset_dispatch_stats() -> None:
+    _DISPATCH.apply_calls = 0
+    _DISPATCH.apply_launches = 0

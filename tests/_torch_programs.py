@@ -1,0 +1,113 @@
+"""Stencil programs built by the same frontend calls in both packages.
+
+``pkg`` is ``"repro"`` (the JAX reference) or ``"repro_torch"`` (the
+port); each builder returns that package's ``Program``.  The port tests
+hand the same numpy inputs to both builds and compare the outputs.
+"""
+from __future__ import annotations
+
+import importlib
+
+import numpy as np
+
+
+def _mod(pkg: str, name: str):
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+def heat(pkg: str, shape, so: int, boundary: str = "zero"):
+    """Paper fig. 7a: Eq(u.dt, 0.5 u.laplace) through the devito-like frontend."""
+    d = _mod(pkg, "frontends.devito_like")
+    g = d.Grid(shape=shape, extent=tuple(1.0 for _ in shape))
+    u = d.TimeFunction(name="u", grid=g, space_order=so)
+    return d.Operator(d.Eq(u.dt, 0.5 * u.laplace), dt=1e-5, boundary=boundary).program
+
+
+def wave(pkg: str, shape, so: int, boundary: str = "zero"):
+    """Paper fig. 7b: Eq(u.dt2, u.laplace), two time buffers."""
+    d = _mod(pkg, "frontends.devito_like")
+    g = d.Grid(shape=shape, extent=tuple(1.0 for _ in shape))
+    u = d.TimeFunction(name="u", grid=g, space_order=so, time_order=2)
+    return d.Operator(d.Eq(u.dt2, 1.0 * u.laplace), dt=1e-3, boundary=boundary).program
+
+
+def jacobi(pkg: str, shape=(16, 16), boundary: str = "periodic"):
+    """The oec-like periodic Jacobi of the oec_like module docstring."""
+    p = _mod(pkg, "frontends.oec_like").ProgramBuilder("jacobi", shape)
+    u = p.input("u")
+    out = p.output("out")
+    t = p.load(u)
+    r = p.apply(
+        [t],
+        lambda b, u: (u.at(-1, 0) + u.at(1, 0) + u.at(0, -1) + u.at(0, 1)) * 0.25,
+    )
+    p.store(r, out)
+    return p.finish(boundary=boundary)
+
+
+def star_chain(pkg: str, shape, boundary: str, seed: int = 0):
+    """Two chained applies with random radius-2 taps in every dim."""
+    rng = np.random.default_rng(seed)
+    rank = len(shape)
+    p = _mod(pkg, "frontends.oec_like").ProgramBuilder(f"chain{rank}", shape)
+    u = p.input("u")
+    out = p.output("out")
+    values = [p.load(u)]
+    for _ in range(2):
+        taps = [tuple(int(o) for o in rng.integers(-2, 3, size=rank)) for _ in range(5)]
+        coeffs = rng.integers(1, 8, size=len(taps)) / 16.0
+
+        def fn(b, v, taps=taps, coeffs=coeffs):
+            acc = None
+            for off, c in zip(taps, coeffs):
+                term = v.at(*off) * float(c)
+                acc = term if acc is None else acc + term
+            return acc
+
+        values.append(p.apply([values[-1]], fn))
+    p.store(values[-1], out)
+    return p.finish(boundary=boundary)
+
+
+def mixed_ops(pkg: str, shape=(12, 10), boundary: str = "zero"):
+    """One apply using stencil.index, select_ge_zero, sqrt, exp, abs, neg
+    and division, with two results stored to two fields."""
+    ir = _mod(pkg, "core.ir")
+    stencil = _mod(pkg, "core.dialects.stencil")
+    Expr = _mod(pkg, "core.builder").Expr
+    p = _mod(pkg, "frontends.oec_like").ProgramBuilder("mixed", shape)
+    u = p.input("u")
+    a_out = p.output("a")
+    b_out = p.output("b")
+    t = p.load(u)
+
+    def unary(b, cls, e):
+        return Expr(b, b.insert(cls(e.value)).results[0])
+
+    def fn(b, v):
+        idx = Expr(b, b.insert(stencil.IndexOp(0)).results[0])
+        grad = v.at(1, 0) - v.at(-1, 0)
+        mag = unary(b, ir.SqrtOp, unary(b, ir.AbsOp, v.at(0, 1) * v.at(0, -1)))
+        sel = Expr(
+            b,
+            b.insert(ir.SelectGeZeroOp(grad.value, mag.value, unary(b, ir.NegOp, grad).value)).results[0],
+        )
+        first = sel + idx * 0.125
+        second = unary(b, ir.ExpOp, v.at(0, 0) * 0.25) / (mag + 2.0)
+        return first, second
+
+    a, bb = p.apply([t], fn, n_results=2)
+    p.store(a, a_out)
+    p.store(bb, b_out)
+    return p.finish(boundary=boundary)
+
+
+def rand_state(program, seed: int = 0) -> list:
+    """Seeded float32 numpy arrays for the program's input fields."""
+    rng = np.random.default_rng(seed)
+    outs = set(program.output_fields)
+    return [
+        rng.standard_normal(f.type.bounds.shape).astype(np.float32)
+        for f in program.field_args
+        if f not in outs
+    ]

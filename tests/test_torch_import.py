@@ -1,0 +1,54 @@
+"""The port stands alone: importing ``repro_torch`` (every module of it)
+and ``chip_smoke.py`` loads neither JAX nor the reference package."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"]
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    names.append(m.name)
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_import_loads_no_jax_and_no_reference():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 25  # the IR copy, lowering, kernels, api, frontends
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s+import))",
+    re.M,
+)
+
+
+def test_sources_name_no_jax_or_reference_import():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = {
+        str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
+        for f in files
+    }
+    offenders = {k: v for k, v in offenders.items() if v}
+    assert not offenders, offenders
