@@ -19,15 +19,24 @@ runs in phases; any failed check raises and the script exits non-zero:
    ``exchange_every=4`` (4 K1 launches per epoch), bitwise against k=1;
 4. wave (fig. 7b) 16384² so4, two-buffer rotation, bitwise against torch;
 5. where a step's device time goes: ``torch.profiler`` over 4 steps of
-   heat 16384² so4 and 1024³ so4 (device time by kernel, busy share).
+   heat 16384² so4, 1024³ so4 and the fused heat epoch of phase 6
+   (device time by kernel, busy share);
+6. kernel K2 (``stencil.fused_epoch``): bitwise against its plain version
+   on the card (heat 2D so2/4/8 k=4 zero and periodic, wave so4 k=4, 3-D
+   heat so4 k=2, a ``stencil.index`` chain, an explicit tile against the
+   default one); then the main path ``Target(backend="cuda",
+   exchange_every=4, fused_epoch=True)`` for heat and wave 16384² so4,
+   one K2 launch and no K1 launch per epoch, bitwise against the unfused
+   K1 route and the torch backend.
 
 The line before the last is ``{"kernels": [...]}``: per main-path case,
-K1's launches in that case's counted run, its time per launch, the plain
-version's time, the least time the card could take (bytes over 3.35 TB/s
-or float32 operations over 67 TFLOP/s, whichever is larger) and, for
-single-operand linear applies, the time of ``F.conv2d``/``F.conv3d`` with
-the same star (a yardstick only; the port never calls it).  The last line
-is ``{"ok": true, "device": {...}}``.
+the kernel's launches in that case's counted run, its time per launch,
+the plain version's time, the least time the card could take (bytes over
+3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger)
+and, for single-operand linear applies, the time of ``F.conv2d``/
+``F.conv3d`` with the same star (a yardstick only; the port never calls
+it; no single PyTorch call computes a K2 epoch).  The last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -43,6 +52,8 @@ STEPS = 8
 SEED = 0
 REPLACES = "src/repro/kernels/stencil_apply.py:81"
 SOURCE = "src/repro_torch/kernels/stencil_apply.py"
+K2_REPLACES = "src/repro/kernels/epoch_kernel.py:117"
+K2_SOURCE = "src/repro_torch/kernels/epoch_kernel.py"
 
 
 def log(msg: str) -> None:
@@ -79,6 +90,7 @@ def main() -> int:
     from repro_torch.core.lowering import eval_apply_body
     from repro_torch.frontends.devito_like import Eq, Grid, Operator, TimeFunction
     from repro_torch.kernels import dispatch_stats, ops, ref, reset_dispatch_stats
+    from repro_torch.kernels import epoch_kernel as k2
     from repro_torch.kernels import stencil_apply as k1
 
     torch.backends.cudnn.allow_tf32 = False
@@ -103,6 +115,34 @@ def main() -> int:
         g = Grid(shape=shape, extent=tuple(float(n) for n in shape))
         u = TimeFunction(name="u", grid=g, space_order=so, time_order=2)
         return Operator(Eq(u.dt2, 1.0 * u.laplace), dt=0.1, boundary="zero")
+
+    def heat_periodic_op(shape, so):
+        g = Grid(shape=shape, extent=tuple(float(n) for n in shape))
+        u = TimeFunction(name="u", grid=g, space_order=so)
+        return Operator(Eq(u.dt, 0.5 * u.laplace), dt=0.1, boundary="periodic")
+
+    def index_program(shape):
+        """Two chained applies, the first reading stencil.index and
+        select_ge_zero (+ - * / only, so bitwise); fuses at k=1."""
+        from repro_torch.core.builder import Expr
+        from repro_torch.frontends.oec_like import ProgramBuilder
+
+        pb = ProgramBuilder("index_chain", shape)
+        u, out = pb.input("u"), pb.output("out")
+
+        def first(b, v):
+            acc = v.at(0, 0) * 0.5
+            for d in range(2):
+                idx = Expr(b, b.insert(stencil.IndexOp(d)).results[0])
+                acc = acc + idx * (0.25 / (d + 1)) - v.at(*((1, 0) if d == 0 else (0, 1))) / 3.0
+            neg = Expr(b, b.const(0.0)) - acc
+            return Expr(b, b.insert(ir.SelectGeZeroOp(acc.value, acc.value, neg.value)).results[0])
+
+        def second(b, v):
+            return v.at(0, 0) * 0.5 + (v.at(1, 0) + v.at(-1, 0) + v.at(0, 1) + v.at(0, -1)) * 0.125
+
+        pb.store(pb.apply([pb.apply([pb.load(u)], first)], second), out)
+        return pb.finish(boundary="zero")
 
     def spec_of(apply_op):
         return (
@@ -142,7 +182,28 @@ def main() -> int:
     ]
 
     def compiled(op, **kw):
-        return api.compile(op.program, Target(backend="cuda", **kw))
+        prog = op if isinstance(op, api.Program) else op.program
+        return api.compile(prog, Target(backend="cuda", **kw))
+
+    fused = {"exchange_every": 4, "fused_epoch": True}
+    fused_cases = [  # the fused main path: (name, op, target kwargs)
+        (f"heat2d_so4 {n2}x{n2} k=4 fused", main_cases[1][1], fused),
+        (f"wave2d_so4 {n2}x{n2} k=4 fused", wave_case[1], fused),
+    ]
+
+    def epoch_of(op, k):
+        (fused_op,) = compiled(op, exchange_every=k, fused_epoch=True).kernel_epochs()
+        return fused_op
+
+    phase6 = [(f"heat2d_so{so} {n2}x{n2} k=4 {bc}",
+               epoch_of((heat_op if bc == "zero" else heat_periodic_op)((n2, n2), so), 4), None)
+              for so in (2, 4, 8) for bc in ("zero", "periodic")]
+    phase6 += [
+        (f"wave2d_so4 {n2}x{n2} k=4 zero", epoch_of(wave_case[1], 4), None),
+        ("heat3d_so4 128^3 k=2 zero", epoch_of(heat_op((128,) * 3, 4), 2), None),
+        ("index chain 2000x1536 k=1", epoch_of(index_program((2000, 1536)), 1), None),
+        (f"heat2d_so4 {n2}x{n2} k=4 zero, tile (32, 128)", phase6[2][1], (32, 128)),
+    ]
 
     wave_apply = compiled(wave_case[1]).kernel_applies()[0]
     phase1 = [(f"heat2d_so{so} {n2}x{n2}", star_spec(heat_star(2, so), (n2, n2), (radius(so),) * 2))
@@ -159,11 +220,13 @@ def main() -> int:
         sources += [k1.emit_apply_cuda(*spec_of(a)) for a in compiled(op, **kw).kernel_applies()]
     for _, op in small:
         sources += [k1.emit_apply_cuda(*spec_of(a)) for a in compiled(op).kernel_applies()]
+    n_k1 = len(dict.fromkeys(sources))
+    sources += [k2.emit_epoch_cuda(fused_op, tile) for _, fused_op, tile in phase6]
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
     paths = k1.build(sources)
-    log(f"build: {len(sources)} K1 sources with nvcc in {time.perf_counter() - t0:.1f} s "
-        f"(flags {' '.join(k1.NVCC_FLAGS)})")
+    log(f"build: {n_k1} K1 and {len(sources) - n_k1} K2 sources with nvcc in "
+        f"{time.perf_counter() - t0:.1f} s (flags {' '.join(k1.NVCC_FLAGS)})")
     regs = set()
     for p in paths:
         log_path = p.with_suffix(".log")
@@ -302,10 +365,11 @@ def main() -> int:
 
     def drive(name, op, kw):
         """The counted main-path run: Operator.apply through Target(backend=
-        "cuda"), counts zeroed just before and read just after."""
+        "cuda"), counts zeroed just before and read just after; every K1
+        and K2 launch the compiled epoch names must happen, and no other.
+        Returns the launches of the case's kernel (K2 where it has epochs)."""
         prog = op.program
         step = compiled(op, **kw)
-        applies_per_call = len(step.kernel_applies())
         gen.manual_seed(SEED)
         state = tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
                       for f in prog.input_fields)
@@ -318,17 +382,23 @@ def main() -> int:
         out = op.apply(state, timesteps=STEPS, target=Target(backend="cuda", **kw))
         b.record()
         b.synchronize()
-        launches = dispatch_stats().apply_launches
-        expect = step.epochs(STEPS) * applies_per_call
-        check(launches == expect, f"{name}: {launches} K1 launches, expected {expect}")
+        stats = dispatch_stats()
+        k1_launches, k2_launches = stats.apply_launches, stats.fused_epoch_launches
+        epochs = step.epochs(STEPS)
+        for what, got_, per in (("K1", k1_launches, len(step.kernel_applies())),
+                                ("K2", k2_launches, len(step.kernel_epochs()))):
+            check(got_ == epochs * per,
+                  f"{name}: {got_} {what} launches, expected {epochs * per}")
         sec = a.elapsed_time(b) / 1e3
         points = _numel(prog.field_args[0].type.bounds.shape)
         log(f"  {name}: {STEPS} steps, {sec / STEPS * 1e3:.3f} ms/step, "
-            f"{points * STEPS / sec / 1e9:.3f} GPts/s, apply_launches {launches}, "
+            f"{points * STEPS / sec / 1e9:.3f} GPts/s, apply_launches {k1_launches}, "
+            f"fused_epoch_launches {k2_launches} ({epochs} epochs), "
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
         for t in out:
             check(tuple(t.shape) == tuple(prog.field_args[0].type.bounds.shape), f"{name}: shape")
             check(bool(torch.isfinite(t).all()), f"{name}: non-finite values")
+        launches = k2_launches if step.kernel_epochs() else k1_launches
         return state, out, launches, [spec_of(x) for x in step.kernel_applies()]
 
     def same(name, out, other, what):
@@ -393,7 +463,7 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for name, op, kw in (main_cases[1], main_cases[3]):
+    for name, op, kw in (main_cases[1], main_cases[3], fused_cases[0]):
         step = compiled(op, **kw)
         gen.manual_seed(SEED)
         state = tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
@@ -433,6 +503,100 @@ def main() -> int:
             log(f"    {ms_ / 4:8.3f} ms/step  {count // 4:3d}/step  {key[:90]}")
         del state
         torch.cuda.empty_cache()
+
+    # -- phase 6: the epoch kernel K2 ------------------------------------------
+    def epoch_bound(fused_op):
+        """Bytes: each operand read once, each escape written once.
+        Operations: every float32 op of every sub-step's frame."""
+        n_bytes = 4 * (sum(_numel(a.type.bounds.shape) for a in fused_op.body.args)
+                       + sum(_numel(r.type.bounds.shape) for r in fused_op.results))
+        n_ops = sum(
+            _numel(op.result_bounds.shape) * sum(isinstance(x, arith) for x in op.body.ops)
+            for op in fused_op.body.ops if isinstance(op, stencil.ApplyOp)
+        )
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+    def epoch_check(name, fused_op, tile):
+        """K2 against its plain version on the card, bitwise, on random
+        operands; returns (max |err|, K2 ms, plain ms)."""
+        gen.manual_seed(SEED)
+        arrays = [torch.randn(a.type.bounds.shape, device=dev, generator=gen)
+                  for a in fused_op.body.args]
+        reset_dispatch_stats()
+        got = k2.run_epoch_cuda(fused_op, arrays, None, tile=tile)
+        torch.cuda.synchronize()
+        launches = dispatch_stats().fused_epoch_launches
+        check(launches == 1, f"{name}: {launches} K2 launches, expected 1")
+        masks = k2.region_masks(fused_op, dev)
+        want = k2._emit_region(fused_op, arrays, masks, lambda v: v.type.bounds)
+        torch.cuda.synchronize()
+        err = max(float((g_ - w_).abs().max()) for g_, w_ in zip(got, want))
+        check(len(got) == len(want) and all(torch.equal(g_, w_) for g_, w_ in zip(got, want)),
+              f"{name}: K2 differs from its plain version (max |err| {err})")
+        del got, want
+        ms = cuda_ms(lambda: k2.run_epoch_cuda(fused_op, arrays, None, tile=tile), 10)
+        plain_ms = cuda_ms(
+            lambda: k2._emit_region(fused_op, arrays, masks, lambda v: v.type.bounds), 2)
+        del arrays, masks
+        torch.cuda.empty_cache()
+        return err, ms, plain_ms
+
+    log("phase 6: K2 vs plain version on the card (bitwise)")
+    tiled = {}
+    for name, fused_op, tile in phase6:
+        plan = k2.plan_epoch(fused_op, tile)
+        err, ms, plain_ms = epoch_check(name, fused_op, tile)
+        b_ms, b_by = epoch_bound(fused_op)
+        log(f"  {name}: bitwise, max|err| {err}, tile {plan.tile}, "
+            f"{k2._storage(fused_op, plan).smem_bytes} B shared, K2 {ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.3f} ms")
+        if fused_op is phase6[2][1]:
+            gen.manual_seed(SEED)
+            arrays = [torch.randn(a.type.bounds.shape, device=dev, generator=gen)
+                      for a in fused_op.body.args]
+            tiled[tile] = k2.run_epoch_cuda(fused_op, arrays, None, tile=tile)
+            del arrays
+    (a_out,), (b_out,) = tiled.values()
+    check(len(tiled) == 2 and torch.equal(a_out, b_out),
+          "K2 with tile (32, 128) differs from K2 with its default tile")
+    log("  heat2d_so4 k=4: tile (32, 128) bitwise equal to the default tile")
+    del tiled, a_out, b_out
+    torch.cuda.empty_cache()
+
+    log("phase 6b: fused main path, one K2 launch and no K1 launch per epoch")
+    for name, op, kw in fused_cases:
+        state, out, launches, _ = drive(name, op, kw)
+        unfused_kw = {"exchange_every": kw["exchange_every"]}
+        base = op.apply(state, timesteps=STEPS, target=Target(backend="cuda", **unfused_kw))
+        same(name, out, base, "the unfused exchange_every=4 route (K1)")
+        del base
+        other = api.compile(op.program, Target(backend="torch")).time_loop(state, STEPS)
+        same(name, out, other, "Target(backend='torch')")
+        del state, out, other
+        torch.cuda.empty_cache()
+        (fused_op,) = compiled(op, **kw).kernel_epochs()
+        err, ms, plain_ms = epoch_check(name, fused_op, None)
+        b_ms, b_by = epoch_bound(fused_op)
+        # beside it, the same epoch unfused: k K1 launches (no library call
+        # computes an epoch)
+        unfused_ms = 0.0
+        for spec in [spec_of(x) for x in compiled(op, **unfused_kw).kernel_applies()]:
+            apply_op, shapes, origins, rb = spec
+            gen.manual_seed(SEED)
+            arrays = [torch.randn(s_, device=dev, generator=gen) for s_ in shapes]
+            unfused_ms += cuda_ms(lambda: k1.run_apply_cuda(apply_op, arrays, origins, rb), 10)
+            del arrays
+        torch.cuda.empty_cache()
+        kernels.append({
+            "name": f"epoch_kernel[{name}]", "route": "cuda", "source": K2_SOURCE,
+            "replaces": K2_REPLACES, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+        log(f"  K2 {name}: {ms:.4f} ms/launch, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f} % of bound, plain {plain_ms:.3f} ms, "
+            f"unfused K1 epoch {unfused_ms:.4f} ms, library none, max|err| {err}")
 
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

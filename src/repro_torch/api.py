@@ -20,8 +20,7 @@
 
 Everything runs on the card unless the target says ``device="cpu"``.
 Not ported yet (ROADMAP Queue 1): ``mesh``/``strategy`` decomposition,
-``slot_axis``, ``pallas_tile``, ``donate``/``jit``, ``fused_epoch``
-(kernel K2), ``cost()``.
+``slot_axis``, ``donate``/``jit``, ``cost()``.
 """
 from __future__ import annotations
 
@@ -139,11 +138,14 @@ class Target:
     """Frozen bundle of everything 'backend' about a compile.
 
     ``backend`` picks the compute lowering (``"torch"``: plain tensor ops;
-    ``"cuda"``: full and interior applies through kernel K1); ``pipeline``
-    is an explicit pass spec (DESIGN.md §2 grammar) overriding the
-    ``fuse``/``cse``/``diagonal``/``overlap`` flags; ``exchange_every=k``
-    makes one call a k-step deep-halo epoch; ``device`` is where the
-    tensors live.  Validation happens here, at construction.
+    ``"cuda"``: full and interior applies through kernel K1, fused epochs
+    through kernel K2); ``pipeline`` is an explicit pass spec (DESIGN.md
+    §2 grammar) overriding the ``fuse``/``cse``/``diagonal``/``overlap``
+    flags; ``exchange_every=k`` makes one call a k-step deep-halo epoch;
+    ``fused_epoch`` runs each epoch as one K2 launch; ``tile`` is K2's
+    tile (the counterpart of the reference's ``pallas_tile``; K1 has no
+    tiles and ignores it); ``device`` is where the tensors live.
+    Validation happens here, at construction.
     """
 
     backend: str = "torch"  # "torch" | "cuda"
@@ -157,8 +159,14 @@ class Target:
     # One call of the compiled artifact is one *epoch* of k time steps;
     # ``time_loop`` keeps counting single steps and iterates in epochs.
     exchange_every: int = 1
-    # Fusing each epoch into one kernel needs kernel K2, not ported yet.
+    # Fuse each epoch's apply chain into ONE launch of kernel K2
+    # (fuse-epoch-kernel pass + kernels/epoch_kernel.py): the k sub-steps'
+    # frames stay in shared memory.  Requires backend="cuda"; incompatible
+    # with overlap (split frame applies cannot fuse into one kernel).
     fused_epoch: bool = False
+    # K2's tile over the epoch's core (None: kernels/epoch_kernel.py
+    # choose_tile).  K1 runs one thread per point and ignores it.
+    tile: Optional[tuple] = None
     device: str = "cuda"
 
     def __post_init__(self) -> None:
@@ -166,11 +174,24 @@ class Target:
             raise TargetError(
                 f"unknown backend {self.backend!r}; expected 'torch' or 'cuda'"
             )
+        if self.tile is not None:
+            tile = tuple(self.tile)
+            if any(int(t) != t or t < 1 for t in tile):
+                raise TargetError(f"tile {tile} must be positive integers")
+            object.__setattr__(self, "tile", tuple(int(t) for t in tile))
         if self.fused_epoch:
-            raise TargetError(
-                "Target(fused_epoch=True): epoch kernel not yet ported "
-                "(ROADMAP Queue 2, K2); use exchange_every=k without it"
-            )
+            if self.backend != "cuda":
+                raise TargetError(
+                    f"Target(fused_epoch=True) requires backend='cuda' (the "
+                    f"epoch kernel K2 is a CUDA kernel), got "
+                    f"backend={self.backend!r}"
+                )
+            if self.overlap:
+                raise TargetError(
+                    "Target(fused_epoch=True) is incompatible with "
+                    "overlap=True: split interior/frame applies cannot fuse "
+                    "into one epoch kernel"
+                )
         dev = torch.device(self.device)
         if dev.type not in ("cuda", "cpu"):
             raise TargetError(f"device must be a CUDA device or 'cpu', got {self.device!r}")
@@ -185,10 +206,15 @@ class Target:
             from repro_torch.core.passes import parse_pipeline
 
             stages = parse_pipeline(self.pipeline)  # raises if malformed
-            if any(name == "fuse-epoch-kernel" for name, _ in stages):
+            has_fuse_stage = any(name == "fuse-epoch-kernel" for name, _ in stages)
+            if has_fuse_stage != self.fused_epoch:
                 raise TargetError(
-                    "explicit pipeline contains the fuse-epoch-kernel stage, "
-                    "whose epoch kernel (K2) is not yet ported"
+                    f"explicit pipeline "
+                    f"{'contains' if has_fuse_stage else 'lacks'} the "
+                    f"fuse-epoch-kernel stage but "
+                    f"Target(fused_epoch={self.fused_epoch}); set both "
+                    "consistently (the kernel routing is driven by the "
+                    "Target knob)"
                 )
             # an explicit pipeline must agree with exchange_every: the
             # time_loop epoch arithmetic is driven by the Target knob
@@ -228,6 +254,10 @@ class Target:
         if self.overlap:
             stages.append("overlap")
         stages.append("lower-comm")
+        if self.fused_epoch:
+            # after lower-comm: the fused region holds only apply +
+            # boundary_mask ops; exchanges stay outside the kernel
+            stages.append("fuse-epoch-kernel")
         return ",".join(stages)
 
     @property
@@ -240,6 +270,8 @@ class Target:
                 # explicit ``pipeline`` must still produce distinct cached
                 # artifacts per epoch depth (time_loop arithmetic differs)
                 f"exchange_every={self.exchange_every}",
+                f"fused_epoch={self.fused_epoch}",
+                f"tile={self.tile}",
                 f"device={self.device}",
             ]
         )
@@ -382,9 +414,16 @@ class CompiledStencil:
         """The applies one call hands to kernel K1, in execution order."""
         return self._interp.kernel_applies()
 
+    def kernel_epochs(self) -> list:
+        """The fused epochs one call hands to kernel K2, in execution
+        order (empty for the ``torch`` backend)."""
+        return self._interp.kernel_epochs()
+
     @property
     def kernel_dispatches(self) -> dict:
-        """Static kernel-op census of one epoch of the compiled program."""
+        """Static kernel-op census of one epoch of the compiled program:
+        with ``Target(fused_epoch=True)`` an epoched program reads
+        ``{"fused_epoch": 1, "apply": 0, "total": 1}``."""
         fused = sum(
             1 for op in self.local_ir.body.ops if isinstance(op, stencil.FusedEpochOp)
         )
@@ -485,6 +524,8 @@ def compile(program: Program, target: Optional[Target] = None) -> CompiledStenci
         )
     if target.exchange_every > 1:
         _validate_exchange_every(program, target)
+    if target.tile is not None:
+        _validate_tile(program, target)
     # the fingerprint is taken at Program construction; a func mutated
     # afterwards would poison the cache under a stale key — refuse it
     if ir.fingerprint(program.func, *program._salt) != program.fingerprint:
@@ -526,6 +567,25 @@ def _validate_exchange_every(program: Program, target: Target) -> None:
             )
 
 
+def _validate_tile(program: Program, target: Target) -> None:
+    """A tile must have the program's rank and divide its fields (the core
+    of every epoch on one device) — named here, not deep in the kernel."""
+    tile = target.tile
+    if not program.field_args:
+        return
+    shape = program.field_args[0].type.bounds.shape
+    if len(tile) != len(shape):
+        raise TargetError(
+            f"tile {tile} has {len(tile)} dims but program {program.name!r} "
+            f"is rank-{len(shape)}"
+        )
+    if any(n % t for n, t in zip(shape, tile)):
+        raise TargetError(
+            f"tile {tile} does not divide the shape {tuple(shape)} of program "
+            f"{program.name!r}; pick a dividing tile or drop it for K2's own"
+        )
+
+
 def _build(program: Program, target: Target) -> CompiledStencil:
     strategy = trivial_strategy(program.rank)
     spec = target.pipeline_spec()
@@ -537,7 +597,9 @@ def _build(program: Program, target: Target) -> CompiledStencil:
     pm = PassManager(build_pipeline(spec, ctx))
     local = pm.run(_clone_func(program.func))
     report = PipelineReport(spec=spec, timings=tuple(pm.timings))
-    interp = StencilInterpreter(local, axis_sizes={}, backend=target.backend)
+    interp = StencilInterpreter(
+        local, axis_sizes={}, backend=target.backend, tile=target.tile
+    )
     # return arity/order comes from the LOCAL IR (first-store order): an
     # epoched carried-state program (wave, p > q) stores — and returns —
     # more buffers per call than the single-step program does

@@ -8,8 +8,9 @@ share the body evaluator:
 
 - ``torch`` — shifted slice reads evaluated eagerly (the reference);
 - ``cuda``  — each full or interior ``stencil.apply`` goes to the
-  hand-written CUDA kernel of ``kernels/stencil_apply.py``; thin boundary
-  frames stay on the evaluator.
+  hand-written CUDA kernel K1 of ``kernels/stencil_apply.py``, each
+  ``stencil.fused_epoch`` to kernel K2 of ``kernels/epoch_kernel.py``;
+  thin boundary frames stay on the evaluator.
 
 Halo exchanges run on one device only in this package: every grid axis
 has size 1, so ``comm.exchange_start`` emulates the exchange locally
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import ir
 from repro_torch.core.dialects import comm, dmp, stencil
+from repro_torch.obs import trace as _obs
 
 # --------------------------------------------------------------------------
 # Shared point-function evaluator (the plain version of kernel K1)
@@ -175,6 +177,47 @@ def _pad_with_bc(x, lo: tuple, hi: tuple, grid: dmp.GridAttr, boundary: str):
 
 
 # --------------------------------------------------------------------------
+# Boundary masks (comm.boundary_mask on one device)
+# --------------------------------------------------------------------------
+
+
+def keep_box(op: comm.BoundaryMaskOp) -> dict:
+    """The box a ``comm.boundary_mask`` keeps, as ``{dim: (lo, hi)}`` in
+    logical coordinates (points with ``lo <= x < hi`` are inside the
+    physical global domain), for each dim along which the masked value
+    reaches outside the core; every point is kept along the other dims.
+    One device: this rank's grid coordinate is 0 on every axis."""
+    vb: stencil.Bounds = op.temp.type.bounds
+    core: stencil.Bounds = op.core
+    grid: dmp.GridAttr = op.grid
+    box = {}
+    for d in range(vb.rank):
+        if core.lb[d] <= vb.lb[d] and vb.ub[d] <= core.ub[d]:
+            continue  # no points outside this shard's core along d
+        gax = grid.axis_of_dim(d)
+        n = core.ub[d] - core.lb[d]
+        grid_extent = grid.shape[gax] if gax is not None else 1
+        box[d] = (core.lb[d], core.lb[d] + grid_extent * n)
+    return box
+
+
+def boundary_keep(op: comm.BoundaryMaskOp, shape: tuple, device):
+    """Boolean keep-mask broadcastable to ``shape`` (the masked value's
+    shape) for a boundary_mask op, or ``None`` when every point is kept."""
+    vb: stencil.Bounds = op.temp.type.bounds
+    keep = None
+    for d, (lo, hi) in keep_box(op).items():
+        view = [1] * len(shape)
+        view[d] = shape[d]
+        pos = torch.arange(
+            shape[d], dtype=torch.int32, device=device
+        ).reshape(view) + (vb.lb[d] - lo)
+        k = (pos >= 0) & (pos < hi - lo)
+        keep = k if keep is None else keep & k
+    return keep
+
+
+# --------------------------------------------------------------------------
 # Function interpreter — one op-dispatch level, comm ops only
 # --------------------------------------------------------------------------
 
@@ -194,6 +237,7 @@ class StencilInterpreter:
         axis_sizes: dict[str, int],
         distributed: bool = False,
         backend: str = "torch",
+        tile: Optional[tuple] = None,
     ) -> None:
         if backend not in ("torch", "cuda"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -205,6 +249,7 @@ class StencilInterpreter:
         self.func = func
         self.axis_sizes = dict(axis_sizes)
         self.backend = backend
+        self.tile = tile  # K2's tile (None: its own choice); K1 takes none
         self.output_fields: list[ir.SSAValue] = []
         for op in func.body.ops:
             if isinstance(op, stencil.StoreOp) and op.field not in self.output_fields:
@@ -243,6 +288,15 @@ class StencilInterpreter:
             op
             for op in self.func.body.ops
             if isinstance(op, stencil.ApplyOp) and self._routes_to_kernel(op)
+        ]
+
+    def kernel_epochs(self) -> list:
+        """The ``stencil.fused_epoch`` ops this interpreter hands to kernel
+        K2, in execution order (empty for the ``torch`` backend)."""
+        if self.backend != "cuda":
+            return []
+        return [
+            op for op in self.func.body.ops if isinstance(op, stencil.FusedEpochOp)
         ]
 
     # -- helpers ---------------------------------------------------------
@@ -316,7 +370,12 @@ class StencilInterpreter:
             if y is not x:
                 owned.add(op.results[0])
         elif isinstance(op, stencil.FusedEpochOp):
-            self._exec_fused_epoch(op, env)
+            if _obs.enabled():
+                with _obs.span("fused_epoch", cat="compute", rank=None,
+                               ranks=1, backend=self.backend):
+                    self._exec_fused_epoch(op, env, device)
+            else:
+                self._exec_fused_epoch(op, env, device)
         elif isinstance(op, comm.AllReduceOp):
             # one device: the reduction over a size-1 mesh is the value
             env[op.results[0]] = env[op.operands[0]]
@@ -366,44 +425,36 @@ class StencilInterpreter:
         # a copy, not a view: the wait may write into ``x`` in place
         return patch.clone() if periodic else torch.zeros_like(patch)
 
-    def _boundary_keep(self, op: comm.BoundaryMaskOp, shape: tuple, device):
-        """Boolean keep-mask broadcastable to ``shape`` for a boundary_mask
-        op (True = inside the physical global domain), or ``None`` when
-        every point is inside.  One device: this rank's grid coordinate
-        is 0 on every axis."""
-        vb: stencil.Bounds = op.temp.type.bounds
-        core: stencil.Bounds = op.core
-        grid: dmp.GridAttr = op.grid
-        keep = None
-        for d in range(vb.rank):
-            if core.lb[d] <= vb.lb[d] and vb.ub[d] <= core.ub[d]:
-                continue  # no points outside this shard's core along d
-            gax = grid.axis_of_dim(d)
-            n = core.ub[d] - core.lb[d]
-            grid_extent = grid.shape[gax] if gax is not None else 1
-            view = [1] * len(shape)
-            view[d] = shape[d]
-            pos = torch.arange(
-                shape[d], dtype=torch.int32, device=device
-            ).reshape(view) + (vb.lb[d] - core.lb[d])
-            k = (pos >= 0) & (pos < grid_extent * n)
-            keep = k if keep is None else keep & k
-        return keep
-
     def _exec_boundary_mask(self, op: comm.BoundaryMaskOp, x, device):
         """Zero every point outside the physical (global) domain — the
         temporal-tiling analogue of the zero-BC halo_pad, applied to
         redundantly-computed epoch intermediates."""
-        keep = self._boundary_keep(op, tuple(x.shape), device)
+        keep = boundary_keep(op, tuple(x.shape), device)
         if keep is None:
             return x
         return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def _exec_fused_epoch(self, op: stencil.FusedEpochOp, env) -> None:
-        raise NotImplementedError(
-            "stencil.fused_epoch needs the epoch megakernel (K2), which is "
-            "not ported yet (ROADMAP Queue 2, K2)"
+    def _exec_fused_epoch(self, op: stencil.FusedEpochOp, env, device) -> None:
+        """Route a fused epoch through kernel K2 (``cuda`` backend) or
+        evaluate its region inline (``torch``).  The boundary keep-masks
+        are built here, outside the kernel, as 0/1 tensors for the plain
+        version; on the card K2 tests the same boxes from coordinates, so
+        none are built there."""
+        from repro_torch.kernels.epoch_kernel import (
+            _emit_region,
+            region_masks,
+            run_epoch_cuda,
         )
+
+        arrays = [env[o] for o in op.operands]
+        if self.backend == "cuda":
+            masks = None if device.type == "cuda" else region_masks(op, device)
+            outs = run_epoch_cuda(op, arrays, masks, tile=self.tile)
+        else:
+            masks = region_masks(op, device)
+            outs = _emit_region(op, arrays, masks, lambda v: v.type.bounds)
+        for res, arr in zip(op.results, outs):
+            env[res] = arr
 
     def _exec_comm_wait(self, op: comm.WaitOp, env, owned, i: int) -> None:
         x = env[op.temp]

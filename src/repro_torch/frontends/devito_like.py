@@ -8,6 +8,9 @@ A miniature symbolic layer in the spirit of Devito's SymPy DSL:
     op = Operator(eq, dt=1e-4)              # solves for u.forward
     state = op.zero_state()
     state = op.apply(state, timesteps=100, target=Target(backend="cuda"))
+    # deep-halo epochs of 4 steps, each one launch of the epoch kernel K2
+    fused = Target(backend="cuda", exchange_every=4, fused_epoch=True)
+    state = op.apply(state, timesteps=100, target=fused)
 
 Derivatives expand to central FD coefficient taps (``repro_torch.core.fd``);
 the lowering emits the shared ``stencil`` dialect and everything below
@@ -334,7 +337,10 @@ class Operator:
 
         ``timesteps`` counts single time steps; a
         ``Target(exchange_every=k)`` artifact advances k steps per call,
-        so the loop runs in epochs (``CompiledStencil.time_loop``)."""
+        so the loop runs in epochs (``CompiledStencil.time_loop``).  With
+        ``fused_epoch=True`` an epoch is one K2 launch; for wave it hands
+        back the carried state and the new state, two escapes of
+        different bounds, which rotate like the unfused epoch's."""
         artifact = api.compile(self.program, target)
         return artifact.time_loop(tuple(state), timesteps)
 

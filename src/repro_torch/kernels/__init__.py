@@ -6,11 +6,12 @@ Shared here (imported by ``api``, ``core.lowering`` and the kernels):
   interpret flag: a kernel wrapper takes its plain PyTorch version only
   for tensors that lie on the CPU, and launches its kernel (or raises)
   for CUDA tensors.
-- :func:`dispatch_stats` — per-process kernel counters.  ``apply_calls``
-  counts calls of the ``stencil.apply`` wrapper on any device (as the
-  reference counts traced ``pallas_call``s); ``apply_launches`` counts
-  CUDA launches only, so a run can show that its path went through the
-  kernel.
+- :func:`dispatch_stats` — per-process kernel counters.  ``*_calls``
+  count calls of a kernel wrapper on any device (as the reference counts
+  traced ``pallas_call``s); ``*_launches`` count CUDA launches only, so a
+  run can show that its path went through the kernel.  ``apply_*`` is
+  kernel K1 (``stencil.apply``), ``fused_epoch_*`` kernel K2 (one
+  ``stencil.fused_epoch``).
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ class DispatchStats:
 
     apply_calls: int = 0     # stencil.apply wrapper calls (kernels/stencil_apply.py)
     apply_launches: int = 0  # of those, CUDA kernel launches
+    fused_epoch_calls: int = 0     # stencil.fused_epoch wrapper calls (kernels/epoch_kernel.py)
+    fused_epoch_launches: int = 0  # of those, CUDA kernel launches
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -43,5 +46,5 @@ def dispatch_stats() -> DispatchStats:
 
 
 def reset_dispatch_stats() -> None:
-    _DISPATCH.apply_calls = 0
-    _DISPATCH.apply_launches = 0
+    for f in dataclasses.fields(DispatchStats):
+        setattr(_DISPATCH, f.name, 0)

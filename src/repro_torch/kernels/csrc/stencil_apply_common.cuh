@@ -1,10 +1,12 @@
-// Shared helpers for the generated stencil.apply kernels (K1).
+// Shared helpers for the generated kernels: stencil.apply (K1) and
+// stencil.fused_epoch (K2).
 //
-// kernels/stencil_apply.py emits one .cu file per apply and shape; each
-// includes this header.  The generated file holds one __global__ kernel
-// (one thread per result point, flat 1-D grid, 64-bit index) and one
-// launcher with a plain C ABI that the Python wrapper calls through
-// ctypes.  The launcher never synchronises: it enqueues on the stream it
+// kernels/stencil_apply.py emits one .cu file per apply and shape, and
+// kernels/epoch_kernel.py one per fused epoch and tile; each includes
+// this header.  A generated file holds one __global__ kernel (K1: one
+// thread per result point, flat 1-D grid, 64-bit index; K2: one CTA per
+// tile) and one launcher with a plain C ABI that the Python wrapper calls
+// through ctypes.  The launcher never synchronises: it enqueues on the stream it
 // is given and returns cudaGetLastError(), which the wrapper turns into
 // an exception when it is not cudaSuccess.
 #pragma once

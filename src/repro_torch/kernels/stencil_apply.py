@@ -40,7 +40,7 @@ import subprocess
 import threading
 import weakref
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -115,6 +115,48 @@ def check_windows(
             )
 
 
+def emit_body(
+    apply_op: stencil.ApplyOp,
+    load: Callable[[int, tuple], str],
+    index: Callable[[int], str],
+    store: Callable[[int, str], str],
+    indent: str,
+) -> list:
+    """The C statements of an apply's point function, shared by K1 and K2:
+    one statement per IR op in body order, one float32 operation each,
+    constants as exact bit patterns.  ``load(k, offset)`` is the C
+    expression reading operand ``k`` at a constant offset from the point,
+    ``index(d)`` the point's logical coordinate along ``d`` as a float, and
+    ``store(j, v)`` the statement writing result ``j`` from variable ``v``.
+    """
+    lines: list = []
+    names: dict = {}
+    for n, op in enumerate(apply_op.body.ops):
+        v = f"v{n}"
+        if isinstance(op, stencil.StencilReturnOp):
+            lines += [indent + store(j, names[o]) for j, o in enumerate(op.operands)]
+            return lines
+        if isinstance(op, stencil.AccessOp):
+            expr = load(op.temp.index, tuple(op.offset))
+        elif isinstance(op, stencil.IndexOp):
+            expr = index(op.dim)
+        elif isinstance(op, ir.ConstantOp):
+            expr = _f32_literal(op.value)
+        elif type(op) in _BINARY_SYMBOL:
+            a, b = (names[o] for o in op.operands)
+            expr = f"{a} {_BINARY_SYMBOL[type(op)]} {b}"
+        elif type(op) in _UNARY_FORMAT:
+            expr = _UNARY_FORMAT[type(op)].format(names[op.operands[0]])
+        elif isinstance(op, ir.SelectGeZeroOp):
+            pv, a, b = (names[o] for o in op.operands)
+            expr = f"({pv} >= 0.0f) ? {a} : {b}"
+        else:
+            raise NotImplementedError(f"apply body op {op.name}")
+        names[op.results[0]] = v
+        lines.append(f"{indent}const float {v} = {expr};")
+    raise AssertionError("apply body missing stencil.return")
+
+
 def emit_apply_cuda(
     apply_op: stencil.ApplyOp,
     operand_shapes: Sequence[tuple],
@@ -171,38 +213,18 @@ def emit_apply_cuda(
         terms = " + ".join(f"i{d} * {strides[k][d]}LL" for d in range(rank))
         src.append(f"  const int64_t b{k} = {terms} + ({base}LL);")
 
-    names: dict = {}
-    for n, op in enumerate(apply_op.body.ops):
-        v = f"v{n}"
-        if isinstance(op, stencil.StencilReturnOp):
-            for j, o in enumerate(op.operands):
-                src.append(f"  out{j}[p] = {names[o]};")
-            break
-        if isinstance(op, stencil.AccessOp):
-            k = op.temp.index
-            off = sum(o * st for o, st in zip(op.offset, strides[k]))
-            expr = f"in{k}[b{k} + ({off}LL)]"
-        elif isinstance(op, stencil.IndexOp):
-            expr = (
-                f"static_cast<float>(i{op.dim}) + "
-                f"{_f32_literal(float(rb.lb[op.dim]))}"
-            )
-        elif isinstance(op, ir.ConstantOp):
-            expr = _f32_literal(op.value)
-        elif type(op) in _BINARY_SYMBOL:
-            a, b = (names[o] for o in op.operands)
-            expr = f"{a} {_BINARY_SYMBOL[type(op)]} {b}"
-        elif type(op) in _UNARY_FORMAT:
-            expr = _UNARY_FORMAT[type(op)].format(names[op.operands[0]])
-        elif isinstance(op, ir.SelectGeZeroOp):
-            pv, a, b = (names[o] for o in op.operands)
-            expr = f"({pv} >= 0.0f) ? {a} : {b}"
-        else:
-            raise NotImplementedError(f"apply body op {op.name}")
-        names[op.results[0]] = v
-        src.append(f"  const float {v} = {expr};")
-    else:
-        raise AssertionError("apply body missing stencil.return")
+    src += emit_body(
+        apply_op,
+        load=lambda k, offset: (
+            f"in{k}[b{k} + "
+            f"({sum(o * st for o, st in zip(offset, strides[k]))}LL)]"
+        ),
+        index=lambda d: (
+            f"static_cast<float>(i{d}) + {_f32_literal(float(rb.lb[d]))}"
+        ),
+        store=lambda j, v: f"out{j}[p] = {v};",
+        indent="  ",
+    )
     src.append("}")
     src.append("")
 
@@ -302,7 +324,7 @@ def build(sources: Sequence[str]) -> list:
                 proc.kill()
                 proc.wait()
     if failures:
-        raise RuntimeError("K1 build failed:\n" + "\n".join(failures))
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return paths
 
 
@@ -319,13 +341,15 @@ def _kernel_for(apply_op, shapes, origins, result_bounds):
     return fn
 
 
-def _launcher(source: str, n_args: int):
+def _launcher(source: str, n_args: int, symbol: str = _LAUNCHER):
+    """The C launcher ``symbol`` of a generated source, built on first use
+    and loaded once per process; every argument is a pointer."""
     with _LIBS_LOCK:
         fn = _LIBS.get(source)
         if fn is None:
             (path,) = build([source])
             lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, _LAUNCHER)
+            fn = getattr(lib, symbol)
             fn.argtypes = [ctypes.c_void_p] * n_args
             fn.restype = ctypes.c_int
             _LIBS[source] = fn

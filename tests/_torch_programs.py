@@ -111,3 +111,77 @@ def rand_state(program, seed: int = 0) -> list:
         for f in program.field_args
         if f not in outs
     ]
+
+
+def index_chain(pkg: str, shape=(24, 20), boundary: str = "zero"):
+    """Two chained applies, the first reading ``stencil.index`` along every
+    dim and ``select_ge_zero``, with ``+ - * /`` only (exact in both
+    packages' float32 arithmetic); fuses into one epoch at k=1."""
+    stencil = _mod(pkg, "core.dialects.stencil")
+    ir = _mod(pkg, "core.ir")
+    Expr = _mod(pkg, "core.builder").Expr
+    rank = len(shape)
+    p = _mod(pkg, "frontends.oec_like").ProgramBuilder(f"index{rank}", shape)
+    u = p.input("u")
+    out = p.output("out")
+    t = p.load(u)
+    unit = [tuple(1 if k == d else 0 for k in range(rank)) for d in range(rank)]
+
+    def first(b, v):
+        acc = v.at(*([0] * rank)) * 0.5
+        for d in range(rank):
+            idx = Expr(b, b.insert(stencil.IndexOp(d)).results[0])
+            acc = acc + idx * (0.25 / (d + 1)) - v.at(*unit[d]) / 3.0
+        neg = Expr(b, b.const(0.0)) - acc
+        return Expr(b, b.insert(ir.SelectGeZeroOp(acc.value, acc.value, neg.value)).results[0])
+
+    def second(b, v):
+        acc = v.at(*([0] * rank)) * 0.5
+        for d in range(rank):
+            back = tuple(-o for o in unit[d])
+            acc = acc + (v.at(*unit[d]) + v.at(*back)) * 0.125
+        return acc
+
+    r = p.apply([p.apply([t], first)], second)
+    p.store(r, out)
+    return p.finish(boundary=boundary)
+
+
+RANDOM_SHAPES = {1: (24,), 2: (16, 12), 3: (10, 8, 12)}
+
+
+def random_program(pkg: str, seed: int, rank: int, n_applies: int, boundary: str):
+    """The random apply DAG of ``_strategies.build_program`` (same numpy
+    draws, same program name), built in either package and in rank 3 too:
+    each apply reads 1–2 earlier values at offsets within radius 2 with
+    coefficients in sixteenths; the last result is stored."""
+    rng = np.random.default_rng(seed)
+    shape = RANDOM_SHAPES[rank]
+    p = _mod(pkg, "frontends.oec_like").ProgramBuilder(f"hyp_{seed}_{rank}_{n_applies}", shape)
+    u = p.input("u")
+    out = p.output("out")
+    values = [p.load(u)]
+
+    def point_fn(offsets, coeffs):
+        def fn(b, *handles):
+            acc = None
+            for (arg_idx, off), c in zip(offsets, coeffs):
+                term = handles[arg_idx].at(*off) * float(c)
+                acc = term if acc is None else acc + term
+            return acc
+
+        return fn
+
+    for _ in range(n_applies):
+        n_args = int(rng.integers(1, min(2, len(values)) + 1))
+        arg_ids = rng.choice(len(values), size=n_args, replace=False)
+        args = [values[i] for i in arg_ids]
+        taps = []
+        for arg_idx in range(n_args):
+            for _ in range(int(rng.integers(1, 4))):
+                off = tuple(int(o) for o in rng.integers(-2, 3, size=rank))
+                taps.append((arg_idx, off))
+        coeffs = rng.integers(1, 8, size=len(taps)) / 16.0
+        values.append(p.apply(args, point_fn(taps, coeffs)))
+    p.store(values[-1], out)
+    return p.finish(boundary=boundary)

@@ -71,13 +71,13 @@ def test_kernel_route_bitwise_to_torch_backend(k):
     "kwargs,match",
     [
         ({"backend": "pallas"}, "unknown backend"),
-        ({"fused_epoch": True}, "epoch kernel not yet ported"),
+        ({"fused_epoch": True}, "requires backend='cuda'"),
         ({"exchange_every": 0}, "positive integer"),
         ({"exchange_every": 1.5}, "positive integer"),
         ({"device": "meta"}, "CUDA device or 'cpu'"),
         ({"pipeline": "decompose,swap-elim,lower-comm", "exchange_every": 2}, "disagrees"),
         ({"pipeline": "decompose,swap-elim,temporal-tile{k=2},lower-comm,fuse-epoch-kernel",
-          "exchange_every": 2}, "not yet ported"),
+          "exchange_every": 2}, "contains the fuse-epoch-kernel"),
     ],
 )
 def test_target_rejects_at_construction(kwargs, match):

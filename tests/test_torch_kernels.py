@@ -205,7 +205,10 @@ def test_wrapper_takes_plain_version_on_cpu_and_counts_calls_only():
     reset_dispatch_stats()
     (out,) = run_apply_cuda(apply_op, [x], [apply_op.operands[0].type.bounds.lb],
                             apply_op.result_bounds)
-    assert dispatch_stats().as_dict() == {"apply_calls": 1, "apply_launches": 0}
+    assert dispatch_stats().as_dict() == {
+        "apply_calls": 1, "apply_launches": 0,
+        "fused_epoch_calls": 0, "fused_epoch_launches": 0,
+    }
     assert out.shape == (16, 20) and out.dtype == torch.float32
     with pytest.raises(TypeError, match="float32"):
         run_apply_cuda(apply_op, [x.double()], [apply_op.operands[0].type.bounds.lb],
