@@ -3,13 +3,17 @@
     python3 chip_smoke.py
 
 Builds every kernel of the main path from the sources in this checkout
-(``nvcc``, one process per generated source, all started together), then
-runs in phases; any failed check raises and the script exits non-zero:
+(``nvcc``, one process per generated source, all started together) and
+logs each source's registers per thread (``ptxas -v``), shared memory per
+CTA and resident CTAs per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+through the source's exported query), then runs in phases; any failed
+check raises and the script exits non-zero:
 
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 1. kernel K1 (``stencil.apply``) against its plain PyTorch version on the
-   card, bitwise: heat stars (so 2/4/8, 2D 16384², 3D 1024³), the wave
-   apply, a random star and a 3-D box;
+   card, bitwise, and its time beside its bound and its time before the
+   Hopper redesign (``BEFORE_MS``): heat stars (so 2/4/8, 2D 16384², 3D
+   1024³), the wave apply, a random star and a 3-D box;
 2. the main path at the paper's fig-7 sizes: heat 16384² (so 2/4/8) and
    1024³ (so 4), ``Operator(Eq(u.dt, 0.5*u.laplace))`` → ``Target(backend=
    "cuda")`` → 8 steps, bitwise against ``Target(backend="torch")``, K1
@@ -19,28 +23,32 @@ runs in phases; any failed check raises and the script exits non-zero:
    ``exchange_every=4`` (4 K1 launches per epoch), bitwise against k=1;
 4. wave (fig. 7b) 16384² so4, two-buffer rotation, bitwise against torch;
 5. where a step's device time goes: ``torch.profiler`` over 4 steps of
-   heat 16384² so4, 1024³ so4 and the fused heat epoch of phase 6
+   heat 16384² so4 and so8, 1024³ so4 and the fused heat epoch of phase 6
    (device time by kernel, busy share);
 6. kernel K2 (``stencil.fused_epoch``): bitwise against its plain version
-   on the card (heat 2D so2/4/8 k=4 zero and periodic, wave so4 k=4, 3-D
-   heat so4 k=2, a ``stencil.index`` chain, an explicit tile against the
-   default one); then the main path ``Target(backend="cuda",
-   exchange_every=4, fused_epoch=True)`` for heat and wave 16384² so4,
-   one K2 launch and no K1 launch per epoch, bitwise against the unfused
-   K1 route and the torch backend.
+   on the card, timed beside its bound and ``BEFORE_MS`` (heat 2D so2/4/8
+   k=4 zero and periodic, wave so4 k=4, 3-D heat so4 k=2, a
+   ``stencil.index`` chain, explicit tiles against the default ones); 6c
+   times K2 against its persistent double-buffered variant in turns
+   (default, persistent, persistent, default), bitwise equal; 6b runs the
+   main path ``Target(backend="cuda", exchange_every=4, fused_epoch=True)``
+   for heat and wave 16384² so4, one K2 launch and no K1 launch per epoch,
+   bitwise against the unfused K1 route and the torch backend;
+7. the tests marked ``gpu`` (``pytest -m gpu``) on the same card.
 
 The line before the last is ``{"kernels": [...]}``: per main-path case,
 the kernel's launches in that case's counted run, its time per launch,
 the plain version's time, the least time the card could take (bytes over
-3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger)
-and, for single-operand linear applies, the time of ``F.conv2d``/
-``F.conv3d`` with the same star (a yardstick only; the port never calls
-it; no single PyTorch call computes a K2 epoch).  The last line is
-``{"ok": true, "device": {...}}``.
+3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger),
+its time before the redesign (``before_ms``) and, for single-operand
+linear applies, the time of ``F.conv2d``/``F.conv3d`` with the same star
+(a yardstick only; the port never calls it; no single PyTorch call
+computes a K2 epoch).  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -54,6 +62,33 @@ REPLACES = "src/repro/kernels/stencil_apply.py:81"
 SOURCE = "src/repro_torch/kernels/stencil_apply.py"
 K2_REPLACES = "src/repro/kernels/epoch_kernel.py:117"
 K2_SOURCE = "src/repro_torch/kernels/epoch_kernel.py"
+# ms per launch before the Hopper redesign of K1 and K2 (PERF.md: K1 as
+# PR 11 run 4 measured it, unchanged through PR 13; K2 from PR 13 run 2),
+# NVIDIA H100 80GB HBM3 at 700 W; each record's "before_ms"
+BEFORE_MS = {
+    "K1 heat2d_so2 16384x16384": 1.0151,
+    "K1 heat2d_so4 16384x16384": 1.1109,
+    "K1 heat2d_so8 16384x16384": 1.3936,
+    "K1 heat3d_so4 1024^3": 5.1933,
+    "stencil_apply[heat2d_so2 16384x16384]": 1.0151,
+    "stencil_apply[heat2d_so4 16384x16384]": 1.1109,
+    "stencil_apply[heat2d_so8 16384x16384]": 1.3936,
+    "stencil_apply[heat3d_so4 1024x1024x1024]": 5.1933,
+    "stencil_apply[heat2d_so4 16384x16384 exchange_every=4]": 4.4862,
+    "stencil_apply[wave2d_so4 16384x16384]": 1.3133,
+    "K2 heat2d_so2 16384x16384 k=4 zero": 1.5206,
+    "K2 heat2d_so2 16384x16384 k=4 periodic": 1.4403,
+    "K2 heat2d_so4 16384x16384 k=4 zero": 2.3762,
+    "K2 heat2d_so4 16384x16384 k=4 periodic": 2.3013,
+    "K2 heat2d_so8 16384x16384 k=4 zero": 4.3618,
+    "K2 heat2d_so8 16384x16384 k=4 periodic": 4.3286,
+    "K2 wave2d_so4 16384x16384 k=4 zero": 3.5142,
+    "K2 heat3d_so4 128^3 k=2 zero": 0.0378,
+    "K2 heat2d_so4 16384x16384 k=4 zero, tile (32, 128)": 2.4673,
+    "K2 heat3d_so4 128^3 k=2 zero, tile (8, 8, 32)": 0.0378,
+    "epoch_kernel[heat2d_so4 16384x16384 k=4 fused]": 2.3759,
+    "epoch_kernel[wave2d_so4 16384x16384 k=4 fused]": 3.5137,
+}
 
 
 def log(msg: str) -> None:
@@ -204,6 +239,7 @@ def main() -> int:
         ("index chain 2000x1536 k=1", epoch_of(index_program((2000, 1536)), 1), None),
         (f"heat2d_so4 {n2}x{n2} k=4 zero, tile (32, 128)", phase6[2][1], (32, 128)),
     ]
+    phase6 += [("heat3d_so4 128^3 k=2 zero, tile (8, 8, 32)", phase6[7][1], (8, 8, 32))]
 
     wave_apply = compiled(wave_case[1]).kernel_applies()[0]
     phase1 = [(f"heat2d_so{so} {n2}x{n2}", star_spec(heat_star(2, so), (n2, n2), (radius(so),) * 2))
@@ -215,28 +251,41 @@ def main() -> int:
         (f"random star r3 {n2}x{n2}", star_spec(rand_star, (n2, n2), (3, 3))),
         (f"box27 {n3}^3", star_spec(box, (n3,) * 3, (1, 1, 1))),
     ]
-    sources = [k1.emit_apply_cuda(*s) for _, s in phase1]
+    phase1_sources = [k1.emit_apply_cuda(*s) for _, s in phase1]
+    sources = list(phase1_sources)
     for _, op, kw in main_cases + [epoch_case, wave_case]:
         sources += [k1.emit_apply_cuda(*spec_of(a)) for a in compiled(op, **kw).kernel_applies()]
     for _, op in small:
         sources += [k1.emit_apply_cuda(*spec_of(a)) for a in compiled(op).kernel_applies()]
     n_k1 = len(dict.fromkeys(sources))
     sources += [k2.emit_epoch_cuda(fused_op, tile) for _, fused_op, tile in phase6]
+    # the persistent, double-buffered K2 variant, timed against the default
+    variants = [(name, fused_op) for name, fused_op, tile in phase6
+                if tile is None and ("so4" in name and "2d" in name and "zero" in name)]
+    sources += [k2.emit_epoch_cuda(fused_op, persistent=True) for _, fused_op in variants]
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
-    paths = k1.build(sources)
+    k1.build(sources)
     log(f"build: {n_k1} K1 and {len(sources) - n_k1} K2 sources with nvcc in "
         f"{time.perf_counter() - t0:.1f} s (flags {' '.join(k1.NVCC_FLAGS)})")
-    regs = set()
-    for p in paths:
-        log_path = p.with_suffix(".log")
-        if log_path.exists():
-            regs.update(
-                line.split("Used", 1)[1].split(",")[0].strip()
+    def resource_line(label, source, symbol):
+        log_path = k1.library_path(source).with_suffix(".log")
+        regs = [line.split("Used", 1)[1].split("registers")[0].strip()
                 for line in log_path.read_text().splitlines()
-                if "Used" in line and "registers" in line
-            )
-    log(f"build: ptxas register use per thread: {sorted(regs)}")
+                if "Used" in line and "registers" in line]
+        smem = int(source.split(" bytes of shared memory")[0].rsplit(" ", 1)[1])
+        ctas = k1.ctas_per_sm(source, symbol)
+        log(f"  {label}: {regs[0]} registers/thread, {smem} B shared/CTA, {ctas} CTAs/SM")
+
+    log("build: ptxas registers, shared memory per CTA and resident CTAs per SM "
+        "(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    for (name, _), source in zip(phase1, phase1_sources):
+        resource_line(f"K1 {name}", source, "k1_apply_occupancy")
+    for name, fused_op, tile in phase6:
+        resource_line(f"K2 {name}", k2.emit_epoch_cuda(fused_op, tile), "k2_epoch_occupancy")
+    for name, fused_op in variants:
+        resource_line(f"K2 persistent {name}", k2.emit_epoch_cuda(fused_op, persistent=True),
+                      "k2_epoch_occupancy")
 
     # -- shared measurement helpers ----------------------------------------------
     def cuda_ms(fn, reps):
@@ -336,6 +385,7 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if by == {"bytes"} else "operations",
             "library_ms": lib_ms if lib_ok else None,
+            "before_ms": BEFORE_MS.get(f"stencil_apply[{name}]"),
         }
         log(f"  K1 {name}: {ms:.4f} ms/launch-set, bound {bound_ms:.4f} ms ({rec['bound_by']}), "
             f"plain {plain_ms:.3f} ms, conv {rec['library_ms']}, max|err| {err}")
@@ -357,8 +407,14 @@ def main() -> int:
         check(launches == 1, f"{name}: {launches} K1 launches, expected 1")
         check(all(torch.equal(g_, w_) for g_, w_ in zip(got, want)),
               f"{name}: K1 differs from its plain version (max |err| {err})")
-        log(f"  {name}: bitwise, max|err| {err}, apply_launches {launches}")
-        del arrays, got, want
+        del got, want
+        ms = cuda_ms(lambda: k1.run_apply_cuda(apply_op, arrays, origins, rb), 10)
+        b_ms, b_by, _, _ = bound(spec)
+        before = BEFORE_MS.get(f"K1 {name}")
+        log(f"  {name}: bitwise, max|err| {err}, apply_launches {launches}, K1 {ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f} % of bound"
+            + (f", PR 13 {before} ms" if before else ""))
+        del arrays
         torch.cuda.empty_cache()
 
     kernels = []
@@ -463,7 +519,7 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for name, op, kw in (main_cases[1], main_cases[3], fused_cases[0]):
+    for name, op, kw in (main_cases[1], main_cases[2], main_cases[3], fused_cases[0]):
         step = compiled(op, **kw)
         gen.manual_seed(SEED)
         state = tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
@@ -548,9 +604,11 @@ def main() -> int:
         plan = k2.plan_epoch(fused_op, tile)
         err, ms, plain_ms = epoch_check(name, fused_op, tile)
         b_ms, b_by = epoch_bound(fused_op)
+        before = BEFORE_MS.get(f"K2 {name}")
         log(f"  {name}: bitwise, max|err| {err}, tile {plan.tile}, "
             f"{k2._storage(fused_op, plan).smem_bytes} B shared, K2 {ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.3f} ms")
+            f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f} % of bound, "
+            f"plain {plain_ms:.3f} ms" + (f", PR 13 {before} ms" if before else ""))
         if fused_op is phase6[2][1]:
             gen.manual_seed(SEED)
             arrays = [torch.randn(a.type.bounds.shape, device=dev, generator=gen)
@@ -563,6 +621,39 @@ def main() -> int:
     log("  heat2d_so4 k=4: tile (32, 128) bitwise equal to the default tile")
     del tiled, a_out, b_out
     torch.cuda.empty_cache()
+
+    log("phase 6c: K2 default (one CTA a tile) vs its persistent double-buffered "
+        "variant, paired in turns default, persistent, persistent, default")
+    for name, fused_op in variants:
+        n_args = len(fused_op.operands) + len(fused_op.results) + 1
+        fns = {
+            "default": k1._launcher(k2.emit_epoch_cuda(fused_op), n_args, "k2_epoch_launch"),
+            "persistent": k1._launcher(k2.emit_epoch_cuda(fused_op, persistent=True), n_args,
+                                       "k2_epoch_launch"),
+        }
+        gen.manual_seed(SEED)
+        arrays = [torch.randn(a.type.bounds.shape, device=dev, generator=gen)
+                  for a in fused_op.body.args]
+        outs = {v: [torch.empty(r.type.bounds.shape, device=dev) for r in fused_op.results]
+                for v in fns}
+
+        def launch(v):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = fns[v](*[a.data_ptr() for a in arrays],
+                            *[o.data_ptr() for o in outs[v]], stream)
+            check(status == 0, f"{name}: K2 {v} launch failed with CUDA error {status}")
+
+        times = {v: [] for v in fns}
+        for v in ("default", "persistent", "persistent", "default"):
+            times[v].append(cuda_ms(lambda: launch(v), 10))
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(outs["default"], outs["persistent"])),
+              f"{name}: the persistent variant differs from the default K2")
+        plan = k2.plan_epoch(fused_op, None, persistent=True)
+        log(f"  {name}: default {times['default']} ms, persistent (tile {plan.tile}) "
+            f"{times['persistent']} ms, bitwise equal")
+        del arrays, outs
+        torch.cuda.empty_cache()
 
     log("phase 6b: fused main path, one K2 launch and no K1 launch per epoch")
     for name, op, kw in fused_cases:
@@ -592,11 +683,23 @@ def main() -> int:
             "name": f"epoch_kernel[{name}]", "route": "cuda", "source": K2_SOURCE,
             "replaces": K2_REPLACES, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "library_ms": None, "before_ms": BEFORE_MS.get(f"epoch_kernel[{name}]"),
         })
         log(f"  K2 {name}: {ms:.4f} ms/launch, bound {b_ms:.4f} ms ({b_by}), "
             f"{100 * b_ms / ms:.1f} % of bound, plain {plain_ms:.3f} ms, "
             f"unfused K1 epoch {unfused_ms:.4f} ms, library none, max|err| {err}")
+
+    # -- phase 7: the tests marked gpu, on this card ---------------------------
+    log("phase 7: pytest -m gpu on this card")
+    root = Path(__file__).resolve().parent
+    tests = ["tests/test_torch_kernels.py", "tests/test_torch_epoch_kernel.py"]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    run = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "gpu", "-p", "no:cacheprovider", *tests],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600,
+    )
+    log("  " + (run.stdout.strip().splitlines() or ["(no output)"])[-1])
+    check(run.returncode == 0, f"the gpu-marked tests failed:\n{run.stdout[-3000:]}{run.stderr[-2000:]}")
 
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

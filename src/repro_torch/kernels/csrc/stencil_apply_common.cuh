@@ -3,12 +3,19 @@
 //
 // kernels/stencil_apply.py emits one .cu file per apply and shape, and
 // kernels/epoch_kernel.py one per fused epoch and tile; each includes
-// this header.  A generated file holds one __global__ kernel (K1: one
-// thread per result point, flat 1-D grid, 64-bit index; K2: one CTA per
-// tile) and one launcher with a plain C ABI that the Python wrapper calls
-// through ctypes.  The launcher never synchronises: it enqueues on the stream it
-// is given and returns cudaGetLastError(), which the wrapper turns into
-// an exception when it is not cudaSuccess.
+// this header.  A generated file holds one __global__ kernel on a 1-D grid
+// (K1: a CTA streams a tile of the minor dims along dim 0 through a
+// shared-memory ring; K2: one CTA per tile of the epoch's core), a
+// launcher and an occupancy query, both with a plain C ABI that the Python
+// wrapper calls through ctypes.  The launcher never synchronises: it
+// enqueues on the stream it is given and returns cudaGetLastError(), which
+// the wrapper turns into an exception when it is not cudaSuccess.
+//
+// Everything a generated file needs from CUDA beyond arithmetic goes
+// through the macros below (threads per CTA, dynamic shared memory, the
+// asynchronous copies, the launch), so that a header of the same name can
+// stand in for this one and run the same source on a host, one thread per
+// CTA, for testing.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,21 +23,54 @@
 
 #define K1_EXPORT extern "C" __attribute__((visibility("default")))
 
+// Threads per CTA; a host stand-in runs one.
+#define K1_BLOCK_THREADS(n) (n)
+
+// The CTA's dynamic shared memory as a float pointer, 16-byte aligned.
+#define K1_DYNAMIC_SMEM(name) \
+  extern __shared__ __align__(16) float k1_dynamic_smem_[]; \
+  float* const name = k1_dynamic_smem_
+
+// Asynchronous global -> shared copies of 16, 8 or 4 bytes (cp.async: the
+// copy bypasses registers and runs while the CTA computes).  The 16-byte
+// form skips L1 (.cg), as a copy that is read once from shared memory
+// should.  A group of copies is closed by K1_CP_ASYNC_COMMIT; after
+// K1_CP_ASYNC_WAIT(n) at most n groups of this thread are still in flight.
+// Other threads' copies are visible after the next __syncthreads().
+#define K1_CP_ASYNC(dst, src, bytes) k1::cp_async<bytes>(dst, src)
+#define K1_CP_ASYNC_COMMIT() asm volatile("cp.async.commit_group;\n" ::: "memory")
+#define K1_CP_ASYNC_WAIT(n) asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory")
+
+// Launch ``kernel`` on a 1-D grid; opt in to more than 48 KB of dynamic
+// shared memory; CTAs of ``kernel`` that fit on one SM at once; SMs of
+// the current device.
+#define K1_LAUNCH(kernel, grid, block, smem, stream, ...) \
+  kernel<<<(grid), (block), (smem), static_cast<cudaStream_t>(stream)>>>(__VA_ARGS__)
+#define K1_OPT_IN_SMEM(kernel, bytes) \
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (bytes))
+#define K1_OCCUPANCY(blocks, kernel, threads, smem) \
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor((blocks), kernel, (threads), (smem))
+#define K1_SM_COUNT(sms) k1::sm_count(sms)
+
 namespace k1 {
 
-constexpr int kBlock = 256;
-
-// Flat index of this thread's result point.  64-bit: a 1024^3 operand with
-// its halo has more than 2^30 elements, and offsets are formed from it.
-__device__ __forceinline__ int64_t flat_index() {
-  return static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  static_assert(kBytes == 4 || kBytes == 8 || kBytes == 16, "cp.async moves 4, 8 or 16 bytes");
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(kBytes)
+                 : "memory");
+  }
 }
 
-// Blocks of a 1-D grid over n points, or 0 when n does not fit in one grid
-// (the launcher then reports cudaErrorInvalidValue).
-inline unsigned int blocks_for(int64_t n) {
-  const int64_t blocks = (n + kBlock - 1) / kBlock;
-  return blocks > 0x7fffffffLL ? 0u : static_cast<unsigned int>(blocks);
+inline cudaError_t sm_count(int* sms) {
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  return err != cudaSuccess ? err
+                            : cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
 // What a launcher returns: 0 on success, else the CUDA error code.

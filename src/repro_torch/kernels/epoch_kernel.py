@@ -41,18 +41,36 @@ Masks: on one device the keep mask of a ``boundary_mask`` is a box
 the plain version reads 0/1 arrays built outside the kernel
 (:func:`region_masks`), as the reference's kernel does.
 
+Walking a frame: each thread computes ``R`` consecutive points along dim
+0 (8 in 2D, 4 in 3D, 1 in 1D), one column of a frame's minor dims; a
+warp's threads sit on consecutive columns, padded to whole warps, so its
+shared-memory accesses fall on consecutive banks.  For every operand the
+taps that differ only along dim 0 are read once per column into
+registers (the union of the column's rows), so heat so4 reads about 5.5
+floats of shared memory a point instead of 9.  Column coordinates are
+computed once per column; a ragged last chunk is predicated.
+
+Window loads: ``cp.async`` copies (16 bytes where the array's rows, the
+window's rows, the tile and the operand pointers allow it, else 8 or 4),
+one wait and one barrier for all operands.
+
 Tile size: :func:`choose_tile` replaces the reference's 4 MiB VMEM budget.
-It takes the largest tile (from 4096, 64×64 or 8×8×32, cut to divisors of
-the core) whose shared memory lets two CTAs share one SM, and shrinks the
-major dimension first; 227 KB a CTA is the hard limit.  If no tile fits,
-the wrapper raises; it never falls back to something else.
+It takes, of the tiles that divide the core, those whose shared memory
+lets two CTAs share one SM (else one, 227 KB at most), and of those the
+one that spends least work per owned point (:func:`tile_cost`: frame
+walks including idle lanes, plus window loads) among those giving at
+least two CTAs per SM of the card: 64×128 for heat so4 k=4 at 16384²
+(an 80×144 window, 1.41× the input), 32×128 for wave.  The kernel is
+built with ``__launch_bounds__`` for the CTAs its shared memory lets
+reside, which caps the registers ptxas may use.  If no tile fits, the
+wrapper raises; it never falls back to something else.
 
 What bounds it on an H100: device-memory bytes.  Per epoch the least work
 is to read each operand once and write each escape once (heat so4 k=4 at
 16384²: 2.15 GB, 0.64 ms at 3.35 TB/s).  Here a tile re-reads its
-neighbours' halo (80²/64² = 1.56× for heat so4 k=4 at 64² tiles) and
-recomputes their frame overlap; loads and compute are phases separated by
-``__syncthreads`` (no TMA, no double buffering yet).
+neighbours' halo and recomputes their frame overlap, and the loads and
+the sub-steps are phases separated by ``__syncthreads`` (the second CTA
+on an SM overlaps one's loads with the other's compute; no TMA yet).
 
 Bitwise: the point function is emitted by K1's ``emit_body`` (one float32
 statement per IR op in body order, constants as bit patterns) and built
@@ -64,7 +82,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import weakref
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -77,8 +95,13 @@ THREADS = 256
 SMEM_PER_BLOCK = 232448  # 227 KB: the most one CTA may opt in to on an H100
 SMEM_PER_SM = 233472     # 228 KB per SM, of which each resident CTA reserves 1 KB
 SMEM_TWO_BLOCKS = SMEM_PER_SM // 2 - 1024  # the budget for two CTAs on one SM
-DEFAULT_TILE = {1: (4096,), 2: (64, 64), 3: (8, 8, 32)}
+TILE_LIMIT = {1: (8192,), 2: (256, 256), 3: (64, 64, 64)}  # choose_tile's largest sides
+MIN_CTAS = 2 * 132  # two CTAs on each of an H100's SMs
+# points per thread along dim 0 in a frame walk (a warp spans columns of
+# the minor dims; rank 1 has none, so its threads take one point each)
+R_BY_RANK = {1: 1, 2: 8, 3: 4}
 _LAUNCHER = "k2_epoch_launch"
+_OCCUPANCY = "k2_epoch_occupancy"
 
 
 # --------------------------------------------------------------------------
@@ -235,49 +258,86 @@ def _core(fused_op: stencil.FusedEpochOp) -> stencil.Bounds:
     return core
 
 
-def _divisor_at_most(n: int, limit: int) -> int:
-    for d in range(min(n, limit), 0, -1):
-        if n % d == 0:
-            return d
-    return 1
+def _divisors_at_most(n: int, limit: int) -> list:
+    return [d for d in range(1, min(n, limit) + 1) if n % d == 0]
 
 
-def choose_tile(fused_op: stencil.FusedEpochOp) -> tuple:
-    """The tile K2 takes by default: start from ``DEFAULT_TILE`` cut to
-    divisors of the core and shrink the largest dimension (the major one
-    on a tie) until the shared memory lets two CTAs share an SM, or else
-    one CTA hold it (227 KB); raise if even one point per tile is more."""
+def _lanes(shape: tuple) -> int:
+    """Thread-points a walk over a frame of ``shape`` spends: whole chunks
+    of ``R`` rows along dim 0 times the columns padded to whole warps."""
+    rows = -(-shape[0] // R_BY_RANK[len(shape)]) * R_BY_RANK[len(shape)]
+    return rows * _padded_columns(shape)
+
+
+def tile_cost(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> float:
+    """The work of one tile per point it owns, in thread-points: every
+    sub-step frame as the register-blocked walk covers it (ragged chunks
+    and idle lanes included) plus every operand window it loads."""
+    work = sum(_lanes(plan.window_shape(op.results[0].type.bounds))
+               for op in fused_op.body.ops if isinstance(op, stencil.ApplyOp))
+    for a in fused_op.body.args:
+        n = 1
+        for w in plan.window_shape(a.type.bounds):
+            n *= w
+        work += n
+    points = 1
+    for t in plan.tile:
+        points *= t
+    return work / points
+
+
+def choose_tile(fused_op: stencil.FusedEpochOp, persistent: bool = False) -> tuple:
+    """The tile K2 takes by default, from every tile whose sides divide the
+    core and stay within ``TILE_LIMIT``: those whose shared memory lets two
+    CTAs share an SM (else those one CTA can hold, 227 KB), of those the
+    ones giving at least ``MIN_CTAS`` CTAs where any do, and of those the
+    one of least :func:`tile_cost` (the larger tile on a tie).  A tile may
+    so grow as well as shrink with the epoch.  Registers
+    follow the choice: the kernel is built for the CTAs per SM that its
+    shared memory allows (``__launch_bounds__``), so ptxas keeps each
+    thread within 65,536 / (256 × CTAs) registers.  Raises if even one
+    point per tile needs more than 227 KB.  ``persistent``: for the
+    persistent variant's storage (see :func:`emit_epoch_cuda`)."""
     core = _core(fused_op)
-    start = [
-        _divisor_at_most(n, t) for n, t in zip(core.shape, DEFAULT_TILE[core.rank])
+    cands = [
+        tuple(t) for t in itertools.product(*(
+            _divisors_at_most(n, cap) for n, cap in zip(core.shape, TILE_LIMIT[core.rank])
+        ))
     ]
+    smem = {t: _storage(fused_op, _plan(core, t), persistent).smem_bytes for t in cands}
+    pool = [t for t in cands if smem[t] <= SMEM_TWO_BLOCKS] or [
+        t for t in cands if smem[t] <= SMEM_PER_BLOCK
+    ]
+    if not pool:
+        raise ValueError(
+            f"K2 needs {min(smem.values())} bytes of shared memory even for a tile "
+            f"of one point, more than the {SMEM_PER_BLOCK} a CTA may use"
+        )
+    pool = [t for t in pool if _plan(core, t).n_tiles >= MIN_CTAS] or pool
 
-    def smem(tile) -> int:
-        return _storage(fused_op, _plan(core, tuple(tile))).smem_bytes
+    def key(t):
+        points = 1
+        for x in t:
+            points *= x
+        return (tile_cost(fused_op, _plan(core, t)), -points, t)
 
-    for budget in (SMEM_TWO_BLOCKS, SMEM_PER_BLOCK):
-        tile = list(start)
-        while smem(tile) > budget and any(t > 1 for t in tile):
-            d = max(range(len(tile)), key=lambda k: (tile[k], -k))
-            tile[d] = _divisor_at_most(core.shape[d], tile[d] - 1)
-        if smem(tile) <= budget:
-            return tuple(tile)
-    raise ValueError(
-        f"K2 needs {smem(tile)} bytes of shared memory even for a tile of one "
-        f"point, more than the {SMEM_PER_BLOCK} a CTA may use"
-    )
+    return min(pool, key=key)
 
 
 def _plan(core: stencil.Bounds, tile: tuple) -> TilePlan:
     return TilePlan(core, tile, tuple(n // t for n, t in zip(core.shape, tile)))
 
 
-def plan_epoch(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]] = None) -> TilePlan:
+def plan_epoch(
+    fused_op: stencil.FusedEpochOp,
+    tile: Optional[Sequence[int]] = None,
+    persistent: bool = False,
+) -> TilePlan:
     """K2's tile plan for ``fused_op``: ``tile`` if given (it must divide
     the core and fit in 227 KB of shared memory), else :func:`choose_tile`."""
     core = _core(fused_op)
     if tile is None:
-        return _plan(core, choose_tile(fused_op))
+        return _plan(core, choose_tile(fused_op, persistent))
     tile = tuple(int(t) for t in tile)
     if len(tile) != core.rank or any(
         t < 1 or n % t for n, t in zip(core.shape, tile)
@@ -286,7 +346,7 @@ def plan_epoch(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]] = N
             f"tile {tile} does not divide the epoch's core {core.shape}"
         )
     plan = _plan(core, tile)
-    need = _storage(fused_op, plan).smem_bytes
+    need = _storage(fused_op, plan, persistent).smem_bytes
     if need > SMEM_PER_BLOCK:
         raise ValueError(
             f"tile {tile} needs {need} bytes of shared memory, more than the "
@@ -307,22 +367,28 @@ class _Storage:
     slot_of: dict  # region value -> shared-memory buffer index
     direct: set    # escapes an apply writes straight to device memory
     slot_floats: list
+    alt_of: dict = dataclasses.field(default_factory=dict)  # operand -> its second window
 
     @property
     def smem_bytes(self) -> int:
-        return 4 * sum(self.slot_floats)
+        return 4 * sum(-(-n // 4) * 4 for n in self.slot_floats)
 
     def offsets(self) -> list:
+        """Each buffer's first float; every buffer starts 16-byte aligned,
+        as 16-byte asynchronous copies into it need."""
         out, acc = [], 0
         for n in self.slot_floats:
             out.append(acc)
-            acc += n
+            acc += -(-n // 4) * 4
         return out
 
 
-def _storage(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> _Storage:
+def _storage(fused_op: stencil.FusedEpochOp, plan: TilePlan, persistent: bool = False) -> _Storage:
     """Give every region value held on chip a shared-memory buffer, reusing
-    a buffer once its value's last reader in the region has run."""
+    a buffer once its value's last reader in the region has run.
+    ``persistent``: the operands' windows keep their buffers for the whole
+    tile, and each operand has a second one (``alt_of``) that the next
+    tile's window is loaded into meanwhile."""
     ops = list(fused_op.body.ops[:-1])  # without the fused_yield
     escapes = set(_escapes(fused_op))
     last_use: dict = {}
@@ -355,6 +421,7 @@ def _storage(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> _Storage:
 
     for arg in fused_op.body.args:
         take(arg)
+    pinned = {st.slot_of[a] for a in fused_op.body.args} if persistent else set()
     for i, op in enumerate(ops):
         if isinstance(op, stencil.ApplyOp):
             for r in op.results:
@@ -374,8 +441,13 @@ def _storage(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> _Storage:
         live = {st.slot_of.get(r) for r in op.results if r in last_use}
         for v in [*op.operands, *op.results]:
             s = st.slot_of.get(v)
-            if s is not None and last_use.get(v, -1) <= i and s not in live and s not in free:
+            if (s is not None and last_use.get(v, -1) <= i and s not in live
+                    and s not in free and s not in pinned):
                 free.append(s)
+    if persistent:
+        for arg in fused_op.body.args:
+            st.alt_of[arg] = len(st.slot_floats)
+            st.slot_floats.append(floats(arg))
     return st
 
 
@@ -383,24 +455,22 @@ def _storage(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> _Storage:
 # Code generation
 # --------------------------------------------------------------------------
 
-
-def _coords(shape: tuple, indent: str) -> list:
-    """``i0 … i{r-1}``: the coordinates of flat point ``p`` in a window."""
-    out = []
-    for d in range(len(shape)):
-        inner = 1
-        for w in shape[d + 1:]:
-            inner *= w
-        q = "p" if inner == 1 else f"(p / {inner})"
-        out.append(f"{indent}const int i{d} = {q}" + ("" if d == 0 else f" % {shape[d]}") + ";")
-    return out
+def _padded_columns(shape: tuple) -> int:
+    """The columns of a frame walk (every point of the minor dims), padded
+    to whole warps so that a warp never spans two chunks of rows and its
+    shared-memory accesses stay on consecutive banks; rank 1 has one."""
+    c = 1
+    for w in shape[1:]:
+        c *= w
+    return c if len(shape) == 1 else -(-c // 32) * 32
 
 
-def _global_index(shape: tuple) -> str:
+def _global_index(shape: tuple, t: str = "t") -> str:
     """Flat index into a device array of ``shape`` of window point ``i`` of
-    the current tile: a value's window starts at array index ``t``."""
+    the tile whose origin is ``t0, t1, …``: a value's window starts at
+    array index ``t``."""
     strides = _k1._strides(shape)
-    return " + ".join(f"(t{d} + i{d}) * {st}LL" for d, st in enumerate(strides))
+    return " + ".join(f"({t}{d} + i{d}) * {st}LL" for d, st in enumerate(strides))
 
 
 def _outside_owned(plan: TilePlan, bounds: stencil.Bounds) -> Optional[str]:
@@ -417,72 +487,200 @@ def _outside_owned(plan: TilePlan, bounds: stencil.Bounds) -> Optional[str]:
     return " || ".join(terms) or None
 
 
-def emit_epoch_cuda(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]] = None) -> str:
+def copy_width(plan: TilePlan, bounds: stencil.Bounds, offset: int, ptr_align: int) -> int:
+    """Floats per asynchronous copy of a window of a value of ``bounds``
+    into a buffer starting at float ``offset``: the widest of 4, 2 and 1
+    that divides the array's rows, the window's rows, the tile's minor
+    side (each window starts at a multiple of it), the buffer's offset and
+    the operand pointer's alignment ``ptr_align`` in bytes."""
+    rows = (bounds.shape[-1], plan.window_shape(bounds)[-1], plan.tile[-1], offset)
+    for v in (4, 2, 1):
+        if all(n % v == 0 for n in rows) and ptr_align % (4 * v) == 0:
+            return v
+    raise AssertionError("unreachable: one float always divides")
+
+
+def column_rows(apply_op: stencil.ApplyOp, rows: int) -> dict:
+    """The register-blocked column of one apply: ``{(operand, offset along
+    the minor dims): [row, …]}``, each row (relative to the column's first
+    point) loaded once into a register and read by every point of the
+    column's ``rows`` whose tap falls on it."""
+    taps: dict = {}
+    for x in apply_op.body.ops:
+        if isinstance(x, stencil.AccessOp):
+            taps.setdefault((x.temp.index, tuple(x.offset[1:])), set()).add(x.offset[0])
+    return {
+        key: sorted({j + o0 for j in range(rows) for o0 in s0})
+        for key, s0 in sorted(taps.items())
+    }
+
+
+def _walk(shape: tuple, column: Callable[[int], list], point: Callable[[int], list],
+          skip: Optional[str] = None) -> list:
+    """A loop over the points of a frame of ``shape`` (a value's window) in
+    register-blocked columns: work item ``q`` is column ``c`` of the minor
+    dims (``i1``, ``i2`` once per column, no division per point) and the
+    chunk of ``R`` rows from ``a``; a warp spans consecutive columns.
+    ``column(a_last)`` gives the lines run once per column (``a_last``:
+    the first row of the last chunk), ``point(j)`` those of point ``a + j``
+    in a block of its own (``i0``, and ``p``, its index in the frame's
+    buffer).  Points past a ragged last chunk and points where ``skip``
+    holds are not computed."""
+    rank = len(shape)
+    r = R_BY_RANK[rank]
+    h = shape[0]
+    cols = 1
+    for w in shape[1:]:
+        cols *= w
+    cpad = _padded_columns(shape)
+    chunks = -(-h // r)
+    a_last = (chunks - 1) * r
+    lines = [f"  for (int q = threadIdx.x; q < {chunks * cpad}; q += kThreads) {{"]
+    if rank == 1:
+        lines.append(f"    const int a = q * {r};")
+    else:
+        lines.append(f"    const int c = q % {cpad};" if chunks > 1 else "    const int c = q;")
+        lines.append(f"    const int a = q / {cpad} * {r};" if chunks > 1 else "    const int a = 0;")
+        if cpad != cols:
+            lines.append(f"    if (c >= {cols}) continue;")
+        if rank == 2:
+            lines.append("    const int i1 = c;")
+        else:
+            lines.append(f"    const int i1 = c / {shape[2]};")
+            lines.append(f"    const int i2 = c % {shape[2]};")
+    lines.append(f"    const int pc = a * {cols}" + ("" if rank == 1 else " + c") + ";")
+    lines += column(a_last)
+    for j in range(r):
+        conds = []
+        if a_last + j >= h:
+            conds.append(f"i0 < {h}")
+        if skip:
+            conds.append(f"!({skip})")
+        lines += ["    {", f"      const int i0 = a + {j};"]
+        if conds:
+            lines.append(f"      if ({' && '.join(conds)}) {{")
+        body = point(j)
+        if any("[p]" in s for s in body):
+            lines.append(f"      const int p = pc + {j * cols};")
+        lines += body + (["      }"] if conds else []) + ["    }"]
+    return lines + ["  }", "  __syncthreads();"]
+
+
+def _tag(row: int) -> str:
+    return f"m{-row}" if row < 0 else str(row)
+
+
+def emit_epoch_cuda(
+    fused_op: stencil.FusedEpochOp,
+    tile: Optional[Sequence[int]] = None,
+    ptr_align: int = 16,
+    persistent: bool = False,
+) -> str:
     """CUDA C++ source of K2 for one fused epoch at one tile: a
-    ``__global__`` kernel with one CTA per tile and the C launcher
-    ``k2_epoch_launch(in0, …, out0, …, stream) -> cudaError_t``."""
+    ``__global__`` kernel with one CTA per tile, the C launcher
+    ``k2_epoch_launch(in0, …, out0, …, stream) -> cudaError_t`` and the
+    occupancy query ``k2_epoch_occupancy(int* ctas_per_sm)``.
+    ``ptr_align`` is the alignment in bytes that every operand pointer
+    has; it bounds the width of the window copies.
+
+    ``persistent`` emits the variant measured against the default in
+    ``chip_smoke.py`` and not taken by the wrapper: as many CTAs as fit on
+    the card at once, each walking tiles ``blockIdx.x, + gridDim.x, …``
+    and loading the next tile's windows into a second set of buffers while
+    it computes the current one."""
     from repro_torch.core.lowering import keep_box
 
-    plan = plan_epoch(fused_op, tile)
-    st = _storage(fused_op, plan)
+    plan = plan_epoch(fused_op, tile, persistent)
+    st = _storage(fused_op, plan, persistent)
     offsets = st.offsets()
     rank = plan.core.rank
     args = list(fused_op.body.args)
     escapes = _escapes(fused_op)
     n_in, n_out = len(args), len(escapes)
     smem = st.smem_bytes
+    min_ctas = 2 if smem <= SMEM_TWO_BLOCKS else 1
 
     def wshape(v) -> tuple:
         return plan.window_shape(v.type.bounds)
 
-    def npoints(v) -> int:
-        n = 1
-        for w in wshape(v):
-            n *= w
-        return n
+    arg_index = {a: k for k, a in enumerate(args)}
 
     def buf(v) -> str:
+        if persistent and v in arg_index:
+            return f"w{arg_index[v]}"  # the current tile's window
         return f"s{st.slot_of[v]}"
 
     src = [
         "// Generated by repro_torch/kernels/epoch_kernel.py (kernel K2).",
         f"// core {plan.core.lb}..{plan.core.ub}, tile {plan.tile}, grid "
-        f"{plan.grid} ({plan.n_tiles} CTAs), {smem} bytes of shared memory",
+        f"{plan.grid} ({plan.n_tiles} CTAs), {smem} bytes of shared memory, "
+        f"{R_BY_RANK[rank]} points per thread along dim 0",
     ]
     for k, a in enumerate(args):
         src.append(f"// in{k}: bounds {a.type.bounds.lb}..{a.type.bounds.ub}, window {wshape(a)}")
     for j, e in enumerate(escapes):
         src.append(f"// out{j}: bounds {e.type.bounds.lb}..{e.type.bounds.ub}")
-    src += [f'#include "{_k1._HEADER}"', "", f"constexpr int kThreads = {THREADS};", ""]
+    src += [f'#include "{_k1._HEADER}"', "", "constexpr int kThreads = "
+            f"K1_BLOCK_THREADS({THREADS});", ""]
     params = [f"const float* __restrict__ in{k}" for k in range(n_in)] + [
         f"float* __restrict__ out{j}" for j in range(n_out)
     ]
     src.append(
-        "__global__ void __launch_bounds__(kThreads) k2_epoch("
+        f"__global__ void __launch_bounds__({THREADS}, {min_ctas}) k2_epoch("
         + ", ".join(params) + ") {"
     )
-    src.append("  extern __shared__ float smem[];")
-    for s, off in enumerate(offsets):
-        src.append(f"  float* const s{s} = smem + {off};")
-    # this CTA's tile: its index along each dim and its core-relative
-    # origin (32-bit: a core extent fits; device offsets are 64-bit)
-    src.append("  int blk = blockIdx.x;")
-    for d in reversed(range(rank)):
-        src.append(f"  const int g{d} = blk % {plan.grid[d]};")
-        if d:
-            src.append(f"  blk /= {plan.grid[d]};")
-    for d in range(rank):
-        src.append(f"  const int t{d} = g{d} * {plan.tile[d]};")
-        src.append(f"  const bool first{d} = g{d} == 0;")
-        src.append(f"  const bool last{d} = g{d} == {plan.grid[d] - 1};")
-        src.append(f"  (void)first{d}; (void)last{d};")
+    src.append("  K1_DYNAMIC_SMEM(smem);")
+    for s_, off in enumerate(offsets):
+        src.append(f"  float* const s{s_} = smem + {off};")
 
-    def loop(v, body: list, skip: Optional[str] = None, sync: bool = True) -> list:
-        lines = [f"  for (int p = threadIdx.x; p < {npoints(v)}; p += kThreads) {{"]
-        lines += _coords(wshape(v), "    ")
-        if skip:
-            lines.append(f"    if ({skip}) continue;")
-        return lines + body + ["  }"] + (["  __syncthreads();"] if sync else [])
+    def decode(var, g, t, indent="  ") -> list:
+        """A tile index into its index ``g`` along each dim and its
+        core-relative origin ``t`` (32-bit: a core extent fits; device
+        offsets are 64-bit)."""
+        lines = [f"{indent}int {g}blk = {var};"]
+        for d in reversed(range(rank)):
+            lines.append(f"{indent}const int {g}{d} = {g}blk % {plan.grid[d]};")
+            if d:
+                lines.append(f"{indent}{g}blk /= {plan.grid[d]};")
+        return lines + [f"{indent}const int {t}{d} = {g}{d} * {plan.tile[d]};" for d in range(rank)]
+
+    def window_loads(t, dst, indent="  ") -> list:
+        """Every operand's window of the tile at origin ``t``, device memory
+        -> shared memory buffer ``dst(k)``, by asynchronous copies."""
+        lines = []
+        for k, a in enumerate(args):
+            ow = wshape(a)
+            slots = [st.slot_of[a]] + ([st.alt_of[a]] if persistent else [])
+            v = min(copy_width(plan, a.type.bounds, offsets[x], ptr_align) for x in slots)
+            nv = ow[-1] // v
+            rows = 1
+            for w in ow[:-1]:
+                rows *= w
+            lines.append(f"{indent}// load in{k}: window {ow}, {4 * v}-byte copies")
+            lines.append(f"{indent}for (int q = threadIdx.x; q < {rows * nv}; q += kThreads) {{")
+            if rank == 1:
+                lines.append(f"{indent}  const int i0 = q * {v};")
+            else:
+                lines.append(f"{indent}  const int row = q / {nv};")
+                if rank == 2:
+                    lines.append(f"{indent}  const int i0 = row;")
+                else:
+                    lines.append(f"{indent}  const int i0 = row / {ow[1]};")
+                    lines.append(f"{indent}  const int i1 = row % {ow[1]};")
+                lines.append(f"{indent}  const int i{rank - 1} = q % {nv} * {v};")
+            lines.append(
+                f"{indent}  K1_CP_ASYNC({dst(k)} + q * {v}, "
+                f"in{k} + {_global_index(a.type.bounds.shape, t)}, {4 * v});"
+            )
+            lines.append(f"{indent}}}")
+        return lines
+
+    # this CTA's tile (each tile's, in the persistent variant's loop)
+    head = decode("tile" if persistent else "blockIdx.x", "g", "t")
+    for d in range(rank):
+        head.append(f"  const bool first{d} = g{d} == 0;")
+        head.append(f"  const bool last{d} = g{d} == {plan.grid[d] - 1};")
+        head.append(f"  (void)first{d}; (void)last{d};")
 
     def keep_test(mask_op) -> Optional[str]:
         """C condition true where a boundary_mask keeps the point (None
@@ -507,43 +705,56 @@ def emit_epoch_cuda(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]
             if len(rd) == 1 and isinstance(rd[0], comm.BoundaryMaskOp):
                 mask_of[op] = rd[0]
 
-    def copy_out(v) -> list:
-        body = [
-            f"    out{j}[{_global_index(e.type.bounds.shape)}] = {buf(v)}[p];"
-            for j, e in enumerate(escapes) if e is v
-        ]
-        return loop(v, body, _outside_owned(plan, v.type.bounds))
+    def no_column(a_last) -> list:
+        return []
 
-    # every operand's window, device memory -> shared memory
-    for k, a in enumerate(args):
-        src.append(f"  // load in{k}")
-        src += loop(
-            a,
-            [f"    {buf(a)}[p] = in{k}[{_global_index(a.type.bounds.shape)}];"],
-            sync=k == len(args) - 1,
-        )
+    def copy_out(v) -> list:
+        def point(j):
+            return [
+                f"      out{e}[{_global_index(x.type.bounds.shape)}] = {buf(v)}[p];"
+                for e, x in enumerate(escapes) if x is v
+            ]
+
+        return _walk(wshape(v), no_column, point, _outside_owned(plan, v.type.bounds))
+
+    body = []
     for n, op in enumerate(fused_op.body.ops[:-1]):
         if isinstance(op, stencil.ApplyOp):
             r0 = op.results[0]
             rb = r0.type.bounds
+            rw = wshape(r0)
             mask = mask_of.get(op)
-            src.append(
-                f"  // op {n}: stencil.apply, window {wshape(r0)}"
+            body.append(
+                f"  // op {n}: stencil.apply, window {rw}"
                 + (f", then op {n + 1}'s mask" if mask is not None else "")
             )
-            body = []
-            for k in sorted(op.access_extents()):
-                o = op.operands[k]
-                ow = wshape(o)
-                ostr = _k1._strides(ow)
-                shift = [r - l for r, l in zip(rb.lb, o.type.bounds.lb)]
-                terms = " + ".join(f"(i{d} + {shift[d]}) * {ostr[d]}" for d in range(rank))
-                body.append(f"    const int b{k} = {terms};")
+            groups = column_rows(op, R_BY_RANK[rank])
+            names: dict = {}
 
-            def load(k, offset, op=op):
-                ostr = _k1._strides(wshape(op.operands[k]))
-                flat = sum(o * s for o, s in zip(offset, ostr))
-                return f"{buf(op.operands[k])}[b{k} + ({flat})]"
+            def column(a_last, op=op, rb=rb, groups=groups, names=names) -> list:
+                lines = []
+                for k in sorted({k for k, _ in groups}):
+                    o = op.operands[k]
+                    ostr = _k1._strides(wshape(o))
+                    shift = [r - l for r, l in zip(rb.lb, o.type.bounds.lb)]
+                    terms = [f"(a + {shift[0]}) * {ostr[0]}"] + [
+                        f"(i{d} + {shift[d]}) * {ostr[d]}" for d in range(1, rank)
+                    ]
+                    lines.append(f"    const int b{k} = {' + '.join(terms)};")
+                for g, ((k, rest), rows) in enumerate(groups.items()):
+                    o = op.operands[k]
+                    ow = wshape(o)
+                    ostr = _k1._strides(ow)
+                    shift0 = rb.lb[0] - o.type.bounds.lb[0]
+                    flat_rest = sum(x * s for x, s in zip(rest, ostr[1:]))
+                    for row in rows:
+                        name = f"x{k}_{g}_{_tag(row)}"
+                        expr = f"{buf(o)}[b{k} + {row * ostr[0] + flat_rest}]"
+                        if a_last + shift0 + row >= ow[0]:  # past a ragged chunk's window
+                            expr = f"(a < {ow[0] - shift0 - row}) ? {expr} : 0.0f"
+                        lines.append(f"    const float {name} = {expr};")
+                        names[(k, rest, row)] = name
+                return lines
 
             def index(d, rb=rb):
                 return (
@@ -562,28 +773,57 @@ def emit_epoch_cuda(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]
                     return f"{buf(mask.results[0])}[p] = ({keep_test(mask)}) ? {v} : 0.0f;"
                 return f"{buf(r)}[p] = {v};"
 
-            body += _k1.emit_body(op, load, index, store, indent="    ")
+            def point(j, op=op, names=names, index=index, store=store) -> list:
+                def load(k, offset):
+                    return names[(k, tuple(offset[1:]), j + offset[0])]
+
+                return _k1.emit_body(op, load, index, store, indent="      ")
+
             skip = _outside_owned(plan, rb) if r0 in st.direct else None
-            src += loop(r0, body, skip)
+            body += _walk(rw, column, point, skip)
             for r in op.results:
                 if r in escapes and r not in st.direct:
-                    src.append(f"  // escape of op {n}")
-                    src += copy_out(r)
+                    body.append(f"  // escape of op {n}")
+                    body += copy_out(r)
         else:  # comm.boundary_mask
             x, r = op.temp, op.results[0]
             fused = any(m is op for m in mask_of.values())
             if not fused:
-                src.append(f"  // op {n}: comm.boundary_mask, keep {keep_box(op)}")
+                body.append(f"  // op {n}: comm.boundary_mask, keep {keep_box(op)}")
                 keep = keep_test(op)
                 if keep:
-                    src += loop(r, [f"    {buf(r)}[p] = ({keep}) ? {buf(x)}[p] : 0.0f;"])
+                    line = f"      {buf(r)}[p] = ({keep}) ? {buf(x)}[p] : 0.0f;"
+                    body += _walk(wshape(r), no_column, lambda j, line=line: [line])
                 elif st.slot_of[r] != st.slot_of[x]:
-                    src += loop(r, [f"    {buf(r)}[p] = {buf(x)}[p];"])
+                    line = f"      {buf(r)}[p] = {buf(x)}[p];"
+                    body += _walk(wshape(r), no_column, lambda j, line=line: [line])
             if r in escapes:
-                src.append(f"  // escape of op {n}")
-                src += copy_out(r)
-    if src[-1] == "  __syncthreads();":
-        src.pop()  # nothing follows the last phase
+                body.append(f"  // escape of op {n}")
+                body += copy_out(r)
+    if not persistent:
+        # one wait and one barrier for all windows; nothing follows the last phase
+        src += head + window_loads("t", lambda k: buf(args[k]))
+        src += ["  K1_CP_ASYNC_COMMIT();", "  K1_CP_ASYNC_WAIT(0);", "  __syncthreads();"]
+        src += body[:-1] if body[-1] == "  __syncthreads();" else body
+    else:
+        # the current and the next window of every operand; the last
+        # phase's barrier frees the current one for the tile after next
+        for k, a in enumerate(args):
+            src.append(f"  float* w{k} = s{st.slot_of[a]};")
+            src.append(f"  float* n{k} = s{st.alt_of[a]};")
+        src += decode("blockIdx.x", "lg", "l")
+        src += window_loads("l", lambda k: f"w{k}")
+        src += ["  K1_CP_ASYNC_COMMIT();",
+                f"  for (int tile = blockIdx.x; tile < {plan.n_tiles}; tile += gridDim.x) {{"]
+        loop = head + ["  if (tile + gridDim.x < %d) {" % plan.n_tiles]
+        loop += decode("tile + gridDim.x", "ng", "nt", "    ")
+        loop += window_loads("nt", lambda k: f"n{k}", "    ") + ["  }"]
+        loop += ["  K1_CP_ASYNC_COMMIT();", "  K1_CP_ASYNC_WAIT(1);  // the current tile's windows",
+                 "  __syncthreads();"]
+        loop += body if body[-1] == "  __syncthreads();" else body + ["  __syncthreads();"]
+        for k in range(n_in):
+            loop += [f"  {{ float* const x = w{k}; w{k} = n{k}; n{k} = x; }}"]
+        src += ["  " + line for line in loop] + ["  }", "  K1_CP_ASYNC_WAIT(0);"]
     src += ["}", ""]
 
     c_params = [f"const void* in{k}" for k in range(n_in)] + [
@@ -592,17 +832,34 @@ def emit_epoch_cuda(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]
     call_args = [f"static_cast<const float*>(in{k})" for k in range(n_in)] + [
         f"static_cast<float*>(out{j})" for j in range(n_out)
     ]
-    src.append(f"K1_EXPORT int {_LAUNCHER}(" + ", ".join(c_params + ["void* stream"]) + ") {")
+    opt_in = []
     if smem > 48 * 1024:
-        src += [
-            "  const cudaError_t attr = cudaFuncSetAttribute(",
-            f"      k2_epoch, cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
-            "  if (attr != cudaSuccess) return static_cast<int>(attr);",
+        opt_in = [
+            f"  const int attr = static_cast<int>(K1_OPT_IN_SMEM(k2_epoch, {smem}));",
+            "  if (attr != 0) return attr;",
         ]
+    src += [f"K1_EXPORT int {_LAUNCHER}(" + ", ".join(c_params + ["void* stream"]) + ") {"]
+    src += opt_in
+    grid = f"{plan.n_tiles}u"
+    if persistent:  # the CTAs that fit on the card at once, at most one a tile
+        src += [
+            "  int ctas = 0, sms = 0;",
+            f"  int err = static_cast<int>(K1_OCCUPANCY(&ctas, k2_epoch, kThreads, {smem}));",
+            "  if (err == 0) err = static_cast<int>(K1_SM_COUNT(&sms));",
+            "  if (err != 0) return err;",
+            f"  const unsigned int grid = ctas * sms < {plan.n_tiles} ? ctas * sms : {plan.n_tiles};",
+        ]
+        grid = "grid"
     src += [
-        f"  k2_epoch<<<{plan.n_tiles}u, kThreads, {smem}, static_cast<cudaStream_t>(stream)>>>(",
-        "      " + ", ".join(call_args) + ");",
+        f"  K1_LAUNCH(k2_epoch, {grid}, kThreads, {smem}, stream,",
+        "            " + ", ".join(call_args) + ");",
         "  return k1::launch_status();",
+        "}",
+        "",
+        f"K1_EXPORT int {_OCCUPANCY}(void* ctas_per_sm) {{",
+        *opt_in,
+        "  return static_cast<int>(K1_OCCUPANCY(static_cast<int*>(ctas_per_sm), k2_epoch, "
+        f"kThreads, {smem}));",
         "}",
         "",
     ]
@@ -613,21 +870,21 @@ def emit_epoch_cuda(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]
 # Entry point
 # --------------------------------------------------------------------------
 
-# fused op -> {tile: launcher}: a time loop launches the same epoch at the
-# same tile every call, so its source is emitted once
+# fused op -> {(tile, pointer alignment): launcher}: a time loop launches
+# the same epoch at the same tile every call, so its source is emitted once
 _BOUND: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _kernel_for(fused_op: stencil.FusedEpochOp, tile: Optional[tuple]):
+def _kernel_for(fused_op: stencil.FusedEpochOp, tile: Optional[tuple], ptr_align: int = 16):
     with _k1._LIBS_LOCK:
         per_op = _BOUND.setdefault(fused_op, {})
-        fn = per_op.get(tile)
+        fn = per_op.get((tile, ptr_align))
     if fn is None:
-        source = emit_epoch_cuda(fused_op, tile)
+        source = emit_epoch_cuda(fused_op, tile, ptr_align)
         n_args = len(fused_op.operands) + len(fused_op.results) + 1
         fn = _k1._launcher(source, n_args, _LAUNCHER)
         with _k1._LIBS_LOCK:
-            per_op[tile] = fn
+            per_op[(tile, ptr_align)] = fn
     return fn
 
 
@@ -691,7 +948,7 @@ def run_epoch_cuda(
             torch.empty(r.type.bounds.shape, dtype=torch.float32, device=dev)
             for r in fused_op.results
         ]
-        fn = _kernel_for(fused_op, tile)
+        fn = _kernel_for(fused_op, tile, _k1.ptr_alignment(arrays))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             status = fn(

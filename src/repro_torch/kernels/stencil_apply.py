@@ -7,21 +7,33 @@ every point of the result bounds, one or more float32 results — but is not
 carried over block by block: there is no VMEM window and no tile budget.
 
 Code generation.  :func:`emit_apply_cuda` turns one apply, at one set of
-operand shapes and origins, into CUDA C++: a kernel with one thread per
-result point on a flat 1-D grid (64-bit index, minor dimension fastest, so
-loads and stores coalesce), each ``stencil.access`` a load at a constant
-offset, the DAG in body order with one float32 operation per IR op, and
-constants as exact bit patterns.  Shapes, strides and offsets are baked in
-as constants.  The kernel is built with ``-fmad=false`` so that ``a*b+c``
-stays two rounded operations, as the plain version (``core.lowering.
-eval_apply_body``) computes it: on the card the two agree bitwise for
-``+ - * /`` programs such as heat and wave.
+operand shapes and origins, into CUDA C++.  A CTA owns a tile of the
+minor dims (256 columns in 2D, 8×32 of a plane in 3D; rank 1 runs as rank
+2 with one row) and a chunk of 64 rows along dim 0, and streams down the
+chunk in steps of 8 rows (1 in 1D).  Each accessed operand's
+slice at each row (the tile plus that operand's access extent) is staged
+by ``cp.async`` into a ring of shared-memory slices: those one step
+reads, two steps of prefetch, so copies run ahead of compute, and the
+step being refilled; one barrier a step hands slots back.  Each thread
+owns one point of the tile, a column of the step's rows, and reads its
+taps from the ring, so no tap is re-read from L1/L2; the rows of taps
+that differ only along dim 0 are read once a step into registers
+(heat so4: 5.5 shared-memory reads a point instead of 9).  The edges are
+predicated: the tile need not divide the result, and any operand origin
+works (grown frames, interior parts, several operands and results).
+Offsets into device memory are 64-bit.  The DAG is emitted in body order
+with one float32 operation per IR op and constants as exact bit patterns;
+shapes, strides and offsets are baked in as constants.  The kernel is
+built with ``-fmad=false`` so that ``a*b+c`` stays two rounded
+operations, as the plain version (``core.lowering.eval_apply_body``)
+computes it: on the card the two agree bitwise for ``+ - * /`` programs
+such as heat and wave.
 
 What bounds it on an H100: device-memory bytes.  Per call the least work
 is to read each operand once and write each result once (a few float32
-operations per byte, far below the card's balance point).  Here a
-neighbour's taps are re-read through L1/L2 rather than staged; staging
-tiles in shared memory with TMA is later work.
+operations per byte, far below the card's balance point).  Each CTA
+re-reads its neighbours' halo columns and the chunk's halo rows (from L2
+mostly); shared-memory reads, one a tap, stay below the card's rate.
 
 Build.  ``nvcc`` (found on ``PATH``, then under ``$CUDA_HOME/bin``, then
 ``/usr/local/cuda/bin``) compiles each generated source into
@@ -32,6 +44,7 @@ in the process; :func:`build` compiles many sources in parallel.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -58,6 +71,7 @@ NVCC_FLAGS = (
 )
 _HEADER = "stencil_apply_common.cuh"
 _LAUNCHER = "k1_apply_launch"
+_OCCUPANCY = "k1_apply_occupancy"
 
 # --------------------------------------------------------------------------
 # Code generation
@@ -157,76 +171,280 @@ def emit_body(
     raise AssertionError("apply body missing stencil.return")
 
 
+SLICE_TILE = {2: (256,), 3: (8, 32)}  # points of the minor dims one CTA owns
+CHUNK_ROWS = 64  # dim-0 rows one CTA streams through
+# rows of its column a thread computes between two barriers (one step),
+# reading each dim-0 tap row once into a register; rank 1 has one row
+ROWS_PER_STEP = {1: 1, 2: 8, 3: 8}
+PREFETCH_STEPS = 2  # steps of slices in flight ahead of the step being computed
+
+
+@dataclasses.dataclass(frozen=True)
+class SlicePlan:
+    """How K1 stages one operand.  Everything is in the lifted frame (rank
+    1 is computed as rank 2 with a leading dim of one row).  ``base`` is
+    the array index of the operand's window start for result point 0,
+    ``ext`` the access extent along each dim (``hi - lo``), ``width`` the
+    floats per asynchronous copy, ``shift`` where the window starts inside
+    the first copy of a slice row (``base[-1] % width``), ``row`` the
+    floats a staged slice row holds (a multiple of ``width``), ``floats``
+    those of one slice and ``offset`` the ring's first float in shared
+    memory."""
+
+    base: tuple
+    ext: tuple
+    width: int
+    shift: int
+    row: int
+    floats: int
+    offset: int
+
+
+def _lift(apply_op, operand_shapes, operand_origins, result_bounds):
+    """Shapes, origins, result bounds and per-operand extents with rank 1
+    lifted to rank 2 (a leading dim of one row)."""
+    extents = apply_op.access_extents()
+    shapes = [tuple(s) for s in operand_shapes]
+    origins = [tuple(o) for o in operand_origins]
+    lb, ub = tuple(result_bounds.lb), tuple(result_bounds.ub)
+    ext = {k: (tuple(lo), tuple(hi)) for k, (lo, hi) in extents.items()}
+    if result_bounds.rank == 1:
+        shapes = [(1,) + s for s in shapes]
+        origins = [(0,) + o for o in origins]
+        lb, ub = (0,) + lb, (1,) + ub
+        ext = {k: ((0,) + lo, (0,) + hi) for k, (lo, hi) in ext.items()}
+    return shapes, origins, stencil.Bounds(lb, ub), ext
+
+
+def slice_plans(
+    apply_op: stencil.ApplyOp,
+    operand_shapes: Sequence[tuple],
+    operand_origins: Sequence[tuple],
+    result_bounds: stencil.Bounds,
+    ptr_align: int = 16,
+) -> dict:
+    """K1's staging plan for every accessed operand: ``{k: SlicePlan}``.
+    A CTA whose tile starts at result index ``u`` of the minor dims and
+    whose chunk starts at row ``z`` stages, for slice ``q``, array row
+    ``z + base[0] + q`` and, along each minor dim, the array range from
+    ``u + base`` over the tile plus ``ext`` (the last dim widened to whole
+    copies: down by ``shift``, up to a multiple of ``width``)."""
+    shapes, origins, rb, ext = _lift(apply_op, operand_shapes, operand_origins, result_bounds)
+    tile = SLICE_TILE[rb.rank]
+    _, depth = _ring(ext, ROWS_PER_STEP[result_bounds.rank])
+    plans, offset = {}, 0
+    for k in sorted(ext):
+        lo, hi = ext[k]
+        base = tuple(l + o - g for l, o, g in zip(rb.lb, lo, origins[k]))
+        e = tuple(h - l for l, h in zip(lo, hi))
+        width = next(
+            v for v in (4, 2, 1)
+            if shapes[k][-1] % v == 0 and tile[-1] % v == 0 and ptr_align % (4 * v) == 0
+        )
+        shift = base[-1] % width
+        row = -(-(shift + tile[-1] + e[-1]) // width) * width
+        floats = row * (tile[0] + e[1] if rb.rank == 3 else 1)
+        plans[k] = SlicePlan(base, e, width, shift, row, floats, offset)
+        offset += (depth * floats + 3) // 4 * 4
+    return plans
+
+
+def _ring(ext: dict, rows_per_step: int) -> tuple:
+    """``(ahead, depth)``: the steps of slices past the current one that a
+    step reads (its rows grown by the largest dim-0 extent), and the
+    slices of each operand's ring, a multiple of ``rows_per_step``: those
+    the step reads, the ``PREFETCH_STEPS`` steps in flight and the step
+    being refilled."""
+    e = max((hi[0] - lo[0] for lo, hi in ext.values()), default=0)
+    ahead = (rows_per_step - 1 + e) // rows_per_step
+    return ahead, (ahead + PREFETCH_STEPS + 1) * rows_per_step
+
+
 def emit_apply_cuda(
     apply_op: stencil.ApplyOp,
     operand_shapes: Sequence[tuple],
     operand_origins: Sequence[tuple],
     result_bounds: stencil.Bounds,
+    ptr_align: int = 16,
 ) -> str:
     """CUDA C++ source of K1 for one apply at these operand shapes and
-    origins: one ``__global__`` kernel and the C launcher
-    ``k1_apply_launch(in0, …, out0, …, stream) -> cudaError_t``."""
+    origins: one ``__global__`` kernel, the C launcher
+    ``k1_apply_launch(in0, …, out0, …, stream) -> cudaError_t`` and the
+    occupancy query ``k1_apply_occupancy(int* ctas_per_sm)``.
+    ``ptr_align`` is the alignment in bytes that every operand pointer
+    has; it bounds the width of the slice copies."""
     check_windows(apply_op, operand_shapes, operand_origins, result_bounds)
-    rb = result_bounds
-    shape = rb.shape
+    lifted = result_bounds.rank == 1
+    shapes, origins, rb, ext = _lift(apply_op, operand_shapes, operand_origins, result_bounds)
     rank = rb.rank
-    n_points = 1
-    for s in shape:
-        n_points *= s
+    n = rb.shape
+    tile = SLICE_TILE[rank]
+    plans = slice_plans(apply_op, operand_shapes, operand_origins, result_bounds, ptr_align)
+    step = ROWS_PER_STEP[result_bounds.rank]
+    ahead, depth = _ring(ext, step)
+    grid = [-(-n[0] // CHUNK_ROWS)] + [-(-m // t) for m, t in zip(n[1:], tile)]
+    n_ctas = 1
+    for g in grid:
+        n_ctas *= g
+    n_threads = 1
+    for t in tile:
+        n_threads *= t
+    smem = 0
+    for p in plans.values():
+        smem = max(smem, 4 * (p.offset + (depth * p.floats + 3) // 4 * 4))
     n_in = len(apply_op.operands)
     n_out = len(apply_op.results)
-    strides = [_strides(s) for s in operand_shapes]
+    strides = [_strides(s) for s in shapes]
+    rstr = _strides(n)
+    n_points = 1
+    for s in n:
+        n_points *= s
 
     src = [
         "// Generated by repro_torch/kernels/stencil_apply.py (kernel K1).",
-        f"// result bounds {rb.lb}..{rb.ub}, {n_points} points",
+        f"// result bounds {result_bounds.lb}..{result_bounds.ub}, {n_points} points; "
+        f"CTA tile {tile} of the minor dims x {CHUNK_ROWS} rows along dim 0 in steps of "
+        f"{step}, grid "
+        f"{tuple(grid)} ({n_ctas} CTAs), rings of {depth} slices, {smem} bytes of "
+        "shared memory",
     ]
     for k in range(n_in):
         src.append(
             f"// in{k}: shape {tuple(operand_shapes[k])}, origin "
             f"{tuple(operand_origins[k])}"
+            + (f", slices of {plans[k].floats} floats, {4 * plans[k].width}-byte copies"
+               if k in plans else ", not read")
         )
-    src += [f'#include "{_HEADER}"', ""]
+    src += [f'#include "{_HEADER}"', "", f"constexpr int kThreads = K1_BLOCK_THREADS({n_threads});", ""]
     params = [f"const float* __restrict__ in{k}" for k in range(n_in)] + [
         f"float* __restrict__ out{j}" for j in range(n_out)
     ]
     src.append(
-        "__global__ void __launch_bounds__(k1::kBlock) k1_apply("
+        f"__global__ void __launch_bounds__({n_threads}) k1_apply("
         + ", ".join(params) + ") {"
     )
-    src.append("  const int64_t p = k1::flat_index();")
-    src.append(f"  if (p >= {n_points}LL) return;")
-    # coordinates of the point, relative to the result bounds' lower corner
-    if rank == 1:
-        src.append("  const int64_t i0 = p;")
+    src.append("  K1_DYNAMIC_SMEM(smem);")
+    # this CTA: its chunk of rows and its tile of the minor dims, fastest last
+    src.append("  int blk = blockIdx.x;")
+    for d in reversed(range(rank)):
+        src.append(f"  const int g{d} = blk % {grid[d]};")
+        if d:
+            src.append(f"  blk /= {grid[d]};")
+    src.append(f"  const int z = g0 * {CHUNK_ROWS};")
+    src.append(f"  const int rows = {n[0]} - z < {CHUNK_ROWS} ? {n[0]} - z : {CHUNK_ROWS};")
+    for d in range(1, rank):
+        t = tile[d - 1]
+        src.append(f"  const int u{d} = g{d} * {t};")
+        src.append(f"  const int w{d} = {n[d]} - u{d} < {t} ? {n[d]} - u{d} : {t};  // valid points")
+    for k, p in plans.items():
+        src.append(f"  float* const ring{k} = smem + {p.offset};")
+    # stage(g): the slices of step g of every operand that has them, into
+    # their ring slots (slice q goes to slot q % depth)
+    src.append("  auto stage = [&](const int g) {")
+    src.append(f"    for (int j = 0; j < {step}; ++j) {{")
+    src.append(f"      const int q = g * {step} + j;")
+    src.append(f"      const int slot = g % {depth // step} * {step} + j;")
+    for k, p in plans.items():
+        last = f"u{rank - 1} + {p.base[-1] - p.shift}"
+        if rank == 3:
+            copies_per_row = p.row // p.width
+            src += [
+                f"      if (q < rows + {p.ext[0]}) {{",
+                f"        const float* const src = in{k} + (z + {p.base[0]} + q) * {strides[k][0]}LL"
+                f" + (u1 + {p.base[1]}) * {strides[k][1]}LL + ({last});",
+                f"        float* const dst = ring{k} + slot * {p.floats};",
+                f"        for (int v = threadIdx.x; v < {(tile[0] + p.ext[1]) * copies_per_row}; "
+                "v += kThreads) {",
+                f"          const int r = v / {copies_per_row};",
+                f"          const int l = v % {copies_per_row} * {p.width};",
+                f"          if (r < w1 + {p.ext[1]} && l < w2 + {p.shift + p.ext[2]})",
+                f"            K1_CP_ASYNC(dst + r * {p.row} + l, src + r * {strides[k][1]}LL + l, "
+                f"{4 * p.width});",
+                "        }",
+                "      }",
+            ]
+        else:
+            src += [
+                f"      if (q < rows + {p.ext[0]}) {{",
+                f"        const float* const src = in{k} + (z + {p.base[0]} + q) * {strides[k][0]}LL"
+                f" + ({last});",
+                f"        float* const dst = ring{k} + slot * {p.floats};",
+                f"        for (int l = threadIdx.x * {p.width}; l < w1 + {p.shift + p.ext[1]}; "
+                f"l += kThreads * {p.width})",
+                f"          K1_CP_ASYNC(dst + l, src + l, {4 * p.width});",
+                "      }",
+            ]
+    src += ["    }", "  };"]
+    src += [
+        f"  for (int g = 0; g < {ahead + PREFETCH_STEPS}; ++g) {{",
+        "    stage(g);",
+        "    K1_CP_ASYNC_COMMIT();",
+        "  }",
+        "  int base = 0;  // the ring slot of row s",
+        f"  for (int s = 0, g = {ahead + PREFETCH_STEPS}; s < rows; s += {step}, ++g) {{",
+        f"    K1_CP_ASYNC_WAIT({PREFETCH_STEPS - 1});  // this thread's copies of the step's slices",
+        "    __syncthreads();  // everyone's, and the previous step's slots are free again",
+        "    stage(g);",
+        "    K1_CP_ASYNC_COMMIT();",
+    ]
+    # the register-blocked column: every (operand, minor offset) of a tap
+    # reads each of its rows once for the step's rows
+    groups: dict = {}
+    for x in apply_op.body.ops:
+        if isinstance(x, stencil.AccessOp):
+            off = ((0,) + tuple(x.offset)) if lifted else tuple(x.offset)
+            groups.setdefault((x.temp.index, off[1:]), set()).add(off[0])
+    rows_of = {
+        key: sorted({j + o0 - ext[key[0]][0][0] for j in range(step) for o0 in s0})
+        for key, s0 in sorted(groups.items())
+    }
+    for r in sorted({r for rs in rows_of.values() for r in rs}):
+        src.append(f"    const int slot{r} = base + {r} < {depth} ? base + {r} : base + {r - depth};")
+    src.append(f"    for (int t = threadIdx.x; t < {n_threads}; t += kThreads) {{")
+    if rank == 3:
+        src += [f"      const int c1 = t / {tile[1]};", f"      const int c2 = t % {tile[1]};",
+                "      if (c1 >= w1 || c2 >= w2) continue;"]
     else:
-        src.append("  int64_t q = p;")
-        for d in reversed(range(1, rank)):
-            src.append(f"  const int64_t i{d} = q % {shape[d]}LL;")
-            src.append(f"  q /= {shape[d]}LL;")
-        src.append("  const int64_t i0 = q;")
-    accessed = sorted(apply_op.access_extents())
-    for k in accessed:
-        base = sum(
-            (l - g) * st for l, g, st in zip(rb.lb, operand_origins[k], strides[k])
-        )
-        terms = " + ".join(f"i{d} * {strides[k][d]}LL" for d in range(rank))
-        src.append(f"  const int64_t b{k} = {terms} + ({base}LL);")
-
-    src += emit_body(
-        apply_op,
-        load=lambda k, offset: (
-            f"in{k}[b{k} + "
-            f"({sum(o * st for o, st in zip(offset, strides[k]))}LL)]"
-        ),
-        index=lambda d: (
-            f"static_cast<float>(i{d}) + {_f32_literal(float(rb.lb[d]))}"
-        ),
-        store=lambda j, v: f"out{j}[p] = {v};",
-        indent="  ",
+        src += ["      const int c1 = t;", "      if (c1 >= w1) continue;"]
+    for k, p in plans.items():
+        inner = f"c1 * {p.row} + c2 + {p.shift}" if rank == 3 else f"c1 + {p.shift}"
+        src.append(f"      const int e{k} = {inner};")
+    names = {}
+    for g, ((k, rest), rs) in enumerate(rows_of.items()):
+        p, lo = plans[k], ext[k][0]
+        flat = ((rest[0] - lo[1]) * p.row + rest[1] - lo[2]) if rank == 3 else rest[0] - lo[1]
+        for r in rs:
+            names[(k, rest, r)] = f"x{k}_{g}_{r}"
+            src.append(f"      const float x{k}_{g}_{r} = ring{k}[slot{r} * {p.floats} + e{k} + {flat}];")
+    flat_out = " + ".join(
+        [f"static_cast<int64_t>(z + s) * {rstr[0]}LL"]
+        + [f"(u{d} + c{d}) * {rstr[d]}LL" for d in range(1, rank)]
     )
-    src.append("}")
-    src.append("")
+    src.append(f"      const int64_t o = {flat_out};")
+    for j in range(step):
+        def load(k, offset, j=j):
+            off = ((0,) + tuple(offset)) if lifted else tuple(offset)
+            return names[(k, off[1:], j + off[0] - ext[k][0][0])]
+
+        def index(d, j=j):
+            dd = d + 1 if lifted else d
+            coord = f"(z + s + {j})" if dd == 0 else f"(u{dd} + c{dd})"
+            return f"static_cast<float>{coord} + {_f32_literal(float(rb.lb[dd]))}"
+
+        ragged = n[0] % step != 0 and j > 0  # only a chunk's last step is ragged
+        src.append(f"      if (s + {j} < rows) {{" if ragged else "      {")
+        src += emit_body(apply_op, load, index,
+                         lambda jj, v, j=j: f"out{jj}[o + {j * rstr[0]}LL] = {v};",
+                         indent="        ")
+        src.append("      }")
+    src += [
+        "    }",
+        f"    base = base + {step} < {depth} ? base + {step} : 0;",
+        "  }",
+        "  K1_CP_ASYNC_WAIT(0);",
+        "}",
+        "",
+    ]
 
     c_params = [f"const void* in{k}" for k in range(n_in)] + [
         f"void* out{j}" for j in range(n_out)
@@ -234,13 +452,24 @@ def emit_apply_cuda(
     args = [f"static_cast<const float*>(in{k})" for k in range(n_in)] + [
         f"static_cast<float*>(out{j})" for j in range(n_out)
     ]
+    opt_in = []
+    if smem > 48 * 1024:
+        opt_in = [
+            f"  const int attr = static_cast<int>(K1_OPT_IN_SMEM(k1_apply, {smem}));",
+            "  if (attr != 0) return attr;",
+        ]
+    src += [f"K1_EXPORT int {_LAUNCHER}(" + ", ".join(c_params + ["void* stream"]) + ") {"]
+    src += opt_in
     src += [
-        f"K1_EXPORT int {_LAUNCHER}(" + ", ".join(c_params + ["void* stream"]) + ") {",
-        f"  const unsigned int blocks = k1::blocks_for({n_points}LL);",
-        "  if (blocks == 0u) return static_cast<int>(cudaErrorInvalidValue);",
-        "  k1_apply<<<blocks, k1::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(",
-        "      " + ", ".join(args) + ");",
+        f"  K1_LAUNCH(k1_apply, {n_ctas}u, kThreads, {smem}, stream,",
+        "            " + ", ".join(args) + ");",
         "  return k1::launch_status();",
+        "}",
+        "",
+        f"K1_EXPORT int {_OCCUPANCY}(void* ctas_per_sm) {{",
+        *opt_in,
+        "  return static_cast<int>(K1_OCCUPANCY(static_cast<int*>(ctas_per_sm), k1_apply, "
+        f"kThreads, {smem}));",
         "}",
         "",
     ]
@@ -251,7 +480,7 @@ def emit_apply_cuda(
 # Build and load
 # --------------------------------------------------------------------------
 
-_LIBS: dict = {}  # generated source -> loaded ctypes launcher
+_LIBS: dict = {}  # (generated source, symbol) -> loaded ctypes function
 _LIBS_LOCK = threading.Lock()
 # apply op -> {(operand shapes, origins, result bounds): launcher}: a time
 # loop calls the same apply at the same shapes every step, so its source
@@ -328,13 +557,22 @@ def build(sources: Sequence[str]) -> list:
     return paths
 
 
-def _kernel_for(apply_op, shapes, origins, result_bounds):
-    key = (tuple(shapes), tuple(tuple(o) for o in origins), result_bounds)
+def ptr_alignment(tensors: Sequence[torch.Tensor]) -> int:
+    """The largest of 16, 8 and 4 bytes that every tensor's data pointer is
+    a multiple of: the widest asynchronous copy a kernel may use on them."""
+    for a in (16, 8, 4):
+        if all(t.data_ptr() % a == 0 for t in tensors):
+            return a
+    raise ValueError("a float32 tensor whose data is not 4-byte aligned")
+
+
+def _kernel_for(apply_op, shapes, origins, result_bounds, ptr_align: int = 16):
+    key = (tuple(shapes), tuple(tuple(o) for o in origins), result_bounds, ptr_align)
     with _LIBS_LOCK:
         per_op = _BOUND.setdefault(apply_op, {})
         fn = per_op.get(key)
     if fn is None:
-        source = emit_apply_cuda(apply_op, shapes, origins, result_bounds)
+        source = emit_apply_cuda(apply_op, shapes, origins, result_bounds, ptr_align)
         fn = _launcher(source, len(shapes) + len(apply_op.results) + 1)
         with _LIBS_LOCK:
             per_op[key] = fn
@@ -345,15 +583,29 @@ def _launcher(source: str, n_args: int, symbol: str = _LAUNCHER):
     """The C launcher ``symbol`` of a generated source, built on first use
     and loaded once per process; every argument is a pointer."""
     with _LIBS_LOCK:
-        fn = _LIBS.get(source)
+        fn = _LIBS.get((source, symbol))
         if fn is None:
             (path,) = build([source])
             lib = ctypes.CDLL(str(path))
             fn = getattr(lib, symbol)
             fn.argtypes = [ctypes.c_void_p] * n_args
             fn.restype = ctypes.c_int
-            _LIBS[source] = fn
+            _LIBS[(source, symbol)] = fn
     return fn
+
+
+def ctas_per_sm(source: str, symbol: str = _OCCUPANCY) -> int:
+    """CTAs of a generated kernel that one SM of the current card holds at
+    once, from its occupancy query ``symbol`` (K1's by default; it calls
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, which weighs the
+    kernel's registers, shared memory and threads); builds the source on
+    first use."""
+    fn = _launcher(source, 1, symbol)
+    out = ctypes.c_int(0)
+    status = fn(ctypes.addressof(out))
+    if status != 0:
+        raise RuntimeError(f"occupancy query failed with CUDA error {status}")
+    return out.value
 
 
 # --------------------------------------------------------------------------
@@ -402,7 +654,7 @@ def run_apply_cuda(
         check_windows(apply_op, shapes, origins, result_bounds)
         return outs
     # the windows are checked when the source is emitted, once per shape
-    fn = _kernel_for(apply_op, shapes, origins, result_bounds)
+    fn = _kernel_for(apply_op, shapes, origins, result_bounds, ptr_alignment(arrays))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(

@@ -15,6 +15,7 @@ Pallas target (interpret mode).  The port of ``tests/test_fused_epoch.py``.
 
 Tensors here lie on the CPU, so the K2 wrapper runs its plain version.
 """
+import itertools
 import re
 
 import numpy as np
@@ -246,25 +247,31 @@ def test_emitted_ownership_test_matches_the_plan():
 
 @pytest.mark.parametrize("so,window", [(2, 72), (4, 80), (8, 96)])
 def test_default_tile_at_fig7_size_fits_two_ctas_per_sm(so, window):
-    """Heat 16384² at k=4 takes 64² tiles; the windows are the tile plus the
-    4-step halo, and two CTAs' shared memory fits on one SM."""
+    """Heat 16384² at k=4 takes 64×128 tiles (grown from 64² by the cost
+    model: a 128-wide tile pads its frame walks less and re-reads less
+    halo); the windows are the tile plus the 4-step halo, and two CTAs'
+    shared memory fits on one SM."""
     op = _epoch(P.heat("repro_torch", (16384, 16384), so), 4)
     plan = k2.plan_epoch(op)
-    assert plan.tile == (64, 64) and plan.n_tiles == 256 * 256
-    assert plan.window_shape(op.body.args[0].type.bounds) == (window, window)
+    assert plan.tile == (64, 128) and plan.n_tiles == 256 * 128
+    assert plan.window_shape(op.body.args[0].type.bounds) == (window, window + 64)
     st = k2._storage(op, plan)
-    assert 4 * window * window <= st.smem_bytes <= k2.SMEM_TWO_BLOCKS
+    assert 4 * window * (window + 64) <= st.smem_bytes <= k2.SMEM_TWO_BLOCKS
     assert len(st.slot_floats) == 2  # input/frame ping-pong; the last frame goes straight out
+    square = k2._plan(plan.core, (64, 64))
+    assert k2.tile_cost(op, plan) < k2.tile_cost(op, square)
+    assert "__launch_bounds__(256, 2)" in k2.emit_epoch_cuda(op)
 
 
 def test_wave_storage_reuses_dead_buffers():
     op = _epoch(P.wave("repro_torch", (16384, 16384), 4), 4)
     plan = k2.plan_epoch(op)
+    assert plan.tile == (32, 128)  # three live buffers: a 64×128 tile would not fit twice
     st = k2._storage(op, plan)
-    # u_t (80²), u_{t-1} (76²) and the first frame (76²) are live at once
-    assert st.slot_floats == [80 * 80, 76 * 76, 76 * 76]
+    # u_t (48×144), u_{t-1} (44×140) and the first frame (44×140) are live at once
+    assert st.slot_floats == [48 * 144, 44 * 140, 44 * 140]
     assert len(st.direct) == 1  # the new state; the carried one is copied out
-    assert "cudaFuncSetAttribute" in k2.emit_epoch_cuda(op)  # 71,808 B opts in
+    assert "K1_OPT_IN_SMEM(k2_epoch, 76928)" in k2.emit_epoch_cuda(op)  # 76,928 B opts in
 
 
 def test_tile_shrinks_to_the_budget_and_refuses_what_cannot_fit():
@@ -468,17 +475,83 @@ def test_operator_entry_points_take_the_fused_target():
 def test_emitted_source_is_one_kernel_with_staged_windows():
     op = _epoch(P.heat("repro_torch", (16384, 16384), 4), 4)
     src = k2.emit_epoch_cuda(op)
-    assert src.count("__global__") == 1 and src.count("k2_epoch<<<65536u, kThreads, 48704") == 1
-    assert "cudaFuncSetAttribute" not in src  # 48,704 B: under the 48 KB default
-    assert src.count("out0[") == 1  # the last frame goes straight out, owned points only
-    assert "in0[(t0 + i0) * 16400LL + (t1 + i1) * 1LL]" in src
+    r = k2.R_BY_RANK[2]
+    assert src.count("__global__") == 1
+    assert src.count("K1_LAUNCH(k2_epoch, 32768u, kThreads, 88640, stream,") == 1
+    assert "K1_OPT_IN_SMEM(k2_epoch, 88640)" in src  # 88,640 B: above the 48 KB default
+    assert src.count("out0[") == r  # the last frame goes straight out, owned points only
+    # the 80×144 window arrives by 16-byte asynchronous copies, then one wait
+    assert "K1_CP_ASYNC(s0 + q * 4, in0 + (t0 + i0) * 16400LL + (t1 + i1) * 1LL, 16);" in src
+    assert src.index("K1_CP_ASYNC_WAIT(0);") < src.index("__syncthreads()")
     # three masks, each a box test against the global core [0, 16384),
-    # applied as the three inner sub-steps write their frames
+    # applied as the three inner sub-steps write their frames, per point
     boxes = re.findall(r"\? v\d+ : 0.0f", src)
-    assert len(boxes) == 3 and "comm.boundary_mask, keep" not in src
+    assert len(boxes) == 3 * r and "comm.boundary_mask, keep" not in src
     tests = re.findall(r"t0 \+ i0 >= (\d+) && t0 \+ i0 < (\d+)", src)
-    assert tests == [("6", "16390"), ("4", "16388"), ("2", "16386")]
+    assert list(dict.fromkeys(tests)) == [("6", "16390"), ("4", "16388"), ("2", "16386")]
+    assert len(tests) == 3 * r
     assert src.count("__syncthreads()") == 1 + 3  # after the load and 3 sub-steps
+    # register-blocked columns: per column, 8 points read 12 registers of the
+    # dim-0 taps and 8 of each of the 4 minor taps (44 loads, 5.5 a point)
+    first = src[src.index("// op 0:"):src.index("// op 1:") if "// op 1:" in src else src.index("// op 2:")]
+    assert len(re.findall(r"const float x0_\d+_m?\d+ = ", first)) == (r + 4) + 4 * r
+
+
+EPOCH_COLUMN_CASES = {
+    "heat-so4-ragged": (lambda: P.heat("repro_torch", (24, 20), 4), 4, (8, 10)),
+    "heat-so2-periodic": (lambda: P.heat("repro_torch", (24, 20), 2, "periodic"), 4, (6, 5)),
+    "wave-so4": (lambda: P.wave("repro_torch", (24, 20), 4), 4, (8, 4)),
+    "heat3d-so4": (lambda: P.heat("repro_torch", (12, 10, 16), 4), 2, (4, 5, 8)),
+    "index-1d": (lambda: P.index_chain("repro_torch", (30,)), 1, (6,)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EPOCH_COLUMN_CASES))
+def test_register_blocked_columns_stay_inside_their_windows(name):
+    """Read each sub-step's column loads from the generated source and walk
+    every column and chunk of its frame, ragged last chunks included: each
+    load a column makes lies inside the operand's window, and the guard of
+    a load is false only where no computed point of the column needs it."""
+    build, k, tile = EPOCH_COLUMN_CASES[name]
+    op = _epoch(build(), k)
+    plan = k2.plan_epoch(op, tile)
+    src = k2.emit_epoch_cuda(op, tile)
+    st = k2._storage(op, plan)
+    blocks = src.split("  // op ")[1:]
+    applies = [x for x in op.body.ops if isinstance(x, stencil.ApplyOp)]
+    apply_blocks = [b for b in blocks if b.split(":", 1)[1].startswith(" stencil.apply")]
+    assert len(apply_blocks) == len(applies)
+    r = k2.R_BY_RANK[plan.core.rank]
+    for apply_op, block in zip(applies, apply_blocks):
+        fw = plan.window_shape(apply_op.results[0].type.bounds)
+        rows = k2.column_rows(apply_op, r)
+        base = {int(m[0]): m[1] for m in re.findall(r"const int b(\d+) = (.*);", block)}
+        loads = re.findall(
+            r"const float x(\d+)_(\d+)_(m?\d+) = (?:\(a < (-?\d+)\) \? )?s(\d+)\[b\d+ \+ (-?\d+)\]", block)
+        assert len(loads) == sum(len(v) for v in rows.values())
+        cols = [()] if plan.core.rank == 1 else itertools.product(*(range(w) for w in fw[1:]))
+        for c in cols:
+            env = {f"i{d + 1}": x for d, x in enumerate(c)}
+            for a in range(0, fw[0], r):
+                valid = min(r, fw[0] - a)
+                for kk, g, row, lim, slot, off in loads:
+                    operand = apply_op.operands[int(kk)]
+                    assert int(slot) == st.slot_of[operand]
+                    numel = int(np.prod(plan.window_shape(operand.type.bounds)))
+                    if lim and not a < int(lim):
+                        continue  # guarded off: the load is not made
+                    idx = eval(base[int(kk)], {}, {**env, "a": a}) + int(off)
+                    assert 0 <= idx < numel, (name, a, c, row)
+                # every tap of every computed point reads a loaded, unguarded row
+                for x in apply_op.body.ops:
+                    if isinstance(x, stencil.AccessOp):
+                        for j in range(valid):
+                            need = j + x.offset[0]
+                            (lim,) = [ll for kk, g, row, ll, _, _ in loads
+                                      if int(kk) == x.temp.index
+                                      and (-int(row[1:]) if row.startswith("m") else int(row)) == need
+                                      and list(rows)[int(g)][1] == tuple(x.offset[1:])]
+                            assert not lim or a < int(lim)
 
 
 # -------------------------------------------------------------------------

@@ -18,9 +18,13 @@ from repro_torch import api
 from repro_torch.core.fd import laplacian_star, radius
 from repro_torch.kernels import dispatch_stats, ops, ref, reset_dispatch_stats
 from repro_torch.kernels.stencil_apply import (
+    CHUNK_ROWS,
+    ROWS_PER_STEP,
+    SLICE_TILE,
     check_windows,
     emit_apply_cuda,
     run_apply_cuda,
+    slice_plans,
 )
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -149,32 +153,111 @@ def test_emitted_heat_source_bakes_constants_and_shapes():
     consts = [op.value for op in apply_op.body.ops if isinstance(op, ir.ConstantOp)]
     for c in consts:
         assert f"__int_as_float(0x{_f32_bits(c):08x})" in src, c
-    assert f"p >= {16 * 20}LL" in src and "i1 = q % 20LL" in src
-    assert src.count("out0[p] =") == 1
-    loads = re.findall(r"in0\[b0 \+ \((-?\d+)LL\)\]", src)
+    # the result's 16 rows and 20 columns: one 64-row chunk, one 256-column tile
+    assert "const int rows = 16 - z < 64 ? 16 - z : 64;" in src
+    assert "const int w1 = 20 - u1 < 256 ? 20 - u1 : 256;" in src
+    step = ROWS_PER_STEP[2]
+    assert src.count("out0[o + ") == step  # one store per point of a column's step
+    # a register-blocked column: each dim-0 tap row is read once a step
+    # (rows 0..step+3 of the so4 star's dim-0 taps), each minor tap once a point
+    loads = re.findall(r"const float x0_\d+_(\d+) = ring0\[slot(\d+) \* (\d+) \+ e0 \+ (-?\d+)\]", src)
+    assert len(loads) == (step + 4) + 4 * step
+    assert all(r == slot for r, slot, _, _ in loads)
     accesses = [op for op in apply_op.body.ops if op.name == "stencil.access"]
-    assert len(loads) == len(accesses)  # one load per IR access, in body order
-    assert 'extern "C"' in src or "K1_EXPORT" in src
+    reads = re.findall(r"const float v\d+ = (x0_\d+_\d+);", src)
+    assert len(reads) == step * len(accesses)  # one per IR access and point, in body order
+    assert "K1_EXPORT" in src and src.count("__syncthreads()") == 1  # one barrier a step
+
+
+def _copied_columns(plan, u, w, row_len):
+    """The array columns one staged slice row of a CTA at tile origin ``u``
+    with ``w`` valid columns copies, as the emitted copy loop walks them."""
+    start = u + plan.base[-1] - plan.shift
+    cols = set()
+    for l in range(0, plan.row, plan.width):
+        if l < w + plan.shift + plan.ext[-1]:
+            assert start + l >= 0 and start + l + plan.width <= row_len
+            cols.update(range(start + l, start + l + plan.width))
+    return cols
 
 
 @pytest.mark.parametrize("exchange_every", [1, 4])
 def test_emitted_loads_stay_inside_their_operand(exchange_every):
-    """Every load's flat index, at both corners of the result box, lies in
-    [0, numel) of its operand — on grown epoch frames too."""
+    """Every staged copy lies inside its operand, every ring read inside its
+    slice, and every tap's ring row within the slices the ring holds — at
+    both edges of grown epoch frames too."""
     for apply_op in _heat_apply((18, 16), 4, exchange_every):
         src = _source(apply_op)
-        shape_r = apply_op.result_bounds.shape
-        for k, operand in enumerate(apply_op.operands):
-            shape = operand.type.bounds.shape
-            numel = int(np.prod(shape))
-            strides = [int(np.prod(shape[d + 1:])) for d in range(len(shape))]
-            m = re.search(rf"const int64_t b{k} = (.*) \+ \((-?\d+)LL\);", src)
-            terms = [int(t) for t in re.findall(r"i\d+ \* (\d+)LL", m.group(1))]
-            assert terms == strides
-            base = int(m.group(2))
-            last = base + sum((n - 1) * s for n, s in zip(shape_r, strides))
-            for off in map(int, re.findall(rf"in{k}\[b{k} \+ \((-?\d+)LL\)\]", src)):
-                assert 0 <= base + off and last + off < numel
+        shapes = [o.type.bounds.shape for o in apply_op.operands]
+        origins = [o.type.bounds.lb for o in apply_op.operands]
+        rb = apply_op.result_bounds
+        (plan,) = slice_plans(apply_op, shapes, origins, rb).values()
+        assert plan.base[0] >= 0 and plan.base[0] + rb.shape[0] + plan.ext[0] <= shapes[0][0]
+        for u in range(0, rb.shape[1], SLICE_TILE[2][0]):
+            w = min(SLICE_TILE[2][0], rb.shape[1] - u)
+            _copied_columns(plan, u, w, shapes[0][1])
+        for r, floats, off in re.findall(r"ring0\[slot(\d+) \* (\d+) \+ e0 \+ (-?\d+)\]", src):
+            assert int(floats) == plan.floats and 0 <= int(r) <= ROWS_PER_STEP[2] - 1 + plan.ext[0]
+            assert 0 <= plan.shift + int(off) and plan.shift + SLICE_TILE[2][0] - 1 + int(off) < plan.floats
+
+
+def _k1_spec(apply_op):
+    return (
+        apply_op,
+        [tuple(o.type.bounds.shape) for o in apply_op.operands],
+        [tuple(o.type.bounds.lb) for o in apply_op.operands],
+        apply_op.result_bounds,
+    )
+
+
+K1_SLICE_CASES = {
+    "heat2d-ragged": lambda: _heat_apply((70, 300), 4),
+    "heat2d-grown-frames": lambda: _heat_apply((18, 270), 4, 4),
+    "wave2d-two-operands": lambda: api.compile(
+        P.wave("repro_torch", (20, 260), 4), api.Target(backend="cuda", device="cpu")
+    ).kernel_applies(),
+    "heat3d-ragged": lambda: _heat_apply((10, 11, 37), 4, 2),
+    "star1d": lambda: [ops.star_apply_ir({(-3,): 0.5, (0,): 1.0, (2,): 0.25}, (600,), (3,))[0]],
+}
+
+
+@pytest.mark.parametrize("name", sorted(K1_SLICE_CASES))
+def test_staged_slices_cover_exactly_the_access_extent(name):
+    """For every CTA of K1's grid, at the tile edges and at ragged result
+    shapes: each operand's staged rows are exactly the chunk's rows grown
+    by the operand's dim-0 extent, and its staged columns exactly the
+    accessed ones (the tile's valid columns grown by the access extent)
+    widened to whole copies — all inside the operand."""
+    for apply_op in K1_SLICE_CASES[name]():
+        apply_op, shapes, origins, rb = _k1_spec(apply_op)
+        src = emit_apply_cuda(apply_op, shapes, origins, rb)
+        plans = slice_plans(apply_op, shapes, origins, rb)
+        lifted = rb.rank == 1
+        n = (1,) + rb.shape if lifted else rb.shape
+        tile = SLICE_TILE[len(n)]
+        for k, plan in plans.items():
+            shape = (1,) + tuple(shapes[k]) if lifted else tuple(shapes[k])
+            lo, hi = apply_op.access_extents()[k]
+            lo, hi = ((0,) + lo, (0,) + hi) if lifted else (lo, hi)
+            assert plan.ext == tuple(h - l for l, h in zip(lo, hi))
+            assert f"if (q < rows + {plan.ext[0]})" in src
+            for z in range(0, n[0], CHUNK_ROWS):
+                rows = min(CHUNK_ROWS, n[0] - z)
+                first, end = z + plan.base[0], z + plan.base[0] + rows + plan.ext[0]
+                assert 0 <= first and end <= shape[0]
+            for u in range(0, n[-1], tile[-1]):
+                w = min(tile[-1], n[-1] - u)
+                got = _copied_columns(plan, u, w, shape[-1])
+                need = range(u + plan.base[-1], u + plan.base[-1] + w + plan.ext[-1])
+                assert set(need) <= got
+                widened = range(need.start - plan.shift,
+                                -(-need.stop // plan.width) * plan.width)
+                assert got == set(widened)
+            if len(n) == 3:
+                assert f"if (r < w1 + {plan.ext[1]} && l < w2 + {plan.shift + plan.ext[2]})" in src
+                for u in range(0, n[1], tile[0]):
+                    w = min(tile[0], n[1] - u)
+                    assert 0 <= u + plan.base[1] and u + plan.base[1] + w + plan.ext[1] <= shape[1]
 
 
 def test_window_outside_operand_is_refused():
@@ -194,8 +277,8 @@ def test_emitted_source_writes_every_result():
     step = api.compile(prog, api.Target(backend="cuda", device="cpu"))
     (apply_op,) = step.kernel_applies()
     src = _source(apply_op)
-    for needle in ("out0[p] =", "out1[p] =", "sqrtf(", "expf(", "fabsf(", ">= 0.0f) ?",
-                   "static_cast<float>(i0)"):
+    for needle in ("out0[o + 0LL] =", "out1[o + 0LL] =", "sqrtf(", "expf(", "fabsf(", ">= 0.0f) ?",
+                   "static_cast<float>(z + s + 0)"):
         assert needle in src, needle
 
 
