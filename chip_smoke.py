@@ -28,10 +28,8 @@ check raises and the script exits non-zero:
 6. kernel K2 (``stencil.fused_epoch``): bitwise against its plain version
    on the card, timed beside its bound and ``BEFORE_MS`` (heat 2D so2/4/8
    k=4 zero and periodic, wave so4 k=4, 3-D heat so4 k=2, a
-   ``stencil.index`` chain, explicit tiles against the default ones); 6c
-   times K2 against its persistent double-buffered variant in turns
-   (default, persistent, persistent, default), bitwise equal; 6b runs the
-   main path ``Target(backend="cuda", exchange_every=4, fused_epoch=True)``
+   ``stencil.index`` chain, explicit tiles against the default ones); 6b
+   runs the main path ``Target(backend="cuda", exchange_every=4, fused_epoch=True)``
    for heat and wave 16384² so4, one K2 launch and no K1 launch per epoch,
    bitwise against the unfused K1 route and the torch backend;
 7. the tests marked ``gpu`` (``pytest -m gpu``) on the same card.
@@ -259,10 +257,6 @@ def main() -> int:
         sources += [k1.emit_apply_cuda(*spec_of(a)) for a in compiled(op).kernel_applies()]
     n_k1 = len(dict.fromkeys(sources))
     sources += [k2.emit_epoch_cuda(fused_op, tile) for _, fused_op, tile in phase6]
-    # the persistent, double-buffered K2 variant, timed against the default
-    variants = [(name, fused_op) for name, fused_op, tile in phase6
-                if tile is None and ("so4" in name and "2d" in name and "zero" in name)]
-    sources += [k2.emit_epoch_cuda(fused_op, persistent=True) for _, fused_op in variants]
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
     k1.build(sources)
@@ -283,9 +277,6 @@ def main() -> int:
         resource_line(f"K1 {name}", source, "k1_apply_occupancy")
     for name, fused_op, tile in phase6:
         resource_line(f"K2 {name}", k2.emit_epoch_cuda(fused_op, tile), "k2_epoch_occupancy")
-    for name, fused_op in variants:
-        resource_line(f"K2 persistent {name}", k2.emit_epoch_cuda(fused_op, persistent=True),
-                      "k2_epoch_occupancy")
 
     # -- shared measurement helpers ----------------------------------------------
     def cuda_ms(fn, reps):
@@ -621,39 +612,6 @@ def main() -> int:
     log("  heat2d_so4 k=4: tile (32, 128) bitwise equal to the default tile")
     del tiled, a_out, b_out
     torch.cuda.empty_cache()
-
-    log("phase 6c: K2 default (one CTA a tile) vs its persistent double-buffered "
-        "variant, paired in turns default, persistent, persistent, default")
-    for name, fused_op in variants:
-        n_args = len(fused_op.operands) + len(fused_op.results) + 1
-        fns = {
-            "default": k1._launcher(k2.emit_epoch_cuda(fused_op), n_args, "k2_epoch_launch"),
-            "persistent": k1._launcher(k2.emit_epoch_cuda(fused_op, persistent=True), n_args,
-                                       "k2_epoch_launch"),
-        }
-        gen.manual_seed(SEED)
-        arrays = [torch.randn(a.type.bounds.shape, device=dev, generator=gen)
-                  for a in fused_op.body.args]
-        outs = {v: [torch.empty(r.type.bounds.shape, device=dev) for r in fused_op.results]
-                for v in fns}
-
-        def launch(v):
-            stream = torch.cuda.current_stream().cuda_stream
-            status = fns[v](*[a.data_ptr() for a in arrays],
-                            *[o.data_ptr() for o in outs[v]], stream)
-            check(status == 0, f"{name}: K2 {v} launch failed with CUDA error {status}")
-
-        times = {v: [] for v in fns}
-        for v in ("default", "persistent", "persistent", "default"):
-            times[v].append(cuda_ms(lambda: launch(v), 10))
-        torch.cuda.synchronize()
-        check(all(torch.equal(x, y) for x, y in zip(outs["default"], outs["persistent"])),
-              f"{name}: the persistent variant differs from the default K2")
-        plan = k2.plan_epoch(fused_op, None, persistent=True)
-        log(f"  {name}: default {times['default']} ms, persistent (tile {plan.tile}) "
-            f"{times['persistent']} ms, bitwise equal")
-        del arrays, outs
-        torch.cuda.empty_cache()
 
     log("phase 6b: fused main path, one K2 launch and no K1 launch per epoch")
     for name, op, kw in fused_cases:

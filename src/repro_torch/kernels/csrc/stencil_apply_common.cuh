@@ -42,15 +42,13 @@
 #define K1_CP_ASYNC_WAIT(n) asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory")
 
 // Launch ``kernel`` on a 1-D grid; opt in to more than 48 KB of dynamic
-// shared memory; CTAs of ``kernel`` that fit on one SM at once; SMs of
-// the current device.
+// shared memory; CTAs of ``kernel`` that fit on one SM at once.
 #define K1_LAUNCH(kernel, grid, block, smem, stream, ...) \
   kernel<<<(grid), (block), (smem), static_cast<cudaStream_t>(stream)>>>(__VA_ARGS__)
 #define K1_OPT_IN_SMEM(kernel, bytes) \
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (bytes))
 #define K1_OCCUPANCY(blocks, kernel, threads, smem) \
   cudaOccupancyMaxActiveBlocksPerMultiprocessor((blocks), kernel, (threads), (smem))
-#define K1_SM_COUNT(sms) k1::sm_count(sms)
 
 namespace k1 {
 
@@ -64,13 +62,6 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(kBytes)
                  : "memory");
   }
-}
-
-inline cudaError_t sm_count(int* sms) {
-  int device = 0;
-  const cudaError_t err = cudaGetDevice(&device);
-  return err != cudaSuccess ? err
-                            : cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
 // What a launcher returns: 0 on success, else the CUDA error code.

@@ -286,7 +286,7 @@ def tile_cost(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> float:
     return work / points
 
 
-def choose_tile(fused_op: stencil.FusedEpochOp, persistent: bool = False) -> tuple:
+def choose_tile(fused_op: stencil.FusedEpochOp) -> tuple:
     """The tile K2 takes by default, from every tile whose sides divide the
     core and stay within ``TILE_LIMIT``: those whose shared memory lets two
     CTAs share an SM (else those one CTA can hold, 227 KB), of those the
@@ -296,15 +296,14 @@ def choose_tile(fused_op: stencil.FusedEpochOp, persistent: bool = False) -> tup
     follow the choice: the kernel is built for the CTAs per SM that its
     shared memory allows (``__launch_bounds__``), so ptxas keeps each
     thread within 65,536 / (256 × CTAs) registers.  Raises if even one
-    point per tile needs more than 227 KB.  ``persistent``: for the
-    persistent variant's storage (see :func:`emit_epoch_cuda`)."""
+    point per tile needs more than 227 KB."""
     core = _core(fused_op)
     cands = [
         tuple(t) for t in itertools.product(*(
             _divisors_at_most(n, cap) for n, cap in zip(core.shape, TILE_LIMIT[core.rank])
         ))
     ]
-    smem = {t: _storage(fused_op, _plan(core, t), persistent).smem_bytes for t in cands}
+    smem = {t: _storage(fused_op, _plan(core, t)).smem_bytes for t in cands}
     pool = [t for t in cands if smem[t] <= SMEM_TWO_BLOCKS] or [
         t for t in cands if smem[t] <= SMEM_PER_BLOCK
     ]
@@ -328,16 +327,12 @@ def _plan(core: stencil.Bounds, tile: tuple) -> TilePlan:
     return TilePlan(core, tile, tuple(n // t for n, t in zip(core.shape, tile)))
 
 
-def plan_epoch(
-    fused_op: stencil.FusedEpochOp,
-    tile: Optional[Sequence[int]] = None,
-    persistent: bool = False,
-) -> TilePlan:
+def plan_epoch(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]] = None) -> TilePlan:
     """K2's tile plan for ``fused_op``: ``tile`` if given (it must divide
     the core and fit in 227 KB of shared memory), else :func:`choose_tile`."""
     core = _core(fused_op)
     if tile is None:
-        return _plan(core, choose_tile(fused_op, persistent))
+        return _plan(core, choose_tile(fused_op))
     tile = tuple(int(t) for t in tile)
     if len(tile) != core.rank or any(
         t < 1 or n % t for n, t in zip(core.shape, tile)
@@ -346,7 +341,7 @@ def plan_epoch(
             f"tile {tile} does not divide the epoch's core {core.shape}"
         )
     plan = _plan(core, tile)
-    need = _storage(fused_op, plan, persistent).smem_bytes
+    need = _storage(fused_op, plan).smem_bytes
     if need > SMEM_PER_BLOCK:
         raise ValueError(
             f"tile {tile} needs {need} bytes of shared memory, more than the "
@@ -367,7 +362,6 @@ class _Storage:
     slot_of: dict  # region value -> shared-memory buffer index
     direct: set    # escapes an apply writes straight to device memory
     slot_floats: list
-    alt_of: dict = dataclasses.field(default_factory=dict)  # operand -> its second window
 
     @property
     def smem_bytes(self) -> int:
@@ -383,12 +377,9 @@ class _Storage:
         return out
 
 
-def _storage(fused_op: stencil.FusedEpochOp, plan: TilePlan, persistent: bool = False) -> _Storage:
+def _storage(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> _Storage:
     """Give every region value held on chip a shared-memory buffer, reusing
-    a buffer once its value's last reader in the region has run.
-    ``persistent``: the operands' windows keep their buffers for the whole
-    tile, and each operand has a second one (``alt_of``) that the next
-    tile's window is loaded into meanwhile."""
+    a buffer once its value's last reader in the region has run."""
     ops = list(fused_op.body.ops[:-1])  # without the fused_yield
     escapes = set(_escapes(fused_op))
     last_use: dict = {}
@@ -421,7 +412,6 @@ def _storage(fused_op: stencil.FusedEpochOp, plan: TilePlan, persistent: bool = 
 
     for arg in fused_op.body.args:
         take(arg)
-    pinned = {st.slot_of[a] for a in fused_op.body.args} if persistent else set()
     for i, op in enumerate(ops):
         if isinstance(op, stencil.ApplyOp):
             for r in op.results:
@@ -441,13 +431,8 @@ def _storage(fused_op: stencil.FusedEpochOp, plan: TilePlan, persistent: bool = 
         live = {st.slot_of.get(r) for r in op.results if r in last_use}
         for v in [*op.operands, *op.results]:
             s = st.slot_of.get(v)
-            if (s is not None and last_use.get(v, -1) <= i and s not in live
-                    and s not in free and s not in pinned):
+            if s is not None and last_use.get(v, -1) <= i and s not in live and s not in free:
                 free.append(s)
-    if persistent:
-        for arg in fused_op.body.args:
-            st.alt_of[arg] = len(st.slot_floats)
-            st.slot_floats.append(floats(arg))
     return st
 
 
@@ -465,12 +450,11 @@ def _padded_columns(shape: tuple) -> int:
     return c if len(shape) == 1 else -(-c // 32) * 32
 
 
-def _global_index(shape: tuple, t: str = "t") -> str:
+def _global_index(shape: tuple) -> str:
     """Flat index into a device array of ``shape`` of window point ``i`` of
-    the tile whose origin is ``t0, t1, …``: a value's window starts at
-    array index ``t``."""
+    the current tile: a value's window starts at array index ``t``."""
     strides = _k1._strides(shape)
-    return " + ".join(f"({t}{d} + i{d}) * {st}LL" for d, st in enumerate(strides))
+    return " + ".join(f"(t{d} + i{d}) * {st}LL" for d, st in enumerate(strides))
 
 
 def _outside_owned(plan: TilePlan, bounds: stencil.Bounds) -> Optional[str]:
@@ -574,24 +558,17 @@ def emit_epoch_cuda(
     fused_op: stencil.FusedEpochOp,
     tile: Optional[Sequence[int]] = None,
     ptr_align: int = 16,
-    persistent: bool = False,
 ) -> str:
     """CUDA C++ source of K2 for one fused epoch at one tile: a
     ``__global__`` kernel with one CTA per tile, the C launcher
     ``k2_epoch_launch(in0, …, out0, …, stream) -> cudaError_t`` and the
     occupancy query ``k2_epoch_occupancy(int* ctas_per_sm)``.
     ``ptr_align`` is the alignment in bytes that every operand pointer
-    has; it bounds the width of the window copies.
-
-    ``persistent`` emits the variant measured against the default in
-    ``chip_smoke.py`` and not taken by the wrapper: as many CTAs as fit on
-    the card at once, each walking tiles ``blockIdx.x, + gridDim.x, …``
-    and loading the next tile's windows into a second set of buffers while
-    it computes the current one."""
+    has; it bounds the width of the window copies."""
     from repro_torch.core.lowering import keep_box
 
-    plan = plan_epoch(fused_op, tile, persistent)
-    st = _storage(fused_op, plan, persistent)
+    plan = plan_epoch(fused_op, tile)
+    st = _storage(fused_op, plan)
     offsets = st.offsets()
     rank = plan.core.rank
     args = list(fused_op.body.args)
@@ -603,11 +580,7 @@ def emit_epoch_cuda(
     def wshape(v) -> tuple:
         return plan.window_shape(v.type.bounds)
 
-    arg_index = {a: k for k, a in enumerate(args)}
-
     def buf(v) -> str:
-        if persistent and v in arg_index:
-            return f"w{arg_index[v]}"  # the current tile's window
         return f"s{st.slot_of[v]}"
 
     src = [
@@ -633,54 +606,46 @@ def emit_epoch_cuda(
     for s_, off in enumerate(offsets):
         src.append(f"  float* const s{s_} = smem + {off};")
 
-    def decode(var, g, t, indent="  ") -> list:
-        """A tile index into its index ``g`` along each dim and its
-        core-relative origin ``t`` (32-bit: a core extent fits; device
-        offsets are 64-bit)."""
-        lines = [f"{indent}int {g}blk = {var};"]
-        for d in reversed(range(rank)):
-            lines.append(f"{indent}const int {g}{d} = {g}blk % {plan.grid[d]};")
-            if d:
-                lines.append(f"{indent}{g}blk /= {plan.grid[d]};")
-        return lines + [f"{indent}const int {t}{d} = {g}{d} * {plan.tile[d]};" for d in range(rank)]
-
-    def window_loads(t, dst, indent="  ") -> list:
-        """Every operand's window of the tile at origin ``t``, device memory
-        -> shared memory buffer ``dst(k)``, by asynchronous copies."""
-        lines = []
-        for k, a in enumerate(args):
-            ow = wshape(a)
-            slots = [st.slot_of[a]] + ([st.alt_of[a]] if persistent else [])
-            v = min(copy_width(plan, a.type.bounds, offsets[x], ptr_align) for x in slots)
-            nv = ow[-1] // v
-            rows = 1
-            for w in ow[:-1]:
-                rows *= w
-            lines.append(f"{indent}// load in{k}: window {ow}, {4 * v}-byte copies")
-            lines.append(f"{indent}for (int q = threadIdx.x; q < {rows * nv}; q += kThreads) {{")
-            if rank == 1:
-                lines.append(f"{indent}  const int i0 = q * {v};")
-            else:
-                lines.append(f"{indent}  const int row = q / {nv};")
-                if rank == 2:
-                    lines.append(f"{indent}  const int i0 = row;")
-                else:
-                    lines.append(f"{indent}  const int i0 = row / {ow[1]};")
-                    lines.append(f"{indent}  const int i1 = row % {ow[1]};")
-                lines.append(f"{indent}  const int i{rank - 1} = q % {nv} * {v};")
-            lines.append(
-                f"{indent}  K1_CP_ASYNC({dst(k)} + q * {v}, "
-                f"in{k} + {_global_index(a.type.bounds.shape, t)}, {4 * v});"
-            )
-            lines.append(f"{indent}}}")
-        return lines
-
-    # this CTA's tile (each tile's, in the persistent variant's loop)
-    head = decode("tile" if persistent else "blockIdx.x", "g", "t")
+    # this CTA's tile: its index along each dim and its core-relative
+    # origin (32-bit: a core extent fits; device offsets are 64-bit)
+    src.append("  int blk = blockIdx.x;")
+    for d in reversed(range(rank)):
+        src.append(f"  const int g{d} = blk % {plan.grid[d]};")
+        if d:
+            src.append(f"  blk /= {plan.grid[d]};")
     for d in range(rank):
-        head.append(f"  const bool first{d} = g{d} == 0;")
-        head.append(f"  const bool last{d} = g{d} == {plan.grid[d] - 1};")
-        head.append(f"  (void)first{d}; (void)last{d};")
+        src.append(f"  const int t{d} = g{d} * {plan.tile[d]};")
+        src.append(f"  const bool first{d} = g{d} == 0;")
+        src.append(f"  const bool last{d} = g{d} == {plan.grid[d] - 1};")
+        src.append(f"  (void)first{d}; (void)last{d};")
+
+    # every operand's window, device memory -> shared memory, by
+    # asynchronous copies; one wait and one barrier for all of them
+    for k, a in enumerate(args):
+        ow = wshape(a)
+        v = copy_width(plan, a.type.bounds, offsets[st.slot_of[a]], ptr_align)
+        nv = ow[-1] // v
+        rows = 1
+        for w in ow[:-1]:
+            rows *= w
+        src.append(f"  // load in{k}: window {ow}, {4 * v}-byte copies")
+        src.append(f"  for (int q = threadIdx.x; q < {rows * nv}; q += kThreads) {{")
+        if rank == 1:
+            src.append(f"    const int i0 = q * {v};")
+        else:
+            src.append(f"    const int row = q / {nv};")
+            if rank == 2:
+                src.append("    const int i0 = row;")
+            else:
+                src.append(f"    const int i0 = row / {ow[1]};")
+                src.append(f"    const int i1 = row % {ow[1]};")
+            src.append(f"    const int i{rank - 1} = q % {nv} * {v};")
+        src.append(
+            f"    K1_CP_ASYNC({buf(a)} + q * {v}, "
+            f"in{k} + {_global_index(a.type.bounds.shape)}, {4 * v});"
+        )
+        src.append("  }")
+    src += ["  K1_CP_ASYNC_COMMIT();", "  K1_CP_ASYNC_WAIT(0);", "  __syncthreads();"]
 
     def keep_test(mask_op) -> Optional[str]:
         """C condition true where a boundary_mask keeps the point (None
@@ -717,14 +682,13 @@ def emit_epoch_cuda(
 
         return _walk(wshape(v), no_column, point, _outside_owned(plan, v.type.bounds))
 
-    body = []
     for n, op in enumerate(fused_op.body.ops[:-1]):
         if isinstance(op, stencil.ApplyOp):
             r0 = op.results[0]
             rb = r0.type.bounds
             rw = wshape(r0)
             mask = mask_of.get(op)
-            body.append(
+            src.append(
                 f"  // op {n}: stencil.apply, window {rw}"
                 + (f", then op {n + 1}'s mask" if mask is not None else "")
             )
@@ -780,50 +744,28 @@ def emit_epoch_cuda(
                 return _k1.emit_body(op, load, index, store, indent="      ")
 
             skip = _outside_owned(plan, rb) if r0 in st.direct else None
-            body += _walk(rw, column, point, skip)
+            src += _walk(rw, column, point, skip)
             for r in op.results:
                 if r in escapes and r not in st.direct:
-                    body.append(f"  // escape of op {n}")
-                    body += copy_out(r)
+                    src.append(f"  // escape of op {n}")
+                    src += copy_out(r)
         else:  # comm.boundary_mask
             x, r = op.temp, op.results[0]
             fused = any(m is op for m in mask_of.values())
             if not fused:
-                body.append(f"  // op {n}: comm.boundary_mask, keep {keep_box(op)}")
+                src.append(f"  // op {n}: comm.boundary_mask, keep {keep_box(op)}")
                 keep = keep_test(op)
                 if keep:
                     line = f"      {buf(r)}[p] = ({keep}) ? {buf(x)}[p] : 0.0f;"
-                    body += _walk(wshape(r), no_column, lambda j, line=line: [line])
+                    src += _walk(wshape(r), no_column, lambda j, line=line: [line])
                 elif st.slot_of[r] != st.slot_of[x]:
                     line = f"      {buf(r)}[p] = {buf(x)}[p];"
-                    body += _walk(wshape(r), no_column, lambda j, line=line: [line])
+                    src += _walk(wshape(r), no_column, lambda j, line=line: [line])
             if r in escapes:
-                body.append(f"  // escape of op {n}")
-                body += copy_out(r)
-    if not persistent:
-        # one wait and one barrier for all windows; nothing follows the last phase
-        src += head + window_loads("t", lambda k: buf(args[k]))
-        src += ["  K1_CP_ASYNC_COMMIT();", "  K1_CP_ASYNC_WAIT(0);", "  __syncthreads();"]
-        src += body[:-1] if body[-1] == "  __syncthreads();" else body
-    else:
-        # the current and the next window of every operand; the last
-        # phase's barrier frees the current one for the tile after next
-        for k, a in enumerate(args):
-            src.append(f"  float* w{k} = s{st.slot_of[a]};")
-            src.append(f"  float* n{k} = s{st.alt_of[a]};")
-        src += decode("blockIdx.x", "lg", "l")
-        src += window_loads("l", lambda k: f"w{k}")
-        src += ["  K1_CP_ASYNC_COMMIT();",
-                f"  for (int tile = blockIdx.x; tile < {plan.n_tiles}; tile += gridDim.x) {{"]
-        loop = head + ["  if (tile + gridDim.x < %d) {" % plan.n_tiles]
-        loop += decode("tile + gridDim.x", "ng", "nt", "    ")
-        loop += window_loads("nt", lambda k: f"n{k}", "    ") + ["  }"]
-        loop += ["  K1_CP_ASYNC_COMMIT();", "  K1_CP_ASYNC_WAIT(1);  // the current tile's windows",
-                 "  __syncthreads();"]
-        loop += body if body[-1] == "  __syncthreads();" else body + ["  __syncthreads();"]
-        for k in range(n_in):
-            loop += [f"  {{ float* const x = w{k}; w{k} = n{k}; n{k} = x; }}"]
-        src += ["  " + line for line in loop] + ["  }", "  K1_CP_ASYNC_WAIT(0);"]
+                src.append(f"  // escape of op {n}")
+                src += copy_out(r)
+    if src[-1] == "  __syncthreads();":
+        src.pop()  # nothing follows the last phase
     src += ["}", ""]
 
     c_params = [f"const void* in{k}" for k in range(n_in)] + [
@@ -840,18 +782,8 @@ def emit_epoch_cuda(
         ]
     src += [f"K1_EXPORT int {_LAUNCHER}(" + ", ".join(c_params + ["void* stream"]) + ") {"]
     src += opt_in
-    grid = f"{plan.n_tiles}u"
-    if persistent:  # the CTAs that fit on the card at once, at most one a tile
-        src += [
-            "  int ctas = 0, sms = 0;",
-            f"  int err = static_cast<int>(K1_OCCUPANCY(&ctas, k2_epoch, kThreads, {smem}));",
-            "  if (err == 0) err = static_cast<int>(K1_SM_COUNT(&sms));",
-            "  if (err != 0) return err;",
-            f"  const unsigned int grid = ctas * sms < {plan.n_tiles} ? ctas * sms : {plan.n_tiles};",
-        ]
-        grid = "grid"
     src += [
-        f"  K1_LAUNCH(k2_epoch, {grid}, kThreads, {smem}, stream,",
+        f"  K1_LAUNCH(k2_epoch, {plan.n_tiles}u, kThreads, {smem}, stream,",
         "            " + ", ".join(call_args) + ");",
         "  return k1::launch_status();",
         "}",

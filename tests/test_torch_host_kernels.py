@@ -54,7 +54,6 @@ HOST_HEADER = r"""// Host stand-in for the kernels' header stencil_apply_common.
 
 struct k1_host_index { unsigned int x; };
 static k1_host_index blockIdx = {0u};
-static k1_host_index gridDim = {1u};
 static const k1_host_index threadIdx = {0u};
 
 namespace k1_host {
@@ -84,11 +83,9 @@ inline float __int_as_float(unsigned int bits) {
 #define K1_CP_ASYNC_WAIT(n) ((void)0)
 #define K1_OPT_IN_SMEM(kernel, bytes) 0
 #define K1_OCCUPANCY(blocks, kernel, threads, smem) (*(blocks) = 1, 0)
-#define K1_SM_COUNT(sms) (*(sms) = 3, 0)  // a persistent grid of 3 CTAs
 #define K1_LAUNCH(kernel, grid, block, smem_bytes, stream, ...)                      \
   do {                                                                               \
-    gridDim.x = static_cast<unsigned int>(grid);                                     \
-    for (unsigned int b_ = 0; b_ < gridDim.x; ++b_) {                                \
+    for (unsigned int b_ = 0; b_ < static_cast<unsigned int>(grid); ++b_) {          \
       k1_host::smem.assign((smem_bytes) / 4 + 4, std::numeric_limits<float>::quiet_NaN()); \
       blockIdx.x = b_;                                                               \
       kernel(__VA_ARGS__);                                                           \
@@ -152,8 +149,6 @@ K2_CASES = {
     "index-chain-1d": (lambda: P.index_chain("repro_torch", (30,)), 1, (6,)),
     "heat3d-so4-k2": (lambda: P.heat("repro_torch", (12, 10, 16), 4), 2, (4, 5, 8)),
 }
-# the persistent variant (a grid of 3 CTAs here, each walking its tiles)
-K2_PERSISTENT_CASES = ("heat2d-so4-zero-k4", "wave2d-so4-k4", "heat3d-so4-k2")
 
 
 @pytest.fixture(scope="module")
@@ -182,8 +177,6 @@ def built(tmp_path_factory):
     for name, (prog, k, tile) in K2_CASES.items():
         op = _epoch(prog(), k)
         add(("k2", name), (op, tile), k2.emit_epoch_cuda(op, tile))
-        if name in K2_PERSISTENT_CASES:
-            add(("k2-persistent", name), (op, tile), k2.emit_epoch_cuda(op, tile, persistent=True))
     (heat,) = K1_CASES["heat2d-so4-zero"]()
     add(("k1", "unaligned"), heat, k1.emit_apply_cuda(*_spec(heat), ptr_align=4))
     op = _epoch(P.heat("repro_torch", (48, 40), 4), 4)
@@ -228,8 +221,8 @@ def _check_k1(built, name, offset=4):
             assert torch.equal(g, w)
 
 
-def _check_k2(built, name, offset=4, kernel="k2"):
-    for (op, tile), path in built[kernel, name]:
+def _check_k2(built, name, offset=4):
+    for (op, tile), path in built["k2", name]:
         arrays = _inputs([a.type.bounds.shape for a in op.body.args], seed=1, offset=offset)
         got = _run(path, "k2_epoch_launch", arrays, [r.type.bounds.shape for r in op.results])
         want = k2._emit_region(op, arrays, k2.region_masks(op, "cpu"), lambda v: v.type.bounds)
@@ -253,13 +246,6 @@ def test_k2_source_on_host_matches_plain_version(built, name):
     (edge tiles, ragged column chunks, fused masks), wave's overhang
     escape, ``stencil.index`` chains in 1-D and 2-D, and 3-D heat."""
     _check_k2(built, name)
-
-
-@pytest.mark.parametrize("name", K2_PERSISTENT_CASES)
-def test_k2_persistent_variant_on_host_matches_plain_version(built, name):
-    """The persistent variant (each CTA walks tiles, loading the next
-    tile's windows into its second buffers) is bitwise equal as well."""
-    _check_k2(built, name, kernel="k2-persistent")
 
 
 @pytest.mark.parametrize("kernel", ["k1", "k2"])
