@@ -68,12 +68,9 @@ BEFORE_MS = {
     "K1 heat2d_so4 16384x16384": 1.1109,
     "K1 heat2d_so8 16384x16384": 1.3936,
     "K1 heat3d_so4 1024^3": 5.1933,
-    "stencil_apply[heat2d_so2 16384x16384]": 1.0151,
-    "stencil_apply[heat2d_so4 16384x16384]": 1.1109,
-    "stencil_apply[heat2d_so8 16384x16384]": 1.3936,
-    "stencil_apply[heat3d_so4 1024x1024x1024]": 5.1933,
-    "stencil_apply[heat2d_so4 16384x16384 exchange_every=4]": 4.4862,
-    "stencil_apply[wave2d_so4 16384x16384]": 1.3133,
+    "K1 heat3d_so4 1024x1024x1024": 5.1933,
+    "K1 heat2d_so4 16384x16384 exchange_every=4": 4.4862,
+    "K1 wave2d_so4 16384x16384": 1.3133,
     "K2 heat2d_so2 16384x16384 k=4 zero": 1.5206,
     "K2 heat2d_so2 16384x16384 k=4 periodic": 1.4403,
     "K2 heat2d_so4 16384x16384 k=4 zero": 2.3762,
@@ -84,8 +81,8 @@ BEFORE_MS = {
     "K2 heat3d_so4 128^3 k=2 zero": 0.0378,
     "K2 heat2d_so4 16384x16384 k=4 zero, tile (32, 128)": 2.4673,
     "K2 heat3d_so4 128^3 k=2 zero, tile (8, 8, 32)": 0.0378,
-    "epoch_kernel[heat2d_so4 16384x16384 k=4 fused]": 2.3759,
-    "epoch_kernel[wave2d_so4 16384x16384 k=4 fused]": 3.5137,
+    "K2 heat2d_so4 16384x16384 k=4 fused": 2.3759,
+    "K2 wave2d_so4 16384x16384 k=4 fused": 3.5137,
 }
 
 
@@ -275,6 +272,10 @@ def main() -> int:
         "(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     for (name, _), source in zip(phase1, phase1_sources):
         resource_line(f"K1 {name}", source, "k1_apply_occupancy")
+    for name, op, kw in main_cases + [epoch_case, wave_case]:
+        for n, a in enumerate(compiled(op, **kw).kernel_applies()):
+            resource_line(f"K1 main path {name}, apply {n}", k1.emit_apply_cuda(*spec_of(a)),
+                          "k1_apply_occupancy")
     for name, fused_op, tile in phase6:
         resource_line(f"K2 {name}", k2.emit_epoch_cuda(fused_op, tile), "k2_epoch_occupancy")
 
@@ -376,7 +377,7 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if by == {"bytes"} else "operations",
             "library_ms": lib_ms if lib_ok else None,
-            "before_ms": BEFORE_MS.get(f"stencil_apply[{name}]"),
+            "before_ms": BEFORE_MS.get(f"K1 {name}"),
         }
         log(f"  K1 {name}: {ms:.4f} ms/launch-set, bound {bound_ms:.4f} ms ({rec['bound_by']}), "
             f"plain {plain_ms:.3f} ms, conv {rec['library_ms']}, max|err| {err}")
@@ -641,7 +642,7 @@ def main() -> int:
             "name": f"epoch_kernel[{name}]", "route": "cuda", "source": K2_SOURCE,
             "replaces": K2_REPLACES, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "before_ms": BEFORE_MS.get(f"epoch_kernel[{name}]"),
+            "library_ms": None, "before_ms": BEFORE_MS.get(f"K2 {name}"),
         })
         log(f"  K2 {name}: {ms:.4f} ms/launch, bound {b_ms:.4f} ms ({b_by}), "
             f"{100 * b_ms / ms:.1f} % of bound, plain {plain_ms:.3f} ms, "

@@ -70,7 +70,11 @@ is to read each operand once and write each escape once (heat so4 k=4 at
 16384²: 2.15 GB, 0.64 ms at 3.35 TB/s).  Here a tile re-reads its
 neighbours' halo and recomputes their frame overlap, and the loads and
 the sub-steps are phases separated by ``__syncthreads`` (the second CTA
-on an SM overlaps one's loads with the other's compute; no TMA yet).
+on an SM overlaps one's loads with the other's compute; no TMA yet).  A
+persistent variant that loads the next tile's windows while computing
+one was slower on the card (PERF.md, PR 14) and is not kept.  What
+bounds the kernel now is shared-memory traffic: the walk's loads, with
+the idle lanes of padded columns, take most of an epoch.
 
 Bitwise: the point function is emitted by K1's ``emit_body`` (one float32
 statement per IR op in body order, constants as bit patterns) and built
@@ -484,21 +488,6 @@ def copy_width(plan: TilePlan, bounds: stencil.Bounds, offset: int, ptr_align: i
     raise AssertionError("unreachable: one float always divides")
 
 
-def column_rows(apply_op: stencil.ApplyOp, rows: int) -> dict:
-    """The register-blocked column of one apply: ``{(operand, offset along
-    the minor dims): [row, …]}``, each row (relative to the column's first
-    point) loaded once into a register and read by every point of the
-    column's ``rows`` whose tap falls on it."""
-    taps: dict = {}
-    for x in apply_op.body.ops:
-        if isinstance(x, stencil.AccessOp):
-            taps.setdefault((x.temp.index, tuple(x.offset[1:])), set()).add(x.offset[0])
-    return {
-        key: sorted({j + o0 for j in range(rows) for o0 in s0})
-        for key, s0 in sorted(taps.items())
-    }
-
-
 def _walk(shape: tuple, column: Callable[[int], list], point: Callable[[int], list],
           skip: Optional[str] = None) -> list:
     """A loop over the points of a frame of ``shape`` (a value's window) in
@@ -603,9 +592,8 @@ def emit_epoch_cuda(
         + ", ".join(params) + ") {"
     )
     src.append("  K1_DYNAMIC_SMEM(smem);")
-    for s_, off in enumerate(offsets):
-        src.append(f"  float* const s{s_} = smem + {off};")
-
+    for s, off in enumerate(offsets):
+        src.append(f"  float* const s{s} = smem + {off};")
     # this CTA's tile: its index along each dim and its core-relative
     # origin (32-bit: a core extent fits; device offsets are 64-bit)
     src.append("  int blk = blockIdx.x;")
@@ -692,7 +680,7 @@ def emit_epoch_cuda(
                 f"  // op {n}: stencil.apply, window {rw}"
                 + (f", then op {n + 1}'s mask" if mask is not None else "")
             )
-            groups = column_rows(op, R_BY_RANK[rank])
+            groups = _k1.column_rows(op, R_BY_RANK[rank])
             names: dict = {}
 
             def column(a_last, op=op, rb=rb, groups=groups, names=names) -> list:

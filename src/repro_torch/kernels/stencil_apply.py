@@ -13,8 +13,9 @@ minor dims (256 columns in 2D, 8×32 of a plane in 3D; rank 1 runs as rank
 chunk in steps of 8 rows (1 in 1D).  Each accessed operand's
 slice at each row (the tile plus that operand's access extent) is staged
 by ``cp.async`` into a ring of shared-memory slices: those one step
-reads, two steps of prefetch, so copies run ahead of compute, and the
-step being refilled; one barrier a step hands slots back.  Each thread
+reads, two steps of prefetch (one where two would leave room for fewer
+than three CTAs an SM), so copies run ahead of compute, and the step
+being refilled; one barrier a step hands slots back.  Each thread
 owns one point of the tile, a column of the step's rows, and reads its
 taps from the ring, so no tap is re-read from L1/L2; the rows of taps
 that differ only along dim 0 are read once a step into registers
@@ -33,7 +34,10 @@ What bounds it on an H100: device-memory bytes.  Per call the least work
 is to read each operand once and write each result once (a few float32
 operations per byte, far below the card's balance point).  Each CTA
 re-reads its neighbours' halo columns and the chunk's halo rows (from L2
-mostly); shared-memory reads, one a tap, stay below the card's rate.
+mostly): a 3-D 8×32 tile stages 12×36-float slices for so4, 1.69× the
+tile.  With one shared-memory read a tap and one barrier a row the
+kernel was bound by shared memory at so8 (PERF.md, PR 14); the 8-row
+steps cut the reads to 5.5 a point for heat so4, 10 for so8.
 
 Build.  ``nvcc`` (found on ``PATH``, then under ``$CUDA_HOME/bin``, then
 ``/usr/local/cuda/bin``) compiles each generated source into
@@ -171,12 +175,30 @@ def emit_body(
     raise AssertionError("apply body missing stencil.return")
 
 
+def column_rows(apply_op: stencil.ApplyOp, rows: int, lifted: bool = False) -> dict:
+    """The register-blocked column of one apply, shared by K1 and K2:
+    ``{(operand, offset along the minor dims): [row, …]}``, each row
+    (relative to the column's first point) loaded once into a register and
+    read by every point of the column's ``rows`` whose tap falls on it.
+    ``lifted``: a rank-1 apply computed as rank 2 with one row."""
+    taps: dict = {}
+    for x in apply_op.body.ops:
+        if isinstance(x, stencil.AccessOp):
+            off = ((0,) + tuple(x.offset)) if lifted else tuple(x.offset)
+            taps.setdefault((x.temp.index, off[1:]), set()).add(off[0])
+    return {
+        key: sorted({j + o0 for j in range(rows) for o0 in s0})
+        for key, s0 in sorted(taps.items())
+    }
+
+
 SLICE_TILE = {2: (256,), 3: (8, 32)}  # points of the minor dims one CTA owns
 CHUNK_ROWS = 64  # dim-0 rows one CTA streams through
 # rows of its column a thread computes between two barriers (one step),
 # reading each dim-0 tap row once into a register; rank 1 has one row
 ROWS_PER_STEP = {1: 1, 2: 8, 3: 8}
 PREFETCH_STEPS = 2  # steps of slices in flight ahead of the step being computed
+RING_BUDGET = 233472 // 3 - 1024  # rings that leave room for three CTAs an SM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,7 +253,6 @@ def slice_plans(
     copies: down by ``shift``, up to a multiple of ``width``)."""
     shapes, origins, rb, ext = _lift(apply_op, operand_shapes, operand_origins, result_bounds)
     tile = SLICE_TILE[rb.rank]
-    _, depth = _ring(ext, ROWS_PER_STEP[result_bounds.rank])
     plans, offset = {}, 0
     for k in sorted(ext):
         lo, hi = ext[k]
@@ -244,20 +265,28 @@ def slice_plans(
         shift = base[-1] % width
         row = -(-(shift + tile[-1] + e[-1]) // width) * width
         floats = row * (tile[0] + e[1] if rb.rank == 3 else 1)
-        plans[k] = SlicePlan(base, e, width, shift, row, floats, offset)
-        offset += (depth * floats + 3) // 4 * 4
+        plans[k] = SlicePlan(base, e, width, shift, row, floats, 0)
+    _, _, depth = _ring(ext, ROWS_PER_STEP[result_bounds.rank], plans)
+    for k, p in plans.items():
+        plans[k] = dataclasses.replace(p, offset=offset)
+        offset += (depth * p.floats + 3) // 4 * 4
     return plans
 
 
-def _ring(ext: dict, rows_per_step: int) -> tuple:
-    """``(ahead, depth)``: the steps of slices past the current one that a
-    step reads (its rows grown by the largest dim-0 extent), and the
-    slices of each operand's ring, a multiple of ``rows_per_step``: those
-    the step reads, the ``PREFETCH_STEPS`` steps in flight and the step
-    being refilled."""
+def _ring(ext: dict, rows_per_step: int, plans: dict) -> tuple:
+    """``(ahead, prefetch, depth)``: the steps of slices past the current
+    one that a step reads (its rows grown by the largest dim-0 extent),
+    the steps in flight ahead of it (``PREFETCH_STEPS``, or one where the
+    rings would then leave room for fewer than three CTAs an SM, as for
+    3-D so8), and the slices of each operand's ring: those the step
+    reads, those in flight and the step being refilled."""
     e = max((hi[0] - lo[0] for lo, hi in ext.values()), default=0)
     ahead = (rows_per_step - 1 + e) // rows_per_step
-    return ahead, (ahead + PREFETCH_STEPS + 1) * rows_per_step
+    for prefetch in (PREFETCH_STEPS, 1):
+        depth = (ahead + prefetch + 1) * rows_per_step
+        if 4 * sum((depth * p.floats + 3) // 4 * 4 for p in plans.values()) <= RING_BUDGET:
+            break
+    return ahead, prefetch, depth
 
 
 def emit_apply_cuda(
@@ -281,7 +310,7 @@ def emit_apply_cuda(
     tile = SLICE_TILE[rank]
     plans = slice_plans(apply_op, operand_shapes, operand_origins, result_bounds, ptr_align)
     step = ROWS_PER_STEP[result_bounds.rank]
-    ahead, depth = _ring(ext, step)
+    ahead, prefetch, depth = _ring(ext, step, plans)
     grid = [-(-n[0] // CHUNK_ROWS)] + [-(-m // t) for m, t in zip(n[1:], tile)]
     n_ctas = 1
     for g in grid:
@@ -376,29 +405,22 @@ def emit_apply_cuda(
             ]
     src += ["    }", "  };"]
     src += [
-        f"  for (int g = 0; g < {ahead + PREFETCH_STEPS}; ++g) {{",
+        f"  for (int g = 0; g < {ahead + prefetch}; ++g) {{",
         "    stage(g);",
         "    K1_CP_ASYNC_COMMIT();",
         "  }",
         "  int base = 0;  // the ring slot of row s",
-        f"  for (int s = 0, g = {ahead + PREFETCH_STEPS}; s < rows; s += {step}, ++g) {{",
-        f"    K1_CP_ASYNC_WAIT({PREFETCH_STEPS - 1});  // this thread's copies of the step's slices",
+        f"  for (int s = 0, g = {ahead + prefetch}; s < rows; s += {step}, ++g) {{",
+        f"    K1_CP_ASYNC_WAIT({prefetch - 1});  // this thread's copies of the step's slices",
         "    __syncthreads();  // everyone's, and the previous step's slots are free again",
         "    stage(g);",
         "    K1_CP_ASYNC_COMMIT();",
     ]
     # the register-blocked column: every (operand, minor offset) of a tap
-    # reads each of its rows once for the step's rows
-    groups: dict = {}
-    for x in apply_op.body.ops:
-        if isinstance(x, stencil.AccessOp):
-            off = ((0,) + tuple(x.offset)) if lifted else tuple(x.offset)
-            groups.setdefault((x.temp.index, off[1:]), set()).add(off[0])
-    rows_of = {
-        key: sorted({j + o0 - ext[key[0]][0][0] for j in range(step) for o0 in s0})
-        for key, s0 in sorted(groups.items())
-    }
-    for r in sorted({r for rs in rows_of.values() for r in rs}):
+    # reads each of its rows once for the step's rows; row r of operand k
+    # sits in ring slot ``slot{r - lo0}``
+    groups = column_rows(apply_op, step, lifted)
+    for r in sorted({r - ext[k][0][0] for (k, _), rows in groups.items() for r in rows}):
         src.append(f"    const int slot{r} = base + {r} < {depth} ? base + {r} : base + {r - depth};")
     src.append(f"    for (int t = threadIdx.x; t < {n_threads}; t += kThreads) {{")
     if rank == 3:
@@ -410,11 +432,12 @@ def emit_apply_cuda(
         inner = f"c1 * {p.row} + c2 + {p.shift}" if rank == 3 else f"c1 + {p.shift}"
         src.append(f"      const int e{k} = {inner};")
     names = {}
-    for g, ((k, rest), rs) in enumerate(rows_of.items()):
+    for g, ((k, rest), rows) in enumerate(groups.items()):
         p, lo = plans[k], ext[k][0]
         flat = ((rest[0] - lo[1]) * p.row + rest[1] - lo[2]) if rank == 3 else rest[0] - lo[1]
-        for r in rs:
-            names[(k, rest, r)] = f"x{k}_{g}_{r}"
+        for row in rows:
+            r = row - lo[0]
+            names[(k, rest, row)] = f"x{k}_{g}_{r}"
             src.append(f"      const float x{k}_{g}_{r} = ring{k}[slot{r} * {p.floats} + e{k} + {flat}];")
     flat_out = " + ".join(
         [f"static_cast<int64_t>(z + s) * {rstr[0]}LL"]
@@ -424,7 +447,7 @@ def emit_apply_cuda(
     for j in range(step):
         def load(k, offset, j=j):
             off = ((0,) + tuple(offset)) if lifted else tuple(offset)
-            return names[(k, off[1:], j + off[0] - ext[k][0][0])]
+            return names[(k, off[1:], j + off[0])]
 
         def index(d, j=j):
             dd = d + 1 if lifted else d

@@ -29,6 +29,7 @@ from repro_torch.core.dialects import stencil
 from repro_torch.interop import state_from_numpy
 from repro_torch.kernels import dispatch_stats, reset_dispatch_stats
 from repro_torch.kernels import epoch_kernel as k2
+from repro_torch.kernels import stencil_apply as k1
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = dict(device="cpu")
@@ -524,7 +525,7 @@ def test_register_blocked_columns_stay_inside_their_windows(name):
     r = k2.R_BY_RANK[plan.core.rank]
     for apply_op, block in zip(applies, apply_blocks):
         fw = plan.window_shape(apply_op.results[0].type.bounds)
-        rows = k2.column_rows(apply_op, r)
+        rows = k1.column_rows(apply_op, r)
         base = {int(m[0]): m[1] for m in re.findall(r"const int b(\d+) = (.*);", block)}
         loads = re.findall(
             r"const float x(\d+)_(\d+)_(m?\d+) = (?:\(a < (-?\d+)\) \? )?s(\d+)\[b\d+ \+ (-?\d+)\]", block)

@@ -129,6 +129,7 @@ K1_CASES = {
     "wave2d-so4": lambda: _applies(P.wave("repro_torch", (40, 270), 4)),
     "index-chain": lambda: _applies(P.index_chain("repro_torch", (24, 20))),
     "heat3d-so4-ragged": lambda: _applies(P.heat("repro_torch", (70, 12, 40), 4), 2),
+    "heat3d-so8-one-step-prefetch": lambda: _applies(P.heat("repro_torch", (20, 9, 37), 8)),
     "box3d": lambda: [ops.star_apply_ir(
         {(i, j, k): 1.0 / 27.0 for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)},
         (9, 10, 35), (1, 1, 1))[0]],
@@ -155,7 +156,7 @@ K2_CASES = {
 def built(tmp_path_factory):
     """Every case's sources, compiled together: {(kernel, name): [(op,
     library path), ...]}.  Also one K1 and one K2 source generated for
-    operands only 4-byte aligned, under the names ``*-unaligned``."""
+    operands only 4-byte aligned, under the name ``unaligned``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not on PATH")
