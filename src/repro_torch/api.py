@@ -165,7 +165,7 @@ class Target:
     # with overlap (split frame applies cannot fuse into one kernel).
     fused_epoch: bool = False
     # K2's tile over the epoch's core (None: kernels/epoch_kernel.py
-    # choose_tile).  K1 runs one thread per point and ignores it.
+    # choose_tile).  K1 picks its own tile (stencil_apply.SLICE_TILE) and ignores it.
     tile: Optional[tuple] = None
     device: str = "cuda"
 
