@@ -60,9 +60,8 @@ REPLACES = "src/repro/kernels/stencil_apply.py:81"
 SOURCE = "src/repro_torch/kernels/stencil_apply.py"
 K2_REPLACES = "src/repro/kernels/epoch_kernel.py:117"
 K2_SOURCE = "src/repro_torch/kernels/epoch_kernel.py"
-# ms per launch before the Hopper redesign of K1 and K2 (PERF.md: K1 as
-# PR 11 run 4 measured it, unchanged through PR 13; K2 from PR 13 run 2),
-# NVIDIA H100 80GB HBM3 at 700 W; each record's "before_ms"
+# ms per launch of K1 and K2 before their redesign for Hopper, as PERF.md
+# records them (NVIDIA H100 80GB HBM3 at 700 W); each record's "before_ms"
 BEFORE_MS = {
     "K1 heat2d_so2 16384x16384": 1.0151,
     "K1 heat2d_so4 16384x16384": 1.1109,
@@ -405,7 +404,7 @@ def main() -> int:
         before = BEFORE_MS.get(f"K1 {name}")
         log(f"  {name}: bitwise, max|err| {err}, apply_launches {launches}, K1 {ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f} % of bound"
-            + (f", PR 13 {before} ms" if before else ""))
+            + (f", before the redesign {before} ms" if before else ""))
         del arrays
         torch.cuda.empty_cache()
 
@@ -600,7 +599,7 @@ def main() -> int:
         log(f"  {name}: bitwise, max|err| {err}, tile {plan.tile}, "
             f"{k2._storage(fused_op, plan).smem_bytes} B shared, K2 {ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f} % of bound, "
-            f"plain {plain_ms:.3f} ms" + (f", PR 13 {before} ms" if before else ""))
+            f"plain {plain_ms:.3f} ms" + (f", before the redesign {before} ms" if before else ""))
         if fused_op is phase6[2][1]:
             gen.manual_seed(SEED)
             arrays = [torch.randn(a.type.bounds.shape, device=dev, generator=gen)

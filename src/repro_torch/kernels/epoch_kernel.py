@@ -72,7 +72,7 @@ neighbours' halo and recomputes their frame overlap, and the loads and
 the sub-steps are phases separated by ``__syncthreads`` (the second CTA
 on an SM overlaps one's loads with the other's compute; no TMA yet).  A
 persistent variant that loads the next tile's windows while computing
-one was slower on the card (PERF.md, PR 14) and is not kept.  What
+one was slower on the card (PERF.md) and is not kept.  What
 bounds the kernel now is shared-memory traffic: the walk's loads, with
 the idle lanes of padded columns, take most of an epoch.
 

@@ -36,7 +36,7 @@ operations per byte, far below the card's balance point).  Each CTA
 re-reads its neighbours' halo columns and the chunk's halo rows (from L2
 mostly): a 3-D 8×32 tile stages 12×36-float slices for so4, 1.69× the
 tile.  With one shared-memory read a tap and one barrier a row the
-kernel was bound by shared memory at so8 (PERF.md, PR 14); the 8-row
+kernel was bound by shared memory at so8 (PERF.md); the 8-row
 steps cut the reads to 5.5 a point for heat so4, 10 for so8.
 
 Build.  ``nvcc`` (found on ``PATH``, then under ``$CUDA_HOME/bin``, then
