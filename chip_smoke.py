@@ -12,8 +12,10 @@ check raises and the script exits non-zero:
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 1. kernel K1 (``stencil.apply``) against its plain PyTorch version on the
    card, bitwise, and its time beside its bound and its time before the
-   Hopper redesign (``BEFORE_MS``): heat stars (so 2/4/8, 2D 16384², 3D
-   1024³), the wave apply, a random star and a 3-D box;
+   Hopper redesign (``BEFORE_MS``, copied from PERF.md, logged only): heat
+   stars (so 2/4/8, 2D 16384², 3D 1024³), the wave apply, a random star
+   and a 3-D box; then heat so4 on operands at storage offsets 1 and 2
+   (4- and 8-byte aligned pointers: the narrow-copy kernels);
 2. the main path at the paper's fig-7 sizes: heat 16384² (so 2/4/8) and
    1024³ (so 4), ``Operator(Eq(u.dt, 0.5*u.laplace))`` → ``Target(backend=
    "cuda")`` → 8 steps, bitwise against ``Target(backend="torch")``, K1
@@ -28,7 +30,10 @@ check raises and the script exits non-zero:
 6. kernel K2 (``stencil.fused_epoch``): bitwise against its plain version
    on the card, timed beside its bound and ``BEFORE_MS`` (heat 2D so2/4/8
    k=4 zero and periodic, wave so4 k=4, 3-D heat so4 k=2, a
-   ``stencil.index`` chain, explicit tiles against the default ones); 6b
+   ``stencil.index`` chain, explicit tiles against the default ones): CUDA
+   events around 10 launches, the K2 kernel's own device time
+   (``torch.profiler``) and the host's time to enqueue one call; heat so4
+   k=4 on operands at storage offsets 1 and 2; 6b
    runs the main path ``Target(backend="cuda", exchange_every=4, fused_epoch=True)``
    for heat and wave 16384² so4, one K2 launch and no K1 launch per epoch,
    bitwise against the unfused K1 route and the torch backend;
@@ -37,9 +42,8 @@ check raises and the script exits non-zero:
 The line before the last is ``{"kernels": [...]}``: per main-path case,
 the kernel's launches in that case's counted run, its time per launch,
 the plain version's time, the least time the card could take (bytes over
-3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger),
-its time before the redesign (``before_ms``) and, for single-operand
-linear applies, the time of ``F.conv2d``/``F.conv3d`` with the same star
+3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger)
+and, for single-operand linear applies, the time of ``F.conv2d``/``F.conv3d`` with the same star
 (a yardstick only; the port never calls it; no single PyTorch call
 computes a K2 epoch).  The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -60,16 +64,15 @@ REPLACES = "src/repro/kernels/stencil_apply.py:81"
 SOURCE = "src/repro_torch/kernels/stencil_apply.py"
 K2_REPLACES = "src/repro/kernels/epoch_kernel.py:117"
 K2_SOURCE = "src/repro_torch/kernels/epoch_kernel.py"
-# ms per launch of K1 and K2 before their redesign for Hopper, as PERF.md
-# records them (NVIDIA H100 80GB HBM3 at 700 W); each record's "before_ms"
+# ms per launch of K1 and K2 before their redesign for Hopper, copied from
+# PERF.md (NVIDIA H100 80GB HBM3 at 700 W): printed beside this run's times
+# in the log lines, never in the kernels line, which holds this run's numbers
 BEFORE_MS = {
     "K1 heat2d_so2 16384x16384": 1.0151,
     "K1 heat2d_so4 16384x16384": 1.1109,
     "K1 heat2d_so8 16384x16384": 1.3936,
     "K1 heat3d_so4 1024^3": 5.1933,
-    "K1 heat3d_so4 1024x1024x1024": 5.1933,
-    "K1 heat2d_so4 16384x16384 exchange_every=4": 4.4862,
-    "K1 wave2d_so4 16384x16384": 1.3133,
+    "K1 wave2d_so4 16384x16384 (program apply)": 1.3133,
     "K2 heat2d_so2 16384x16384 k=4 zero": 1.5206,
     "K2 heat2d_so2 16384x16384 k=4 periodic": 1.4403,
     "K2 heat2d_so4 16384x16384 k=4 zero": 2.3762,
@@ -80,8 +83,6 @@ BEFORE_MS = {
     "K2 heat3d_so4 128^3 k=2 zero": 0.0378,
     "K2 heat2d_so4 16384x16384 k=4 zero, tile (32, 128)": 2.4673,
     "K2 heat3d_so4 128^3 k=2 zero, tile (8, 8, 32)": 0.0378,
-    "K2 heat2d_so4 16384x16384 k=4 fused": 2.3759,
-    "K2 wave2d_so4 16384x16384 k=4 fused": 3.5137,
 }
 
 
@@ -246,13 +247,20 @@ def main() -> int:
         (f"box27 {n3}^3", star_spec(box, (n3,) * 3, (1, 1, 1))),
     ]
     phase1_sources = [k1.emit_apply_cuda(*s) for _, s in phase1]
-    sources = list(phase1_sources)
+    # operands at a storage offset of 1 and 2 floats: pointers only 4- and
+    # 8-byte aligned, which the wrappers meet with narrower cp.async copies
+    misaligned = [(1, 4), (2, 8)]  # (offset in floats, pointer alignment in bytes)
+    skewed_k1, skewed_k2 = phase1[1], phase6[2]  # heat2d_so4 16384², its k=4 zero epoch
+    skewed_sources = [k1.emit_apply_cuda(*skewed_k1[1], ptr_align=a) for _, a in misaligned]
+    skewed_sources += [k2.emit_epoch_cuda(skewed_k2[1], None, ptr_align=a) for _, a in misaligned]
+    sources = phase1_sources + skewed_sources[:2]
     for _, op, kw in main_cases + [epoch_case, wave_case]:
         sources += [k1.emit_apply_cuda(*spec_of(a)) for a in compiled(op, **kw).kernel_applies()]
     for _, op in small:
         sources += [k1.emit_apply_cuda(*spec_of(a)) for a in compiled(op).kernel_applies()]
     n_k1 = len(dict.fromkeys(sources))
     sources += [k2.emit_epoch_cuda(fused_op, tile) for _, fused_op, tile in phase6]
+    sources += skewed_sources[2:]
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
     k1.build(sources)
@@ -277,8 +285,18 @@ def main() -> int:
                           "k1_apply_occupancy")
     for name, fused_op, tile in phase6:
         resource_line(f"K2 {name}", k2.emit_epoch_cuda(fused_op, tile), "k2_epoch_occupancy")
+    for (_, align), src1, src2 in zip(misaligned, skewed_sources, skewed_sources[2:]):
+        resource_line(f"K1 {skewed_k1[0]}, {align}-byte pointers", src1, "k1_apply_occupancy")
+        resource_line(f"K2 {skewed_k2[0]}, {align}-byte pointers", src2, "k2_epoch_occupancy")
 
     # -- shared measurement helpers ----------------------------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(event):
+        us = getattr(event, "self_device_time_total", None)
+        return getattr(event, "self_cuda_time_total", 0) if us is None else us
+
     def cuda_ms(fn, reps):
         fn()
         torch.cuda.synchronize()
@@ -289,6 +307,34 @@ def main() -> int:
         b.record()
         b.synchronize()
         return a.elapsed_time(b) / reps
+
+    def kernel_ms(fn, reps, kernel):
+        """The device time per call of the kernel named ``kernel`` alone
+        (torch.profiler), and the host's time to enqueue one call (no call
+        waits for the card); None for the first where the trace does not
+        show ``reps`` launches of it."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        if sum(e.count for e in rows) != reps:
+            return None, host
+        return sum(device_us(e) for e in rows) / 1e3 / reps, host
+
+    def skewed(shape, offset):
+        """A random operand whose data starts ``offset`` floats into its
+        storage (a contiguous view; offset 0 is a plain allocation)."""
+        flat = torch.randn(_numel(shape) + offset, device=dev, generator=gen)
+        return flat[offset:].view(shape)
 
     arith = (ir.AddOp, ir.SubOp, ir.MulOp, ir.DivOp, ir.NegOp, ir.AbsOp, ir.SqrtOp,
              ir.ExpOp, ir.SelectGeZeroOp, stencil.IndexOp)
@@ -376,18 +422,20 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if by == {"bytes"} else "operations",
             "library_ms": lib_ms if lib_ok else None,
-            "before_ms": BEFORE_MS.get(f"K1 {name}"),
         }
         log(f"  K1 {name}: {ms:.4f} ms/launch-set, bound {bound_ms:.4f} ms ({rec['bound_by']}), "
             f"plain {plain_ms:.3f} ms, conv {rec['library_ms']}, max|err| {err}")
         return rec
 
     # -- phase 1: K1 against its plain version on the card -----------------------
-    log("phase 1: K1 vs plain version on the card (bitwise)")
-    for name, spec in phase1:
+    def k1_check(name, spec, offset=0, align=16):
+        """K1 against its plain version on the card, bitwise, on random
+        operands at storage offset ``offset`` (pointers ``align``-byte
+        aligned); timed beside its bound."""
         apply_op, shapes, origins, rb = spec
         gen.manual_seed(SEED)
-        arrays = [torch.randn(s, device=dev, generator=gen) for s in shapes]
+        arrays = [skewed(s, offset) for s in shapes]
+        check(k1.ptr_alignment(arrays) == align, f"{name}: pointers not {align}-byte aligned")
         reset_dispatch_stats()
         got = k1.run_apply_cuda(apply_op, arrays, origins, rb)
         torch.cuda.synchronize()
@@ -404,9 +452,16 @@ def main() -> int:
         before = BEFORE_MS.get(f"K1 {name}")
         log(f"  {name}: bitwise, max|err| {err}, apply_launches {launches}, K1 {ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f} % of bound"
-            + (f", before the redesign {before} ms" if before else ""))
+            + (f", before the redesign {before} ms (PERF.md)" if before else ""))
         del arrays
         torch.cuda.empty_cache()
+
+    log("phase 1: K1 vs plain version on the card (bitwise)")
+    for name, spec in phase1:
+        k1_check(name, spec)
+    for offset, align in misaligned:
+        name, spec = skewed_k1
+        k1_check(f"{name} at storage offset {offset} ({align}-byte pointers)", spec, offset, align)
 
     kernels = []
 
@@ -507,9 +562,6 @@ def main() -> int:
 
     # -- phase 5: where a step's device time goes ---------------------------
     log("phase 5: device time by kernel over 4 main-path steps (torch.profiler)")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for name, op, kw in (main_cases[1], main_cases[2], main_cases[3], fused_cases[0]):
         step = compiled(op, **kw)
         gen.manual_seed(SEED)
@@ -538,9 +590,7 @@ def main() -> int:
             # are no work of the program
             if e.device_type != DeviceType.CUDA or e.key == "Activity Buffer Request":
                 continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
+            us = device_us(e)
             if us > 0:
                 rows.append((us / 1e3, e.key, e.count))
         busy = sum(r[0] for r in rows)
@@ -564,12 +614,14 @@ def main() -> int:
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
-    def epoch_check(name, fused_op, tile):
+    def epoch_check(name, fused_op, tile, offset=0, align=16):
         """K2 against its plain version on the card, bitwise, on random
-        operands; returns (max |err|, K2 ms, plain ms)."""
+        operands at storage offset ``offset`` (pointers ``align``-byte
+        aligned); returns (max |err|, K2 ms, plain ms, K2's device ms by
+        the profiler, host ms to enqueue it)."""
         gen.manual_seed(SEED)
-        arrays = [torch.randn(a.type.bounds.shape, device=dev, generator=gen)
-                  for a in fused_op.body.args]
+        arrays = [skewed(a.type.bounds.shape, offset) for a in fused_op.body.args]
+        check(k1.ptr_alignment(arrays) == align, f"{name}: pointers not {align}-byte aligned")
         reset_dispatch_stats()
         got = k2.run_epoch_cuda(fused_op, arrays, None, tile=tile)
         torch.cuda.synchronize()
@@ -583,23 +635,27 @@ def main() -> int:
               f"{name}: K2 differs from its plain version (max |err| {err})")
         del got, want
         ms = cuda_ms(lambda: k2.run_epoch_cuda(fused_op, arrays, None, tile=tile), 10)
+        dev_ms, host_ms = kernel_ms(
+            lambda: k2.run_epoch_cuda(fused_op, arrays, None, tile=tile), 50, "k2_epoch")
         plain_ms = cuda_ms(
             lambda: k2._emit_region(fused_op, arrays, masks, lambda v: v.type.bounds), 2)
         del arrays, masks
         torch.cuda.empty_cache()
-        return err, ms, plain_ms
+        return err, ms, plain_ms, dev_ms, host_ms
 
     log("phase 6: K2 vs plain version on the card (bitwise)")
     tiled = {}
     for name, fused_op, tile in phase6:
         plan = k2.plan_epoch(fused_op, tile)
-        err, ms, plain_ms = epoch_check(name, fused_op, tile)
+        err, ms, plain_ms, dev_ms, host_ms = epoch_check(name, fused_op, tile)
         b_ms, b_by = epoch_bound(fused_op)
         before = BEFORE_MS.get(f"K2 {name}")
         log(f"  {name}: bitwise, max|err| {err}, tile {plan.tile}, "
             f"{k2._storage(fused_op, plan).smem_bytes} B shared, K2 {ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f} % of bound, "
-            f"plain {plain_ms:.3f} ms" + (f", before the redesign {before} ms" if before else ""))
+            f"device-only {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, "
+            f"host enqueue {host_ms:.4f} ms/call, plain {plain_ms:.3f} ms"
+            + (f", before the redesign {before} ms (PERF.md)" if before else ""))
         if fused_op is phase6[2][1]:
             gen.manual_seed(SEED)
             arrays = [torch.randn(a.type.bounds.shape, device=dev, generator=gen)
@@ -612,6 +668,12 @@ def main() -> int:
     log("  heat2d_so4 k=4: tile (32, 128) bitwise equal to the default tile")
     del tiled, a_out, b_out
     torch.cuda.empty_cache()
+    for offset, align in misaligned:
+        name, fused_op, _ = skewed_k2
+        err, ms, _, dev_ms, _ = epoch_check(name, fused_op, None, offset, align)
+        log(f"  {name} at storage offset {offset} ({align}-byte pointers): bitwise, "
+            f"K2 {ms:.4f} ms, device-only "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}")
 
     log("phase 6b: fused main path, one K2 launch and no K1 launch per epoch")
     for name, op, kw in fused_cases:
@@ -625,7 +687,7 @@ def main() -> int:
         del state, out, other
         torch.cuda.empty_cache()
         (fused_op,) = compiled(op, **kw).kernel_epochs()
-        err, ms, plain_ms = epoch_check(name, fused_op, None)
+        err, ms, plain_ms, _, _ = epoch_check(name, fused_op, None)
         b_ms, b_by = epoch_bound(fused_op)
         # beside it, the same epoch unfused: k K1 launches (no library call
         # computes an epoch)
@@ -641,7 +703,7 @@ def main() -> int:
             "name": f"epoch_kernel[{name}]", "route": "cuda", "source": K2_SOURCE,
             "replaces": K2_REPLACES, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "before_ms": BEFORE_MS.get(f"K2 {name}"),
+            "library_ms": None,
         })
         log(f"  K2 {name}: {ms:.4f} ms/launch, bound {b_ms:.4f} ms ({b_by}), "
             f"{100 * b_ms / ms:.1f} % of bound, plain {plain_ms:.3f} ms, "

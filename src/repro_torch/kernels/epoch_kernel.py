@@ -475,19 +475,6 @@ def _outside_owned(plan: TilePlan, bounds: stencil.Bounds) -> Optional[str]:
     return " || ".join(terms) or None
 
 
-def copy_width(plan: TilePlan, bounds: stencil.Bounds, offset: int, ptr_align: int) -> int:
-    """Floats per asynchronous copy of a window of a value of ``bounds``
-    into a buffer starting at float ``offset``: the widest of 4, 2 and 1
-    that divides the array's rows, the window's rows, the tile's minor
-    side (each window starts at a multiple of it), the buffer's offset and
-    the operand pointer's alignment ``ptr_align`` in bytes."""
-    rows = (bounds.shape[-1], plan.window_shape(bounds)[-1], plan.tile[-1], offset)
-    for v in (4, 2, 1):
-        if all(n % v == 0 for n in rows) and ptr_align % (4 * v) == 0:
-            return v
-    raise AssertionError("unreachable: one float always divides")
-
-
 def _walk(shape: tuple, column: Callable[[int], list], point: Callable[[int], list],
           skip: Optional[str] = None) -> list:
     """A loop over the points of a frame of ``shape`` (a value's window) in
@@ -611,7 +598,10 @@ def emit_epoch_cuda(
     # asynchronous copies; one wait and one barrier for all of them
     for k, a in enumerate(args):
         ow = wshape(a)
-        v = copy_width(plan, a.type.bounds, offsets[st.slot_of[a]], ptr_align)
+        # the array's rows, the window's rows, the tile's minor side (each
+        # window starts at a multiple of it) and the buffer's offset
+        v = _k1.copy_width((a.type.bounds.shape[-1], ow[-1], plan.tile[-1],
+                            offsets[st.slot_of[a]]), ptr_align)
         nv = ow[-1] // v
         rows = 1
         for w in ow[:-1]:

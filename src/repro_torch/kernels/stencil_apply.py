@@ -258,10 +258,7 @@ def slice_plans(
         lo, hi = ext[k]
         base = tuple(l + o - g for l, o, g in zip(rb.lb, lo, origins[k]))
         e = tuple(h - l for l, h in zip(lo, hi))
-        width = next(
-            v for v in (4, 2, 1)
-            if shapes[k][-1] % v == 0 and tile[-1] % v == 0 and ptr_align % (4 * v) == 0
-        )
+        width = copy_width((shapes[k][-1], tile[-1]), ptr_align)
         shift = base[-1] % width
         row = -(-(shift + tile[-1] + e[-1]) // width) * width
         floats = row * (tile[0] + e[1] if rb.rank == 3 else 1)
@@ -271,6 +268,17 @@ def slice_plans(
         plans[k] = dataclasses.replace(p, offset=offset)
         offset += (depth * p.floats + 3) // 4 * 4
     return plans
+
+
+def copy_width(lengths: Sequence[int], ptr_align: int) -> int:
+    """Floats per asynchronous copy, for K1's slices and K2's windows: the
+    widest of 4, 2 and 1 that divides every length in ``lengths`` (row
+    lengths and starts, in floats) and whose bytes the operand pointers'
+    alignment ``ptr_align`` (bytes) allows."""
+    return next(
+        v for v in (4, 2, 1)
+        if all(n % v == 0 for n in lengths) and ptr_align % (4 * v) == 0
+    )
 
 
 def _ring(ext: dict, rows_per_step: int, plans: dict) -> tuple:
