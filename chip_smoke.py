@@ -37,7 +37,24 @@ check raises and the script exits non-zero:
    runs the main path ``Target(backend="cuda", exchange_every=4, fused_epoch=True)``
    for heat and wave 16384² so4, one K2 launch and no K1 launch per epoch,
    bitwise against the unfused K1 route and the torch backend;
-7. the tests marked ``gpu`` (``pytest -m gpu``) on the same card.
+7. the tests marked ``gpu`` (``pytest -m gpu``) on the same card;
+8. distribution on this one card: four ranks on a 2x2 ``Mesh`` whose
+   devices are all this card (2x2x1 in 3-D), ``Target(mesh=..., strategy=
+   make_strategy_2d((2, 2)), backend="cuda")`` over 8 steps of heat 16384²
+   so4 (zero and periodic, each also with ``overlap=True``), heat with
+   ``exchange_every=4, fused_epoch=True`` (zero: each rank's K2 keeps
+   another box; periodic), wave fused and heat 1024³ so4, each bitwise
+   against the single-device cuda run, with K1 launches = ranks x applies
+   and K2 launches = ranks per epoch; ms/step over 4 ranks beside one
+   device (CUDA events on sharded state, three runs each in turns) and
+   the profiler split of the k=1, overlap and fused zero-BC heat cases;
+   the rank-local K2 against its plain version at each corner's box;
+9. fig-10 advection at 512³ (PW and tracer advection, recognized by the
+   psyclone-like frontend from the kernels of
+   ``benchmarks/fig10_advection.py``, copied below), zero and periodic:
+   backend cuda bitwise against torch, and over 2x2x1 ranks on this card
+   bitwise against one device; PW is one apply with three results, one
+   K1 launch per rank; ms per call.
 
 The line before the last is ``{"kernels": [...]}``: per main-path case,
 the kernel's launches in that case's counted run, its time per launch,
@@ -86,6 +103,32 @@ BEFORE_MS = {
 }
 
 
+# The fig-10 kernels of benchmarks/fig10_advection.py (PW advection and
+# tracer advection), read by the psyclone-like frontend from this source;
+# i, j, k are its loop indices and the functions never run.
+def pw_advection(u, v, w, su, sv, sw):
+    su[i, j, k] = 0.5 * (  # noqa: F821
+        u[i, j, k] * (v[i, j, k] + v[i + 1, j, k])  # noqa: F821
+        - u[i - 1, j, k] * (v[i - 1, j, k] + v[i, j, k])  # noqa: F821
+    )
+    sv[i, j, k] = 0.5 * (  # noqa: F821
+        v[i, j, k] * (w[i, j, k] + w[i, j + 1, k])  # noqa: F821
+        - v[i, j - 1, k] * (w[i, j - 1, k] + w[i, j, k])  # noqa: F821
+    )
+    sw[i, j, k] = 0.5 * (  # noqa: F821
+        w[i, j, k] * (u[i, j, k] + u[i, j, k + 1])  # noqa: F821
+        - w[i, j, k - 1] * (u[i, j, k - 1] + u[i, j, k])  # noqa: F821
+    )
+
+
+def tracer_advection(t, u, v, zwx, zwy, out):
+    zwx[i, j, k] = u[i, j, k] * (t[i + 1, j, k] - t[i, j, k])  # noqa: F821
+    zwy[i, j, k] = v[i, j, k] * (t[i, j + 1, k] - t[i, j, k])  # noqa: F821
+    out[i, j, k] = t[i, j, k] - 0.1 * (  # noqa: F821
+        zwx[i, j, k] - zwx[i - 1, j, k] + zwy[i, j, k] - zwy[i, j - 1, k]  # noqa: F821
+    )
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -109,6 +152,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
 
@@ -118,7 +162,10 @@ def main() -> int:
     from repro_torch.core.dialects import stencil
     from repro_torch.core.fd import laplacian_star, radius
     from repro_torch.core.lowering import eval_apply_body
+    from repro_torch.core.passes.decompose import make_strategy_2d, make_strategy_3d
+    from repro_torch.dist import Mesh
     from repro_torch.frontends.devito_like import Eq, Grid, Operator, TimeFunction
+    from repro_torch.frontends.psyclone_like import recognize
     from repro_torch.kernels import dispatch_stats, ops, ref, reset_dispatch_stats
     from repro_torch.kernels import epoch_kernel as k2
     from repro_torch.kernels import stencil_apply as k1
@@ -221,6 +268,30 @@ def main() -> int:
         (f"wave2d_so4 {n2}x{n2} k=4 fused", wave_case[1], fused),
     ]
 
+    # phase 8: four ranks on this one card, a 2x2 mesh (2x2x1 in 3-D)
+    on_2x2 = {"mesh": Mesh([[dev, dev], [dev, dev]], ("x", "y")),
+              "strategy": make_strategy_2d((2, 2))}
+    on_2x2x1 = {"mesh": Mesh([[[dev], [dev]], [[dev], [dev]]], ("x", "y", "z")),
+                "strategy": make_strategy_3d((2, 2, 1))}
+    heat_periodic = heat_periodic_op((n2, n2), 4)
+    dist_cases = [  # (name, op, target kwargs, the mesh's kwargs)
+        (f"heat2d_so4 {n2}x{n2} zero, 2x2 ranks", main_cases[1][1], {}, on_2x2),
+        (f"heat2d_so4 {n2}x{n2} periodic, 2x2 ranks", heat_periodic, {}, on_2x2),
+        (f"heat2d_so4 {n2}x{n2} zero overlap, 2x2 ranks", main_cases[1][1],
+         {"overlap": True}, on_2x2),
+        (f"heat2d_so4 {n2}x{n2} periodic overlap, 2x2 ranks", heat_periodic,
+         {"overlap": True}, on_2x2),
+        (f"heat2d_so4 {n2}x{n2} k=4 fused zero, 2x2 ranks", main_cases[1][1], fused, on_2x2),
+        (f"heat2d_so4 {n2}x{n2} k=4 fused periodic, 2x2 ranks", heat_periodic, fused, on_2x2),
+        (f"wave2d_so4 {n2}x{n2} k=4 fused, 2x2 ranks", wave_case[1], fused, on_2x2),
+        (f"heat3d_so4 {n3}x{n3}x{n3}, 2x2x1 ranks", main_cases[3][1], {}, on_2x2x1),
+    ]
+    profiled = {dist_cases[0][0], dist_cases[2][0], dist_cases[4][0]}  # k=1, overlap, fused
+    # phase 9: fig-10 advection, recognized by the psyclone-like frontend
+    n_adv = 512
+    adv_cases = [(f"{kern.__name__} {n_adv}^3 {bc}", recognize(kern, (n_adv,) * 3, boundary=bc))
+                 for kern in (pw_advection, tracer_advection) for bc in ("zero", "periodic")]
+
     def epoch_of(op, k):
         (fused_op,) = compiled(op, exchange_every=k, fused_epoch=True).kernel_epochs()
         return fused_op
@@ -258,8 +329,18 @@ def main() -> int:
         sources += [k1.emit_apply_cuda(*spec_of(a)) for a in compiled(op, **kw).kernel_applies()]
     for _, op in small:
         sources += [k1.emit_apply_cuda(*spec_of(a)) for a in compiled(op).kernel_applies()]
-    n_k1 = len(dict.fromkeys(sources))
+    for _, op, kw, mesh_kw in dist_cases:
+        sources += [k1.emit_apply_cuda(*spec_of(a))
+                    for a in compiled(op, **kw, **mesh_kw).kernel_applies()]
+    for _, prog in adv_cases:
+        for mesh_kw in ({}, on_2x2x1):
+            sources += [k1.emit_apply_cuda(*spec_of(a))
+                        for a in compiled(prog, **mesh_kw).kernel_applies()]
+    sources = list(dict.fromkeys(sources))
+    n_k1 = len(sources)
     sources += [k2.emit_epoch_cuda(fused_op, tile) for _, fused_op, tile in phase6]
+    for _, op, kw, mesh_kw in dist_cases:
+        sources += [k2.emit_epoch_cuda(e) for e in compiled(op, **kw, **mesh_kw).kernel_epochs()]
     sources += skewed_sources[2:]
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
@@ -469,9 +550,11 @@ def main() -> int:
         """The counted main-path run: Operator.apply through Target(backend=
         "cuda"), counts zeroed just before and read just after; every K1
         and K2 launch the compiled epoch names must happen, and no other.
-        Returns the launches of the case's kernel (K2 where it has epochs)."""
+        Over a mesh every rank launches them.  Returns the launches of the
+        case's kernel (K2 where it has epochs)."""
         prog = op.program
         step = compiled(op, **kw)
+        ranks = step.target.spatial_ranks if step.target.distributed else 1
         gen.manual_seed(SEED)
         state = tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
                       for f in prog.input_fields)
@@ -489,8 +572,8 @@ def main() -> int:
         epochs = step.epochs(STEPS)
         for what, got_, per in (("K1", k1_launches, len(step.kernel_applies())),
                                 ("K2", k2_launches, len(step.kernel_epochs()))):
-            check(got_ == epochs * per,
-                  f"{name}: {got_} {what} launches, expected {epochs * per}")
+            check(got_ == ranks * epochs * per,
+                  f"{name}: {got_} {what} launches, expected {ranks * epochs * per}")
         sec = a.elapsed_time(b) / 1e3
         points = _numel(prog.field_args[0].type.bounds.shape)
         log(f"  {name}: {STEPS} steps, {sec / STEPS * 1e3:.3f} ms/step, "
@@ -561,18 +644,23 @@ def main() -> int:
     kernels.append(kernel_record(name, specs, launches))
 
     # -- phase 5: where a step's device time goes ---------------------------
-    log("phase 5: device time by kernel over 4 main-path steps (torch.profiler)")
-    for name, op, kw in (main_cases[1], main_cases[2], main_cases[3], fused_cases[0]):
-        step = compiled(op, **kw)
-        gen.manual_seed(SEED)
-        state = tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
-                      for f in op.program.input_fields)
-        step.advance(state)
+    def run_steps(step, state, n):
+        """Enqueue ``n`` steps as epochs of ``advance`` on the state as the
+        artifact keeps it between epochs (sharded over a mesh)."""
+        for _ in range(step.epochs(n)):
+            state = step.advance(state)
+        return state
+
+    def where_time_goes(name, step, state):
+        """Host time to enqueue a step, untraced wall time, and the device
+        time by kernel and busy share over 4 steps (torch.profiler), after
+        a warm-up epoch."""
+        state = step.advance(step.shard_state(state))
         torch.cuda.synchronize()
         # host clock: the time to enqueue 8 steps (nothing in the cuda
         # route waits for the card), then the wall time until they finish
         t0 = time.perf_counter()
-        step.time_loop(state, STEPS)
+        run_steps(step, state, STEPS)
         t_host = time.perf_counter() - t0
         torch.cuda.synchronize()
         t_wall = time.perf_counter() - t0
@@ -580,7 +668,7 @@ def main() -> int:
             f"untraced wall {t_wall / STEPS * 1e3:.3f} ms/step")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            step.time_loop(state, 4)
+            run_steps(step, state, 4)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         rows = []
@@ -598,6 +686,13 @@ def main() -> int:
             f"{busy / 4:.3f} ms/step ({100 * busy / wall_ms:.1f} % of wall)")
         for ms_, key, count in sorted(rows, reverse=True)[:8]:
             log(f"    {ms_ / 4:8.3f} ms/step  {count // 4:3d}/step  {key[:90]}")
+
+    log("phase 5: device time by kernel over 4 main-path steps (torch.profiler)")
+    for name, op, kw in (main_cases[1], main_cases[2], main_cases[3], fused_cases[0]):
+        gen.manual_seed(SEED)
+        state = tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
+                      for f in op.program.input_fields)
+        where_time_goes(name, compiled(op, **kw), state)
         del state
         torch.cuda.empty_cache()
 
@@ -614,29 +709,33 @@ def main() -> int:
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
-    def epoch_check(name, fused_op, tile, offset=0, align=16):
+    def epoch_check(name, fused_op, tile, offset=0, align=16, corners=({},)):
         """K2 against its plain version on the card, bitwise, on random
         operands at storage offset ``offset`` (pointers ``align``-byte
-        aligned); returns (max |err|, K2 ms, plain ms, K2's device ms by
-        the profiler, host ms to enqueue it)."""
+        aligned), at each mesh coordinate of ``corners`` (its box by launch
+        arguments; the plain version's masks built at it); returns (max
+        |err|, K2 ms, plain ms, K2's device ms by the profiler, host ms to
+        enqueue it), timed at the last coordinate."""
         gen.manual_seed(SEED)
         arrays = [skewed(a.type.bounds.shape, offset) for a in fused_op.body.args]
         check(k1.ptr_alignment(arrays) == align, f"{name}: pointers not {align}-byte aligned")
-        reset_dispatch_stats()
-        got = k2.run_epoch_cuda(fused_op, arrays, None, tile=tile)
-        torch.cuda.synchronize()
-        launches = dispatch_stats().fused_epoch_launches
-        check(launches == 1, f"{name}: {launches} K2 launches, expected 1")
-        masks = k2.region_masks(fused_op, dev)
-        want = k2._emit_region(fused_op, arrays, masks, lambda v: v.type.bounds)
-        torch.cuda.synchronize()
-        err = max(float((g_ - w_).abs().max()) for g_, w_ in zip(got, want))
-        check(len(got) == len(want) and all(torch.equal(g_, w_) for g_, w_ in zip(got, want)),
-              f"{name}: K2 differs from its plain version (max |err| {err})")
-        del got, want
-        ms = cuda_ms(lambda: k2.run_epoch_cuda(fused_op, arrays, None, tile=tile), 10)
+        err = 0.0
+        for at in corners:
+            reset_dispatch_stats()
+            got = k2.run_epoch_cuda(fused_op, arrays, None, tile=tile, coords=at)
+            torch.cuda.synchronize()
+            launches = dispatch_stats().fused_epoch_launches
+            check(launches == 1, f"{name}: {launches} K2 launches, expected 1")
+            masks = k2.region_masks(fused_op, dev, at)
+            want = k2._emit_region(fused_op, arrays, masks, lambda v: v.type.bounds)
+            torch.cuda.synchronize()
+            err = max([err] + [float((g_ - w_).abs().max()) for g_, w_ in zip(got, want)])
+            check(len(got) == len(want) and all(torch.equal(g_, w_) for g_, w_ in zip(got, want)),
+                  f"{name} at {at}: K2 differs from its plain version (max |err| {err})")
+            del got, want
+        ms = cuda_ms(lambda: k2.run_epoch_cuda(fused_op, arrays, None, tile=tile, coords=at), 10)
         dev_ms, host_ms = kernel_ms(
-            lambda: k2.run_epoch_cuda(fused_op, arrays, None, tile=tile), 50, "k2_epoch")
+            lambda: k2.run_epoch_cuda(fused_op, arrays, None, tile=tile, coords=at), 50, "k2_epoch")
         plain_ms = cuda_ms(
             lambda: k2._emit_region(fused_op, arrays, masks, lambda v: v.type.bounds), 2)
         del arrays, masks
@@ -721,6 +820,104 @@ def main() -> int:
     log("  " + (run.stdout.strip().splitlines() or ["(no output)"])[-1])
     check(run.returncode == 0, f"the gpu-marked tests failed:\n{run.stdout[-3000:]}{run.stderr[-2000:]}")
 
+    # -- phase 8: distribution, four ranks on this one card ---------------------
+    def ms_per_step(step, state):
+        """ms per step of ``advance`` epochs on the state as the artifact
+        keeps it (sharded over a mesh: no shard or gather inside), by CUDA
+        events after a warm-up epoch."""
+        state = step.advance(step.shard_state(state))
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run_steps(step, state, STEPS)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / STEPS
+
+    log("phase 8: distribution, 4 ranks on one card (2x2 mesh, 2x2x1 in 3-D), "
+        "bitwise against the single-device cuda run")
+    corners = [{"x": x, "y": y} for x in (0, 1) for y in (0, 1)]
+    for name, op, kw, mesh_kw in dist_cases:
+        state, out, launches, specs = drive(name, op, {**kw, **mesh_kw})
+        one = op.apply(state, timesteps=STEPS, target=Target(backend="cuda", **kw))
+        same(name, out, one, "the single-device cuda run")
+        del out, one
+        torch.cuda.empty_cache()
+        dist_step, one_step = compiled(op, **kw, **mesh_kw), compiled(op, **kw)
+        times = {dist_step: [], one_step: []}
+        # three rounds in turns (4 ranks, one device, one device, 4 ranks, ...):
+        # a step's time follows the shared host, so one pair says little
+        for step in [dist_step, one_step, one_step, dist_step, dist_step, one_step]:
+            times[step].append(ms_per_step(step, state))
+            torch.cuda.empty_cache()
+        (d_lo, d_ms, d_hi), (s_lo, s_ms, s_hi) = (sorted(times[dist_step]), sorted(times[one_step]))
+        log(f"  {name}: {d_ms:.3f} [{d_lo:.3f}-{d_hi:.3f}] ms/step over 4 ranks, "
+            f"{s_ms:.3f} [{s_lo:.3f}-{s_hi:.3f}] ms/step on one device (CUDA events on the "
+            f"sharded state, median [min-max] of 3 runs of {STEPS} steps in turns)")
+        if name in profiled:
+            where_time_goes(name, dist_step, state)
+        del state
+        torch.cuda.empty_cache()
+        if not dist_step.kernel_epochs():
+            kernels.append(kernel_record(name, specs, launches))
+            continue
+        (fused_op,) = dist_step.kernel_epochs()
+        err, ms, plain_ms, dev_ms, _ = epoch_check(name, fused_op, None, corners=corners)
+        b_ms, b_by = epoch_bound(fused_op)
+        kernels.append({
+            "name": f"epoch_kernel[{name}]", "route": "cuda", "source": K2_SOURCE,
+            "replaces": K2_REPLACES, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+        log(f"  K2 {name}: bitwise at each corner's box, {ms:.4f} ms/launch, bound "
+            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f} % of bound, device-only "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, "
+            f"plain {plain_ms:.3f} ms, max|err| {err}")
+
+    # -- phase 9: fig-10 advection ------------------------------------------------
+    log(f"phase 9: fig-10 advection at {n_adv}^3 (psyclone-like frontend), cuda vs torch "
+        "and 2x2x1 ranks vs one device, bitwise")
+    for name, prog in adv_cases:
+        one, dist = compiled(prog), compiled(prog, **on_2x2x1)
+        applies = one.kernel_applies()
+        if name.startswith("pw_advection"):
+            check(len(applies) == 1 and len(applies[0].results) == 3,
+                  f"{name}: PW advection did not fuse to one apply with three results")
+        gen.manual_seed(SEED)
+        args = [torch.randn(f.type.bounds.shape, device=dev, generator=gen)
+                for f in prog.field_args]
+        outs, launches = {}, {}
+        for label, step, ranks in (("one device", one, 1), ("2x2x1 ranks", dist, 4)):
+            step(*args)  # warm-up: loads the built kernels
+            torch.cuda.synchronize()
+            reset_dispatch_stats()
+            outs[label] = step(*args)
+            torch.cuda.synchronize()
+            launches[label] = dispatch_stats().apply_launches
+            check(launches[label] == ranks * len(applies), f"{name}, {label}: "
+                  f"{launches[label]} K1 launches, expected {ranks * len(applies)}")
+        got = outs["one device"]
+        for t in got:
+            check(tuple(t.shape) == (n_adv,) * 3 and bool(torch.isfinite(t).all()),
+                  f"{name}: shape or non-finite values")
+        same(name, got, api.compile(prog, Target(backend="torch"))(*args),
+             "Target(backend='torch')")
+        same(f"{name}, 2x2x1 ranks", outs["2x2x1 ranks"], got, "the single-device cuda run")
+        del outs, got
+        torch.cuda.empty_cache()
+        one_ms, dist_ms = cuda_ms(lambda: one(*args), 3), cuda_ms(lambda: dist(*args), 3)
+        log(f"  {name}: {one_ms:.3f} ms/call on one device, {dist_ms:.3f} ms/call over "
+            f"4 ranks (global tensors in and out: shard and gather included), "
+            f"{len(applies)} apply/call ({', '.join(str(len(a.results)) for a in applies)} results)")
+        del args
+        torch.cuda.empty_cache()
+        kernels.append(kernel_record(name, [spec_of(a) for a in applies], launches["one device"]))
+        kernels.append(kernel_record(f"{name}, 2x2x1 ranks",
+                                     [spec_of(a) for a in dist.kernel_applies()],
+                                     launches["2x2x1 ranks"]))
+
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

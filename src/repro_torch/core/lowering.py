@@ -12,9 +12,14 @@ share the body evaluator:
   ``stencil.fused_epoch`` to kernel K2 of ``kernels/epoch_kernel.py``;
   thin boundary frames stay on the evaluator.
 
-Halo exchanges run on one device only in this package: every grid axis
-has size 1, so ``comm.exchange_start`` emulates the exchange locally
-(the patch itself for periodic wrap, zeros for zero BC) and
+Halo exchanges: on one device every grid axis has size 1, so
+``comm.exchange_start`` emulates the exchange locally (the patch itself
+for periodic wrap, zeros for zero BC).  Over a mesh of ranks
+(``StencilInterpreter.run_ranks``) one host thread runs each op on every
+rank before the next, as ``lax.ppermute`` inside ``shard_map`` does:
+``comm.exchange_start`` copies every rank's send rectangle to the rank
+``comm.permute_pairs`` names (zeros where none sends), and
+``comm.boundary_mask`` keeps the box of the rank's mesh coordinate.
 ``comm.wait`` inserts the patches.
 
 Tensors are never written in place unless this interpreter allocated
@@ -23,7 +28,9 @@ caller's tensor is never written.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+import dataclasses
+import math
+from typing import Any, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -119,9 +126,11 @@ def eval_apply_body(
             view = [1] * len(shape)
             view[d] = shape[d]
             io = torch.arange(shape[d], dtype=f32, device=device).reshape(view)
-            env[res] = io + torch.tensor(rb.lb[d], dtype=f32, device=device)
+            env[res] = io + torch.full((), rb.lb[d], dtype=f32, device=device)
         elif isinstance(op, ir.ConstantOp):
-            env[res] = torch.tensor(op.value, dtype=f32, device=device)
+            # a fill on the device: torch.tensor would copy from pageable
+            # host memory, which waits for the stream to drain
+            env[res] = torch.full((), op.value, dtype=f32, device=device)
         elif type(op) in _BINARY:
             a, b = (env[o] for o in op.operands)
             env[res] = _BINARY[type(op)](a, b)
@@ -177,19 +186,23 @@ def _pad_with_bc(x, lo: tuple, hi: tuple, grid: dmp.GridAttr, boundary: str):
 
 
 # --------------------------------------------------------------------------
-# Boundary masks (comm.boundary_mask on one device)
+# Boundary masks (comm.boundary_mask at a rank's mesh coordinate)
 # --------------------------------------------------------------------------
 
 
-def keep_box(op: comm.BoundaryMaskOp) -> dict:
+def keep_box(op: comm.BoundaryMaskOp, coords: Optional[Mapping[str, int]] = None) -> dict:
     """The box a ``comm.boundary_mask`` keeps, as ``{dim: (lo, hi)}`` in
-    logical coordinates (points with ``lo <= x < hi`` are inside the
-    physical global domain), for each dim along which the masked value
-    reaches outside the core; every point is kept along the other dims.
-    One device: this rank's grid coordinate is 0 on every axis."""
+    the rank's local logical coordinates (points with ``lo <= x < hi`` are
+    inside the physical global domain), for each dim along which the
+    masked value reaches outside the core; every point is kept along the
+    other dims.  ``coords`` maps a mesh axis name to this rank's
+    coordinate along it (0 for every axis by default, as on one device):
+    along a dim split ``g`` ways into cores of ``n``, the rank at
+    coordinate ``c`` keeps ``[core.lb - c*n, core.lb - c*n + g*n)``."""
     vb: stencil.Bounds = op.temp.type.bounds
     core: stencil.Bounds = op.core
     grid: dmp.GridAttr = op.grid
+    coords = coords or {}
     box = {}
     for d in range(vb.rank):
         if core.lb[d] <= vb.lb[d] and vb.ub[d] <= core.ub[d]:
@@ -197,16 +210,20 @@ def keep_box(op: comm.BoundaryMaskOp) -> dict:
         gax = grid.axis_of_dim(d)
         n = core.ub[d] - core.lb[d]
         grid_extent = grid.shape[gax] if gax is not None else 1
-        box[d] = (core.lb[d], core.lb[d] + grid_extent * n)
+        coord = coords.get(grid.axis_names[gax], 0) if grid_extent > 1 else 0
+        lo = core.lb[d] - coord * n
+        box[d] = (lo, lo + grid_extent * n)
     return box
 
 
-def boundary_keep(op: comm.BoundaryMaskOp, shape: tuple, device):
+def boundary_keep(op: comm.BoundaryMaskOp, shape: tuple, device,
+                  coords: Optional[Mapping[str, int]] = None):
     """Boolean keep-mask broadcastable to ``shape`` (the masked value's
-    shape) for a boundary_mask op, or ``None`` when every point is kept."""
+    shape) for a boundary_mask op at mesh coordinate ``coords``, or
+    ``None`` when every point is kept."""
     vb: stencil.Bounds = op.temp.type.bounds
     keep = None
-    for d, (lo, hi) in keep_box(op).items():
+    for d, (lo, hi) in keep_box(op, coords).items():
         view = [1] * len(shape)
         view[d] = shape[d]
         pos = torch.arange(
@@ -222,13 +239,41 @@ def boundary_keep(op: comm.BoundaryMaskOp, shape: tuple, device):
 # --------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
+class RankView:
+    """One rank of a run: its index, its mesh coordinate by axis name, the
+    device its tensors live on, and the state of the call on it (values,
+    fields, and the values this call allocated and may write in place)."""
+
+    rank: int
+    coords: dict
+    device: torch.device
+    env: dict = dataclasses.field(default_factory=dict)
+    fields: dict = dataclasses.field(default_factory=dict)
+    owned: set = dataclasses.field(default_factory=set)
+
+
 class StencilInterpreter:
     """Interprets a rank-local, comm-lowered stencil function on tensors.
 
     Calling convention: positional float32 tensors for every *field*
-    argument of the function, all on one device; returns the updated
-    tensors of every stored-to field, in first-store order.  ``dmp.swap``
-    is rejected — run the dmp→comm pipeline (``lower-comm``) first.
+    argument of the function; returns the updated tensors of every
+    stored-to field, in first-store order.  ``dmp.swap`` is rejected — run
+    the dmp→comm pipeline (``lower-comm``) first.
+
+    With ``distributed=True`` the function runs on every rank of a mesh at
+    once (:meth:`run_ranks`): ``axis_sizes`` gives the size of each mesh
+    axis, their product the number of ranks.  One host thread walks the ops in order
+    and runs each op on every rank before the next, which is what
+    ``lax.ppermute`` inside ``shard_map`` computes: each
+    ``comm.exchange_start`` copies every rank's send rectangle and
+    delivers it by ``comm.permute_pairs`` (a rank that receives nothing
+    gets zeros), ``comm.boundary_mask`` and K2 keep the box of the rank's
+    coordinate, ``comm.allreduce`` reduces over the ranks of its axes in
+    rank order.  Every rank's work is enqueued on the current stream of
+    its device.  An axis of size 1 (every axis on one device) emulates
+    its exchanges locally: the patch itself for periodic wrap, zeros for
+    zero BC.
     """
 
     def __init__(
@@ -241,13 +286,9 @@ class StencilInterpreter:
     ) -> None:
         if backend not in ("torch", "cuda"):
             raise ValueError(f"unknown backend {backend!r}")
-        if distributed:
-            raise NotImplementedError(
-                "distributed execution is not ported yet (ROADMAP Queue 1 "
-                "item 6): run on one device"
-            )
         self.func = func
         self.axis_sizes = dict(axis_sizes)
+        self.distributed = distributed
         self.backend = backend
         self.tile = tile  # K2's tile (None: its own choice); K1 takes none
         self.output_fields: list[ir.SSAValue] = []
@@ -255,31 +296,54 @@ class StencilInterpreter:
             if isinstance(op, stencil.StoreOp) and op.field not in self.output_fields:
                 self.output_fields.append(op.field)
         self._last_use = _last_uses(func.body.ops)
+        self.n_ranks = math.prod(self.axis_sizes.values()) if distributed else 1
+        # open exchange windows: (rank, ExchangeStartOp result) -> obs
+        # token, closed by the WaitOp consuming that patch (reset per call)
+        self._open_exchanges: dict = {}
 
     # -- public --------------------------------------------------------
     def __call__(self, *arrays):
+        if self.n_ranks > 1:
+            raise ValueError(
+                f"a function distributed over {self.n_ranks} ranks runs every "
+                "rank at once: call run_ranks with each rank's tensors"
+            )
+        return self.run_ranks([arrays], [{}])[0]
+
+    def run_ranks(self, per_rank: Sequence[Sequence[torch.Tensor]],
+                  coords: Sequence[Mapping[str, int]]) -> list:
+        """Run the function on every rank in lockstep: ``per_rank[r]`` holds
+        rank ``r``'s field tensors, ``coords[r]`` its coordinate along each
+        mesh axis.  Returns, per rank, the tuple the single-rank call
+        returns."""
+        if len(per_rank) != self.n_ranks or len(coords) != self.n_ranks:
+            raise ValueError(
+                f"{len(per_rank)} ranks of tensors and {len(coords)} coordinates "
+                f"for a function over {self.n_ranks} ranks"
+            )
         fields = [
             a for a in self.func.body.args if isinstance(a.type, stencil.FieldType)
         ]
-        if len(arrays) != len(fields):
-            raise ValueError(
-                f"expected {len(fields)} field tensors, got {len(arrays)}"
-            )
-        field_state: dict[ir.SSAValue, Any] = {}
-        for arg, arr in zip(fields, arrays):
-            expect = tuple(arg.type.bounds.shape)
-            if tuple(arr.shape) != expect:
+        views = []
+        for r, (arrays, c) in enumerate(zip(per_rank, coords)):
+            if len(arrays) != len(fields):
                 raise ValueError(
-                    f"field {arg.name_hint}: tensor shape {tuple(arr.shape)} "
-                    f"!= local bounds shape {expect}"
+                    f"expected {len(fields)} field tensors, got {len(arrays)}"
                 )
-            field_state[arg] = arr
-        device = _common_device(arrays)
-        env: dict[ir.SSAValue, Any] = {}
-        owned: set = set()
+            view = RankView(r, dict(c), _common_device(arrays))
+            for arg, arr in zip(fields, arrays):
+                expect = tuple(arg.type.bounds.shape)
+                if tuple(arr.shape) != expect:
+                    raise ValueError(
+                        f"field {arg.name_hint}: tensor shape {tuple(arr.shape)} "
+                        f"!= local bounds shape {expect}"
+                    )
+                view.fields[arg] = arr
+            views.append(view)
+        self._open_exchanges = {}
         for i, op in enumerate(self.func.body.ops):
-            self._exec(op, env, field_state, owned, i, device)
-        return tuple(field_state[f] for f in self.output_fields)
+            self._run_op(op, views, i)
+        return [tuple(v.fields[f] for f in self.output_fields) for v in views]
 
     def kernel_applies(self) -> list:
         """The ``stencil.apply`` ops this interpreter hands to kernel K1,
@@ -309,17 +373,40 @@ class StencilInterpreter:
     def _dead_after(self, value: ir.SSAValue, i: int) -> bool:
         return self._last_use.get(value, -1) <= i
 
+    def _axis_size(self, name: str) -> int:
+        return self.axis_sizes.get(name, 1) if self.distributed else 1
+
     # -- op execution ---------------------------------------------------
-    def _exec(self, op: ir.Operation, env, field_state, owned, i: int,
-              device: torch.device) -> None:
+    def _run_op(self, op: ir.Operation, views: list, i: int) -> None:
+        """Op ``i`` on every rank: the ops that move data between ranks see
+        all of them at once, every other op runs rank by rank."""
+        if isinstance(op, comm.ExchangeStartOp):
+            self._exec_exchange(op, views)
+        elif isinstance(op, comm.AllReduceOp):
+            self._exec_allreduce(op, views)
+        else:
+            for view in views:
+                self._exec(op, view, i)
+
+    def _exec(self, op: ir.Operation, view: RankView, i: int) -> None:
+        env, owned = view.env, view.owned
         if isinstance(op, stencil.LoadOp):
-            env[op.results[0]] = field_state[op.field]
+            env[op.results[0]] = view.fields[op.field]
         elif isinstance(op, stencil.ApplyOp):
             arrays = [env[o] for o in op.operands]
             origins = [o.type.bounds.lb for o in op.operands]
-            outs = self._apply_backend(
-                op, arrays, origins, op.result_bounds, device
-            )
+            if _obs.enabled():
+                part = op.attributes.get("part")
+                name = f"apply:{part.value if part is not None else 'full'}"
+                with _obs.span(name, cat="compute", rank=view.rank,
+                               ranks=self.n_ranks, shape=list(op.result_bounds.shape)):
+                    outs = self._apply_backend(
+                        op, arrays, origins, op.result_bounds, view.device
+                    )
+            else:
+                outs = self._apply_backend(
+                    op, arrays, origins, op.result_bounds, view.device
+                )
             for res, arr in zip(op.results, outs):
                 env[res] = arr
                 owned.add(res)
@@ -342,43 +429,38 @@ class StencilInterpreter:
             if sb == fb:
                 # the next call hands this tensor to a kernel, which takes
                 # contiguous tensors only
-                field_state[op.field] = patch.contiguous()
+                view.fields[op.field] = patch.contiguous()
             else:
                 # functional update: the field tensor may be the caller's
-                new = field_state[op.field].clone()
+                new = view.fields[op.field].clone()
                 new[
                     tuple(
                         slice(s - f, s - f + n)
                         for s, f, n in zip(sb.lb, fb.lb, sb.shape)
                     )
                 ] = patch
-                field_state[op.field] = new
+                view.fields[op.field] = new
         elif isinstance(op, comm.HaloPadOp):
             x = env[op.operands[0]]
             y = _exec_halo_pad(op, x)
             env[op.results[0]] = y
             if y is not x:
                 owned.add(op.results[0])
-        elif isinstance(op, comm.ExchangeStartOp):
-            env[op.results[0]] = self._exec_comm_start(op, env[op.temp])
         elif isinstance(op, comm.WaitOp):
-            self._exec_comm_wait(op, env, owned, i)
+            self._exec_comm_wait(op, view, i)
         elif isinstance(op, comm.BoundaryMaskOp):
             x = env[op.temp]
-            y = self._exec_boundary_mask(op, x, device)
+            y = self._exec_boundary_mask(op, x, view)
             env[op.results[0]] = y
             if y is not x:
                 owned.add(op.results[0])
         elif isinstance(op, stencil.FusedEpochOp):
             if _obs.enabled():
-                with _obs.span("fused_epoch", cat="compute", rank=None,
-                               ranks=1, backend=self.backend):
-                    self._exec_fused_epoch(op, env, device)
+                with _obs.span("fused_epoch", cat="compute", rank=view.rank,
+                               ranks=self.n_ranks, backend=self.backend):
+                    self._exec_fused_epoch(op, view)
             else:
-                self._exec_fused_epoch(op, env, device)
-        elif isinstance(op, comm.AllReduceOp):
-            # one device: the reduction over a size-1 mesh is the value
-            env[op.results[0]] = env[op.operands[0]]
+                self._exec_fused_epoch(op, view)
         elif isinstance(op, ir.ReturnOp):
             pass
         elif isinstance(op, dmp.SwapOp):
@@ -413,52 +495,107 @@ class StencilInterpreter:
             ] = part
         return out
 
-    # -- comm ops (local emulation: every grid axis has size 1) ----------
-    def _exec_comm_start(self, op: comm.ExchangeStartOp, x):
+    # -- comm ops (every rank at once; size-1 axes emulate locally) -------
+    def _exec_exchange(self, op: comm.ExchangeStartOp, views: list) -> None:
+        """``lax.ppermute`` of every rank's send rectangle: rank ``r``'s
+        patch goes to the rank ``comm.permute_pairs`` pairs it with (the
+        same coordinate along every other mesh axis); a rank that receives
+        nothing gets zeros."""
+        periodic = bool(op.attributes.get("periodic", ir.IntAttr(0)).value)
+        names = [a for a, _ in op.axis_shifts]
+        sizes = {a: self._axis_size(a) for a in names}
+        _, pairs = comm.permute_pairs(op.axis_shifts, sizes, periodic)
+        dest = dict(pairs)
+        rank_of = {_coord_key(v.coords): v.rank for v in views}
         origin = op.temp.type.bounds.lb
         idx = tuple(
             slice(o - g, o - g + s)
             for o, g, s in zip(op.send_offset, origin, op.size)
         )
-        patch = x[idx]
-        periodic = bool(op.attributes.get("periodic", ir.IntAttr(0)).value)
-        # a copy, not a view: the wait may write into ``x`` in place
-        return patch.clone() if periodic else torch.zeros_like(patch)
+        received: dict = {}
+        for v in views:
+            lin = 0
+            for a in names:
+                lin = lin * sizes[a] + (v.coords.get(a, 0) if sizes[a] > 1 else 0)
+            if lin not in dest:
+                continue
+            to = dict(v.coords)
+            rem = dest[lin]
+            for a in reversed(names):
+                if sizes[a] > 1:
+                    to[a] = rem % sizes[a]
+                rem //= sizes[a]
+            target = views[rank_of[_coord_key(to)]]
+            # a copy, not a view: a later wait may write into the sender's
+            # tensor in place; device to device where the ranks' devices differ
+            patch = v.env[op.temp][idx].clone(memory_format=torch.contiguous_format)
+            received[target.rank] = patch.to(target.device)
+        for v in views:
+            patch = received.get(v.rank)
+            if patch is None:
+                x = v.env[op.temp]
+                patch = torch.zeros(tuple(op.size), dtype=x.dtype, device=x.device)
+            v.env[op.results[0]] = patch
+            if _obs.enabled():
+                # the exchange window closes at the wait consuming this
+                # patch; on the comm lane it shows over the interior apply
+                self._open_exchanges[(v.rank, op.results[0])] = _obs.begin_window(
+                    "comm.exchange", cat="comm", rank=v.rank,
+                    ranks=self.n_ranks, size=list(op.size),
+                )
 
-    def _exec_boundary_mask(self, op: comm.BoundaryMaskOp, x, device):
+    def _exec_allreduce(self, op: comm.AllReduceOp, views: list) -> None:
+        """Reduce over the ranks that differ only along ``op.axes``, in rank
+        order; every rank of a group gets the result on its device."""
+        red = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}[op.op]
+        axes = set(op.axes)
+        groups: dict = {}
+        for v in views:
+            key = _coord_key({a: c for a, c in v.coords.items() if a not in axes})
+            groups.setdefault(key, []).append(v)
+        for group in groups.values():
+            acc = group[0].env[op.operands[0]]
+            for v in group[1:]:
+                acc = red(acc, v.env[op.operands[0]].to(acc.device))
+            for v in group:
+                v.env[op.results[0]] = acc.to(v.device)
+
+    def _exec_boundary_mask(self, op: comm.BoundaryMaskOp, x, view: RankView):
         """Zero every point outside the physical (global) domain — the
         temporal-tiling analogue of the zero-BC halo_pad, applied to
         redundantly-computed epoch intermediates."""
-        keep = boundary_keep(op, tuple(x.shape), device)
+        keep = boundary_keep(op, tuple(x.shape), view.device, view.coords)
         if keep is None:
             return x
         return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def _exec_fused_epoch(self, op: stencil.FusedEpochOp, env, device) -> None:
+    def _exec_fused_epoch(self, op: stencil.FusedEpochOp, view: RankView) -> None:
         """Route a fused epoch through kernel K2 (``cuda`` backend) or
         evaluate its region inline (``torch``).  The boundary keep-masks
-        are built here, outside the kernel, as 0/1 tensors for the plain
-        version; on the card K2 tests the same boxes from coordinates, so
-        none are built there."""
+        of the rank's coordinate are built here, outside the kernel, as
+        0/1 tensors for the plain version; on the card K2 tests the same
+        boxes, passed as its arguments, so none are built there."""
         from repro_torch.kernels.epoch_kernel import (
             _emit_region,
             region_masks,
             run_epoch_cuda,
         )
 
-        arrays = [env[o] for o in op.operands]
+        arrays = [view.env[o] for o in op.operands]
+        device = view.device
         if self.backend == "cuda":
-            masks = None if device.type == "cuda" else region_masks(op, device)
-            outs = run_epoch_cuda(op, arrays, masks, tile=self.tile)
+            masks = None if device.type == "cuda" else region_masks(op, device, view.coords)
+            outs = run_epoch_cuda(op, arrays, masks, tile=self.tile, coords=view.coords)
         else:
-            masks = region_masks(op, device)
+            masks = region_masks(op, device, view.coords)
             outs = _emit_region(op, arrays, masks, lambda v: v.type.bounds)
         for res, arr in zip(op.results, outs):
-            env[res] = arr
+            view.env[res] = arr
 
-    def _exec_comm_wait(self, op: comm.WaitOp, env, owned, i: int) -> None:
+    def _exec_comm_wait(self, op: comm.WaitOp, view: RankView, i: int) -> None:
+        env = view.env
         x = env[op.temp]
-        if op.temp in owned and self._dead_after(op.temp, i):
+        if op.temp in view.owned and self._dead_after(op.temp, i):
             # allocated here and read by no later op: fill its halo in place
             out = x
         else:
@@ -472,8 +609,14 @@ class StencilInterpreter:
                     for o, g, n in zip(rect.lb, origin, rect.shape)
                 )
             ] = env[p]
+            if _obs.enabled():
+                _obs.end_window(self._open_exchanges.pop((view.rank, p), None))
         env[op.results[0]] = out
-        owned.add(op.results[0])
+        view.owned.add(op.results[0])
+
+
+def _coord_key(coords: Mapping[str, int]) -> tuple:
+    return tuple(sorted(coords.items()))
 
 
 def _common_device(tensors) -> torch.device:
@@ -507,15 +650,15 @@ def run_func_dataflow(
     distributed: bool = False,
 ) -> tuple:
     """Execute a *value-returning* comm-level function (temp args in,
-    ``func.return`` values out) on one device."""
+    ``func.return`` values out) on one rank."""
     interp = StencilInterpreter(
         func, axis_sizes=axis_sizes, distributed=distributed
     )
-    device = _common_device(inputs)
-    env: dict[ir.SSAValue, Any] = dict(zip(func.body.args, inputs))
-    owned: set = set()
+    if interp.n_ranks > 1:
+        raise ValueError("run_func_dataflow runs one rank; its axes must have size 1")
+    view = RankView(0, {}, _common_device(inputs), env=dict(zip(func.body.args, inputs)))
     for i, op in enumerate(func.body.ops):
         if isinstance(op, ir.ReturnOp):
-            return tuple(env[o] for o in op.operands)
-        interp._exec(op, env, {}, owned, i, device)
+            return tuple(view.env[o] for o in op.operands)
+        interp._run_op(op, [view], i)
     raise AssertionError(f"{func.sym_name}: missing func.return")

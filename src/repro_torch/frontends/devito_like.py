@@ -11,6 +11,10 @@ A miniature symbolic layer in the spirit of Devito's SymPy DSL:
     # deep-halo epochs of 4 steps, each one launch of the epoch kernel K2
     fused = Target(backend="cuda", exchange_every=4, fused_epoch=True)
     state = op.apply(state, timesteps=100, target=fused)
+    # four ranks, 2×2 (the mesh's devices may repeat)
+    mesh = Mesh(np.array([torch.device("cuda")] * 4, dtype=object).reshape(2, 2), ("x", "y"))
+    state = op.apply(state, timesteps=100, target=Target(
+        mesh=mesh, strategy=make_strategy_2d((2, 2)), backend="cuda"))
 
 Derivatives expand to central FD coefficient taps (``repro_torch.core.fd``);
 the lowering emits the shared ``stencil`` dialect and everything below
@@ -340,7 +344,10 @@ class Operator:
         so the loop runs in epochs (``CompiledStencil.time_loop``).  With
         ``fused_epoch=True`` an epoch is one K2 launch; for wave it hands
         back the carried state and the new state, two escapes of
-        different bounds, which rotate like the unfused epoch's."""
+        different bounds, which rotate like the unfused epoch's.  With a
+        distributed ``Target(mesh=…, strategy=…)`` the state is sharded
+        once, stays sharded across every epoch and is gathered at the
+        end."""
         artifact = api.compile(self.program, target)
         return artifact.time_loop(tuple(state), timesteps)
 

@@ -36,10 +36,13 @@ frame would go to device memory and back (the k round trips of the
 unfused path), and a cooperative launch caps the grid at the CTAs that fit
 on the card at once.
 
-Masks: on one device the keep mask of a ``boundary_mask`` is a box
-(``core.lowering.keep_box``).  The kernel tests that box from coordinates;
-the plain version reads 0/1 arrays built outside the kernel
-(:func:`region_masks`), as the reference's kernel does.
+Masks: the keep mask of a ``boundary_mask`` is a box, which depends on
+the rank's mesh coordinate (``core.lowering.keep_box``).  The kernel
+tests each point's coordinates against that box, whose ``lo``/``hi``
+along each masked dim are ``int`` arguments of the launch
+(:func:`box_args`), so one build serves every rank of a mesh; the plain
+version reads 0/1 arrays built outside the kernel (:func:`region_masks`),
+as the reference's kernel does.
 
 Walking a frame: each thread computes ``R`` consecutive points along dim
 0 (8 in 2D, 4 in 3D, 1 in 1D), one column of a frame's minor dims; a
@@ -83,6 +86,7 @@ route and the torch backend bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import itertools
 import weakref
@@ -150,20 +154,52 @@ def _emit_region(fused_op, inputs, masks, bounds_of) -> list:
     raise AssertionError("fused_epoch region missing stencil.fused_yield")
 
 
-def region_masks(fused_op: stencil.FusedEpochOp, device) -> list:
+def region_masks(fused_op: stencil.FusedEpochOp, device, coords=None) -> list:
     """One 0/1 float32 keep-mask per boundary_mask of the region, in region
-    order, over the masked value's whole bounds: the plain version's
-    mask inputs."""
+    order, over the masked value's whole bounds, at mesh coordinate
+    ``coords`` (all zeros by default): the plain version's mask inputs."""
     from repro_torch.core.lowering import boundary_keep
 
     out = []
     for op in _mask_ops(fused_op):
         shape = tuple(op.temp.type.bounds.shape)
-        keep = boundary_keep(op, shape, device)
+        keep = boundary_keep(op, shape, device, coords)
         if keep is None:
             out.append(torch.ones(shape, dtype=torch.float32, device=device))
         else:
             out.append(torch.broadcast_to(keep, shape).to(torch.float32))
+    return out
+
+
+def _box_keys(fused_op: stencil.FusedEpochOp) -> dict:
+    """The box bounds K2 takes as arguments: ``{(mask, dim): j}``, where
+    arguments ``2j`` and ``2j + 1`` are the ``lo`` and ``hi`` of mask
+    ``mask``'s box along ``dim``; masks whose box along a dim is the same
+    at every coordinate share one pair."""
+    from repro_torch.core.lowering import keep_box
+
+    shared: dict = {}
+    out: dict = {}
+    for op in _mask_ops(fused_op):
+        grid, core = op.grid, op.core
+        for d in keep_box(op):
+            gax = grid.axis_of_dim(d)
+            extent = grid.shape[gax] if gax is not None else 1
+            axis = grid.axis_names[gax] if extent > 1 else None
+            key = (d, axis, extent, core.lb[d], core.ub[d])
+            out[(op, d)] = shared.setdefault(key, len(shared))
+    return out
+
+
+def box_args(fused_op: stencil.FusedEpochOp, coords=None) -> list:
+    """K2's box arguments at mesh coordinate ``coords`` (all zeros by
+    default): ``lo, hi`` of each pair of :func:`_box_keys`, in order."""
+    from repro_torch.core.lowering import keep_box
+
+    keys = _box_keys(fused_op)
+    out = [0] * (2 * len(set(keys.values())))
+    for (op, d), j in keys.items():
+        out[2 * j], out[2 * j + 1] = keep_box(op, coords)[d]
     return out
 
 
@@ -540,9 +576,9 @@ def emit_epoch_cuda(
     ``k2_epoch_launch(in0, …, out0, …, stream) -> cudaError_t`` and the
     occupancy query ``k2_epoch_occupancy(int* ctas_per_sm)``.
     ``ptr_align`` is the alignment in bytes that every operand pointer
-    has; it bounds the width of the window copies."""
-    from repro_torch.core.lowering import keep_box
-
+    has; it bounds the width of the window copies.  The launcher takes,
+    after the output pointers, the ``int`` box bounds of
+    :func:`box_args`."""
     plan = plan_epoch(fused_op, tile)
     st = _storage(fused_op, plan)
     offsets = st.offsets()
@@ -571,9 +607,12 @@ def emit_epoch_cuda(
         src.append(f"// out{j}: bounds {e.type.bounds.lb}..{e.type.bounds.ub}")
     src += [f'#include "{_k1._HEADER}"', "", "constexpr int kThreads = "
             f"K1_BLOCK_THREADS({THREADS});", ""]
+    boxes = _box_keys(fused_op)
+    n_box = len(set(boxes.values()))
+    box_params = [f"int box{j}_{end}" for j in range(n_box) for end in ("lo", "hi")]
     params = [f"const float* __restrict__ in{k}" for k in range(n_in)] + [
         f"float* __restrict__ out{j}" for j in range(n_out)
-    ]
+    ] + box_params
     src.append(
         f"__global__ void __launch_bounds__({THREADS}, {min_ctas}) k2_epoch("
         + ", ".join(params) + ") {"
@@ -625,15 +664,40 @@ def emit_epoch_cuda(
         src.append("  }")
     src += ["  K1_CP_ASYNC_COMMIT();", "  K1_CP_ASYNC_WAIT(0);", "  __syncthreads();"]
 
-    def keep_test(mask_op) -> Optional[str]:
-        """C condition true where a boundary_mask keeps the point (None
-        when it keeps every point): its box, from the tile's coordinates."""
-        vb = mask_op.temp.type.bounds
-        box = keep_box(mask_op)
-        return " && ".join(
-            f"t{d} + i{d} >= {lo - vb.lb[d]} && t{d} + i{d} < {hi - vb.lb[d]}"
-            for d, (lo, hi) in sorted(box.items())
-        ) or None
+    def box_of(mask_op) -> dict:
+        """``{dim: j}``: the dims a boundary_mask tests, each against the
+        box bounds ``box{j}_lo``/``box{j}_hi`` of the launch's arguments
+        (empty when it keeps every point)."""
+        return {d: j for (m, d), j in sorted(boxes.items(), key=lambda kv: kv[0][1])
+                if m is mask_op}
+
+    def mask_column(mask_op) -> list:
+        """A mask's box test, the part computed once per column: along dim
+        0 the offsets of the column's first row from the box's ``lo`` and
+        ``hi`` (``m_lo``, ``m_hi``), along the minor dims whether the
+        column lies inside the box (``m_in``).  Point ``j`` rows down then
+        compares only against immediates (:func:`mask_point`)."""
+        lb = mask_op.temp.type.bounds.lb
+        lines, inside = [], []
+        for d, j in box_of(mask_op).items():
+            if d == 0:
+                lines += [f"    const int m_lo = a + t0 + {lb[0]} - box{j}_lo;",
+                          f"    const int m_hi = a + t0 + {lb[0]} - box{j}_hi;"]
+            else:
+                inside.append(f"t{d} + i{d} + {lb[d]} >= box{j}_lo && "
+                              f"t{d} + i{d} + {lb[d]} < box{j}_hi")
+        if inside:
+            lines.append(f"    const bool m_in = {' && '.join(inside)};")
+        return lines
+
+    def mask_point(mask_op, row: int) -> str:
+        """C condition true where a mask keeps the point ``row`` rows below
+        its column's first (after :func:`mask_column`'s lines)."""
+        dims = box_of(mask_op)
+        terms = ["m_in"] if any(d > 0 for d in dims) else []
+        if 0 in dims:
+            terms += [f"m_lo >= {-row}", f"m_hi < {-row}"]
+        return " && ".join(terms)
 
     # a mask that is the only reader of an apply's result is applied as the
     # apply writes its frame, into the buffer the two share
@@ -673,8 +737,8 @@ def emit_epoch_cuda(
             groups = _k1.column_rows(op, R_BY_RANK[rank])
             names: dict = {}
 
-            def column(a_last, op=op, rb=rb, groups=groups, names=names) -> list:
-                lines = []
+            def column(a_last, op=op, rb=rb, groups=groups, names=names, mask=mask) -> list:
+                lines = mask_column(mask) if mask is not None else []
                 for k in sorted({k for k, _ in groups}):
                     o = op.operands[k]
                     ostr = _k1._strides(wshape(o))
@@ -704,22 +768,23 @@ def emit_epoch_cuda(
                     f"{_k1._f32_literal(float(rb.lb[d]))}"
                 )
 
-            def store(j, v, op=op, mask=mask):
-                r = op.results[j]
+            def store(k, v, row, op=op, mask=mask):
+                r = op.results[k]
                 if r in st.direct:
                     return " ".join(
                         f"out{e}[{_global_index(r.type.bounds.shape)}] = {v};"
                         for e, x in enumerate(escapes) if x is r
                     )
-                if mask is not None and keep_test(mask):
-                    return f"{buf(mask.results[0])}[p] = ({keep_test(mask)}) ? {v} : 0.0f;"
+                if mask is not None and box_of(mask):
+                    return f"{buf(mask.results[0])}[p] = ({mask_point(mask, row)}) ? {v} : 0.0f;"
                 return f"{buf(r)}[p] = {v};"
 
             def point(j, op=op, names=names, index=index, store=store) -> list:
                 def load(k, offset):
                     return names[(k, tuple(offset[1:]), j + offset[0])]
 
-                return _k1.emit_body(op, load, index, store, indent="      ")
+                return _k1.emit_body(op, load, index, lambda k, v: store(k, v, j),
+                                     indent="      ")
 
             skip = _outside_owned(plan, rb) if r0 in st.direct else None
             src += _walk(rw, column, point, skip)
@@ -731,11 +796,10 @@ def emit_epoch_cuda(
             x, r = op.temp, op.results[0]
             fused = any(m is op for m in mask_of.values())
             if not fused:
-                src.append(f"  // op {n}: comm.boundary_mask, keep {keep_box(op)}")
-                keep = keep_test(op)
-                if keep:
-                    line = f"      {buf(r)}[p] = ({keep}) ? {buf(x)}[p] : 0.0f;"
-                    src += _walk(wshape(r), no_column, lambda j, line=line: [line])
+                src.append(f"  // op {n}: comm.boundary_mask")
+                if box_of(op):
+                    src += _walk(wshape(r), lambda a_last, op=op: mask_column(op), lambda j, op=op: [
+                        f"      {buf(r)}[p] = ({mask_point(op, j)}) ? {buf(x)}[p] : 0.0f;"])
                 elif st.slot_of[r] != st.slot_of[x]:
                     line = f"      {buf(r)}[p] = {buf(x)}[p];"
                     src += _walk(wshape(r), no_column, lambda j, line=line: [line])
@@ -748,10 +812,10 @@ def emit_epoch_cuda(
 
     c_params = [f"const void* in{k}" for k in range(n_in)] + [
         f"void* out{j}" for j in range(n_out)
-    ]
+    ] + box_params
     call_args = [f"static_cast<const float*>(in{k})" for k in range(n_in)] + [
         f"static_cast<float*>(out{j})" for j in range(n_out)
-    ]
+    ] + [p.split()[1] for p in box_params]
     opt_in = []
     if smem > 48 * 1024:
         opt_in = [
@@ -791,8 +855,10 @@ def _kernel_for(fused_op: stencil.FusedEpochOp, tile: Optional[tuple], ptr_align
         fn = per_op.get((tile, ptr_align))
     if fn is None:
         source = emit_epoch_cuda(fused_op, tile, ptr_align)
-        n_args = len(fused_op.operands) + len(fused_op.results) + 1
-        fn = _k1._launcher(source, n_args, _LAUNCHER)
+        n_ptrs = len(fused_op.operands) + len(fused_op.results)
+        n_ints = 2 * len(set(_box_keys(fused_op).values()))
+        argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn = _k1._launcher(source, argtypes, _LAUNCHER)
         with _k1._LIBS_LOCK:
             per_op[(tile, ptr_align)] = fn
     return fn
@@ -803,15 +869,19 @@ def run_epoch_cuda(
     arrays: Sequence[torch.Tensor],
     masks: Optional[Sequence[torch.Tensor]],
     tile: Optional[Sequence[int]] = None,
+    coords=None,
 ) -> list:
-    """Entry point used by the lowering's ``cuda`` backend: one fused epoch.
+    """Entry point used by the lowering's ``cuda`` backend: one fused epoch
+    on the rank at mesh coordinate ``coords`` (a mesh axis name → its
+    coordinate; all zeros by default, as on one device).
 
     CPU tensors go through the plain version, with ``masks`` (one 0/1
-    tensor per boundary_mask, built by :func:`region_masks` when None);
-    CUDA tensors go through the kernel, or the call raises.  The kernel
-    tests each mask's box from coordinates, so on the card ``masks`` must
-    be None.  ``tile`` overrides :func:`choose_tile`.  Each call counts in
-    ``dispatch_stats().fused_epoch_calls``, each launch in
+    tensor per boundary_mask, built by :func:`region_masks` at ``coords``
+    when None); CUDA tensors go through the kernel, or the call raises.
+    The kernel takes each mask's box at ``coords`` as launch arguments
+    (:func:`box_args`) and tests every point against it, so on the card
+    ``masks`` must be None.  ``tile`` overrides :func:`choose_tile`.  Each
+    call counts in ``dispatch_stats().fused_epoch_calls``, each launch in
     ``fused_epoch_launches``."""
     _DISPATCH.fused_epoch_calls += 1
     if not fused_op.results:
@@ -838,7 +908,7 @@ def run_epoch_cuda(
             if tile is not None:
                 plan_epoch(fused_op, tile)  # refuse what the kernel would refuse
             if masks is None:
-                masks = region_masks(fused_op, dev)
+                masks = region_masks(fused_op, dev, coords)
             if len(masks) != len(_mask_ops(fused_op)):
                 raise ValueError(
                     f"{len(masks)} masks for {len(_mask_ops(fused_op))} boundary masks"
@@ -848,8 +918,8 @@ def run_epoch_cuda(
             raise ValueError(f"K2 runs on CUDA or (plain version) CPU, not {dev}")
         if masks is not None:
             raise ValueError(
-                "K2 tests each boundary mask's box from coordinates: pass "
-                "masks=None for CUDA tensors"
+                "K2 takes each boundary mask's box as launch arguments: pass "
+                "masks=None (and the rank's coords) for CUDA tensors"
             )
         for k, a in enumerate(arrays):
             if not a.is_contiguous():
@@ -862,7 +932,8 @@ def run_epoch_cuda(
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             status = fn(
-                *[a.data_ptr() for a in arrays], *[o.data_ptr() for o in outs], stream
+                *[a.data_ptr() for a in arrays], *[o.data_ptr() for o in outs],
+                *box_args(fused_op, coords), stream,
             )
         if status != 0:
             raise RuntimeError(f"K2 launch failed with CUDA error {status}")

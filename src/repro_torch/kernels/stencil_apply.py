@@ -604,22 +604,23 @@ def _kernel_for(apply_op, shapes, origins, result_bounds, ptr_align: int = 16):
         fn = per_op.get(key)
     if fn is None:
         source = emit_apply_cuda(apply_op, shapes, origins, result_bounds, ptr_align)
-        fn = _launcher(source, len(shapes) + len(apply_op.results) + 1)
+        fn = _launcher(source, [ctypes.c_void_p] * (len(shapes) + len(apply_op.results) + 1))
         with _LIBS_LOCK:
             per_op[key] = fn
     return fn
 
 
-def _launcher(source: str, n_args: int, symbol: str = _LAUNCHER):
-    """The C launcher ``symbol`` of a generated source, built on first use
-    and loaded once per process; every argument is a pointer."""
+def _launcher(source: str, argtypes: Sequence, symbol: str = _LAUNCHER):
+    """The C function ``symbol`` of a generated source, built on first use
+    and loaded once per process, taking ``argtypes`` (ctypes types) and
+    returning an ``int``."""
     with _LIBS_LOCK:
         fn = _LIBS.get((source, symbol))
         if fn is None:
             (path,) = build([source])
             lib = ctypes.CDLL(str(path))
             fn = getattr(lib, symbol)
-            fn.argtypes = [ctypes.c_void_p] * n_args
+            fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             _LIBS[(source, symbol)] = fn
     return fn
@@ -631,7 +632,7 @@ def ctas_per_sm(source: str, symbol: str = _OCCUPANCY) -> int:
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, which weighs the
     kernel's registers, shared memory and threads); builds the source on
     first use."""
-    fn = _launcher(source, 1, symbol)
+    fn = _launcher(source, [ctypes.c_void_p], symbol)
     out = ctypes.c_int(0)
     status = fn(ctypes.addressof(out))
     if status != 0:

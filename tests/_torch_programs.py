@@ -7,6 +7,8 @@ hand the same numpy inputs to both builds and compare the outputs.
 from __future__ import annotations
 
 import importlib
+import os
+import sys
 
 import numpy as np
 
@@ -32,14 +34,39 @@ def wave(pkg: str, shape, so: int, boundary: str = "zero"):
 
 
 def jacobi(pkg: str, shape=(16, 16), boundary: str = "periodic"):
-    """The oec-like periodic Jacobi of the oec_like module docstring."""
+    """The oec-like Jacobi of the oec_like module docstring (2-D), or its
+    6-point average in 3-D (``tests/dist_worker.py``'s ``_jacobi``)."""
     p = _mod(pkg, "frontends.oec_like").ProgramBuilder("jacobi", shape)
+    u = p.input("u")
+    out = p.output("out")
+    t = p.load(u)
+    if len(shape) == 2:
+        r = p.apply(
+            [t],
+            lambda b, u: (u.at(-1, 0) + u.at(1, 0) + u.at(0, -1) + u.at(0, 1)) * 0.25,
+        )
+    else:
+        r = p.apply(
+            [t],
+            lambda b, u: (
+                u.at(-1, 0, 0) + u.at(1, 0, 0) + u.at(0, -1, 0)
+                + u.at(0, 1, 0) + u.at(0, 0, -1) + u.at(0, 0, 1)
+            ) * (1.0 / 6.0),
+        )
+    p.store(r, out)
+    return p.finish(boundary=boundary)
+
+
+def box(pkg: str, shape=(32, 32), boundary: str = "periodic"):
+    """A corner-reading stencil (``tests/dist_worker.py``'s ``_box``): its
+    exchanges forward corners, sequentially or as diagonal exchanges."""
+    p = _mod(pkg, "frontends.oec_like").ProgramBuilder("box", shape)
     u = p.input("u")
     out = p.output("out")
     t = p.load(u)
     r = p.apply(
         [t],
-        lambda b, u: (u.at(-1, 0) + u.at(1, 0) + u.at(0, -1) + u.at(0, 1)) * 0.25,
+        lambda b, u: u.at(-1, -1) + u.at(1, 1) * 0.5 + u.at(-1, 1) * 0.25 + u.at(0, 0),
     )
     p.store(r, out)
     return p.finish(boundary=boundary)
@@ -185,3 +212,14 @@ def random_program(pkg: str, seed: int, rank: int, n_applies: int, boundary: str
         values.append(p.apply(args, point_fn(taps, coeffs)))
     p.store(values[-1], out)
     return p.finish(boundary=boundary)
+
+
+def advection(pkg: str, name: str, shape, boundary: str = "periodic"):
+    """Fig 10: ``name`` ("pw_advection" or "tracer_advection") of
+    ``benchmarks/fig10_advection.py``, recognized by ``pkg``'s
+    psyclone-like frontend."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    kernel = getattr(importlib.import_module("benchmarks.fig10_advection"), name)
+    return _mod(pkg, "frontends.psyclone_like").recognize(kernel, shape, boundary=boundary)

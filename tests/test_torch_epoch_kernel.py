@@ -488,9 +488,18 @@ def test_emitted_source_is_one_kernel_with_staged_windows():
     # applied as the three inner sub-steps write their frames, per point
     boxes = re.findall(r"\? v\d+ : 0.0f", src)
     assert len(boxes) == 3 * r and "comm.boundary_mask, keep" not in src
-    tests = re.findall(r"t0 \+ i0 >= (\d+) && t0 \+ i0 < (\d+)", src)
-    assert list(dict.fromkeys(tests)) == [("6", "16390"), ("4", "16388"), ("2", "16386")]
-    assert len(tests) == 3 * r
+    # the box comes from the launch's arguments (one pair per masked dim,
+    # [0, 16384) on one device): each mask takes its column's offsets from
+    # the box once per column, in its window's coordinates, and tests every
+    # point against immediates
+    box = k2.box_args(op)
+    assert box == [0, 16384, 0, 16384]
+    offsets = re.findall(r"const int m_lo = a \+ t0 \+ (-?\d+) - box(\d+)_lo;", src)
+    windowed = [(str(box[2 * int(j)] - int(off)), str(box[2 * int(j) + 1] - int(off)))
+                for off, j in offsets]
+    assert windowed == [("6", "16390"), ("4", "16388"), ("2", "16386")]
+    tests = re.findall(r"\(m_in && m_lo >= (-?\d+) && m_hi < \1\)", src)
+    assert tests == [str(-j) for j in range(r)] * 3
     assert src.count("__syncthreads()") == 1 + 3  # after the load and 3 sub-steps
     # register-blocked columns: per column, 8 points read 12 registers of the
     # dim-0 taps and 8 of each of the 4 minor taps (44 loads, 5.5 a point)
@@ -587,3 +596,32 @@ def test_kernel_matches_plain_version_on_card():
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert dispatch_stats().fused_epoch_launches == len(cases)
+
+
+@pytest.mark.gpu
+def test_kernel_takes_each_rank_box_on_card():
+    """K2 of the rank-local epoch of a 2×2 mesh (zero BC) on the card,
+    launched with the box of each corner, bitwise equal to its plain
+    version on the card with that corner's masks; one build serves all
+    four corners, whose results differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.passes.decompose import make_strategy_2d
+    from repro_torch.dist import Mesh
+
+    mesh = Mesh(np.array([torch.device("cpu")] * 4, dtype=object).reshape(2, 2), ("x", "y"))
+    op = _epoch(P.heat("repro_torch", (512, 384), 4), 4,
+                mesh=mesh, strategy=make_strategy_2d((2, 2)))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    arrays = [torch.randn(a.type.bounds.shape, device="cuda", generator=gen) for a in op.body.args]
+    reset_dispatch_stats()
+    outs = []
+    for coords in ({"x": 0, "y": 0}, {"x": 0, "y": 1}, {"x": 1, "y": 0}, {"x": 1, "y": 1}):
+        (got,) = k2.run_epoch_cuda(op, arrays, None, coords=coords)
+        (want,) = k2._emit_region(op, arrays, k2.region_masks(op, "cuda", coords),
+                                  lambda v: v.type.bounds)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), coords
+        outs.append(got)
+    assert dispatch_stats().fused_epoch_launches == 4
+    assert all(not torch.equal(outs[0], o) for o in outs[1:])

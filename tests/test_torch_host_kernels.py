@@ -26,6 +26,8 @@ import _torch_programs as P
 from repro_torch import api
 from repro_torch.api import Target
 from repro_torch.core.lowering import eval_apply_body
+from repro_torch.core.passes.decompose import make_strategy_2d
+from repro_torch.dist import Mesh
 from repro_torch.kernels import epoch_kernel as k2
 from repro_torch.kernels import ops
 from repro_torch.kernels import stencil_apply as k1
@@ -103,10 +105,17 @@ def _applies(prog, k=1):
     return api.compile(prog, Target(backend="cuda", exchange_every=k, device="cpu")).kernel_applies()
 
 
-def _epoch(prog, k):
-    target = Target(backend="cuda", exchange_every=k, fused_epoch=True, device="cpu")
+def _epoch(prog, k, mesh=None):
+    """The fused epoch of ``prog`` at depth ``k``, on one device or (``mesh``
+    given) on each rank of a 2×2 mesh of CPU ranks."""
+    dist = {} if mesh is None else {"mesh": mesh, "strategy": make_strategy_2d((2, 2))}
+    target = Target(backend="cuda", exchange_every=k, fused_epoch=True, device="cpu", **dist)
     (op,) = api.compile(prog, target).kernel_epochs()
     return op
+
+
+MESH_2X2 = Mesh(np.array([torch.device("cpu")] * 4, dtype=object).reshape(2, 2), ("x", "y"))
+CORNERS = [{"x": x, "y": y} for x in (0, 1) for y in (0, 1)]
 
 
 def _spec(apply_op):
@@ -134,6 +143,10 @@ K1_CASES = {
         {(i, j, k): 1.0 / 27.0 for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)},
         (9, 10, 35), (1, 1, 1))[0]],
     "star1d": lambda: [ops.star_apply_ir({(-3,): 0.5, (0,): 1.0, (2,): 0.25}, (600,), (3,))[0]],
+    # fig 10: three operands, three results (PW) and a two-apply chain (tracer)
+    "pw-advection-3d": lambda: _applies(P.advection("repro_torch", "pw_advection", (20, 9, 37))),
+    "tracer-advection-3d": lambda: _applies(
+        P.advection("repro_torch", "tracer_advection", (20, 9, 37), "zero")),
 }
 
 # K2: name -> (program, k, tile or None for choose_tile's)
@@ -149,6 +162,14 @@ K2_CASES = {
     "index-chain-2d": (lambda: P.index_chain("repro_torch", (24, 20)), 1, (8, 5)),
     "index-chain-1d": (lambda: P.index_chain("repro_torch", (30,)), 1, (6,)),
     "heat3d-so4-k2": (lambda: P.heat("repro_torch", (12, 10, 16), 4), 2, (4, 5, 8)),
+}
+
+
+# K2 on a rank of a 2×2 mesh, zero BC: the ranks keep different boxes, which
+# the kernel takes as launch arguments; name -> (program, k, tile)
+K2_RANK_CASES = {
+    "heat2d-so4-zero-k4-2x2": (lambda: P.heat("repro_torch", (48, 40), 4), 4, (8, 4)),
+    "wave2d-so4-k2-2x2": (lambda: P.wave("repro_torch", (24, 20), 4), 2, (4, 5)),
 }
 
 
@@ -178,6 +199,9 @@ def built(tmp_path_factory):
     for name, (prog, k, tile) in K2_CASES.items():
         op = _epoch(prog(), k)
         add(("k2", name), (op, tile), k2.emit_epoch_cuda(op, tile))
+    for name, (prog, k, tile) in K2_RANK_CASES.items():
+        op = _epoch(prog(), k, MESH_2X2)
+        add(("k2", name), (op, tile), k2.emit_epoch_cuda(op, tile))
     (heat,) = K1_CASES["heat2d-so4-zero"]()
     add(("k1", "unaligned"), heat, k1.emit_apply_cuda(*_spec(heat), ptr_align=4))
     op = _epoch(P.heat("repro_torch", (48, 40), 4), 4)
@@ -201,12 +225,15 @@ def _inputs(shapes, seed, offset=0):
     return out
 
 
-def _run(path, symbol, inputs, out_shapes):
+def _run(path, symbol, inputs, out_shapes, ints=()):
+    """Launch a built source's ``symbol`` on ``inputs``: pointers, then the
+    ``int`` arguments ``ints`` (K2's box bounds), then the stream."""
     fn = getattr(ctypes.CDLL(str(path)), symbol)
-    fn.argtypes = [ctypes.c_void_p] * (len(inputs) + len(out_shapes) + 1)
+    fn.argtypes = ([ctypes.c_void_p] * (len(inputs) + len(out_shapes))
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     outs = [torch.full(tuple(s), float("nan")) for s in out_shapes]
-    status = fn(*[x.data_ptr() for x in inputs], *[o.data_ptr() for o in outs], None)
+    status = fn(*[x.data_ptr() for x in inputs], *[o.data_ptr() for o in outs], *ints, None)
     assert status == 0  # the stand-in reports a copy wider than its pointers' alignment
     return outs
 
@@ -222,11 +249,13 @@ def _check_k1(built, name, offset=4):
             assert torch.equal(g, w)
 
 
-def _check_k2(built, name, offset=4):
+def _check_k2(built, name, offset=4, coords=None):
     for (op, tile), path in built["k2", name]:
         arrays = _inputs([a.type.bounds.shape for a in op.body.args], seed=1, offset=offset)
-        got = _run(path, "k2_epoch_launch", arrays, [r.type.bounds.shape for r in op.results])
-        want = k2._emit_region(op, arrays, k2.region_masks(op, "cpu"), lambda v: v.type.bounds)
+        got = _run(path, "k2_epoch_launch", arrays, [r.type.bounds.shape for r in op.results],
+                   k2.box_args(op, coords))
+        want = k2._emit_region(op, arrays, k2.region_masks(op, "cpu", coords),
+                               lambda v: v.type.bounds)
         assert len(got) == len(want) == len(op.results)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
@@ -247,6 +276,17 @@ def test_k2_source_on_host_matches_plain_version(built, name):
     (edge tiles, ragged column chunks, fused masks), wave's overhang
     escape, ``stencil.index`` chains in 1-D and 2-D, and 3-D heat."""
     _check_k2(built, name)
+
+
+@pytest.mark.parametrize("corner", range(len(CORNERS)))
+@pytest.mark.parametrize("name", sorted(K2_RANK_CASES))
+def test_k2_source_on_host_at_each_rank_coordinate(built, name, corner):
+    """One K2 source of a rank-local epoch, launched with the box of each
+    corner of a 2×2 mesh, bitwise equal to its plain version with that
+    corner's masks; the four corners keep four different boxes."""
+    ((op, _), _), = built["k2", name]
+    assert len({tuple(k2.box_args(op, c)) for c in CORNERS}) == 4
+    _check_k2(built, name, coords=CORNERS[corner])
 
 
 @pytest.mark.parametrize("kernel", ["k1", "k2"])

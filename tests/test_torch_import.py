@@ -1,5 +1,6 @@
-"""The port stands alone: importing ``repro_torch`` (every module of it)
-and ``chip_smoke.py`` loads neither JAX nor the reference package."""
+"""The port stands alone: importing ``repro_torch`` (every module of it,
+``repro_torch.dist`` and the psyclone-like frontend among them) and
+``chip_smoke.py`` loads neither JAX nor the reference package."""
 import os
 import re
 import subprocess
@@ -15,6 +16,8 @@ import repro_torch
 names = ["repro_torch"]
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     names.append(m.name)
+for n in ("repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.frontends.psyclone_like"):
+    assert n in names, n
 for n in names:
     importlib.import_module(n)
 import chip_smoke
@@ -35,7 +38,7 @@ def test_import_loads_no_jax_and_no_reference():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 25  # the IR copy, lowering, kernels, api, frontends
+    assert n_modules >= 28  # the IR copy, lowering, kernels, api, dist, frontends
 
 
 _FORBIDDEN = re.compile(

@@ -125,6 +125,12 @@ def test_run_func_dataflow_returns_values():
 
 
 def test_distributed_is_refused():
+    """A function distributed over two ranks refuses the one-rank call and
+    a run with too few ranks: its ranks run together (``run_ranks``)."""
     local = api.compile(P.jacobi("repro_torch"), api.Target(device="cpu")).local_ir
-    with pytest.raises(NotImplementedError, match="distributed"):
-        StencilInterpreter(local, axis_sizes={"x": 2}, distributed=True)
+    interp = StencilInterpreter(local, axis_sizes={"x": 2}, distributed=True)
+    x = torch.zeros(16, 16)
+    with pytest.raises(ValueError, match="distributed over 2 ranks"):
+        interp(x, x)
+    with pytest.raises(ValueError, match="function over 2 ranks"):
+        interp.run_ranks([(x, x)], [{"x": 0}])
