@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py
 
+Phases 0-9 pin ``Target(jit=False)`` (each op launched from the host), so
+their times compare with earlier runs.
 Builds every kernel of the main path from the sources in this checkout
 (``nvcc``, one process per generated source, all started together) and
 logs each source's registers per thread (``ptxas -v``), shared memory per
@@ -54,7 +56,21 @@ check raises and the script exits non-zero:
    ``benchmarks/fig10_advection.py``, copied below), zero and periodic:
    backend cuda bitwise against torch, and over 2x2x1 ranks on this card
    bitwise against one device; PW is one apply with three results, one
-   K1 launch per rank; ms per call.
+   K1 launch per rank; ms per call;
+10. the compiled step, ``Target(jit=True, donate=True)``: heat 16384² so4
+   and 1024³, wave, the fused heat and wave epochs, and over 2x2 ranks
+   heat k=1 (zero, periodic), with overlap (zero, periodic) and fused k=4,
+   each bitwise against ``jit=False``, one graph replay per epoch; what
+   each captured graph holds, read from the graph itself
+   (``kernels/graphs.py``): K1 and K2 nodes = ranks x applies, and for
+   the overlap cases 16 frame nodes, no kernel besides K1, copies and
+   fills, and no more copies than the step without overlap; ms/step
+   beside ``jit=False`` (three runs each in turns), the host's time per
+   step and per replay call, the profiler's device time per kernel; the
+   frames' K1 launch set timed (in a graph) beside its bound, its
+   launches counted from the replayed graphs' nodes; fig-10 PW and tracer
+   through ``__call__`` on one device and 2x2x1 ranks, bitwise against
+   ``jit=False``, ms per call.
 
 The line before the last is ``{"kernels": [...]}``: per main-path case,
 the kernel's launches in that case's counted run, its time per launch,
@@ -169,6 +185,7 @@ def main() -> int:
     from repro_torch.kernels import dispatch_stats, ops, ref, reset_dispatch_stats
     from repro_torch.kernels import epoch_kernel as k2
     from repro_torch.kernels import stencil_apply as k1
+    from repro_torch.kernels.graphs import GraphCensus
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -259,8 +276,10 @@ def main() -> int:
     ]
 
     def compiled(op, **kw):
+        """The artifact of the cuda backend; run op by op (jit=False) unless
+        ``kw`` asks for the compiled step."""
         prog = op if isinstance(op, api.Program) else op.program
-        return api.compile(prog, Target(backend="cuda", **kw))
+        return api.compile(prog, Target(backend="cuda", **{"jit": False, **kw}))
 
     fused = {"exchange_every": 4, "fused_epoch": True}
     fused_cases = [  # the fused main path: (name, op, target kwargs)
@@ -330,8 +349,11 @@ def main() -> int:
     for _, op in small:
         sources += [k1.emit_apply_cuda(*spec_of(a)) for a in compiled(op).kernel_applies()]
     for _, op, kw, mesh_kw in dist_cases:
-        sources += [k1.emit_apply_cuda(*spec_of(a))
-                    for a in compiled(op, **kw, **mesh_kw).kernel_applies()]
+        step_ = compiled(op, **kw, **mesh_kw)
+        for a in step_.kernel_applies():
+            sources.append(k1.emit_apply_cuda(*spec_of(a)))
+            if step_.kernel_out_strides(a) is not None:  # a part of an in-place combine
+                sources.append(k1.emit_apply_cuda(*spec_of(a), out_strides=step_.kernel_out_strides(a)))
     for _, prog in adv_cases:
         for mesh_kw in ({}, on_2x2x1):
             sources += [k1.emit_apply_cuda(*spec_of(a))
@@ -421,11 +443,16 @@ def main() -> int:
              ir.ExpOp, ir.SelectGeZeroOp, stencil.IndexOp)
 
     def bound(spec):
+        """Bytes: the window of each operand the apply reads (its result
+        grown by the operand's access extent; a full apply's whole padded
+        operand, a frame's thin strip), once, and each result written once."""
         apply_op, shapes, _, rb = spec
         points = 1
         for n in rb.shape:
             points *= n
-        n_bytes = 4 * (sum(_numel(s) for s in shapes) + points * len(apply_op.results))
+        windows = sum(_numel([n + h - l for n, l, h in zip(rb.shape, lo, hi)])
+                      for lo, hi in apply_op.access_extents().values())
+        n_bytes = 4 * (windows + points * len(apply_op.results))
         n_ops = points * sum(isinstance(op, arith) for op in apply_op.body.ops)
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, n_ops
@@ -460,10 +487,11 @@ def main() -> int:
             return None
         return w.reshape((1, 1) + w.shape).to(dev)
 
-    def kernel_record(name, specs, launches):
+    def kernel_record(name, specs, launches, step=None):
         """Time K1, its plain version and the conv yardstick on random
         operands of the main path's shapes; hold K1 against the plain
-        version (bitwise)."""
+        version (bitwise).  With ``step``, each part of an in-place combine
+        writes a view of a result of the combine's shape, as on the path."""
         ms = plain_ms = lib_ms = bound_ms = 0.0
         err = 0.0
         by = set()
@@ -472,15 +500,18 @@ def main() -> int:
             apply_op, shapes, origins, rb = spec
             gen.manual_seed(SEED)
             arrays = [torch.randn(s, device=dev, generator=gen) for s in shapes]
-            got = k1.run_apply_cuda(apply_op, arrays, origins, rb)
+            got = k1.run_apply_cuda(apply_op, arrays, origins, rb,
+                                    out=part_views(step, apply_op))
             want = eval_apply_body(apply_op, arrays, origins, rb)
             torch.cuda.synchronize()
             for g_, w_ in zip(got, want):
                 err = max(err, float((g_ - w_).abs().max()))
                 check(torch.equal(g_, w_), f"{name}: K1 differs from its plain version")
             del got, want
-            ms += cuda_ms(lambda: k1.run_apply_cuda(apply_op, arrays, origins, rb), 10)
+            outs = part_views(step, apply_op)
+            ms += cuda_ms(lambda: k1.run_apply_cuda(apply_op, arrays, origins, rb, out=outs), 10)
             plain_ms += cuda_ms(lambda: eval_apply_body(apply_op, arrays, origins, rb), 2)
+            del outs
             b_ms, b_by, _, _ = bound(spec)
             bound_ms += b_ms
             by.add(b_by)
@@ -507,6 +538,22 @@ def main() -> int:
         log(f"  K1 {name}: {ms:.4f} ms/launch-set, bound {bound_ms:.4f} ms ({rec['bound_by']}), "
             f"plain {plain_ms:.3f} ms, conv {rec['library_ms']}, max|err| {err}")
         return rec
+
+    def part_views(step, apply_op):
+        """Per result of ``apply_op``, a view into a new tensor of its
+        combine's shape where ``step`` writes it so (a part of an in-place
+        ``stencil.combine``), else None; None without ``step``."""
+        strides = None if step is None else step.kernel_out_strides(apply_op)
+        if strides is None:
+            return None
+        views = []
+        for res, st in zip(apply_op.results, strides):
+            (comb,) = [u.operation for u in res.uses if isinstance(u.operation, stencil.CombineOp)]
+            cb, rb = comb.result_bounds, res.type.bounds
+            buf = torch.empty(cb.shape, device=dev)
+            views.append(buf[tuple(slice(l - c, l - c + n) for l, c, n in zip(rb.lb, cb.lb, rb.shape))])
+            check(tuple(views[-1].stride()) == tuple(st), "a combine part's view strides")
+        return views
 
     # -- phase 1: K1 against its plain version on the card -----------------------
     def k1_check(name, spec, offset=0, align=16):
@@ -558,18 +605,27 @@ def main() -> int:
         gen.manual_seed(SEED)
         state = tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
                       for f in prog.input_fields)
-        step.advance(state)  # warm-up epoch: loads the built kernels
+        if step.target.jit:
+            # warm-up: every rotation phase is captured as a graph
+            step.time_loop(state, STEPS)
+        else:
+            step.advance(state)  # warm-up epoch: loads the built kernels
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         reset_dispatch_stats()
+        api.reset_graph_stats()
         a.record()
-        out = op.apply(state, timesteps=STEPS, target=Target(backend="cuda", **kw))
+        out = op.apply(state, timesteps=STEPS, target=Target(backend="cuda", **{"jit": False, **kw}))
         b.record()
         b.synchronize()
         stats = dispatch_stats()
         k1_launches, k2_launches = stats.apply_launches, stats.fused_epoch_launches
         epochs = step.epochs(STEPS)
+        graphs = api.graph_stats()
+        check(graphs.replays == (epochs if step.target.jit else 0) and graphs.captures == 0,
+              f"{name}: {graphs.replays} graph replays and {graphs.captures} captures for "
+              f"{epochs} epochs (jit={step.target.jit})")
         for what, got_, per in (("K1", k1_launches, len(step.kernel_applies())),
                                 ("K2", k2_launches, len(step.kernel_epochs()))):
             check(got_ == ranks * epochs * per,
@@ -579,7 +635,8 @@ def main() -> int:
         log(f"  {name}: {STEPS} steps, {sec / STEPS * 1e3:.3f} ms/step, "
             f"{points * STEPS / sec / 1e9:.3f} GPts/s, apply_launches {k1_launches}, "
             f"fused_epoch_launches {k2_launches} ({epochs} epochs), "
-            f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+            + (f"{graphs.replays} graph replays, " if step.target.jit else "")
+            + f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
         for t in out:
             check(tuple(t.shape) == tuple(prog.field_args[0].type.bounds.shape), f"{name}: shape")
             check(bool(torch.isfinite(t).all()), f"{name}: non-finite values")
@@ -596,7 +653,7 @@ def main() -> int:
     log("phase 2: heat main path, backend cuda vs backend torch")
     for name, op, kw in main_cases:
         state, out, launches, specs = drive(name, op, kw)
-        other = api.compile(op.program, Target(backend="torch", **kw)).time_loop(state, STEPS)
+        other = api.compile(op.program, Target(jit=False, backend="torch", **kw)).time_loop(state, STEPS)
         same(name, out, other, "Target(backend='torch')")
         del state, out, other
         torch.cuda.empty_cache()
@@ -610,7 +667,7 @@ def main() -> int:
         gen.manual_seed(SEED)
         state = tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
                       for f in prog.input_fields)
-        out = op.apply(state, timesteps=STEPS, target=Target(backend="cuda"))
+        out = op.apply(state, timesteps=STEPS, target=Target(jit=False, backend="cuda"))
         want = list(state)
         for _ in range(STEPS):
             padded = [F.pad(s, [h, h] * s.ndim) for s in want]
@@ -627,7 +684,7 @@ def main() -> int:
     log("phase 3: heat exchange_every=4 (4 K1 launches per epoch) vs exchange_every=1")
     name, op, kw = epoch_case
     state, out, launches, specs = drive(name, op, kw)
-    base = op.apply(state, timesteps=STEPS, target=Target(backend="cuda"))
+    base = op.apply(state, timesteps=STEPS, target=Target(jit=False, backend="cuda"))
     same(name, out, base, "the exchange_every=1 run")
     del state, out, base
     torch.cuda.empty_cache()
@@ -637,7 +694,7 @@ def main() -> int:
     log("phase 4: wave main path, backend cuda vs backend torch")
     name, op, kw = wave_case
     state, out, launches, specs = drive(name, op, kw)
-    other = api.compile(op.program, Target(backend="torch")).time_loop(state, STEPS)
+    other = api.compile(op.program, Target(jit=False, backend="torch")).time_loop(state, STEPS)
     same(name, out, other, "Target(backend='torch')")
     del state, out, other
     torch.cuda.empty_cache()
@@ -660,7 +717,7 @@ def main() -> int:
         # host clock: the time to enqueue 8 steps (nothing in the cuda
         # route waits for the card), then the wall time until they finish
         t0 = time.perf_counter()
-        run_steps(step, state, STEPS)
+        state = run_steps(step, state, STEPS)
         t_host = time.perf_counter() - t0
         torch.cuda.synchronize()
         t_wall = time.perf_counter() - t0
@@ -686,6 +743,7 @@ def main() -> int:
             f"{busy / 4:.3f} ms/step ({100 * busy / wall_ms:.1f} % of wall)")
         for ms_, key, count in sorted(rows, reverse=True)[:8]:
             log(f"    {ms_ / 4:8.3f} ms/step  {count // 4:3d}/step  {key[:90]}")
+        return rows, t_host / STEPS * 1e3
 
     log("phase 5: device time by kernel over 4 main-path steps (torch.profiler)")
     for name, op, kw in (main_cases[1], main_cases[2], main_cases[3], fused_cases[0]):
@@ -778,10 +836,10 @@ def main() -> int:
     for name, op, kw in fused_cases:
         state, out, launches, _ = drive(name, op, kw)
         unfused_kw = {"exchange_every": kw["exchange_every"]}
-        base = op.apply(state, timesteps=STEPS, target=Target(backend="cuda", **unfused_kw))
+        base = op.apply(state, timesteps=STEPS, target=Target(jit=False, backend="cuda", **unfused_kw))
         same(name, out, base, "the unfused exchange_every=4 route (K1)")
         del base
-        other = api.compile(op.program, Target(backend="torch")).time_loop(state, STEPS)
+        other = api.compile(op.program, Target(jit=False, backend="torch")).time_loop(state, STEPS)
         same(name, out, other, "Target(backend='torch')")
         del state, out, other
         torch.cuda.empty_cache()
@@ -811,7 +869,7 @@ def main() -> int:
     # -- phase 7: the tests marked gpu, on this card ---------------------------
     log("phase 7: pytest -m gpu on this card")
     root = Path(__file__).resolve().parent
-    tests = ["tests/test_torch_kernels.py", "tests/test_torch_epoch_kernel.py"]
+    tests = ["tests/test_torch_kernels.py", "tests/test_torch_epoch_kernel.py", "tests/test_torch_jit.py"]
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-m", "gpu", "-p", "no:cacheprovider", *tests],
@@ -839,7 +897,7 @@ def main() -> int:
     corners = [{"x": x, "y": y} for x in (0, 1) for y in (0, 1)]
     for name, op, kw, mesh_kw in dist_cases:
         state, out, launches, specs = drive(name, op, {**kw, **mesh_kw})
-        one = op.apply(state, timesteps=STEPS, target=Target(backend="cuda", **kw))
+        one = op.apply(state, timesteps=STEPS, target=Target(jit=False, backend="cuda", **kw))
         same(name, out, one, "the single-device cuda run")
         del out, one
         torch.cuda.empty_cache()
@@ -859,7 +917,7 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
         if not dist_step.kernel_epochs():
-            kernels.append(kernel_record(name, specs, launches))
+            kernels.append(kernel_record(name, specs, launches, dist_step))
             continue
         (fused_op,) = dist_step.kernel_epochs()
         err, ms, plain_ms, dev_ms, _ = epoch_check(name, fused_op, None, corners=corners)
@@ -901,7 +959,7 @@ def main() -> int:
         for t in got:
             check(tuple(t.shape) == (n_adv,) * 3 and bool(torch.isfinite(t).all()),
                   f"{name}: shape or non-finite values")
-        same(name, got, api.compile(prog, Target(backend="torch"))(*args),
+        same(name, got, api.compile(prog, Target(jit=False, backend="torch"))(*args),
              "Target(backend='torch')")
         same(f"{name}, 2x2x1 ranks", outs["2x2x1 ranks"], got, "the single-device cuda run")
         del outs, got
@@ -916,6 +974,185 @@ def main() -> int:
         kernels.append(kernel_record(f"{name}, 2x2x1 ranks",
                                      [spec_of(a) for a in dist.kernel_applies()],
                                      launches["2x2x1 ranks"]))
+
+    # -- phase 10: the compiled step (one CUDA graph replay per epoch) ---------
+    def frames_record(name, step, frames, launches):
+        """K1 over the overlap path's boundary frames of one rank, as the
+        path launches them: each frame into its view of one result of the
+        combine's shape; bitwise against the plain version, timed beside
+        the least time to read each frame's window once and write the
+        frame once."""
+        (comb,) = [op for op in step.local_ir.body.ops if isinstance(op, stencil.CombineOp)]
+        cb = comb.result_bounds
+        gen.manual_seed(SEED)
+        padded = frames[0].operands[0].type.bounds
+        check(all(a.operands[0].type.bounds == padded and len(a.operands) == 1 for a in frames),
+              f"{name}: the frames read one padded operand")
+        x = torch.randn(padded.shape, device=dev, generator=gen)
+        got, want = torch.zeros(cb.shape, device=dev), torch.zeros(cb.shape, device=dev)
+
+        def view(buf, rb):
+            return buf[tuple(slice(l - c, l - c + n) for l, c, n in zip(rb.lb, cb.lb, rb.shape))]
+
+        def run_k1():
+            for a in frames:
+                k1.run_apply_cuda(a, [x], [padded.lb], a.result_bounds, out=[view(got, a.result_bounds)])
+
+        def run_plain():
+            for a in frames:
+                view(want, a.result_bounds).copy_(eval_apply_body(a, [x], [padded.lb], a.result_bounds)[0])
+
+        run_k1()
+        run_plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"{name}: K1 frames differ from their plain version ({err})")
+        # the frames' launches as the path runs them, in a graph: one launch
+        # from the host would time the host's launch rate, not the frames
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run_k1()
+        ms, host_ms = cuda_ms(graph.replay, 20), cuda_ms(run_k1, 10)
+        plain_ms = cuda_ms(run_plain, 2)
+        del graph
+        b_ms = b_by = 0
+        for a in frames:
+            one_ms, one_by, _, _ = bound(spec_of(a))
+            b_ms, b_by = b_ms + one_ms, one_by
+        rec = {
+            "name": f"stencil_apply[{name}: overlap frames]", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        }
+        log(f"  K1 frames {name}: {len(frames)} launches of "
+            f"{', '.join('x'.join(map(str, a.result_bounds.shape)) for a in frames)} into one "
+            f"{'x'.join(map(str, cb.shape))} result, {ms:.4f} ms per set in a graph "
+            f"({host_ms:.4f} ms launched one by one from the host), bound "
+            f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}), plain {plain_ms:.3f} ms, bitwise")
+        return rec
+
+    def kernel_names(rows, needle):
+        """Launches per step and device ms per step of the profile rows
+        whose kernel name holds ``needle``."""
+        hit = [(ms_, count) for ms_, key, count in rows if needle in key]
+        return sum(c for _, c in hit) / 4, sum(m for m, _ in hit) / 4
+
+    def censuses(step):
+        """The census of each graph the step captured (one per rotation
+        phase), read from the graphs themselves."""
+        return [nodes for _, nodes, _ in step._ring.graphs.values()]
+
+    log("phase 10: the compiled step, Target(jit=True, donate=True): one CUDA graph "
+        "replay per epoch over every rank, bitwise against jit=False")
+    graphed_kw = {"jit": True, "donate": True}
+    phase10 = [main_cases[1], main_cases[3], wave_case] + fused_cases + [
+        (name, op, {**kw, **mesh_kw}) for name, op, kw, mesh_kw in dist_cases[:5]]
+    # each overlap case against the step without overlap of its boundary
+    without_overlap = {dist_cases[2][0]: dist_cases[0][0], dist_cases[3][0]: dist_cases[1][0]}
+    copies = {}
+    for name, op, kw in phase10:
+        eager, graphed = compiled(op, **kw), compiled(op, **kw, **graphed_kw)
+        state, out, launches, _ = drive(f"{name}, jit", op, {**kw, **graphed_kw})
+        # the kernel nodes the counted run's replays ran (drive zeroes the
+        # counts just before it)
+        replayed = GraphCensus(dict(api.graph_stats().kernel_nodes))
+        ranks = graphed.target.spatial_ranks if graphed.target.distributed else 1
+        base = op.apply(state, timesteps=STEPS, target=Target(backend="cuda", jit=False, **kw))
+        same(f"{name}, jit", out, base, "jit=False")
+        del out, base
+        torch.cuda.empty_cache()
+        held = censuses(graphed)
+        k1_per, k2_per = ranks * len(graphed.kernel_applies()), ranks * len(graphed.kernel_epochs())
+        for nodes in held:
+            check((nodes.k1, nodes.k2) == (k1_per, k2_per),
+                  f"{name}: a graph holds {nodes.k1} K1 and {nodes.k2} K2 nodes, expected "
+                  f"{k1_per} and {k2_per}")
+        copies[name] = max(n.copies for n in held)
+        others = {}
+        for nodes in held:
+            for key, n in nodes.others().items():
+                others[key] = max(others.get(key, 0), n)
+        log(f"  {name}, jit: each of its {len(held)} graphs holds {k1_per} K1 and {k2_per} K2 "
+            f"kernel nodes, {copies[name]} copies (memcpy nodes and copy kernels), "
+            f"{max(n.fills for n in held)} fills and {sum(others.values())} other kernel "
+            f"nodes (census of the captured graphs)")
+        for key, n in sorted(others.items()):
+            log(f"    {n:3d} x {key[:100]}")
+        frames = [a for a in graphed.kernel_applies() if a.attributes.get("part") is not None
+                  and a.attributes["part"].value == "frame"]
+        if frames:
+            frame_launches = replayed.of(frames)
+            epochs = graphed.epochs(STEPS)
+            check(frame_launches == ranks * len(frames) * epochs,
+                  f"{name}: the replays ran {frame_launches} frame launches, expected "
+                  f"{ranks * len(frames) * epochs}")
+            log(f"  {name}, jit: {replayed.k1 / STEPS:.0f} K1 launches per step, "
+                f"{frame_launches / STEPS:.0f} of them frames ({len(frames)} per rank, into "
+                "the combine's result; counted from the replayed graphs' nodes)")
+            # no frame op evaluated by PyTorch, and the overlap step copies
+            # what the step without overlap copies (pad and patches): no
+            # combine copy
+            check(not others, f"{name}: the graphs launch kernels besides K1, copies and "
+                  f"fills: {sorted(others)}")
+            k1_name = without_overlap[name]
+            check(copies[name] <= copies[k1_name],
+                  f"{name}: {copies[name]} copies per epoch, without overlap {copies[k1_name]}")
+            kernels.append(frames_record(f"{name}, jit", graphed, frames, frame_launches))
+        times = {graphed: [], eager: []}
+        for step in [graphed, eager, eager, graphed, graphed, eager]:
+            times[step].append(ms_per_step(step, state))
+            torch.cuda.empty_cache()
+        (g_lo, g_ms, g_hi), (e_lo, e_ms, e_hi) = sorted(times[graphed]), sorted(times[eager])
+        log(f"  {name}: {g_ms:.3f} [{g_lo:.3f}-{g_hi:.3f}] ms/step with jit=True, "
+            f"{e_ms:.3f} [{e_lo:.3f}-{e_hi:.3f}] ms/step with jit=False (CUDA events, median "
+            f"[min-max] of 3 runs of {STEPS} steps in turns)")
+        rows, host_ms = where_time_goes(f"{name}, jit", graphed, state)
+        # the host's time for the replay call alone (a graph of phase 0,
+        # its results written over whatever its slots held)
+        graph0 = graphed._ring.graphs[0][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            graph0.replay()
+        replay_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        log(f"  {name}, jit: host {replay_ms:.4f} ms per CUDAGraph.replay() call, "
+            f"{host_ms * graphed.target.exchange_every:.4f} ms per advance() call")
+        k1_n, _ = kernel_names(rows, "k1_apply")
+        copy_n, copy_ms = (a + b for a, b in zip(kernel_names(rows, "copy"),
+                                                 kernel_names(rows, "Memcpy")))
+        log(f"  {name}, jit: the profile shows {k1_n:.0f} K1 launches/step and "
+            f"{copy_n:.0f} copy launches/step ({copy_ms:.3f} ms/step)")
+        graphed.release_graphs()
+        del state
+        torch.cuda.empty_cache()
+
+    # fig-10 through __call__: every field in, every field out, one replay
+    for name, prog in adv_cases:
+        for label, kw in (("one device", {}), ("2x2x1 ranks", on_2x2x1)):
+            eager, graphed = compiled(prog, **kw), compiled(prog, **kw, **graphed_kw)
+            ranks = 4 if kw else 1
+            gen.manual_seed(SEED)
+            args = [torch.randn(f.type.bounds.shape, device=dev, generator=gen)
+                    for f in prog.field_args]
+            graphed(*args)  # captures
+            torch.cuda.synchronize()
+            reset_dispatch_stats()
+            api.reset_graph_stats()
+            got = graphed(*args)
+            torch.cuda.synchronize()
+            n = dispatch_stats().apply_launches
+            check(n == ranks * len(graphed.kernel_applies()) and api.graph_stats().replays == 1,
+                  f"{name}, {label}, jit: {n} K1 launches in {api.graph_stats().replays} "
+                  f"replays, expected {ranks * len(graphed.kernel_applies())} in one")
+            same(f"{name}, {label}, jit", got, eager(*args), "jit=False")
+            del got
+            g_ms, e_ms = cuda_ms(lambda: graphed(*args), 3), cuda_ms(lambda: eager(*args), 3)
+            log(f"  {name}, {label}: {g_ms:.3f} ms/call with jit=True, {e_ms:.3f} ms/call "
+                "with jit=False (global tensors in and out)")
+            graphed.release_graphs()
+            del args
+            torch.cuda.empty_cache()
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())

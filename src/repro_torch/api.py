@@ -26,15 +26,32 @@
   cached process-wide on ``(program.fingerprint, target.fingerprint)``.
 
 Everything runs on the card unless the target says ``device="cpu"`` or
-its mesh's devices are CPUs.  Not ported yet (ROADMAP Queue 1):
-``slot_axis``, ``donate``/``jit``, ``cost()``, ``Target.auto``/``tuned``.
+its mesh's devices are CPUs.
+
+``Target(jit=True)`` (the default, as in the reference) is the compiled
+step.  On the card each call of the artifact is one replay of a captured
+``torch.cuda.CUDAGraph`` that holds every op of the epoch on every rank,
+every K1 and K2 launch included; the first call with a signature runs
+once eagerly (building every kernel), then captures and replays.  On the
+CPU ``jit`` changes nothing: the plain route runs op by op.  With
+``donate=True`` the caller hands its buffers over (``donate_argnums``
+names every field argument, as ``jax.jit`` is given them): ``advance``
+and ``time_loop`` keep the state in a fixed ring of buffers with one
+graph per rotation phase, and a call replays with no copy; with
+``donate=False`` inputs are copied into the graph's buffers and results
+come back as copies.  Each graph's own kernel nodes are counted after its
+capture (:mod:`repro_torch.kernels.graphs`), and each replay adds them to
+``dispatch_stats()``.  Not ported yet (ROADMAP Queue 1): ``slot_axis``,
+``cost()``, ``Target.auto``/``tuned``.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 import os
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Optional, Sequence
 
@@ -49,11 +66,14 @@ from repro_torch.dist.sharding import (
     Mesh,
     PartitionSpec,
     ShardedTensor,
+    _global_shape,
     gather,
     reshard,
     shard_map,
 )
-from repro_torch.kernels import has_cuda
+from repro_torch.kernels import _DISPATCH, has_cuda
+from repro_torch.kernels.graphs import census as _census
+from repro_torch.obs import trace as _obs
 
 
 class TargetError(ValueError):
@@ -163,7 +183,9 @@ class Target:
     ``fused_epoch`` runs each epoch as one K2 launch; ``tile`` is K2's
     tile (the counterpart of the reference's ``pallas_tile``; K1 has no
     tiles and ignores it); ``device`` is where the tensors live (with a
-    mesh: its devices' type, which ``device`` may only repeat).
+    mesh: its devices' type, which ``device`` may only repeat); ``jit``
+    runs each call on the card as one CUDA graph replay (nothing changes
+    on the CPU) and ``donate`` hands the caller's buffers over to it.
     Validation happens here, at construction.
     """
 
@@ -190,6 +212,13 @@ class Target:
     tile: Optional[tuple] = None
     # None: the mesh's device type, else "cuda"
     device: Optional[str] = None
+    # Donate every field buffer to the compiled step (the caller hands
+    # over ownership; inputs are invalid after the call).  Off by default,
+    # as in the reference: only safe when the caller rotates buffers.
+    donate: bool = False
+    # The compiled step: on the card one call is one CUDA graph replay
+    # over every rank; on the CPU the plain route runs as it is.
+    jit: bool = True
 
     def __post_init__(self) -> None:
         if self.backend not in ("torch", "cuda"):
@@ -232,6 +261,16 @@ class Target:
                 "tensors live"
             )
         object.__setattr__(self, "device", str(dev))
+        if self.jit and self.mesh is not None and self.mesh.device_type == "cuda":
+            cards = {str(d) for d in self.mesh.devices.flat}
+            if len(cards) > 1:
+                raise TargetError(
+                    f"Target(jit=True) over a mesh on {len(cards)} CUDA devices "
+                    f"({sorted(cards)}): one captured graph runs on one device; ranks "
+                    "on several cards need the multi-process transport (ROADMAP "
+                    "Queue 1 item 2, not ported yet); pass jit=False to run them "
+                    "op by op from one thread"
+                )
         if int(self.exchange_every) != self.exchange_every or self.exchange_every < 1:
             raise TargetError(
                 f"exchange_every must be a positive integer (1 = exchange "
@@ -357,6 +396,8 @@ class Target:
                 f"fused_epoch={self.fused_epoch}",
                 f"tile={self.tile}",
                 f"device={self.device}",
+                f"jit={self.jit}",
+                f"donate={self.donate}",
             ]
         )
         return hashlib.sha256(text.encode()).hexdigest()[:16]
@@ -435,21 +476,87 @@ class CompiledStencil:
         }
         self._mesh = target.mesh if target.distributed else None
         if self._mesh is None:
+            self._coords = [{}]
             self._fn = interp
         else:
             mesh = self._mesh
-            coords = [mesh.coords(r) for r in range(mesh.size)]
+            coords = self._coords = [mesh.coords(r) for r in range(mesh.size)]
             self._fn = shard_map(
                 lambda local: interp.run_ranks(local, coords),
                 mesh=mesh,
                 in_specs=partition_specs,
                 out_specs=tuple(partition_specs[i] for i in ret_indices),
             )
+        # every field argument when the step is compiled with donation, as
+        # the reference hands jax.jit its donate_argnums
+        self.donate_argnums = (
+            tuple(range(len(program.field_args))) if target.donate and target.jit else ()
+        )
+        self._ring: Optional[_Ring] = None
+        self._jit_on_card = target.jit and torch.device(target.device).type == "cuda"
+
+    # -- the compiled step (CUDA graphs) -----------------------------------
+    def _graphed(self) -> bool:
+        """Whether this call runs as a graph replay: ``jit`` on the card,
+        untraced (with ``repro_torch.obs`` tracing on, the call runs op by
+        op, as the reference's traced loop runs its unjitted function)."""
+        return self._jit_on_card and not _obs.enabled()
+
+    def _enter(self, state: tuple) -> tuple:
+        """``(ring, phase)`` of a graphed call on ``state`` (as
+        :meth:`shard_state` gives it).  With donation, a state that is the
+        ring's live phase runs in place, and one that holds a buffer of the
+        ring the last call did not return raises; any other state is
+        copied into phase 0 of the ring (a new ring where the caller may
+        still hold what the current one handed out)."""
+        ring = self._ring
+        if ring is None:
+            ring = self._ring = _Ring(self)
+        if self.target.donate:
+            if ring.stale(state):
+                raise RuntimeError(
+                    "this state holds a buffer donated to an earlier call of the "
+                    "compiled step (Target(donate=True)), which newer results may "
+                    "have overwritten; pass only what the last call returned"
+                )
+            p = ring.exact_phase(state)
+            if p is not None and not ring.held(state):
+                return ring, p  # the last call's results, in place: no copy
+        if ring.held(state):
+            ring = self._ring = _Ring(self)
+        ring.fill(state, 0)
+        return ring, 0
 
     # -- execution -------------------------------------------------------
     def __call__(self, *arrays):
         """One call over every field (global tensors in and out)."""
-        return tuple(gather(x) for x in self._fn(*arrays))
+        if not self._graphed():
+            return tuple(gather(x) for x in self._fn(*arrays))
+        n = len(self.program.field_args)
+        if len(arrays) != n:
+            raise ValueError(f"{len(arrays)} tensors for {n} field arguments")
+        outs_init = {
+            i: reshard([arrays[i]], self._mesh, [self.partition_specs[i]])[0]
+            for i in self._out_indices if i not in self._overwritten
+        }
+        return self._graph_call([arrays[i] for i in self.input_indices], outs_init)
+
+    def _graph_call(self, inputs: Sequence[Any], outs_init: Optional[dict] = None) -> tuple:
+        """One graph replay over the input fields (global tensors or, over
+        a mesh, sharded ones); returns global tensors."""
+        ring, p = self._enter(self.shard_state(inputs))
+        ring.replay(p, outs_init)
+        return tuple(self._give(x) for x in ring.results(p))
+
+    def _give(self, x):
+        """A result of the ring as the caller gets it: over a mesh
+        gathered (a new tensor); on one device the ring's own buffer with
+        donation (handed out), else a copy."""
+        if isinstance(x, ShardedTensor):
+            return gather(x)
+        if self.target.donate:
+            return self._ring.hand_out([x])[0]
+        return x.clone()
 
     @property
     def input_indices(self) -> tuple:
@@ -507,7 +614,15 @@ class CompiledStencil:
         rotation wants.  With ``Target(exchange_every=k)`` one call
         advances a k-step epoch."""
         inner = self._step_over(dtype)
-        return lambda *inputs: tuple(gather(x) for x in inner(*inputs))
+
+        def fn(*inputs):
+            if self._graphed():
+                if dtype not in (None, torch.float32):
+                    raise TypeError(f"stencil tensors must be float32, got {dtype} (no implicit cast)")
+                return self._graph_call(inputs)
+            return tuple(gather(x) for x in inner(*inputs))
+
+        return fn
 
     def epochs(self, n_steps: int) -> int:
         """``n_steps`` time steps as a whole number of epochs of this
@@ -536,24 +651,54 @@ class CompiledStencil:
         Over a mesh the state stays sharded (global tensors are sharded
         first, see :meth:`shard_state`)."""
         state = self.shard_state(state)
-        return _rotate(state, self._step_over()(*state))
+        if not self._graphed():
+            return _rotate(state, self._step_over()(*state))
+        ring, p = self._enter(state)
+        ring.replay(p)
+        if self.target.donate:
+            return ring.hand_out(ring.state(ring.rotate(p)))
+        return tuple(state[ring.n_ret:]) + tuple(_copy(x) for x in ring.results(p))
 
     def time_loop(self, state: Sequence[Any], n_steps: int) -> tuple:
         """Iterate ``n_steps`` *time steps* with time-buffer rotation
         (``state`` ordered oldest→newest); runs ``self.epochs(n_steps)``
         epochs.  Over a mesh the state is sharded once, stays sharded
-        across every epoch and is gathered once at the end."""
+        across every epoch and is gathered once at the end.  Compiled
+        (``jit`` on the card), the state is copied into the ring once,
+        every epoch is one graph replay and the result is copied out once
+        (handed out as it is, on one device with donation)."""
         n_epochs = self.epochs(n_steps)
         state = self.shard_state(state)
+        if not self._graphed():
+            for _ in range(n_epochs):
+                state = self.advance(state)
+            return tuple(gather(x) for x in state)
+        ring, p = self._enter(state)
         for _ in range(n_epochs):
-            state = self.advance(state)
-        return tuple(gather(x) for x in state)
+            ring.replay(p)
+            p = ring.rotate(p)
+        if self.target.donate and self._mesh is None:
+            return ring.hand_out(ring.state(p))
+        return tuple(_copy(x) for x in ring.state(p))
 
     # -- inspection ------------------------------------------------------
     def kernel_applies(self) -> list:
         """The applies one call hands to kernel K1 on each rank, in
         execution order."""
         return self._interp.kernel_applies()
+
+    def kernel_out_strides(self, apply_op) -> Optional[tuple]:
+        """Per result of one of :meth:`kernel_applies`, the strides of the
+        view K1 writes it into (its slice of an in-place ``stencil.combine``),
+        or ``None`` where K1 writes contiguous results: the ``out_strides``
+        its source is emitted with."""
+        return self._interp.out_strides(apply_op)
+
+    def release_graphs(self) -> None:
+        """Drop the compiled step's graphs and ring buffers (their device
+        memory goes back once nothing else holds it); the next graphed call
+        captures anew."""
+        self._ring = None
 
     def kernel_epochs(self) -> list:
         """The fused epochs one call hands to kernel K2 on each rank, in
@@ -577,9 +722,298 @@ class CompiledStencil:
         return (
             f"CompiledStencil({self.program.name!r}, "
             f"backend={self.target.backend!r}, device={self.target.device!r}, "
-            f"distributed={self.target.distributed}, "
-            f"pipeline={self.pipeline_report.spec!r})"
+            f"distributed={self.target.distributed}, jit={self.target.jit}, "
+            f"donate={self.target.donate}, pipeline={self.pipeline_report.spec!r})"
         )
+
+
+# --------------------------------------------------------------------------
+# The compiled step on the card: a ring of buffers, one CUDA graph a phase
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GraphStats:
+    """Counts of CUDA graph captures and replays since the last reset, and
+    the kernel nodes the replays ran, by kernel name (as
+    :func:`repro_torch.kernels.graphs.census` reads them from each graph)."""
+
+    captures: int = 0  # one per rotation phase of a ring, at its first call
+    replays: int = 0   # one per graphed call (an epoch)
+    kernel_nodes: dict = dataclasses.field(default_factory=dict)
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+_GRAPHS = GraphStats()
+
+
+def graph_stats() -> GraphStats:
+    return _GRAPHS
+
+
+def reset_graph_stats() -> None:
+    _GRAPHS.captures = _GRAPHS.replays = 0
+    _GRAPHS.kernel_nodes = {}
+
+
+def _copy(x):
+    """A copy of a ring buffer that shares nothing with it: a global
+    tensor over a mesh (gathered), else a clone."""
+    return gather(x) if isinstance(x, ShardedTensor) else x.clone()
+
+
+def _shards(x) -> tuple:
+    return x.shards if isinstance(x, ShardedTensor) else (x,)
+
+
+class _Ring:
+    """The buffers and graphs of one compiled step on the card.
+
+    The time-loop state rotates: a call consumes ``n_in`` buffers (oldest
+    → newest) and returns ``n_ret``, and the next state is the last
+    ``n_in - n_ret`` inputs followed by the results.  The ring holds
+    ``n = n_in + n_ret`` float32 buffers (per rank), one per slot.  Where
+    every slot has one local shape and layout, the state rotates through
+    the ring: phase ``p`` reads slots ``(p * n_ret + i) % n`` and stores
+    its results into the slots after them, so phase ``p + 1`` reads what
+    phase ``p`` left; after ``n / gcd(n, n_ret)`` phases the ring is where
+    it began (heat: 2 phases, wave: 3, wave's epochs with carried state:
+    2).  Otherwise (fields of differing shapes) the ring has one phase, and
+    :meth:`rotate` copies the next state into its input slots.  Each phase is one
+    ``torch.cuda.CUDAGraph`` of ``StencilInterpreter.run_ranks`` over
+    every rank, with the phase's result slots as the interpreter's
+    destinations, so the graph's results land in the ring; all the phases
+    capture into one memory pool, which holds the intermediates of one
+    phase at a time.  A graph is captured at the first replay of its
+    phase, after the phase has run once eagerly on a side stream (that
+    builds and loads every kernel: no build, library load or occupancy
+    query may happen inside a capture).  A capture that fails raises.
+
+    A ring on the CPU runs each phase op by op instead, with the same
+    buffers, destinations and rotation.
+
+    After a capture the graph's own nodes are counted
+    (:func:`repro_torch.kernels.graphs.census`): it must hold one K1 or K2
+    kernel node for every launch the wrappers made while it was captured,
+    or the capture raises.  Each replay then adds the graph's K1 and K2
+    nodes to ``dispatch_stats()``'s launches, and every kernel node to
+    ``graph_stats().kernel_nodes``."""
+
+    def __init__(self, stencil: CompiledStencil) -> None:
+        self.st = stencil
+        self.capture = torch.device(stencil.target.device).type == "cuda"
+        self.n_in = len(stencil.input_indices)
+        self.n_ret = len(stencil.ret_indices)
+        self.n = self.n_in + self.n_ret
+        fields = stencil._local_fields
+        slots = list(stencil.input_indices) + list(stencil.ret_indices)
+        self.kinds = [
+            (tuple(fields[f].type.bounds.shape), tuple(stencil.partition_specs[f]))
+            for f in slots
+        ]
+        rotates = len(set(self.kinds)) == 1 and self.n_ret > 0
+        self.phases = self.n // math.gcd(self.n, self.n_ret) if rotates else 1
+        mesh = stencil._mesh
+        self.devices = (
+            [torch.device(stencil.target.device)] if mesh is None
+            else [mesh.device(r) for r in range(mesh.size)]
+        )
+        self.bufs = [
+            tuple(torch.empty(shape, dtype=torch.float32, device=d) for d in self.devices)
+            for shape, _ in self.kinds
+        ]
+        self.storages = {b.untyped_storage().data_ptr() for bufs in self.bufs for b in bufs}
+        # each phase's input slots by their data pointers: the state a call
+        # returned is found by one lookup
+        self.keys = {
+            tuple(b.data_ptr() for i in range(self.n_in) for b in self.bufs[self._slot(p, i)]): p
+            for p in range(self.phases)
+        }
+        # phase -> (CUDAGraph, its census, the wrapper calls its capture made)
+        self.graphs: dict = {}
+        self.pool = torch.cuda.graph_pool_handle() if self.capture else None
+        self.live: Optional[int] = None  # phase of the state last handed out
+        self.handed: list = []  # weak references to what was handed out
+        # output fields whose first store leaves points unwritten: zeroed
+        # (or set from the caller's tensor) before each replay, as step()
+        # allocates them zeroed
+        self.partial = [i for i in stencil._out_indices if i not in stencil._overwritten]
+
+    # -- slots -------------------------------------------------------------
+    def _slot(self, p: int, i: int) -> int:
+        """Ring slot of phase ``p``'s state position ``i`` (results at
+        ``n_in + j``)."""
+        return (p * self.n_ret + i) % self.n
+
+    def _wrap(self, slot: int):
+        shards = self.bufs[slot]
+        mesh = self.st._mesh
+        if mesh is None:
+            return shards[0]
+        shape, spec = self.kinds[slot]
+        spec = PartitionSpec(*spec)
+        return ShardedTensor(mesh, spec, shards, _global_shape(shape, mesh, spec))
+
+    def state(self, p: int) -> tuple:
+        """Phase ``p``'s input state, the ring's own buffers."""
+        return tuple(self._wrap(self._slot(p, i)) for i in range(self.n_in))
+
+    def results(self, p: int) -> tuple:
+        """What a replay of phase ``p`` returns, in the ring."""
+        return tuple(self._wrap(self._slot(p, self.n_in + j)) for j in range(self.n_ret))
+
+    def exact_phase(self, state: Sequence[Any]) -> Optional[int]:
+        """The phase whose input slots ``state`` is, tensor for tensor."""
+        return self.keys.get(tuple(t.data_ptr() for x in state for t in _shards(x)))
+
+    def stale(self, state: Sequence[Any]) -> bool:
+        """Whether ``state`` holds a buffer of the ring that the last call
+        did not hand out (one donated to an earlier call)."""
+        last = {id(r()) for r in self.handed}
+        return any(
+            id(x) not in last
+            and any(t.untyped_storage().data_ptr() in self.storages for t in _shards(x))
+            for x in state
+        )
+
+    def held(self, state: Sequence[Any]) -> bool:
+        """Whether anything handed out is still alive outside ``state``."""
+        mine = {id(x) for x in state}
+        return any(r() is not None and id(r()) not in mine for r in self.handed)
+
+    def hand_out(self, xs: Sequence[Any]) -> tuple:
+        """``xs`` (ring buffers, as :meth:`state` or :meth:`results` give
+        them: new objects) to the caller, remembered weakly, so that a later
+        foreign state can tell whether they are still held; on one device
+        each is a new view of its buffer."""
+        out = tuple(x if isinstance(x, ShardedTensor) else x.view(x.shape) for x in xs)
+        self.handed += [weakref.ref(x) for x in out]
+        return out
+
+    def fill(self, state: Sequence[Any], p: int) -> None:
+        """Copy each tensor of ``state`` that is not already there into its
+        input slot of phase ``p`` (a source that lies in the ring is copied
+        first)."""
+        if len(state) != self.n_in:
+            raise ValueError(f"{len(state)} state tensors for a step of {self.n_in} inputs")
+        ours = self.storages
+        moves = []
+        for i, x in enumerate(state):
+            shards = _shards(x)
+            if len(shards) != len(self.devices):
+                raise ValueError(f"state {i}: {len(shards)} shards for {len(self.devices)} ranks")
+            for src, dst in zip(shards, self.bufs[self._slot(p, i)]):
+                if src.dtype != torch.float32:
+                    raise TypeError(
+                        f"stencil tensors must be float32, got {src.dtype} (no implicit cast)"
+                    )
+                if src.shape != dst.shape:
+                    raise ValueError(
+                        f"state {i}: a tensor of shape {tuple(src.shape)}, expected "
+                        f"{tuple(dst.shape)}"
+                    )
+                if src.data_ptr() == dst.data_ptr():
+                    continue
+                moves.append((dst, src.clone() if src.untyped_storage().data_ptr() in ours else src))
+        for dst, src in moves:
+            dst.copy_(src)
+        self.live = p
+
+    # -- running -------------------------------------------------------------
+    def _run(self, p: int) -> None:
+        """Phase ``p`` op by op on every rank, its results stored into its
+        result slots."""
+        st = self.st
+        per_rank, dests = [], []
+        for r in range(len(self.devices)):
+            d = {f: self.bufs[self._slot(p, self.n_in + j)][r]
+                 for j, f in enumerate(st.ret_indices)}
+            args = [None] * len(st._local_fields)
+            for i, f in enumerate(st.input_indices):
+                args[f] = self.bufs[self._slot(p, i)][r]
+            for f in st._out_indices:
+                args[f] = d[f]
+            per_rank.append(args)
+            dests.append(d)
+        outs = st._interp.run_ranks(per_rank, st._coords, dests)
+        for o, d in zip(outs, dests):
+            if any(t is not d[f] for t, f in zip(o, st.ret_indices)):
+                raise AssertionError("a result of the compiled step missed its ring slot")
+
+    def _graph(self, p: int) -> tuple:
+        if p in self.graphs:
+            return self.graphs[p]
+        dev = self.devices[0]
+        name = f"phase {p} of the compiled step of {self.st.program.name!r}"
+        with torch.cuda.device(dev):
+            main = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self._run(p)  # eager: builds, loads and first-launches every kernel
+            main.wait_stream(side)
+            before = _DISPATCH.as_dict()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            try:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    self._run(p)
+                nodes = _census(graph)
+                graph.instantiate()
+            except Exception as e:
+                raise RuntimeError(f"capturing {name} as a CUDA graph failed: {e}") from e
+            finally:
+                after = _DISPATCH.as_dict()
+                for k, v in before.items():
+                    setattr(_DISPATCH, k, v)
+        made = {k: after[k] - before[k] for k in before}
+        if (nodes.k1, nodes.k2) != (made["apply_launches"], made["fused_epoch_launches"]):
+            raise RuntimeError(
+                f"the CUDA graph of {name} holds {nodes.k1} K1 and {nodes.k2} K2 kernel "
+                f"nodes, but its capture launched K1 {made['apply_launches']} and K2 "
+                f"{made['fused_epoch_launches']} times"
+            )
+        _GRAPHS.captures += 1
+        calls = {k: v for k, v in made.items() if k.endswith("_calls")}
+        self.graphs[p] = (graph, nodes, calls)
+        return self.graphs[p]
+
+    def replay(self, p: int, outs_init: Optional[dict] = None) -> None:
+        """Replay phase ``p`` (capturing it first if it is new); the output
+        fields a store leaves partly unwritten start from ``outs_init``'s
+        tensors (by field position) or zeros."""
+        captured = self._graph(p) if self.capture else None
+        for f in self.partial:
+            j = self.st.ret_indices.index(f)
+            src = (outs_init or {}).get(f)
+            for r, dst in enumerate(self.bufs[self._slot(p, self.n_in + j)]):
+                if src is None:
+                    dst.zero_()
+                else:
+                    dst.copy_(_shards(src)[r])
+        if captured is None:
+            self._run(p)
+        else:
+            graph, nodes, calls = captured
+            with torch.cuda.device(self.devices[0]):
+                graph.replay()
+            for k, v in calls.items():
+                setattr(_DISPATCH, k, getattr(_DISPATCH, k) + v)
+            _DISPATCH.apply_launches += nodes.k1
+            _DISPATCH.fused_epoch_launches += nodes.k2
+            for name, v in nodes.kernels.items():
+                _GRAPHS.kernel_nodes[name] = _GRAPHS.kernel_nodes.get(name, 0) + v
+            _GRAPHS.replays += 1
+        self.live = (p + 1) % self.phases
+        self.handed = []
+
+    def rotate(self, p: int) -> int:
+        """After a replay of phase ``p``: the phase whose input slots hold
+        the next state (in a ring of one phase, copied there)."""
+        if self.phases == 1:
+            self.fill(self.state(0)[self.n_ret:] + self.results(0), 0)
+        return self.live
 
 
 # --------------------------------------------------------------------------

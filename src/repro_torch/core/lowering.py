@@ -7,10 +7,19 @@ The rank-local function — after the canonical dmp→comm lowering
 share the body evaluator:
 
 - ``torch`` — shifted slice reads evaluated eagerly (the reference);
-- ``cuda``  — each full or interior ``stencil.apply`` goes to the
-  hand-written CUDA kernel K1 of ``kernels/stencil_apply.py``, each
-  ``stencil.fused_epoch`` to kernel K2 of ``kernels/epoch_kernel.py``;
-  thin boundary frames stay on the evaluator.
+- ``cuda``  — each ``stencil.apply`` (full, interior or boundary frame)
+  goes to the hand-written CUDA kernel K1 of ``kernels/stencil_apply.py``,
+  each ``stencil.fused_epoch`` to kernel K2 of ``kernels/epoch_kernel.py``.
+
+A ``stencil.combine`` whose parts are applies read by nothing else is
+assembled in place: its result is allocated once, by the first part, and
+each part writes its own slice of it (K1 through a strided result, the
+evaluator by a copy), so the combine itself copies nothing.  Where the
+caller names a destination tensor for a field (``run_ranks``'s
+``dests``), whatever is stored to that field ends in that tensor: the
+apply (or in-place combine) whose whole result is stored writes straight
+into it.  A captured CUDA graph relies on that to keep its results in
+fixed buffers.
 
 Halo exchanges: on one device every grid axis has size 1, so
 ``comm.exchange_start`` emulates the exchange locally (the patch itself
@@ -24,7 +33,7 @@ rank before the next, as ``lax.ppermute`` inside ``shard_map`` does:
 
 Tensors are never written in place unless this interpreter allocated
 them in the same call and no later op reads them in their old state; a
-caller's tensor is never written.
+caller's tensor is never written, except a destination it names.
 """
 from __future__ import annotations
 
@@ -251,6 +260,10 @@ class RankView:
     env: dict = dataclasses.field(default_factory=dict)
     fields: dict = dataclasses.field(default_factory=dict)
     owned: set = dataclasses.field(default_factory=set)
+    # field arg -> the tensor whatever is stored to that field ends in
+    dests: dict = dataclasses.field(default_factory=dict)
+    # in-place stencil.combine -> its result, allocated by its first part
+    combined: dict = dataclasses.field(default_factory=dict)
 
 
 class StencilInterpreter:
@@ -296,6 +309,8 @@ class StencilInterpreter:
             if isinstance(op, stencil.StoreOp) and op.field not in self.output_fields:
                 self.output_fields.append(op.field)
         self._last_use = _last_uses(func.body.ops)
+        self._part_of, self._covered = _in_place_combines(func)
+        self._stored_whole = _whole_stores(func, self._covered)
         self.n_ranks = math.prod(self.axis_sizes.values()) if distributed else 1
         # open exchange windows: (rank, ExchangeStartOp result) -> obs
         # token, closed by the WaitOp consuming that patch (reset per call)
@@ -311,11 +326,15 @@ class StencilInterpreter:
         return self.run_ranks([arrays], [{}])[0]
 
     def run_ranks(self, per_rank: Sequence[Sequence[torch.Tensor]],
-                  coords: Sequence[Mapping[str, int]]) -> list:
+                  coords: Sequence[Mapping[str, int]],
+                  dests: Optional[Sequence[Mapping[int, torch.Tensor]]] = None) -> list:
         """Run the function on every rank in lockstep: ``per_rank[r]`` holds
         rank ``r``'s field tensors, ``coords[r]`` its coordinate along each
-        mesh axis.  Returns, per rank, the tuple the single-rank call
-        returns."""
+        mesh axis.  ``dests[r]`` (optional) maps a field's position to a
+        tensor of its shape on rank ``r``'s device that what is stored to
+        that field ends in (it may be the field's own tensor, never one
+        that another field's tensor shares).  Returns, per rank, the tuple
+        the single-rank call returns."""
         if len(per_rank) != self.n_ranks or len(coords) != self.n_ranks:
             raise ValueError(
                 f"{len(per_rank)} ranks of tensors and {len(coords)} coordinates "
@@ -324,8 +343,9 @@ class StencilInterpreter:
         fields = [
             a for a in self.func.body.args if isinstance(a.type, stencil.FieldType)
         ]
+        dests = dests if dests is not None else [{}] * self.n_ranks
         views = []
-        for r, (arrays, c) in enumerate(zip(per_rank, coords)):
+        for r, (arrays, c, d) in enumerate(zip(per_rank, coords, dests)):
             if len(arrays) != len(fields):
                 raise ValueError(
                     f"expected {len(fields)} field tensors, got {len(arrays)}"
@@ -339,6 +359,15 @@ class StencilInterpreter:
                         f"!= local bounds shape {expect}"
                     )
                 view.fields[arg] = arr
+            for i, t in d.items():
+                expect = tuple(fields[i].type.bounds.shape)
+                if tuple(t.shape) != expect or t.device != view.device or t.dtype != torch.float32:
+                    raise ValueError(
+                        f"destination of field {fields[i].name_hint}: a {t.dtype} tensor of "
+                        f"shape {tuple(t.shape)} on {t.device}, expected float32 of shape "
+                        f"{expect} on {view.device}"
+                    )
+                view.dests[fields[i]] = t
             views.append(view)
         self._open_exchanges = {}
         for i, op in enumerate(self.func.body.ops):
@@ -354,6 +383,19 @@ class StencilInterpreter:
             if isinstance(op, stencil.ApplyOp) and self._routes_to_kernel(op)
         ]
 
+    def out_strides(self, op: stencil.ApplyOp) -> Optional[tuple]:
+        """Per result of ``op``, the strides (in floats) of the tensor it is
+        written into where that is a view into a larger one (its slice of
+        an in-place combine's result), else ``None``; ``None`` when every
+        result is contiguous.  A destination a result is stored into whole
+        is contiguous."""
+        out = tuple(
+            _contiguous_strides(self._part_of[r].result_bounds.shape) if r in self._part_of
+            else None
+            for r in op.results
+        )
+        return out if any(o is not None for o in out) else None
+
     def kernel_epochs(self) -> list:
         """The ``stencil.fused_epoch`` ops this interpreter hands to kernel
         K2, in execution order (empty for the ``torch`` backend)."""
@@ -365,10 +407,35 @@ class StencilInterpreter:
 
     # -- helpers ---------------------------------------------------------
     def _routes_to_kernel(self, op: stencil.ApplyOp) -> bool:
-        part = op.attributes.get("part")
-        return self.backend == "cuda" and (
-            part is None or part.value == "interior"
-        )
+        return self.backend == "cuda"
+
+    def _result_tensors(self, op: stencil.ApplyOp, view: RankView):
+        """Per result of ``op``, the tensor it must be written into, or
+        ``None`` where the backend allocates it: its slice of an in-place
+        combine's result, or the destination of the field it is stored
+        to whole; ``None`` when every result is the backend's."""
+        out = []
+        for res in op.results:
+            comb = self._part_of.get(res)
+            if comb is None:
+                out.append(self._dest_of(res, view))
+                continue
+            buf = view.combined.get(comb)
+            if buf is None:
+                rb = comb.result_bounds
+                buf = self._dest_of(comb.results[0], view)
+                if buf is None:
+                    alloc = torch.empty if self._covered[comb] else torch.zeros
+                    buf = alloc(rb.shape, dtype=torch.float32, device=view.device)
+                elif not self._covered[comb]:
+                    buf.zero_()  # points no part covers are zero
+                view.combined[comb] = buf
+            out.append(buf[_slices(res.type.bounds, comb.result_bounds)])
+        return out if any(o is not None for o in out) else None
+
+    def _dest_of(self, value: ir.SSAValue, view: RankView):
+        field = self._stored_whole.get(value)
+        return None if field is None else view.dests.get(field)
 
     def _dead_after(self, value: ir.SSAValue, i: int) -> bool:
         return self._last_use.get(value, -1) <= i
@@ -395,50 +462,51 @@ class StencilInterpreter:
         elif isinstance(op, stencil.ApplyOp):
             arrays = [env[o] for o in op.operands]
             origins = [o.type.bounds.lb for o in op.operands]
+            out = self._result_tensors(op, view)
             if _obs.enabled():
                 part = op.attributes.get("part")
                 name = f"apply:{part.value if part is not None else 'full'}"
                 with _obs.span(name, cat="compute", rank=view.rank,
                                ranks=self.n_ranks, shape=list(op.result_bounds.shape)):
                     outs = self._apply_backend(
-                        op, arrays, origins, op.result_bounds, view.device
+                        op, arrays, origins, op.result_bounds, view.device, out
                     )
             else:
                 outs = self._apply_backend(
-                    op, arrays, origins, op.result_bounds, view.device
+                    op, arrays, origins, op.result_bounds, view.device, out
                 )
             for res, arr in zip(op.results, outs):
                 env[res] = arr
                 owned.add(res)
         elif isinstance(op, stencil.CombineOp):
-            env[op.results[0]] = self._exec_combine(op, env)
+            combined = view.combined.pop(op, None)
+            # in place: every part has written its slice already
+            env[op.results[0]] = combined if combined is not None else self._exec_combine(op, env)
             owned.add(op.results[0])
         elif isinstance(op, stencil.StoreOp):
             temp = env[op.temp]
             tb: stencil.Bounds = op.temp.type.bounds
             fb: stencil.Bounds = op.field.type.bounds
             sb: stencil.Bounds = op.bounds
-            patch = temp[
-                tuple(
-                    slice(s - t, s - t + n) for s, t, n in zip(sb.lb, tb.lb, sb.shape)
-                )
-            ]
+            patch = temp[_slices(sb, tb)]
             # the stored tensor may be a view of ``temp`` and goes back to
             # the caller: no later op may write into ``temp`` in place
             owned.discard(op.temp)
-            if sb == fb:
+            dest = view.dests.get(op.field)
+            if dest is not None:
+                if temp is not dest:  # else its producer wrote it there
+                    if sb != fb and view.fields[op.field] is not dest:
+                        dest.copy_(view.fields[op.field])
+                    dest[_slices(sb, fb)] = patch
+                view.fields[op.field] = dest
+            elif sb == fb:
                 # the next call hands this tensor to a kernel, which takes
                 # contiguous tensors only
                 view.fields[op.field] = patch.contiguous()
             else:
                 # functional update: the field tensor may be the caller's
                 new = view.fields[op.field].clone()
-                new[
-                    tuple(
-                        slice(s - f, s - f + n)
-                        for s, f, n in zip(sb.lb, fb.lb, sb.shape)
-                    )
-                ] = patch
+                new[_slices(sb, fb)] = patch
                 view.fields[op.field] = new
         elif isinstance(op, comm.HaloPadOp):
             x = env[op.operands[0]]
@@ -472,27 +540,21 @@ class StencilInterpreter:
             raise NotImplementedError(f"function-level op {op.name}")
 
     # -- apply backends -------------------------------------------------
-    def _apply_backend(self, op, arrays, origins, rb, device):
+    def _apply_backend(self, op, arrays, origins, rb, device, out=None):
+        """The apply's results, written into ``out``'s tensors where it
+        names them (:meth:`_result_tensors`)."""
         if self._routes_to_kernel(op):
             from repro_torch.kernels.stencil_apply import run_apply_cuda
 
-            return run_apply_cuda(op, arrays, origins, rb, device=device)
-        # thin boundary frames go through the evaluator: identical
-        # elementwise arithmetic, no per-slab kernel launch
-        return eval_apply_body(op, arrays, origins, rb, device=device)
+            return run_apply_cuda(op, arrays, origins, rb, device=device, out=out)
+        return write_into(eval_apply_body(op, arrays, origins, rb, device=device), out)
 
     def _exec_combine(self, op: stencil.CombineOp, env):
         rb = op.result_bounds
         parts = [env[o] for o in op.operands]
         out = torch.zeros(rb.shape, dtype=parts[0].dtype, device=parts[0].device)
         for val, part in zip(op.operands, parts):
-            pb: stencil.Bounds = val.type.bounds
-            out[
-                tuple(
-                    slice(l - b, l - b + n)
-                    for l, b, n in zip(pb.lb, rb.lb, pb.shape)
-                )
-            ] = part
+            out[_slices(val.type.bounds, rb)] = part
         return out
 
     # -- comm ops (every rank at once; size-1 axes emulate locally) -------
@@ -583,12 +645,14 @@ class StencilInterpreter:
 
         arrays = [view.env[o] for o in op.operands]
         device = view.device
+        # escapes stored whole to a field with a destination go straight there
+        out = [self._dest_of(r, view) for r in op.results]
         if self.backend == "cuda":
             masks = None if device.type == "cuda" else region_masks(op, device, view.coords)
-            outs = run_epoch_cuda(op, arrays, masks, tile=self.tile, coords=view.coords)
+            outs = run_epoch_cuda(op, arrays, masks, tile=self.tile, coords=view.coords, out=out)
         else:
             masks = region_masks(op, device, view.coords)
-            outs = _emit_region(op, arrays, masks, lambda v: v.type.bounds)
+            outs = write_into(_emit_region(op, arrays, masks, lambda v: v.type.bounds), out)
         for res, arr in zip(op.results, outs):
             view.env[res] = arr
 
@@ -600,19 +664,83 @@ class StencilInterpreter:
             out = x
         else:
             out = x.clone()
-        origin = op.temp.type.bounds.lb
         for p in op.patches:
-            rect: stencil.Bounds = p.type.bounds
-            out[
-                tuple(
-                    slice(o - g, o - g + n)
-                    for o, g, n in zip(rect.lb, origin, rect.shape)
-                )
-            ] = env[p]
+            out[_slices(p.type.bounds, op.temp.type.bounds)] = env[p]
             if _obs.enabled():
                 _obs.end_window(self._open_exchanges.pop((view.rank, p), None))
         env[op.results[0]] = out
         view.owned.add(op.results[0])
+
+
+def write_into(outs: list, out: Optional[Sequence]) -> list:
+    """``outs`` with each result that ``out`` names a tensor for copied
+    into that tensor (the plain versions' counterpart of a kernel writing
+    its results where it is told)."""
+    for j, o in enumerate(out or ()):
+        if o is not None:
+            o.copy_(outs[j])
+            outs[j] = o
+    return outs
+
+
+def _slices(inner: stencil.Bounds, outer: stencil.Bounds) -> tuple:
+    """The index of ``inner`` in a tensor that covers ``outer``."""
+    return tuple(slice(l - o, l - o + n) for l, o, n in zip(inner.lb, outer.lb, inner.shape))
+
+
+def _contiguous_strides(shape: Sequence[int]) -> tuple:
+    return tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+
+
+def _volume(b: stencil.Bounds) -> int:
+    return math.prod(b.shape)
+
+
+def _in_place_combines(func: ir.FuncOp) -> tuple:
+    """``({apply result: combine}, {combine: parts cover its result})`` for
+    every ``stencil.combine`` that can be assembled in place: each part is
+    a result of a ``stencil.apply`` read by nothing else, and no two parts
+    overlap (so the order the parts are written in does not matter)."""
+    part_of, covered = {}, {}
+    for op in func.body.ops:
+        if not isinstance(op, stencil.CombineOp):
+            continue
+        parts = list(op.operands)
+        if not all(
+            isinstance(v, ir.OpResult) and isinstance(v.op, stencil.ApplyOp) and v.num_uses == 1
+            for v in parts
+        ):
+            continue
+        bounds = [v.type.bounds for v in parts]
+        if any(
+            all(max(a.lb[d], b.lb[d]) < min(a.ub[d], b.ub[d]) for d in range(a.rank))
+            for i, a in enumerate(bounds) for b in bounds[i + 1:]
+        ):
+            continue
+        for v in parts:
+            part_of[v] = op
+        covered[op] = sum(map(_volume, bounds)) == _volume(op.result_bounds)
+    return part_of, covered
+
+
+def _whole_stores(func: ir.FuncOp, in_place: Mapping) -> dict:
+    """``{temp: field}`` for each temp that an apply, a fused epoch or an
+    in-place combine produces and that only a store reads, which writes
+    the whole temp over the whole field, of a field the function never
+    loads: given a destination for that field, the producer may write
+    straight into it (no operand of it can read the destination)."""
+    loaded = {op.field for op in func.body.ops if isinstance(op, stencil.LoadOp)}
+    out = {}
+    for op in func.body.ops:
+        if not isinstance(op, stencil.StoreOp) or op.field in loaded:
+            continue
+        v, fb = op.temp, op.field.type.bounds
+        if not (isinstance(v, ir.OpResult) and v.num_uses == 1
+                and op.bounds == fb and v.type.bounds == fb):
+            continue
+        if isinstance(v.op, (stencil.ApplyOp, stencil.FusedEpochOp)) or v.op in in_place:
+            out[v] = op.field
+    return out
 
 
 def _coord_key(coords: Mapping[str, int]) -> tuple:

@@ -8,8 +8,12 @@ Shared here (imported by ``api``, ``core.lowering`` and the kernels):
   for CUDA tensors.
 - :func:`dispatch_stats` — per-process kernel counters.  ``*_calls``
   count calls of a kernel wrapper on any device (as the reference counts
-  traced ``pallas_call``s); ``*_launches`` count CUDA launches only, so a
-  run can show that its path went through the kernel.  ``apply_*`` is
+  traced ``pallas_call``s; a CUDA graph replay adds the calls its capture
+  made); ``*_launches`` count CUDA launches only, so a
+  run can show that its path went through the kernel: a wrapper's own
+  launches, and under a CUDA graph replay the K1 and K2 kernel nodes the
+  replayed graph holds (counted from the graph, ``kernels.graphs``).
+  ``apply_*`` is
   kernel K1 (``stencil.apply``), ``fused_epoch_*`` kernel K2 (one
   ``stencil.fused_epoch``).
 """
@@ -30,9 +34,9 @@ class DispatchStats:
     """Counts of kernel-wrapper calls and CUDA launches since the last reset."""
 
     apply_calls: int = 0     # stencil.apply wrapper calls (kernels/stencil_apply.py)
-    apply_launches: int = 0  # of those, CUDA kernel launches
+    apply_launches: int = 0  # CUDA kernel launches (a wrapper's, or a replayed graph's K1 nodes)
     fused_epoch_calls: int = 0     # stencil.fused_epoch wrapper calls (kernels/epoch_kernel.py)
-    fused_epoch_launches: int = 0  # of those, CUDA kernel launches
+    fused_epoch_launches: int = 0  # CUDA kernel launches (likewise, K2)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)

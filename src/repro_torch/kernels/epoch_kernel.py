@@ -96,6 +96,7 @@ import torch
 
 from repro_torch.core.dialects import comm, stencil
 from repro_torch.kernels import _DISPATCH
+from repro_torch.kernels import graphs as _graphs
 from repro_torch.kernels import stencil_apply as _k1
 from repro_torch.obs import trace as _obs
 
@@ -837,7 +838,7 @@ def emit_epoch_cuda(
         "}",
         "",
     ]
-    return "\n".join(src)
+    return _graphs.name_kernel(src, _graphs.K2_KERNEL)
 
 
 # --------------------------------------------------------------------------
@@ -855,6 +856,7 @@ def _kernel_for(fused_op: stencil.FusedEpochOp, tile: Optional[tuple], ptr_align
         fn = per_op.get((tile, ptr_align))
     if fn is None:
         source = emit_epoch_cuda(fused_op, tile, ptr_align)
+        _graphs.register(source, fused_op)
         n_ptrs = len(fused_op.operands) + len(fused_op.results)
         n_ints = 2 * len(set(_box_keys(fused_op).values()))
         argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
@@ -870,10 +872,13 @@ def run_epoch_cuda(
     masks: Optional[Sequence[torch.Tensor]],
     tile: Optional[Sequence[int]] = None,
     coords=None,
+    out: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> list:
     """Entry point used by the lowering's ``cuda`` backend: one fused epoch
     on the rank at mesh coordinate ``coords`` (a mesh axis name → its
-    coordinate; all zeros by default, as on one device).
+    coordinate; all zeros by default, as on one device).  ``out`` gives,
+    per escape, a contiguous tensor to write it into (``None``: a new
+    one), which must not overlap an operand.
 
     CPU tensors go through the plain version, with ``masks`` (one 0/1
     tensor per boundary_mask, built by :func:`region_masks` at ``coords``
@@ -903,6 +908,16 @@ def run_epoch_cuda(
                 f"shape {tuple(arg.type.bounds.shape)}"
             )
     tile = None if tile is None else tuple(int(t) for t in tile)
+    out = list(out) if out is not None else [None] * len(fused_op.results)
+    if len(out) != len(fused_op.results):
+        raise ValueError(f"{len(out)} out tensors for an epoch of {len(fused_op.results)} escapes")
+    for j, (o, r) in enumerate(zip(out, fused_op.results)):
+        if o is not None and (o.device != dev or o.dtype != torch.float32 or not o.is_contiguous()
+                              or tuple(o.shape) != tuple(r.type.bounds.shape)):
+            raise ValueError(
+                f"out {j}: expected a contiguous float32 tensor of shape "
+                f"{tuple(r.type.bounds.shape)} on {dev}"
+            )
     with _obs.span("cuda:fused_epoch", cat="kernel", rank=None, device=dev.type):
         if dev.type == "cpu":
             if tile is not None:
@@ -913,7 +928,10 @@ def run_epoch_cuda(
                 raise ValueError(
                     f"{len(masks)} masks for {len(_mask_ops(fused_op))} boundary masks"
                 )
-            return _emit_region(fused_op, list(arrays), masks, lambda v: v.type.bounds)
+            from repro_torch.core.lowering import write_into
+
+            return write_into(_emit_region(fused_op, list(arrays), masks, lambda v: v.type.bounds),
+                              out)
         if dev.type != "cuda":
             raise ValueError(f"K2 runs on CUDA or (plain version) CPU, not {dev}")
         if masks is not None:
@@ -925,8 +943,8 @@ def run_epoch_cuda(
             if not a.is_contiguous():
                 raise ValueError(f"operand {k} is not contiguous")
         outs = [
-            torch.empty(r.type.bounds.shape, dtype=torch.float32, device=dev)
-            for r in fused_op.results
+            torch.empty(r.type.bounds.shape, dtype=torch.float32, device=dev) if o is None else o
+            for r, o in zip(fused_op.results, out)
         ]
         fn = _kernel_for(fused_op, tile, _k1.ptr_alignment(arrays))
         with torch.cuda.device(dev):

@@ -63,7 +63,7 @@ import torch
 
 from repro_torch.core import ir
 from repro_torch.core.dialects import stencil
-from repro_torch.kernels import _DISPATCH
+from repro_torch.kernels import _DISPATCH, graphs
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -303,14 +303,19 @@ def emit_apply_cuda(
     operand_origins: Sequence[tuple],
     result_bounds: stencil.Bounds,
     ptr_align: int = 16,
+    out_strides: Optional[Sequence[Optional[tuple]]] = None,
 ) -> str:
     """CUDA C++ source of K1 for one apply at these operand shapes and
     origins: one ``__global__`` kernel, the C launcher
     ``k1_apply_launch(in0, …, out0, …, stream) -> cudaError_t`` and the
     occupancy query ``k1_apply_occupancy(int* ctas_per_sm)``.
     ``ptr_align`` is the alignment in bytes that every operand pointer
-    has; it bounds the width of the slice copies."""
+    has; it bounds the width of the slice copies.  ``out_strides`` gives
+    each result's strides in floats (``None``, or a ``None`` entry: the
+    result is contiguous): a result may be a view into a larger tensor,
+    such as its part of a ``stencil.combine``."""
     check_windows(apply_op, operand_shapes, operand_origins, result_bounds)
+    ostr = result_strides(apply_op, result_bounds, out_strides)
     lifted = result_bounds.rank == 1
     shapes, origins, rb, ext = _lift(apply_op, operand_shapes, operand_origins, result_bounds)
     rank = rb.rank
@@ -332,7 +337,13 @@ def emit_apply_cuda(
     n_in = len(apply_op.operands)
     n_out = len(apply_op.results)
     strides = [_strides(s) for s in shapes]
-    rstr = _strides(n)
+    # each result's strides in the lifted frame (rank 1 has one row, whose
+    # index is always 0: its stride is the row's span, as if contiguous);
+    # results of one stride share one offset variable
+    if lifted:
+        ostr = [(n[1] * st[0],) + st for st in ostr]
+    groups_of = {st: g for g, st in enumerate(dict.fromkeys(ostr))}
+    o_name = {st: ("o" if g == 0 else f"o{g}") for st, g in groups_of.items()}
     n_points = 1
     for s in n:
         n_points *= s
@@ -345,6 +356,9 @@ def emit_apply_cuda(
         f"{tuple(grid)} ({n_ctas} CTAs), rings of {depth} slices, {smem} bytes of "
         "shared memory",
     ]
+    if any(st != _strides(n) for st in ostr):
+        src.append("// result strides " + ", ".join(f"out{j} {st[1:] if lifted else st}"
+                                                    for j, st in enumerate(ostr)))
     for k in range(n_in):
         src.append(
             f"// in{k}: shape {tuple(operand_shapes[k])}, origin "
@@ -447,11 +461,12 @@ def emit_apply_cuda(
             r = row - lo[0]
             names[(k, rest, row)] = f"x{k}_{g}_{r}"
             src.append(f"      const float x{k}_{g}_{r} = ring{k}[slot{r} * {p.floats} + e{k} + {flat}];")
-    flat_out = " + ".join(
-        [f"static_cast<int64_t>(z + s) * {rstr[0]}LL"]
-        + [f"(u{d} + c{d}) * {rstr[d]}LL" for d in range(1, rank)]
-    )
-    src.append(f"      const int64_t o = {flat_out};")
+    for st, name in o_name.items():
+        flat_out = " + ".join(
+            [f"static_cast<int64_t>(z + s) * {st[0]}LL"]
+            + [f"(u{d} + c{d}) * {st[d]}LL" for d in range(1, rank)]
+        )
+        src.append(f"      const int64_t {name} = {flat_out};")
     for j in range(step):
         def load(k, offset, j=j):
             off = ((0,) + tuple(offset)) if lifted else tuple(offset)
@@ -465,7 +480,7 @@ def emit_apply_cuda(
         ragged = n[0] % step != 0 and j > 0  # only a chunk's last step is ragged
         src.append(f"      if (s + {j} < rows) {{" if ragged else "      {")
         src += emit_body(apply_op, load, index,
-                         lambda jj, v, j=j: f"out{jj}[o + {j * rstr[0]}LL] = {v};",
+                         lambda jj, v, j=j: f"out{jj}[{o_name[ostr[jj]]} + {j * ostr[jj][0]}LL] = {v};",
                          indent="        ")
         src.append("      }")
     src += [
@@ -504,7 +519,39 @@ def emit_apply_cuda(
         "}",
         "",
     ]
-    return "\n".join(src)
+    return graphs.name_kernel(src, graphs.K1_KERNEL)
+
+
+def result_strides(
+    apply_op: stencil.ApplyOp,
+    result_bounds: stencil.Bounds,
+    out_strides: Optional[Sequence[Optional[tuple]]] = None,
+) -> list:
+    """Each result's strides in floats: contiguous where ``out_strides``
+    (or its entry) is ``None``; raise where a given stride tuple has the
+    wrong rank or lets two points of the result share an address."""
+    n = tuple(result_bounds.shape)
+    if out_strides is None:
+        out_strides = [None] * len(apply_op.results)
+    if len(out_strides) != len(apply_op.results):
+        raise ValueError(
+            f"{len(out_strides)} result strides for an apply of "
+            f"{len(apply_op.results)} results"
+        )
+    out = []
+    for j, st in enumerate(out_strides):
+        st = _strides(n) if st is None else tuple(int(x) for x in st)
+        if len(st) != len(n):
+            raise ValueError(f"result {j}: strides {st} for a rank-{len(n)} result")
+        # no two points on one address: sorted by stride, each dim must
+        # step over everything the faster dims span
+        span = 1
+        for x, m in sorted((x, m) for x, m in zip(st, n) if m > 1):
+            if x < span:
+                raise ValueError(f"result {j}: strides {st} overlap for shape {n}")
+            span = x * m
+        out.append(st)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -597,13 +644,17 @@ def ptr_alignment(tensors: Sequence[torch.Tensor]) -> int:
     raise ValueError("a float32 tensor whose data is not 4-byte aligned")
 
 
-def _kernel_for(apply_op, shapes, origins, result_bounds, ptr_align: int = 16):
-    key = (tuple(shapes), tuple(tuple(o) for o in origins), result_bounds, ptr_align)
+def _kernel_for(apply_op, shapes, origins, result_bounds, ptr_align: int = 16,
+                out_strides: Optional[tuple] = None):
+    key = (tuple(shapes), tuple(tuple(o) for o in origins), result_bounds, ptr_align,
+           out_strides)
     with _LIBS_LOCK:
         per_op = _BOUND.setdefault(apply_op, {})
         fn = per_op.get(key)
     if fn is None:
-        source = emit_apply_cuda(apply_op, shapes, origins, result_bounds, ptr_align)
+        source = emit_apply_cuda(apply_op, shapes, origins, result_bounds, ptr_align,
+                                 out_strides)
+        graphs.register(source, apply_op)
         fn = _launcher(source, [ctypes.c_void_p] * (len(shapes) + len(apply_op.results) + 1))
         with _LIBS_LOCK:
             per_op[key] = fn
@@ -651,15 +702,19 @@ def run_apply_cuda(
     origins: Sequence[tuple],
     result_bounds: stencil.Bounds,
     device: Optional[torch.device] = None,
+    out: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> list:
     """Entry point used by the lowering's ``cuda`` backend.
 
     CPU tensors go through the plain version (``eval_apply_body``); CUDA
     tensors go through the kernel, or the call raises.  ``device`` is only
-    read when the apply has no operands.  Each call counts in
+    read when the apply has no operands.  ``out`` gives, per result, the
+    tensor to write it into (``None``: a new contiguous tensor); it may be
+    a strided view, such as the part of a larger result, and must not
+    overlap an operand.  Each call counts in
     ``dispatch_stats().apply_calls``, each launch in ``apply_launches``.
     """
-    from repro_torch.core.lowering import eval_apply_body
+    from repro_torch.core.lowering import eval_apply_body, write_into
 
     _DISPATCH.apply_calls += 1
     dev = arrays[0].device if arrays else torch.device(device or "cpu")
@@ -669,24 +724,38 @@ def run_apply_cuda(
             raise ValueError(f"operand {k} on {a.device}, operand 0 on {dev}")
         if a.dtype != torch.float32:
             raise TypeError(f"operand {k} is {a.dtype}; K1 takes float32")
+    shape = result_bounds.shape
+    out = list(out) if out is not None else [None] * len(apply_op.results)
+    if len(out) != len(apply_op.results):
+        raise ValueError(f"{len(out)} out tensors for an apply of {len(apply_op.results)} results")
+    for j, o in enumerate(out):
+        if o is not None and (o.device != dev or o.dtype != torch.float32
+                              or tuple(o.shape) != tuple(shape)):
+            raise ValueError(
+                f"out {j}: a {o.dtype} tensor of shape {tuple(o.shape)} on {o.device}, "
+                f"expected float32 of shape {tuple(shape)} on {dev}"
+            )
     if dev.type == "cpu":
         check_windows(apply_op, shapes, origins, result_bounds)
-        return eval_apply_body(apply_op, arrays, origins, result_bounds, device=dev)
+        return write_into(eval_apply_body(apply_op, arrays, origins, result_bounds, device=dev), out)
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or (plain version) CPU, not {dev}")
     for k, a in enumerate(arrays):
         if not a.is_contiguous():
             raise ValueError(f"operand {k} is not contiguous")
-    shape = result_bounds.shape
     outs = [
-        torch.empty(shape, dtype=torch.float32, device=dev)
-        for _ in apply_op.results
+        torch.empty(shape, dtype=torch.float32, device=dev) if o is None else o
+        for o in out
     ]
     if outs[0].numel() == 0:
         check_windows(apply_op, shapes, origins, result_bounds)
         return outs
+    strides = None
+    if any(o is not None for o in out):
+        strides = tuple(tuple(o.stride()) for o in outs)
+        result_strides(apply_op, result_bounds, strides)  # refuse overlapping views
     # the windows are checked when the source is emitted, once per shape
-    fn = _kernel_for(apply_op, shapes, origins, result_bounds, ptr_alignment(arrays))
+    fn = _kernel_for(apply_op, shapes, origins, result_bounds, ptr_alignment(arrays), strides)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(

@@ -12,6 +12,11 @@ show is what only the card has (concurrent threads, the real copy engine,
 timing).  Bodies with ``sqrtf``/``expf`` are left out: the C library's
 and torch's roundings of those differ.
 
+The overlap path's parts (interior and boundary frames) are emitted with
+strided results, as the executor launches them into one result of the
+combine's shape: their sources run on the host too, writing into one
+NaN-filled buffer, and every point outside the part stays NaN.
+
 Skips only where ``g++`` is not on ``PATH``.
 """
 import ctypes
@@ -26,7 +31,8 @@ import _torch_programs as P
 from repro_torch import api
 from repro_torch.api import Target
 from repro_torch.core.lowering import eval_apply_body
-from repro_torch.core.passes.decompose import make_strategy_2d
+from repro_torch.core.dialects import stencil
+from repro_torch.core.passes.decompose import make_strategy_1d, make_strategy_2d, make_strategy_3d
 from repro_torch.dist import Mesh
 from repro_torch.kernels import epoch_kernel as k2
 from repro_torch.kernels import ops
@@ -149,6 +155,31 @@ K1_CASES = {
         P.advection("repro_torch", "tracer_advection", (20, 9, 37), "zero")),
 }
 
+def _overlap(prog, mesh_shape):
+    """The overlap path's K1 applies of ``prog`` on a rank of a CPU mesh of
+    ``mesh_shape``: the interior and a frame at each end of each split dim,
+    each with the strides it is written with (a view into the combine's
+    result)."""
+    names = ("x", "y", "z")[: len(mesh_shape)]
+    strategy = {1: lambda: make_strategy_1d(mesh_shape[0]), 2: lambda: make_strategy_2d(mesh_shape),
+                3: lambda: make_strategy_3d(mesh_shape)}[len(mesh_shape)]()
+    n = int(np.prod(mesh_shape))
+    mesh = Mesh(np.array([torch.device("cpu")] * n, dtype=object).reshape(mesh_shape), names)
+    step = api.compile(prog, Target(backend="cuda", overlap=True, device="cpu", mesh=mesh,
+                                    strategy=strategy))
+    return [(a, step.kernel_out_strides(a)) for a in step.kernel_applies()]
+
+
+# the overlap path's parts, strided results: name -> [(apply, out strides)]
+# (a rank's shard of 35x300 leaves a ragged tile; 1-D runs lifted)
+K1_PART_CASES = {
+    "heat2d-so4-zero-overlap-2x2": lambda: _overlap(P.heat("repro_torch", (70, 600), 4), (2, 2)),
+    "heat2d-so2-periodic-overlap-2x2": lambda: _overlap(
+        P.heat("repro_torch", (36, 40), 2, "periodic"), (2, 2)),
+    "heat3d-so4-overlap-2x2x2": lambda: _overlap(P.heat("repro_torch", (20, 18, 40), 4), (2, 2, 2)),
+    "heat1d-so4-overlap-2": lambda: _overlap(P.heat("repro_torch", (48,), 4), (2,)),
+}
+
 # K2: name -> (program, k, tile or None for choose_tile's)
 K2_CASES = {
     **{
@@ -196,6 +227,10 @@ def built(tmp_path_factory):
     for name, make in K1_CASES.items():
         for apply_op in make():
             add(("k1", name), apply_op, k1.emit_apply_cuda(*_spec(apply_op)))
+    for name, make in K1_PART_CASES.items():
+        for apply_op, strides in make():
+            add(("k1-part", name), (apply_op, strides),
+                k1.emit_apply_cuda(*_spec(apply_op), out_strides=strides))
     for name, (prog, k, tile) in K2_CASES.items():
         op = _epoch(prog(), k)
         add(("k2", name), (op, tile), k2.emit_epoch_cuda(op, tile))
@@ -249,6 +284,34 @@ def _check_k1(built, name, offset=4):
             assert torch.equal(g, w)
 
 
+def _check_parts(built, name):
+    """Every part of the combine written by its source into one NaN-filled
+    result of the combine's shape: each part's points bitwise equal to
+    the plain version, the points of no part still NaN."""
+    parts = built["k1-part", name]
+    (comb,) = {u.operation for (a, _), _ in parts for u in a.results[0].uses}
+    assert isinstance(comb, stencil.CombineOp)
+    cb = comb.result_bounds
+    buf = torch.full(tuple(cb.shape), float("nan"))
+    want = torch.full(tuple(cb.shape), float("nan"))
+    inputs = {}
+    for (apply_op, strides), path in parts:
+        assert strides is not None and all(st == buf.stride() for st in strides)
+        _, shapes, origins, rb = _spec(apply_op)
+        arrays = [inputs.setdefault((o, s), _inputs([s], seed=len(inputs))[0])
+                  for o, s in zip(apply_op.operands, shapes)]
+        idx = tuple(slice(l - c, l - c + n) for l, c, n in zip(rb.lb, cb.lb, rb.shape))
+        view = buf[idx]
+        fn = getattr(ctypes.CDLL(str(path)), "k1_apply_launch")
+        fn.argtypes = [ctypes.c_void_p] * (len(arrays) + 2)
+        fn.restype = ctypes.c_int
+        assert fn(*[x.data_ptr() for x in arrays], view.data_ptr(), None) == 0
+        want[idx] = eval_apply_body(apply_op, arrays, origins, rb)[0]
+    assert torch.equal(buf.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(buf), torch.nan_to_num(want))
+    return parts
+
+
 def _check_k2(built, name, offset=4, coords=None):
     for (op, tile), path in built["k2", name]:
         arrays = _inputs([a.type.bounds.shape for a in op.body.args], seed=1, offset=offset)
@@ -267,6 +330,17 @@ def test_k1_source_on_host_matches_plain_version(built, name):
     ``eval_apply_body``: ragged chunks and tiles, grown frames, two
     operands, ``stencil.index``, 3-D and 1-D."""
     _check_k1(built, name)
+
+
+@pytest.mark.parametrize("name", sorted(K1_PART_CASES))
+def test_k1_part_sources_write_their_slice_of_the_combine(built, name):
+    """The overlap path's interior and frames, each emitted with the
+    strides of the combine's result: 2-D (both boundaries), 3-D with
+    frames at both ends of all three dims, and 1-D lifted to 2-D.  Each
+    writes exactly its slice, bitwise equal to the plain version."""
+    parts = _check_parts(built, name)
+    rank = parts[0][0][0].result_bounds.rank
+    assert len(parts) == 1 + 2 * rank  # the interior and two frames a dim
 
 
 @pytest.mark.parametrize("name", sorted(K2_CASES))
