@@ -71,11 +71,27 @@ check raises and the script exits non-zero:
    launches counted from the replayed graphs' nodes; fig-10 PW and tracer
    through ``__call__`` on one device and 2x2x1 ranks, bitwise against
    ``jit=False``, ms per call.
+11. the cost model and the autotuner: a message's latency (one exchange
+   patch copy as a node of a captured graph, ``launch/roofline.py``
+   ``LINK_LATENCY``); ``CompiledStencil.cost()`` of every phase-10 case
+   beside its measured ms/step under ``jit`` (the modeled time, a least
+   time, may not exceed 1.05 x the measured one); three measured searches
+   of ``repro_torch.tune`` on heat 16384² so4 in a fresh tune cache: (a)
+   ``tune`` with the reference's options, then ``Target.tuned``, on one
+   device, (b) ``exchange_every=(4,)`` with every candidate measured
+   (fused and unfused k=4 epochs, K2's tile candidates), (c) four ranks on
+   this card with ``exchange_every=(1, 4)``; each prints its ranked table,
+   no survivor may fail, the winner is the measured argmin, its 8 steps
+   through its compiled step are bitwise ``Target(backend="cuda",
+   jit=False)``, its K1/K2 launches are counted from its graphs' nodes,
+   and the same call again is a cache hit that measures nothing; the
+   winner's kernel joins the kernels line; the phase must take under 240 s.
 
 The line before the last is ``{"kernels": [...]}``: per main-path case,
 the kernel's launches in that case's counted run, its time per launch,
 the plain version's time, the least time the card could take (bytes over
-3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger)
+3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger, from
+the cost model's counts in ``launch/roofline.py``)
 and, for single-operand linear applies, the time of ``F.conv2d``/``F.conv3d`` with the same star
 (a yardstick only; the port never calls it; no single PyTorch call
 computes a K2 epoch).  The last line is ``{"ok": true, "device": {...}}``.
@@ -84,13 +100,13 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 STEPS = 8
 SEED = 0
 REPLACES = "src/repro/kernels/stencil_apply.py:81"
@@ -186,6 +202,7 @@ def main() -> int:
     from repro_torch.kernels import epoch_kernel as k2
     from repro_torch.kernels import stencil_apply as k1
     from repro_torch.kernels.graphs import GraphCensus
+    from repro_torch.launch import roofline
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -439,23 +456,19 @@ def main() -> int:
         flat = torch.randn(_numel(shape) + offset, device=dev, generator=gen)
         return flat[offset:].view(shape)
 
-    arith = (ir.AddOp, ir.SubOp, ir.MulOp, ir.DivOp, ir.NegOp, ir.AbsOp, ir.SqrtOp,
-             ir.ExpOp, ir.SelectGeZeroOp, stencil.IndexOp)
+    def least_ms(n_ops, n_bytes):
+        """The least time for ``n_bytes`` of device memory and ``n_ops``
+        float32 operations on this card, and which of the two bounds it."""
+        t_bytes, t_ops = n_bytes / roofline.HBM_BW, n_ops / roofline.PEAK_FLOPS
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
     def bound(spec):
         """Bytes: the window of each operand the apply reads (its result
         grown by the operand's access extent; a full apply's whole padded
-        operand, a frame's thin strip), once, and each result written once."""
-        apply_op, shapes, _, rb = spec
-        points = 1
-        for n in rb.shape:
-            points *= n
-        windows = sum(_numel([n + h - l for n, l, h in zip(rb.shape, lo, hi)])
-                      for lo, hi in apply_op.access_extents().values())
-        n_bytes = 4 * (windows + points * len(apply_op.results))
-        n_ops = points * sum(isinstance(op, arith) for op in apply_op.body.ops)
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, n_ops
+        operand, a frame's thin strip), once, and each result written once
+        (the cost model's count, ``launch.roofline.apply_counts``)."""
+        n_ops, n_bytes = roofline.apply_counts(spec[0])
+        return (*least_ms(n_ops, n_bytes), n_bytes, n_ops)
 
     def conv_weights(spec):
         """The star of a one-operand linear apply, from its impulse responses
@@ -757,15 +770,9 @@ def main() -> int:
     # -- phase 6: the epoch kernel K2 ------------------------------------------
     def epoch_bound(fused_op):
         """Bytes: each operand read once, each escape written once.
-        Operations: every float32 op of every sub-step's frame."""
-        n_bytes = 4 * (sum(_numel(a.type.bounds.shape) for a in fused_op.body.args)
-                       + sum(_numel(r.type.bounds.shape) for r in fused_op.results))
-        n_ops = sum(
-            _numel(op.result_bounds.shape) * sum(isinstance(x, arith) for x in op.body.ops)
-            for op in fused_op.body.ops if isinstance(op, stencil.ApplyOp)
-        )
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+        Operations: every float32 op of every sub-step's frame (the cost
+        model's count, ``launch.roofline.epoch_counts``)."""
+        return least_ms(*roofline.epoch_counts(fused_op))
 
     def epoch_check(name, fused_op, tile, offset=0, align=16, corners=({},)):
         """K2 against its plain version on the card, bitwise, on random
@@ -869,7 +876,8 @@ def main() -> int:
     # -- phase 7: the tests marked gpu, on this card ---------------------------
     log("phase 7: pytest -m gpu on this card")
     root = Path(__file__).resolve().parent
-    tests = ["tests/test_torch_kernels.py", "tests/test_torch_epoch_kernel.py", "tests/test_torch_jit.py"]
+    tests = ["tests/test_torch_kernels.py", "tests/test_torch_epoch_kernel.py", "tests/test_torch_jit.py",
+             "tests/test_torch_tune.py"]
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-m", "gpu", "-p", "no:cacheprovider", *tests],
@@ -1050,6 +1058,7 @@ def main() -> int:
     # each overlap case against the step without overlap of its boundary
     without_overlap = {dist_cases[2][0]: dist_cases[0][0], dist_cases[3][0]: dist_cases[1][0]}
     copies = {}
+    jit_ms = {}  # the measured ms/step of each case under jit, for phase 11
     for name, op, kw in phase10:
         eager, graphed = compiled(op, **kw), compiled(op, **kw, **graphed_kw)
         state, out, launches, _ = drive(f"{name}, jit", op, {**kw, **graphed_kw})
@@ -1103,6 +1112,7 @@ def main() -> int:
             times[step].append(ms_per_step(step, state))
             torch.cuda.empty_cache()
         (g_lo, g_ms, g_hi), (e_lo, e_ms, e_hi) = sorted(times[graphed]), sorted(times[eager])
+        jit_ms[name] = g_ms
         log(f"  {name}: {g_ms:.3f} [{g_lo:.3f}-{g_hi:.3f}] ms/step with jit=True, "
             f"{e_ms:.3f} [{e_lo:.3f}-{e_hi:.3f}] ms/step with jit=False (CUDA events, median "
             f"[min-max] of 3 runs of {STEPS} steps in turns)")
@@ -1153,6 +1163,160 @@ def main() -> int:
             graphed.release_graphs()
             del args
             torch.cuda.empty_cache()
+
+    # -- phase 11: the cost model and the autotuner ---------------------------
+    from repro_torch.tune import cache_stats, reset_cache_stats, tune
+
+    t11 = time.perf_counter()
+    log("phase 11: the cost model (CompiledStencil.cost(), launch/roofline.py) against the "
+        "card, and the autotuner (repro_torch.tune) on it")
+    # a message's latency: one exchange patch copy (a 2-row strip of 8192
+    # columns of a padded 8192² shard, as phase 8's ranks send) as a node of a
+    # captured graph, the time per node over many nodes
+    padded = torch.randn(8196, 8196, device=dev, generator=gen)
+    strip, patch = padded[2:4, 2:8194], torch.empty(2, 8192, device=dev)
+    n_nodes = 256
+    patch.copy_(strip)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n_nodes):
+            patch.copy_(strip)
+    node_us = cuda_ms(graph.replay, 20) / n_nodes * 1e3
+    check(torch.equal(patch, strip), "the patch copies")
+    log(f"  exchange patch copy (2x8192 float32 strip) as a graph node: {node_us:.4f} us per node "
+        f"over {n_nodes} nodes in one graph (launch/roofline.py LINK_LATENCY "
+        f"{roofline.LINK_LATENCY * 1e6:.4f} us)")
+    del graph, padded, strip, patch
+
+    log("  cost() of each phase-10 case: modeled t_overlapped per step (per rank; times the "
+        "ranks sharing this card, the least the card could take) against the measured "
+        "jit=True ms/step")
+    for name, op, kw in phase10:
+        step = compiled(op, **kw, **graphed_kw)
+        terms = step.cost()
+        d = terms.as_dict()
+        k = step.target.exchange_every
+        ranks = step.target.spatial_ranks if step.target.distributed else 1
+        model_ms = terms.t_overlapped / k * 1e3
+        log(f"  {name}: flops {d['flops']:.6g}, bytes {d['bytes_accessed']:.6g}, collective "
+            f"bytes {d['collective_bytes']:.6g}, t_memory {d['t_memory'] * 1e3:.4f} ms, "
+            f"t_overlapped {d['t_overlapped'] * 1e3:.4f} ms per call of {k} steps, dominant "
+            f"{d['dominant']}, recommended_exchange_every {d['recommended_exchange_every']}; "
+            f"modeled {model_ms:.4f} ms/step per rank, {ranks * model_ms:.4f} for the {ranks} "
+            f"rank(s) on this card, against {jit_ms[name]:.4f} measured "
+            f"({100 * ranks * model_ms / jit_ms[name]:.1f} %)")
+        check(ranks * model_ms <= 1.05 * jit_ms[name],
+              f"{name}: the modeled {ranks * model_ms:.4f} ms/step of {ranks} rank(s) exceeds "
+              f"1.05 x the measured {jit_ms[name]:.4f}: the count is wrong")
+    log("  bound_ms of the kernels line so far (launch.roofline.apply_counts / epoch_counts):")
+    for rec in kernels:
+        log(f"    {rec['name']}: {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+    def winner_record(name, step, launches):
+        """The kernel record of a tuned winner's kernel at its main-path
+        shapes (K2 where it has epochs, at every rank's box)."""
+        if not step.kernel_epochs():
+            return kernel_record(name, [spec_of(a) for a in step.kernel_applies()], launches, step)
+        (fused_op,) = step.kernel_epochs()
+        err, ms, plain_ms, _, _ = epoch_check(name, fused_op, step.target.tile,
+                                              corners=step._coords)
+        b_ms, b_by = epoch_bound(fused_op)
+        log(f"  K2 {name}: {ms:.4f} ms/launch, bound {b_ms:.4f} ms ({b_by}), plain "
+            f"{plain_ms:.3f} ms, max|err| {err}")
+        return {
+            "name": f"epoch_kernel[{name}]", "route": "cuda", "source": K2_SOURCE,
+            "replaces": K2_REPLACES, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        }
+
+    prog = main_cases[1][1].program
+    gen.manual_seed(SEED)
+    state = (torch.randn(prog.input_fields[0].type.bounds.shape, device=dev, generator=gen),)
+    want = api.compile(prog, Target(backend="cuda", jit=False)).time_loop(state, STEPS)
+    searches = [  # (label, tune arguments)
+        ("a (Target.tuned, the reference's options, one device)", {}),
+        ("b (exchange_every=(4,), every candidate measured)",
+         {"exchange_every": (4,), "keep_quantile": 1.0}),
+        ("c (4 ranks on this card, exchange_every=(1, 4))",
+         {"ranks": 4, "devices": [dev] * 4, "exchange_every": (1, 4)}),
+    ]
+    cache_dir = tempfile.mkdtemp(prefix="repro-torch-tune-")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = cache_dir
+    try:
+        for label, kw in searches:
+            t0 = time.perf_counter()
+            reset_cache_stats()
+            res = tune(prog, measure=True, **kw)
+            sec = time.perf_counter() - t0
+            survivors = [c for c in res.candidates if not c.pruned]
+            log(f"  search {label} on {main_cases[1][0]}: {len(res.candidates)} candidates, "
+                f"{len(survivors)} measured, {sec:.1f} s, hardware {res.hardware}")
+            for line in res.table().splitlines():
+                log("    " + line)
+            check(not res.from_cache and cache_stats().stores == 1, f"search {label}: not a fresh search")
+            failed = [(c.describe(), c.note) for c in survivors if c.note]
+            check(not failed, f"search {label}: survivors failed: {failed}")
+            check(all(c.measured_s is not None for c in survivors)
+                  and res.winner.measured_s == min(c.measured_s for c in survivors),
+                  f"search {label}: the winner is not the measured argmin")
+            # the same call again: a cache hit that measures nothing
+            reset_dispatch_stats()
+            api.reset_graph_stats()
+            t0 = time.perf_counter()
+            if kw:
+                again = tune(prog, measure=True, **kw).target
+            else:
+                again = Target.tuned(prog, measure=True)
+            hit_s = time.perf_counter() - t0
+            stats = cache_stats().as_dict()
+            check(again.fingerprint == res.target.fingerprint
+                  and stats == {"hits": 1, "misses": 1, "stores": 1, "transfer_hits": 0}
+                  and dispatch_stats().apply_calls == dispatch_stats().fused_epoch_calls == 0
+                  and api.graph_stats().replays == 0,
+                  f"search {label}: the second call was no cache hit that measures nothing "
+                  f"({stats}, {dispatch_stats().as_dict()})")
+            # the winner through its compiled step, bitwise against jit=False
+            step = api.compile(prog, res.target)
+            step.time_loop(state, STEPS)  # captures its graphs
+            torch.cuda.synchronize()
+            reset_dispatch_stats()
+            api.reset_graph_stats()
+            got = step.time_loop(state, STEPS)
+            torch.cuda.synchronize()
+            replayed = GraphCensus(dict(api.graph_stats().kernel_nodes))
+            ranks = step.target.spatial_ranks if step.target.distributed else 1
+            epochs = step.epochs(STEPS)
+            per = (ranks * epochs * len(step.kernel_applies()),
+                   ranks * epochs * len(step.kernel_epochs()))
+            check(api.graph_stats().replays == epochs and (replayed.k1, replayed.k2) == per,
+                  f"search {label}: the winner's graphs ran {replayed.k1} K1 and {replayed.k2} "
+                  f"K2 launches in {api.graph_stats().replays} replays, expected {per} in {epochs}")
+            same(f"search {label}: winner {res.winner.describe()}", got, want,
+                 "Target(backend='cuda', jit=False) on one device")
+            log(f"  search {label}: winner {res.winner.describe()} "
+                f"{res.winner.measured_s * 1e3:.4f} ms/step measured (modeled "
+                f"{res.winner.modeled_s * 1e3:.4f}); its 8 steps: {replayed.k1} K1 and "
+                f"{replayed.k2} K2 launches in {epochs} replays (counted from its graphs' "
+                f"nodes); the second call a cache hit in {hit_s:.3f} s")
+            step.release_graphs()
+            del got, step
+            torch.cuda.empty_cache()
+            if res.target.backend == "cuda":
+                winner = api.compile(prog, res.target)
+                kernels.append(winner_record(f"{main_cases[1][0]}, tuned {label[0]}: "
+                                             f"{res.winner.describe()}", winner,
+                                             replayed.k2 or replayed.k1))
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        os.environ.pop("REPRO_TORCH_TUNE_CACHE", None)
+    del state, want
+    torch.cuda.empty_cache()
+    sec11 = time.perf_counter() - t11
+    log(f"phase 11: {sec11:.1f} s")
+    check(sec11 < 240, f"phase 11 took {sec11:.1f} s, more than 240 s")
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -19,10 +19,15 @@ __all__ = [
     "compile",
     "cache_stats",
     "clear_cache",
+    "tune",
 ]
 
 
 def __getattr__(name: str):
+    if name == "tune":
+        import repro_torch.tune as tune
+
+        return tune
     if name in __all__:
         import repro_torch.api as api
 

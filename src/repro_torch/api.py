@@ -41,8 +41,14 @@ graph per rotation phase, and a call replays with no copy; with
 ``donate=False`` inputs are copied into the graph's buffers and results
 come back as copies.  Each graph's own kernel nodes are counted after its
 capture (:mod:`repro_torch.kernels.graphs`), and each replay adds them to
-``dispatch_stats()``.  Not ported yet (ROADMAP Queue 1): ``slot_axis``,
-``cost()``, ``Target.auto``/``tuned``.
+``dispatch_stats()``.
+
+``CompiledStencil.cost()`` is the roofline of one call with an H100's
+terms (:mod:`repro_torch.launch.roofline`, counted from the local IR);
+``Target.auto`` decomposes 1-D over the cards (or ranks repeated on one
+device); ``Target.tuned`` and ``compile(program, tune=...)`` search the
+``Target`` space (:mod:`repro_torch.tune`).  Not ported yet (ROADMAP
+Queue 1): ``slot_axis``.
 """
 from __future__ import annotations
 
@@ -350,6 +356,49 @@ class Target:
             out *= int(g)
         return out
 
+    @classmethod
+    def auto(cls, ranks: Optional[int] = None, **overrides) -> "Target":
+        """Device discovery: decompose 1-D over the CUDA devices (or the
+        first ``ranks`` of them); a single-device target when one rank is
+        asked for or one card exists.  A ``device`` among ``overrides``
+        pins every rank to that one device (``device="cpu"``: ``ranks``
+        virtual ranks on the CPU, one by default).  Ranks on several cards
+        run op by op (``jit=False``; one captured graph runs on one card).
+        Without a ``device`` and without a card, or with more ranks than
+        cards, raises ``TargetError``."""
+        device = overrides.get("device")
+        if device is not None:
+            devices = [torch.device(device)] * (1 if ranks is None else max(int(ranks), 1))
+        elif not has_cuda():
+            raise TargetError(
+                "Target.auto: no CUDA device is available; pass device='cpu' "
+                "for ranks on the CPU"
+            )
+        else:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return auto_target(devices, ranks, **overrides)
+
+    @classmethod
+    def tuned(
+        cls,
+        program: "Program",
+        ranks: Optional[int] = None,
+        *,
+        measure: bool = True,
+        cache: bool = True,
+        **tune_kwargs,
+    ) -> "Target":
+        """The autotuned target for ``program`` on this machine
+        (``repro_torch.tune``): enumerate the mesh/overlap/exchange_every/
+        backend/tile space, score it with the roofline model, optionally
+        measure the survivors, and return the winner — persisted on disk
+        so a second call (any process, same hardware) is a cache hit."""
+        from repro_torch.tune import tune
+
+        return tune(
+            program, ranks=ranks, measure=measure, cache=cache, **tune_kwargs
+        ).target
+
     def pipeline_spec(self) -> str:
         """The pass-pipeline spec this target denotes (explicit ``pipeline``
         or the canonical flag expansion, fig. 4): [fuse,cse] → decompose →
@@ -401,6 +450,29 @@ class Target:
             ]
         )
         return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def several_cards(devices: Sequence) -> bool:
+    """Whether ``devices`` hold more than one CUDA device: ranks there run
+    op by op (``jit=False``), since one captured graph runs on one card."""
+    return len({str(torch.device(d)) for d in devices if torch.device(d).type == "cuda"}) > 1
+
+
+def auto_target(devices: Sequence, ranks: Optional[int] = None, **overrides) -> Target:
+    """:meth:`Target.auto` over ``devices`` (``torch.device`` s; they may
+    repeat): the first ``ranks`` of them (default all) as a 1-D mesh
+    decomposing dim 0, or one device.  Over several cards the target
+    runs op by op (``jit=False``) unless ``overrides`` say otherwise."""
+    devices = [torch.device(d) for d in devices]
+    n = len(devices) if ranks is None else int(ranks)
+    if n > len(devices):
+        raise TargetError(f"requested {n} ranks, have {len(devices)} devices")
+    if n <= 1:
+        return Target(**{"device": str(devices[0]), **overrides})
+    from repro_torch.core.passes.decompose import make_strategy_1d
+
+    kw = {"jit": not several_cards(devices[:n]), **overrides}
+    return Target(mesh=Mesh(devices[:n], ("x",)), strategy=make_strategy_1d(n), **kw)
 
 
 # --------------------------------------------------------------------------
@@ -717,6 +789,69 @@ class CompiledStencil:
             1 for op in self.local_ir.body.ops if isinstance(op, stencil.ApplyOp)
         )
         return {"fused_epoch": fused, "apply": applies, "total": fused + applies}
+
+    def kernel_sources(self) -> list:
+        """The CUDA sources of the K1 and K2 launches one call makes on
+        16-byte-aligned operands (each rank's launches share them), so that
+        they can be built together before the first call
+        (``kernels.stencil_apply.build``)."""
+        from repro_torch.kernels import epoch_kernel, stencil_apply
+
+        out = [
+            stencil_apply.emit_apply_cuda(
+                a, [tuple(o.type.bounds.shape) for o in a.operands],
+                [tuple(o.type.bounds.lb) for o in a.operands], a.result_bounds,
+                out_strides=self.kernel_out_strides(a),
+            )
+            for a in self.kernel_applies()
+        ]
+        out += [epoch_kernel.emit_epoch_cuda(e, self.target.tile) for e in self.kernel_epochs()]
+        return list(dict.fromkeys(out))
+
+    def cost(self, dtype=torch.float32):
+        """Roofline terms of one call (``launch.roofline``): per-rank
+        operations / device-memory bytes / collective bytes, counted from
+        the local IR (``launch.roofline.count_ir``: the least each op must
+        do) → seconds per term on an H100, the dominant bottleneck,
+        overlapped/serial time — plus the temporal-tiling tradeoff terms
+        (message count per epoch, per-step halo widths, shard extents) so
+        ``.cost().recommend_exchange_every()`` can pick the epoch depth that
+        balances amortized exchange latency against redundant boundary
+        compute.  Nothing runs: no card is needed."""
+        from repro_torch.core.dialects import comm
+        from repro_torch.core.passes.temporal import TemporalTilingError, epoch_halo
+        from repro_torch.launch.roofline import RooflineTerms, count_ir
+
+        counts = count_ir(
+            self.local_ir,
+            dict(self.target.mesh.shape) if self.target.distributed else {},
+            itemsize=torch.empty((), dtype=dtype).element_size(),
+        )
+        step_halo: tuple = ()
+        try:
+            lo1, hi1 = epoch_halo(self.program.func, 1)
+            step_halo = tuple(max(l, h) for l, h in zip(lo1, hi1))
+        except TemporalTilingError:
+            pass  # non-epochable program shapes carry no tiling terms
+        local_shape: tuple = ()
+        if self.program.field_args:
+            local_shape = self.strategy.local_bounds(
+                self.program.field_args[0].type.bounds
+            ).shape
+        messages = sum(
+            1
+            for op in self.local_ir.body.ops
+            if isinstance(op, comm.ExchangeStartOp)
+        )
+        return RooflineTerms(
+            flops=counts.flops,
+            bytes_accessed=counts.bytes_accessed,
+            collectives=counts.collectives,
+            exchange_every=self.target.exchange_every,
+            messages_per_epoch=messages,
+            step_halo=step_halo,
+            local_shape=local_shape,
+        )
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (
@@ -1083,15 +1218,55 @@ def _cached(key: tuple, build: Callable[[], Any]) -> Any:
         return out
 
 
+def _key(program: Program, target: Target) -> tuple:
+    return ("compile", program.fingerprint, target.fingerprint)
+
+
+def is_cached(program: Program, target: Target) -> bool:
+    """Whether the compile cache holds ``program`` compiled for ``target``."""
+    with _LOCK:
+        return _key(program, target) in _CACHE
+
+
+def forget(program: Program, target: Target) -> None:
+    """Release ``program`` compiled for ``target``: its compiled step's
+    graphs are dropped and it leaves the compile cache (a later
+    :func:`compile` builds it anew)."""
+    with _LOCK:
+        out = _CACHE.pop(_key(program, target), None)
+        _KEY_LOCKS.pop(_key(program, target), None)
+    if out is not None:
+        out.release_graphs()
+
+
 def trivial_strategy(rank: int) -> SlicingStrategy:
     names = ("x", "y", "z", "w")[:rank]
     return SlicingStrategy((1,) * rank, names, tuple(range(rank)))
 
 
-def compile(program: Program, target: Optional[Target] = None) -> CompiledStencil:
+def compile(
+    program: Program,
+    target: Optional[Target] = None,
+    *,
+    tune=None,
+) -> CompiledStencil:
     """Compile ``program`` for ``target`` (default: the torch backend on
-    the card).  Cached process-wide on ``(program.fingerprint,
-    target.fingerprint)``."""
+    the card).
+
+    ``tune=True`` (or a dict of ``repro_torch.tune.tune`` keyword
+    arguments) picks the target with the autotuner instead — mutually
+    exclusive with an explicit ``target``.
+
+    Cached process-wide on ``(program.fingerprint, target.fingerprint)``."""
+    if tune:
+        if target is not None:
+            raise ValueError(
+                "pass either target= or tune=, not both (tune selects "
+                "the target)"
+            )
+        target = Target.tuned(
+            program, **(tune if isinstance(tune, dict) else {})
+        )
     target = target or Target()
     if target.device.startswith("cuda") and not has_cuda():
         raise TargetError(
@@ -1106,8 +1281,7 @@ def compile(program: Program, target: Optional[Target] = None) -> CompiledStenci
             f"Program {program.name!r}: IR was mutated after construction; "
             "run rewrites on the FuncOp first, then wrap it in a Program"
         )
-    key = ("compile", program.fingerprint, target.fingerprint)
-    return _cached(key, lambda: _build(program, target))
+    return _cached(_key(program, target), lambda: _build(program, target))
 
 
 def _validate_for_program(program: Program, target: Target) -> None:
@@ -1220,7 +1394,10 @@ def partition_specs(program: Program, strategy: SlicingStrategy) -> list:
     return specs
 
 
-def _build(program: Program, target: Target) -> CompiledStencil:
+def lower_local(program: Program, target: Target) -> tuple:
+    """``(local IR, PipelineReport)``: the target's pass pipeline run on a
+    copy of ``program``'s function, as :func:`compile` runs it (nothing is
+    cached and no device is touched)."""
     strategy = target.strategy or trivial_strategy(program.rank)
     spec = target.pipeline_spec()
     ctx = PipelineContext(
@@ -1230,7 +1407,12 @@ def _build(program: Program, target: Target) -> CompiledStencil:
     )
     pm = PassManager(build_pipeline(spec, ctx))
     local = pm.run(_clone_func(program.func))
-    report = PipelineReport(spec=spec, timings=tuple(pm.timings))
+    return local, PipelineReport(spec=spec, timings=tuple(pm.timings))
+
+
+def _build(program: Program, target: Target) -> CompiledStencil:
+    strategy = target.strategy or trivial_strategy(program.rank)
+    local, report = lower_local(program, target)
     interp = StencilInterpreter(
         local,
         axis_sizes=dict(target.mesh.shape) if target.mesh is not None else {},

@@ -309,7 +309,7 @@ class StencilInterpreter:
             if isinstance(op, stencil.StoreOp) and op.field not in self.output_fields:
                 self.output_fields.append(op.field)
         self._last_use = _last_uses(func.body.ops)
-        self._part_of, self._covered = _in_place_combines(func)
+        self._part_of, self._covered = in_place_combines(func)
         self._stored_whole = _whole_stores(func, self._covered)
         self.n_ranks = math.prod(self.axis_sizes.values()) if distributed else 1
         # open exchange windows: (rank, ExchangeStartOp result) -> obs
@@ -696,7 +696,7 @@ def _volume(b: stencil.Bounds) -> int:
     return math.prod(b.shape)
 
 
-def _in_place_combines(func: ir.FuncOp) -> tuple:
+def in_place_combines(func: ir.FuncOp) -> tuple:
     """``({apply result: combine}, {combine: parts cover its result})`` for
     every ``stencil.combine`` that can be assembled in place: each part is
     a result of a ``stencil.apply`` read by nothing else, and no two parts

@@ -149,7 +149,7 @@ def test_kernel_dispatches_and_apply_calls(k, applies):
     assert dispatch_stats().apply_launches == 0
 
 
-def test_overlap_frames_stay_on_the_evaluator():
+def test_overlap_frames_go_through_k1():
     """The overlap path's frames no longer stay on the evaluator: on the
     ``cuda`` backend the interior and every frame go through K1's wrapper
     (its plain version here), one call each per step."""

@@ -504,16 +504,7 @@ def _gpu_target(kw, dev, **flags):
 def _prebuild(*steps):
     """Build every kernel the steps launch in one parallel nvcc round (a
     first launch would build its source alone)."""
-    from repro_torch.kernels import epoch_kernel as k2
-
-    sources = []
-    for step in steps:
-        for a in step.kernel_applies():
-            spec = ([tuple(o.type.bounds.shape) for o in a.operands],
-                    [tuple(o.type.bounds.lb) for o in a.operands], a.result_bounds)
-            sources.append(k1.emit_apply_cuda(a, *spec, out_strides=step.kernel_out_strides(a)))
-        sources += [k2.emit_epoch_cuda(e) for e in step.kernel_epochs()]
-    k1.build(list(dict.fromkeys(sources)))
+    k1.build(list(dict.fromkeys(s for step in steps for s in step.kernel_sources())))
 
 
 @pytest.mark.gpu

@@ -10,8 +10,11 @@ imported) with ``backend="pallas"`` in interpret mode and
 zero and periodic boundaries.  The port runs the same program on a 2×2
 mesh of CPU ranks with ``backend="cuda"`` (K1's and K2's plain versions
 on the CPU).  Each pair agrees within rtol=atol=1e-5; within the port,
-fused equals unfused bitwise.  Exit 0 and ``ALL OK`` when every case
-holds.
+fused equals unfused bitwise.  Then the structural terms of ``cost()``
+(``exchange_every``, ``messages_per_epoch``, ``step_halo``,
+``local_shape``, ``redundant_compute_factor(4)``) of heat on the 2×2 mesh
+at k=1 and k=4 equal the reference's.  Exit 0 and ``ALL OK`` when every
+case holds.
 """
 import os
 import sys
@@ -62,8 +65,28 @@ def run(boundary: str) -> None:
     print(f"ok: {boundary}: fused == unfused, bitwise")
 
 
+def cost_terms(k: int) -> None:
+    ref_prog = P.heat("repro", SHAPE, SO)
+    prog = P.heat("repro_torch", SHAPE, SO)
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("x", "y"))
+    tmesh = Mesh(np.array([torch.device("cpu")] * 4, dtype=object).reshape(2, 2), ("x", "y"))
+    theirs = rapi.compile(ref_prog, rapi.Target(
+        mesh=jmesh, strategy=rstrategy((2, 2)), exchange_every=k)).cost()
+    mine = api.compile(prog, api.Target(
+        mesh=tmesh, strategy=make_strategy_2d((2, 2)), exchange_every=k)).cost()
+    for attr in ("exchange_every", "messages_per_epoch", "step_halo"):
+        assert getattr(mine, attr) == getattr(theirs, attr), (attr, getattr(mine, attr),
+                                                              getattr(theirs, attr))
+    assert tuple(mine.local_shape) == tuple(theirs.local_shape)
+    assert mine.redundant_compute_factor(4) == theirs.redundant_compute_factor(4)
+    print(f"ok: cost() on 2x2 k={k}: messages {mine.messages_per_epoch}, step halo "
+          f"{mine.step_halo}, local shape {tuple(mine.local_shape)} as the reference's")
+
+
 if __name__ == "__main__":
     assert len(jax.devices()) == 8, jax.devices()
     for bc in ("zero", "periodic"):
         run(bc)
+    for k in (1, K):
+        cost_terms(k)
     print("ALL OK")
