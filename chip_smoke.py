@@ -86,6 +86,22 @@ check raises and the script exits non-zero:
    jit=False)``, its K1/K2 launches are counted from its graphs' nodes,
    and the same call again is a cache hit that measures nothing; the
    winner's kernel joins the kernels line; the phase must take under 240 s.
+12. checkpoint and resilience (``resilience_phase``): heat and wave 16384²
+   so4 through ``repro_torch.resilience.ResilientLoop`` on A (fused k=4,
+   one device), B (A over 2x2 ranks), C (k=1 over 2x2) and D (k=1, one
+   device), ``jit=True,
+   donate=True``, 16 steps a run with a snapshot every epoch into a
+   temporary directory (free disk checked first); uninterrupted, killed
+   and resumed onto another mesh or epoch depth, wave also at k=1 from an
+   odd rotation phase, and after a torn snapshot, each bitwise its
+   uninterrupted run;
+   K1/K2 launches counted from the replayed graphs' nodes of each loop
+   (zeroed when it starts, read when it ends), no graph
+   re-captured after a checkpoint; two traced epochs each of heat k=1 and
+   the fused heat loop held against ``cost()`` by ``obs.drift_report``;
+   the loop's own cost beside ``time_loop``, each snapshot's size and
+   seconds (to the host, the write, the loop blocked, blocking and async),
+   the time to recover by part, the peak device memory; under 180 s.
 
 The line before the last is ``{"kernels": [...]}``: per main-path case,
 the kernel's launches in that case's counted run, its time per launch,
@@ -176,6 +192,410 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _seconds(fn, dev) -> float:
+    """Seconds of ``fn()`` once the card has finished it (CUDA events on
+    the card, the host's clock on the CPU); what ``fn`` returns is
+    dropped."""
+    import torch
+
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / 1e3
+
+
+def resilience_phase(dev, heat, wave, *, record, card="", steps=16, keep_last=2) -> list:
+    """Phase 12: checkpoint and resilience (``repro_torch.resilience``)
+    on ``dev`` for the time-loop programs ``heat`` (one buffer) and
+    ``wave`` (two), through the compiled step on three targets:
+
+    - A: ``Target(backend="cuda", exchange_every=4, fused_epoch=True,
+      jit=True, donate=True)`` on one device (K2);
+    - B: A over a 2x2 mesh of this device (K2 on each of 4 ranks);
+    - C: ``Target(backend="cuda", jit=True, donate=True)`` at k=1 over
+      the 2x2 mesh (K1);
+    - D: C on one device (K1).
+
+    Every run takes ``steps`` steps with a snapshot every epoch
+    (``keep_last`` kept) in a temporary directory, removed at the end.
+    Each loop starts from a fresh compile, as a new process would; each
+    is driven epoch by epoch through ``ResilientLoop.advance_epoch``.
+    Raises unless: the uninterrupted heat run on A is bitwise
+    ``time_loop`` and ``jit=False``; heat killed on A at epoch 2 and
+    resumed on B, killed on C at epoch 8 and resumed on A, and killed on
+    A after a torn snapshot (step 8, so the resume picks step 4 and the
+    startup GC removes one partial directory) are bitwise that run; wave
+    killed on A at epoch 1 and resumed on B, and wave at k=1 killed on C
+    at epoch 5 (rotation phase 1) and resumed on D, are bitwise its
+    uninterrupted run on A; the K1 and K2 nodes each loop's graph replays
+    ran (counted from zero when the loop starts) equal epochs x ranks x
+    applies and are its launches on the kernels line, its captures one per
+    rotation phase its ring reached,
+    and no loop's ring was replaced mid-run; two traced epochs each of
+    heat k=1 and of the heat resilient loop on A give a drift report
+    whose modeled step is at most 1.05 x the measured one.  Logs the
+    loop's own cost, each snapshot's size and seconds, the time to
+    recover and the peak device memory.  ``record(name, compiled,
+    launches)`` makes each kernel's entry of the kernels line; returns
+    the entries."""
+    import torch
+
+    from repro_torch import api, obs
+    from repro_torch.api import Target
+    from repro_torch.checkpoint import global_stats
+    from repro_torch.core.passes.decompose import make_strategy_2d
+    from repro_torch.dist import Mesh, ShardedTensor, gather
+    from repro_torch.kernels import reset_dispatch_stats
+    from repro_torch.kernels.graphs import GraphCensus
+    from repro_torch.resilience import FaultPlan, ResilientLoop, SimulatedFault, resume
+
+    t12 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    log(f"phase 12: checkpoint and resilience (repro_torch.resilience), {steps} steps a run, "
+        f"a snapshot every epoch, keep_last={keep_last}; {card}")
+    graphed = {"backend": "cuda", "jit": True, "donate": True}
+    grid = {"mesh": Mesh([[dev, dev], [dev, dev]], ("x", "y")),
+            "strategy": make_strategy_2d((2, 2))}
+    fused = {"exchange_every": 4, "fused_epoch": True}
+    A = Target(device=str(dev), **fused, **graphed)
+    B = Target(**fused, **graphed, **grid)
+    C = Target(**graphed, **grid)
+    D = Target(device=str(dev), **graphed)  # k=1, one device
+    label = {A.fingerprint: "A", B.fingerprint: "B", C.fingerprint: "C", D.fingerprint: "D"}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    first = {p: tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
+                      for f in p.input_fields) for p in (heat, wave)}
+    gib = {p: sum(x.numel() * x.element_size() for x in s) / 2**30 for p, s in first.items()}
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held_before = torch.cuda.memory_allocated(dev) / 2**30
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def owned(state):
+        """The state as global tensors that no ring holds."""
+        return tuple(gather(x) if isinstance(x, ShardedTensor) else x.clone() for x in state)
+
+    def bitwise(what, got, want):
+        diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"phase 12, {what}: differs (max |diff| {diff})")
+        log(f"  {what}: bitwise equal")
+
+    legs: list = []  # (target label, epochs, K1 and K2 launches) of each loop of the current run
+    launches: dict = {}  # (program, target fingerprint) -> kernel launches counted in each loop
+    saves: dict = {}  # (program, blocking or async) -> [(GiB, Checkpointer.last_save, blocked s)]
+    short = {heat: "heat", wave: "wave"}
+
+    def drive(loop, what):
+        """Drive ``loop`` epoch by epoch to its end or its injected fault,
+        with the graph counts zeroed when it starts and read when it ends;
+        returns (final state or None, seconds of its first epoch without
+        that epoch's save)."""
+        e0 = loop.epoch
+        first_s, ring = None, None
+        got = None
+        api.reset_graph_stats()
+        while not loop.done:
+            n_ev = len(loop.events)
+            t0 = time.perf_counter()
+            try:
+                loop.advance_epoch()
+            except SimulatedFault:
+                break
+            if first_s is None:
+                sync()
+                first_s = time.perf_counter() - t0 - sum(
+                    ev[2] for ev in loop.events[n_ev:] if ev[0] == "checkpoint")
+                ring = loop.compiled._ring
+                check(ring is not None, f"{what}: no ring after the first epoch")
+            if loop.checkpointer is not None and loop.events[-1][0] == "checkpoint":
+                kind = (short[loop.program], "async" if loop.async_saves else "blocking")
+                saves.setdefault(kind, []).append(
+                    (gib[loop.program], loop.checkpointer.last_save, loop.events[-1][2]))
+        else:
+            got = loop.state
+        if loop.checkpointer is not None:
+            loop.checkpointer.wait()
+        sync()
+        stats = api.graph_stats()
+        nodes = GraphCensus(dict(stats.kernel_nodes))
+        check(loop.compiled._ring is ring,
+              f"{what}: the compiled step built a new ring mid-run (a snapshot held the ring)")
+        st, epochs = loop.compiled, loop.epoch - e0
+        ranks = st.target.spatial_ranks if st.target.distributed else 1
+        k1 = epochs * ranks * len(st.kernel_applies())
+        k2 = epochs * ranks * len(st.kernel_epochs())
+        caps = min(epochs, ring.phases)
+        check((nodes.k1, nodes.k2) == (k1, k2),
+              f"{what}: the replayed graphs ran {nodes.k1} K1 and {nodes.k2} K2 launches, "
+              f"expected {k1} and {k2}")
+        check(stats.replays == epochs and stats.captures == caps,
+              f"{what}: {stats.replays} replays and {stats.captures} captures, expected "
+              f"{epochs} and {caps} (one capture per rotation phase the ring reached)")
+        key = (loop.program, st.target.fingerprint)
+        launches[key] = launches.get(key, 0) + (nodes.k2 if st.kernel_epochs() else nodes.k1)
+        legs.append((label[st.target.fingerprint], epochs, nodes.k1, nodes.k2, caps))
+        if got is None:  # the process died: its compiled step and ring go with it
+            api.forget(loop.program, loop.target)
+        return got, first_s
+
+    def start_run(prog, *targets):
+        """Each target compiled anew (graphs and ring too)."""
+        legs.clear()
+        for t in targets:
+            api.forget(prog, t)
+        reset_dispatch_stats()
+
+    def end_run(what, prog, *targets):
+        log(f"  {what}: " + "; ".join(
+            f"{t} {e} epochs, {n1} K1 and {n2} K2 launches, {c} captures"
+            for t, e, n1, n2, c in legs)
+            + " (launches counted from each loop's replayed graphs' nodes)")
+        for t in targets:  # the run is over: its rings go
+            api.forget(prog, t)
+
+    def recovery(what, loop, first_s):
+        t = loop.timings
+        total = t["restore_s"] + t["place_s"] + t["compile_s"] + first_s
+        log(f"  {what}: time to recover {total:.3f} s = restore {t['restore_s']:.3f} + placement "
+            f"{t['place_s']:.3f} + compile {t['compile_s']:.3f} + first epoch (eager run, "
+            f"capture, replay) {first_s:.3f}; {card}")
+
+    root = tempfile.mkdtemp(prefix="repro-torch-ckpt-")
+    try:
+        need = max((keep_last + 1) * gib[wave], (keep_last + 2) * gib[heat]) + 1.0
+        free = shutil.disk_usage(root).free / 2**30
+        check(free >= need, f"phase 12 needs {need:.1f} GiB of free disk under {root} for its "
+              f"snapshots, {free:.1f} GiB free")
+        log(f"  snapshots under {root}: {free:.1f} GiB free, {need:.1f} GiB needed")
+        runs = iter(range(1, 100))
+
+        def new_dir():
+            return os.path.join(root, f"run{next(runs)}")
+
+        def loop_of(prog, target, d, **kw):
+            return ResilientLoop(prog, target, first[prog], steps, directory=d,
+                                 checkpoint_every=1, keep_last=keep_last, **kw)
+
+        # 1. uninterrupted heat on A
+        start_run(heat, A)
+        d = new_dir()
+        out, _ = drive(loop_of(heat, A, d), "heat on A, blocking saves")
+        end_run("run 1, heat uninterrupted on A", heat, A)
+        ref = owned(out)
+        del out
+        shutil.rmtree(d)
+        bitwise("run 1 (ResilientLoop on A) vs compile(A).time_loop",
+                owned(api.compile(heat, A).time_loop(first[heat], steps)), ref)
+        no_jit = Target(device=str(dev), backend="cuda", **fused, jit=False)
+        bitwise("run 1 vs jit=False", owned(api.compile(heat, no_jit).time_loop(first[heat], steps)),
+                ref)
+        # 1b. the same with async saves
+        start_run(heat, A)
+        d = new_dir()
+        out, _ = drive(loop_of(heat, A, d, async_saves=True), "heat on A, async saves")
+        end_run("run 1b, heat uninterrupted on A, async saves", heat, A)
+        bitwise("run 1b (async saves) vs run 1", owned(out), ref)
+        del out
+        shutil.rmtree(d)
+
+        # 2. heat killed on A at epoch 2, resumed on B
+        start_run(heat, A, B)
+        d = new_dir()
+        loop = loop_of(heat, A, d, fault_plan=FaultPlan(kill_at_epoch=2))
+        drive(loop, "heat killed on A")
+        check(loop.step_count == 8, f"run 2 killed at step {loop.step_count}, expected 8")
+        del loop
+        loop = resume(heat, d, B, keep_last=keep_last)
+        out, first_s = drive(loop, "heat resumed on B")
+        recovery("run 2, heat resumed on B from step 8", loop, first_s)
+        end_run("run 2, heat killed on A at epoch 2, resumed on B", heat, A, B)
+        bitwise("run 2 (A -> B) vs run 1", owned(out), ref)
+        del loop, out
+        shutil.rmtree(d)
+
+        # 3. heat killed on C at epoch 8, resumed on A
+        start_run(heat, C, A)
+        d = new_dir()
+        loop = loop_of(heat, C, d, fault_plan=FaultPlan(kill_at_epoch=8))
+        drive(loop, "heat killed on C")
+        check(loop.step_count == 8, f"run 3 killed at step {loop.step_count}, expected 8")
+        del loop
+        loop = resume(heat, d, A, keep_last=keep_last)
+        out, first_s = drive(loop, "heat resumed on A")
+        recovery("run 3, heat resumed on A from step 8", loop, first_s)
+        end_run("run 3, heat killed on C (k=1) at epoch 8, resumed on A (k=4)", heat, C, A)
+        bitwise("run 3 (C -> A) vs run 1", owned(out), ref)
+        del loop, out
+        shutil.rmtree(d)
+
+        # 4. wave: uninterrupted on A, then killed on A at epoch 1, resumed on B
+        start_run(wave, A)
+        d = new_dir()
+        out, _ = drive(loop_of(wave, A, d), "wave on A, blocking saves")
+        end_run("run 4a, wave uninterrupted on A", wave, A)
+        wave_ref = owned(out)
+        del out
+        shutil.rmtree(d)
+        bitwise("run 4a (wave ResilientLoop on A) vs compile(A).time_loop",
+                owned(api.compile(wave, A).time_loop(first[wave], steps)), wave_ref)
+        start_run(wave, A, B)
+        d = new_dir()
+        loop = loop_of(wave, A, d, fault_plan=FaultPlan(kill_at_epoch=1))
+        drive(loop, "wave killed on A")
+        phase = loop._phase
+        del loop
+        loop = resume(wave, d, B, keep_last=keep_last)
+        check(loop.step_count == 4 and loop._phase == phase,
+              f"run 4 resumed at step {loop.step_count}, phase {loop._phase}; expected 4, {phase}")
+        out, first_s = drive(loop, "wave resumed on B")
+        recovery(f"run 4, wave resumed on B from step 4 (rotation phase {phase})", loop, first_s)
+        end_run("run 4, wave killed on A at epoch 1, resumed on B", wave, A, B)
+        bitwise("run 4 (wave A -> B) vs run 4a", owned(out), wave_ref)
+        del loop, out
+        shutil.rmtree(d)
+
+        # 4b. wave at k=1 killed on C at an odd epoch (rotation phase 1),
+        # one snapshot (at step 5), resumed on D without snapshots
+        start_run(wave, C, D)
+        d = new_dir()
+        loop = ResilientLoop(wave, C, first[wave], steps, directory=d, checkpoint_every=5,
+                             keep_last=keep_last, fault_plan=FaultPlan(kill_at_epoch=5))
+        drive(loop, "wave killed on C")
+        del loop
+        loop = resume(wave, d, D, checkpoint_every=0)
+        check(loop.step_count == 5 and loop._phase == 1,
+              f"run 4b resumed at step {loop.step_count}, phase {loop._phase}; expected 5, 1")
+        out, first_s = drive(loop, "wave resumed on D")
+        recovery("run 4b, wave resumed on D from step 5 (rotation phase 1)", loop, first_s)
+        end_run("run 4b, wave k=1 killed on C at epoch 5, resumed on D (one device)", wave, C, D)
+        bitwise("run 4b (wave C -> D, k=1) vs run 4a (k=4 fused)", owned(out), wave_ref)
+        del loop, out, wave_ref
+        shutil.rmtree(d)
+
+        # 5. a torn snapshot: step 8 commits, is torn, and the run dies
+        start_run(heat, A)
+        d = new_dir()
+        loop = loop_of(heat, A, d, fault_plan=FaultPlan(truncate_step=8, kill_at_epoch=2))
+        drive(loop, "heat on A, torn at step 8")
+        del loop
+        gcs = global_stats().gcs
+        loop = resume(heat, d, A, keep_last=keep_last)
+        gcs = global_stats().gcs - gcs
+        check(loop.step_count == 4 and gcs == 1,
+              f"run 5 resumed at step {loop.step_count} after {gcs} startup GCs, expected 4 and 1")
+        out, first_s = drive(loop, "heat resumed on A after a torn snapshot")
+        recovery("run 5, heat resumed on A from step 4 (step 8 torn, 1 GC)", loop, first_s)
+        end_run("run 5, heat torn at step 8 and killed on A, resumed on A", heat, A)
+        bitwise("run 5 (torn snapshot) vs run 1", owned(out), ref)
+        del loop, out
+        shutil.rmtree(d)
+
+        for (what, mode), rows in saves.items():
+            size = rows[0][0]
+            host = sorted(r[1]["to_host_s"] for r in rows)
+            write = sorted(r[1]["write_s"] for r in rows)
+            blocked = sorted(r[2] for r in rows)
+            mid = len(rows) // 2
+            log(f"  {mode} snapshots of {what}: {len(rows)} of {size:.3f} GiB; device to host (gather + "
+                f".cpu()) median {host[mid]:.3f} s [{host[0]:.3f}-{host[-1]:.3f}], write median "
+                f"{write[mid]:.3f} s [{write[0]:.3f}-{write[-1]:.3f}], the loop blocked median "
+                f"{blocked[mid]:.3f} s [{blocked[0]:.3f}-{blocked[-1]:.3f}] per snapshot; {card}")
+
+        # ResilientLoop's own cost: no snapshots, beside time_loop
+        n_long = 4 * steps
+        step_a = api.compile(heat, A)
+        step_a.time_loop(first[heat], n_long)  # captures the graphs
+        times: dict = {"ResilientLoop(checkpoint_every=0)": [], "time_loop": []}
+        for which in ["time_loop", "loop", "loop", "time_loop", "time_loop", "loop"]:
+            if which == "loop":
+                loop = ResilientLoop(heat, A, first[heat], n_long, checkpoint_every=0)
+                times["ResilientLoop(checkpoint_every=0)"].append(_seconds(loop.run, dev))
+                del loop
+            else:
+                times["time_loop"].append(
+                    _seconds(lambda: step_a.time_loop(first[heat], n_long), dev))
+        epochs = step_a.epochs(n_long)
+        log(f"  heat on A, {n_long} steps ({epochs} epochs): " + ", ".join(
+            f"{name} {sorted(ts)[1] / epochs * 1e3:.4f} ms/epoch [{min(ts) / epochs * 1e3:.4f}-"
+            f"{max(ts) / epochs * 1e3:.4f}]" for name, ts in times.items())
+            + f" (median [min-max] of 3 runs in turns, the state copied into the ring "
+            f"once a run); {card}")
+
+        # 7. traced epochs: heat k=1 on one device, the heat resilient loop on A
+        traced = []
+        obs.enable()
+        try:
+            # a traced epoch of each first: op by op, the allocator's first
+            # requests of this route are not the epochs measured
+            api.compile(heat, D).time_loop(first[heat], 1)
+            api.compile(heat, A).time_loop(first[heat], A.exchange_every)
+            obs.clear()
+            api.compile(heat, D).time_loop(first[heat], 2)
+            traced.append(("heat k=1, one device, time_loop", api.compile(heat, D), obs.spans()))
+            obs.clear()
+            d = new_dir()
+            loop = ResilientLoop(heat, A, first[heat], 2 * A.exchange_every, directory=d,
+                                 checkpoint_every=1, keep_last=keep_last)
+            loop.run()
+            traced.append(("heat k=4 fused on A, ResilientLoop", loop.compiled, obs.spans()))
+            del loop
+            shutil.rmtree(d)
+        finally:
+            obs.disable()
+            obs.clear()
+        for what, st, spans in traced:
+            names = [s.name for s in spans]
+            check(names.count("epoch") == 2, f"{what}: {names.count('epoch')} epoch spans")
+            if "ResilientLoop" in what:
+                check(names.count("checkpoint.save") == 2,
+                      f"{what}: {names.count('checkpoint.save')} checkpoint.save spans")
+            path = obs.write_chrome(os.path.join(root, f"trace_{len(os.listdir(root))}.json"), spans)
+            rep = obs.drift_report(spans=spans, terms=st.cost())
+            ranks = st.target.spatial_ranks if st.target.distributed else 1
+            log(f"  traced {what}: {len(spans)} spans ({', '.join(sorted(set(names)))}) "
+                f"written to {os.path.basename(path)}; {card}")
+            for line in str(rep).splitlines():
+                log("    " + line)
+            check(rep.epochs == 2 and ranks * rep.modeled_step_s <= 1.05 * rep.measured_step_s,
+                  f"{what}: the modeled step {rep.modeled_step_s} s of {ranks} rank(s) exceeds "
+                  f"1.05 x the measured {rep.measured_step_s} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    records = []
+    for prog, name in ((heat, "heat"), (wave, "wave")):
+        for target in (A, B, C, D):
+            n = launches.get((prog, target.fingerprint))
+            if n:
+                records.append(record(f"{name} {'x'.join(map(str, prog.field_args[0].type.bounds.shape))}"
+                                      f" resilient on {label[target.fingerprint]}",
+                                      api.compile(prog, target), n))
+    for prog in (heat, wave):
+        for target in (A, B, C, D, no_jit):
+            api.forget(prog, target)
+    if on_card:
+        torch.cuda.empty_cache()
+        log(f"  peak device memory of phase 12: "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, of which "
+            f"{held_before:.2f} GiB were held before the phase began; {card}")
+    sec = time.perf_counter() - t12
+    log(f"phase 12: {sec:.1f} s")
+    check(sec < 180, f"phase 12 took {sec:.1f} s, more than 180 s")
+    return records
 
 
 def main() -> int:
@@ -1317,6 +1737,10 @@ def main() -> int:
     sec11 = time.perf_counter() - t11
     log(f"phase 11: {sec11:.1f} s")
     check(sec11 < 240, f"phase 11 took {sec11:.1f} s, more than 240 s")
+
+    # -- phase 12: checkpoint and resilience ---------------------------------
+    kernels += resilience_phase(dev, main_cases[1][1].program, wave_case[1].program,
+                                record=winner_record, card=card)
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -12,6 +12,9 @@ until the API is touched).
 
 __all__ = [
     "api",
+    "obs",
+    "tune",
+    "resilience",
     "Program",
     "Target",
     "TargetError",
@@ -19,15 +22,24 @@ __all__ = [
     "compile",
     "cache_stats",
     "clear_cache",
-    "tune",
+    "resilient_loop",
+    "resume",
 ]
 
 
 def __getattr__(name: str):
+    if name == "obs":
+        import repro_torch.obs as obs
+
+        return obs
     if name == "tune":
         import repro_torch.tune as tune
 
         return tune
+    if name == "resilience":
+        import repro_torch.resilience as resilience
+
+        return resilience
     if name in __all__:
         import repro_torch.api as api
 

@@ -47,11 +47,15 @@ capture (:mod:`repro_torch.kernels.graphs`), and each replay adds them to
 terms (:mod:`repro_torch.launch.roofline`, counted from the local IR);
 ``Target.auto`` decomposes 1-D over the cards (or ranks repeated on one
 device); ``Target.tuned`` and ``compile(program, tune=...)`` search the
-``Target`` space (:mod:`repro_torch.tune`).  Not ported yet (ROADMAP
-Queue 1): ``slot_axis``.
+``Target`` space (:mod:`repro_torch.tune`).  ``resilient_loop`` and
+``resume`` are the checkpointing time loop of
+:mod:`repro_torch.resilience`.  With tracing on (:mod:`repro_torch.obs`)
+``advance`` and ``time_loop`` record one ``epoch`` span per epoch.  Not
+ported yet (ROADMAP Queue 1): ``slot_axis``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import math
@@ -711,25 +715,56 @@ class CompiledStencil:
 
     def shard_state(self, state: Sequence[Any]) -> tuple:
         """The time-loop state (oldest → newest; tensors, float32 numpy
-        arrays or sharded tensors) as :meth:`advance` keeps it: one
-        ``ShardedTensor`` per buffer over a mesh, else plain tensors."""
+        arrays or sharded tensors, on any device or mesh) as
+        :meth:`advance` keeps it: one ``ShardedTensor`` per buffer over a
+        mesh, else plain tensors on the target's device."""
         specs = [self.partition_specs[i] for i in self.input_indices]
-        return reshard(state, self._mesh, specs)
+        out = reshard(state, self._mesh, specs)
+        if self._mesh is None:
+            out = tuple(x.to(self.target.device) for x in out)
+        return out
 
-    def advance(self, state: Sequence[Any]) -> tuple:
+    @property
+    def _n_ranks(self) -> int:
+        return len(self._coords)
+
+    def sync(self) -> None:
+        """Wait for the card(s) the step runs on (nothing on the CPU)."""
+        devices = [torch.device(self.target.device)] if self._mesh is None else [
+            self._mesh.device(r) for r in range(self._mesh.size)
+        ]
+        for d in dict.fromkeys(d for d in devices if d.type == "cuda"):
+            torch.cuda.synchronize(d)
+
+    def advance(self, state: Sequence[Any], *, epoch: Optional[int] = None,
+                step_begin: Optional[int] = None) -> tuple:
         """One epoch with time-buffer rotation applied: consume ``state``
         (oldest → newest), return the rotated state after
         ``exchange_every`` time steps — one iteration of ``time_loop``.
         Over a mesh the state stays sharded (global tensors are sharded
-        first, see :meth:`shard_state`)."""
-        state = self.shard_state(state)
-        if not self._graphed():
-            return _rotate(state, self._step_over()(*state))
-        ring, p = self._enter(state)
-        ring.replay(p)
-        if self.target.donate:
-            return ring.hand_out(ring.state(ring.rotate(p)))
-        return tuple(state[ring.n_ret:]) + tuple(_copy(x) for x in ring.results(p))
+        first, see :meth:`shard_state`).  With tracing on, one ``epoch``
+        span (DESIGN.md §12; tagged ``epoch`` and ``step_begin`` where
+        given), closed once the card has finished the epoch."""
+        span = contextlib.nullcontext()
+        if _obs.enabled():
+            tags = {n: v for n, v in (("epoch", epoch), ("step_begin", step_begin))
+                    if v is not None}
+            span = _obs.span("epoch", cat="dispatch", rank=None, program=self.program.name,
+                             **tags, k=self.target.exchange_every, ranks=self._n_ranks)
+        with span:
+            state = self.shard_state(state)
+            if not self._graphed():
+                state = _rotate(state, self._step_over()(*state))
+            else:
+                ring, p = self._enter(state)
+                ring.replay(p)
+                if self.target.donate:
+                    state = ring.hand_out(ring.state(ring.rotate(p)))
+                else:
+                    state = tuple(state[ring.n_ret:]) + tuple(_copy(x) for x in ring.results(p))
+            if _obs.enabled():
+                self.sync()
+        return state
 
     def time_loop(self, state: Sequence[Any], n_steps: int) -> tuple:
         """Iterate ``n_steps`` *time steps* with time-buffer rotation
@@ -738,12 +773,22 @@ class CompiledStencil:
         across every epoch and is gathered once at the end.  Compiled
         (``jit`` on the card), the state is copied into the ring once,
         every epoch is one graph replay and the result is copied out once
-        (handed out as it is, on one device with donation)."""
+        (handed out as it is, on one device with donation).
+
+        With tracing on (``repro_torch.obs``) every epoch runs op by op
+        in a host loop, as the reference's traced loop runs its unjitted
+        step: one ``epoch`` span per epoch (tagged ``epoch`` and
+        ``step_begin``), closed once the card has finished it, with the
+        epoch's exchange windows and apply spans inside.  Same
+        arithmetic; benchmark numbers should be taken untraced.  For a
+        checkpointing loop with the same arithmetic, see
+        ``repro_torch.resilience.ResilientLoop``."""
         n_epochs = self.epochs(n_steps)
         state = self.shard_state(state)
         if not self._graphed():
-            for _ in range(n_epochs):
-                state = self.advance(state)
+            k = self.target.exchange_every
+            for e in range(n_epochs):
+                state = self.advance(state, epoch=e, step_begin=e * k)
             return tuple(gather(x) for x in state)
         ring, p = self._enter(state)
         for _ in range(n_epochs):
@@ -1281,7 +1326,15 @@ def compile(
             f"Program {program.name!r}: IR was mutated after construction; "
             "run rewrites on the FuncOp first, then wrap it in a Program"
         )
-    return _cached(_key(program, target), lambda: _build(program, target))
+    key = _key(program, target)
+    span = contextlib.nullcontext()
+    if _obs.enabled():
+        with _LOCK:
+            hit = key in _CACHE
+        span = _obs.span("api.compile", cat="compile", program=program.name,
+                         cache="hit" if hit else "miss")
+    with span:
+        return _cached(key, lambda: _build(program, target))
 
 
 def _validate_for_program(program: Program, target: Target) -> None:
@@ -1411,6 +1464,12 @@ def lower_local(program: Program, target: Target) -> tuple:
 
 
 def _build(program: Program, target: Target) -> CompiledStencil:
+    with _obs.span("api.build", cat="compile", program=program.name,
+                   backend=target.backend, k=target.exchange_every):
+        return _build_inner(program, target)
+
+
+def _build_inner(program: Program, target: Target) -> CompiledStencil:
     strategy = target.strategy or trivial_strategy(program.rank)
     local, report = lower_local(program, target)
     interp = StencilInterpreter(
@@ -1484,3 +1543,27 @@ def time_loop(step: Callable, state: Sequence[Any], n_steps: int) -> tuple:
     for _ in range(n_steps):
         state = _rotate(state, step(*state))
     return state
+
+
+# --------------------------------------------------------------------------
+# Resilience entry points (repro_torch.resilience)
+# --------------------------------------------------------------------------
+
+
+def resilient_loop(program, target=None, state=(), n_steps=0, **kwargs):
+    """A checkpointing, fault-tolerant ``time_loop``: epoch-aligned
+    snapshots every ``checkpoint_every`` epochs, killable and resumable —
+    see ``repro_torch.resilience.ResilientLoop``."""
+    from repro_torch.resilience import ResilientLoop
+
+    return ResilientLoop(program, target, state, n_steps, **kwargs)
+
+
+def resume(program, directory: str, target=None, **kwargs):
+    """Resume a checkpointed run from ``directory`` onto ``target`` — a
+    *different* mesh factorization / rank count is allowed: the restored
+    host arrays are resharded through ``dist/sharding`` and the program
+    recompiled.  See ``repro_torch.resilience.resume``."""
+    from repro_torch.resilience import resume as _resume
+
+    return _resume(program, directory, target, **kwargs)

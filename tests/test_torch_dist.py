@@ -425,7 +425,8 @@ def test_time_loop_keeps_its_state_sharded(monkeypatch):
     step = api.compile(prog, _dist((2, 2), exchange_every=2))
     seen, gathers = [], []
     real_advance, real_gather = step.advance, api.gather
-    monkeypatch.setattr(step, "advance", lambda s: seen.append(s) or real_advance(s))
+    monkeypatch.setattr(step, "advance",
+                        lambda s, **tags: seen.append(s) or real_advance(s, **tags))
     monkeypatch.setattr(api, "gather", lambda x: gathers.append(x) or real_gather(x))
     got = step.time_loop(state, 8)
     assert len(seen) == 4 and all(isinstance(x, ShardedTensor) for s in seen for x in s)

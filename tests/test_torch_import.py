@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` (every module of it,
 ``repro_torch.dist`` and the psyclone-like frontend among them) and
-``chip_smoke.py`` loads neither JAX nor the reference package."""
+``chip_smoke.py`` loads neither JAX nor the reference package; the
+checkpointing, resilience and trace-export modules among them."""
 import os
 import re
 import subprocess
@@ -16,7 +17,9 @@ import repro_torch
 names = ["repro_torch"]
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     names.append(m.name)
-for n in ("repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.frontends.psyclone_like"):
+for n in ("repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.frontends.psyclone_like",
+          "repro_torch.checkpoint.checkpointer", "repro_torch.resilience.driver",
+          "repro_torch.resilience.faults", "repro_torch.obs.export", "repro_torch.obs.drift"):
     assert n in names, n
 for n in names:
     importlib.import_module(n)
