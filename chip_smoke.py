@@ -102,6 +102,31 @@ check raises and the script exits non-zero:
    the loop's own cost beside ``time_loop``, each snapshot's size and
    seconds (to the host, the write, the loop blocked, blocking and async),
    the time to recover by part, the peak device memory; under 180 s.
+13. the serving engine (``serving_phase``): ``StencilEngine`` through
+   ``submit``/``step``/``run`` with programs of the oec-like builder: (1)
+   one engine with three buckets at 16384² so4: H (heat, fused k=4) in a
+   pool of 4 with 6 requests of 16-48 steps, W (wave, fused k=4) in a
+   pool of 2 with 3, K (heat k=1, K1) in a pool of 4 with 4; (2) 32 heat
+   tenants at 1024² arriving Poisson into a pool of 16 (warmed first,
+   untimed), then the same requests solo; (3) heat fused k=4 over a 2x2 mesh of this card in a
+   pool of 2, and ``pooled_target(.., slots=2, devices=[card] * 8)`` on
+   ``[2, 16384, 16384]``; (4) an autoscaled burst and a migration between
+   engines at 1024².  Every result and frame bitwise its solo
+   ``time_loop``; each engine step's K1/K2 launches are the nodes of the
+   graphs it replayed (1 K2 a dispatch for H and W, 1 K1 per apply for K,
+   4 K2 on the 2x2 mesh, however many slots are live); one capture per
+   rotation phase per pool width; memory back to within 64 MiB once the
+   buckets retire; ``obs.snapshot()`` counts; p50/p99 ms per pooled
+   dispatch, host ms per engine step, GPts/s per bucket, pooled against
+   solo GPts/s, resize and migration seconds, peak memory (under 60 GiB);
+   under 150 s.  Each pool's kernel joins the kernels line (``[B, *shape]``
+   operands against the plain version and B solo launches, its bound B x
+   the solo work, K1's yardstick a batched ``F.conv2d``).
+
+Phase 1 also runs K1 heat so4 at 1024² on a pool of 16 slots, and phase 6
+K2 heat so4 k=4 at 16384² on a pool of 2, each in one launch, bitwise
+against its plain version and against a launch on each slot alone, timed
+beside those solo launches and beside B x the solo bound.
 
 The line before the last is ``{"kernels": [...]}``: per main-path case,
 the kernel's launches in that case's counted run, its time per launch,
@@ -598,6 +623,543 @@ def resilience_phase(dev, heat, wave, *, record, card="", steps=16, keep_last=2)
     return records
 
 
+def oec_heat(shape, so=4, alpha=0.1):
+    """Heat through the oec-like builder, as the serving tests build their
+    programs: ``u + alpha * lap(u)``, the ``so``-th order Laplacian star at
+    spacing 1 (``core.fd``), zero BC."""
+    from repro_torch.core.fd import laplacian_star
+    from repro_torch.frontends.oec_like import ProgramBuilder
+
+    star = sorted(laplacian_star(len(shape), so).items())
+    pb = ProgramBuilder(f"heat_so{so}", shape)
+    u, out = pb.input("u"), pb.output("out")
+
+    def body(b, v):
+        lap = sum((v.at(*off) * c for off, c in star[1:]), v.at(*star[0][0]) * star[0][1])
+        return v.at(*(0,) * len(shape)) + lap * alpha
+
+    pb.store(pb.apply([pb.load(u)], body), out)
+    return pb.finish(boundary="zero")
+
+
+def oec_wave(shape, so=4, c2=0.1):
+    """Wave through the oec-like builder: ``2 u - u_prev + c2 * lap(u)``,
+    two time buffers (oldest first), zero BC."""
+    from repro_torch.core.fd import laplacian_star
+    from repro_torch.frontends.oec_like import ProgramBuilder
+
+    star = sorted(laplacian_star(len(shape), so).items())
+    pb = ProgramBuilder(f"wave_so{so}", shape)
+    um, u0, out = pb.input("u_prev"), pb.input("u_now"), pb.output("u_next")
+
+    def body(b, vm, v):
+        lap = sum((v.at(*off) * c for off, c in star[1:]), v.at(*star[0][0]) * star[0][1])
+        zero = (0,) * len(shape)
+        return 2.0 * v.at(*zero) - vm.at(*zero) + lap * c2
+
+    pb.store(pb.apply([pb.load(um), pb.load(u0)], body), out)
+    return pb.finish(boundary="zero")
+
+
+def serving_targets(dev, big=16384, small=1024) -> list:
+    """``(label, program, target)`` of every pool phase 13 runs (main builds
+    their kernels with the rest, all at once): the buckets H, W and K of
+    case 1, the small tenants of case 2 (and case 4's heat), case 3's
+    distributed bucket at slot width 1 and its 8-rank sibling."""
+    from repro_torch.api import Target, pooled_target
+    from repro_torch.core.passes.decompose import make_strategy_2d
+    from repro_torch.dist import Mesh
+
+    fused = {"backend": "cuda", "exchange_every": 4, "fused_epoch": True}
+    grid = {"mesh": Mesh([[dev, dev], [dev, dev]], ("x", "y")),
+            "strategy": make_strategy_2d((2, 2))}
+    heat, wave, small_heat = oec_heat((big, big)), oec_wave((big, big)), oec_heat((small, small))
+    on_grid = Target(**fused, **grid)
+    return [
+        ("H", heat, Target(device=str(dev), **fused)),
+        ("W", wave, Target(device=str(dev), **fused)),
+        ("K", heat, Target(device=str(dev), backend="cuda")),
+        ("S", small_heat, Target(device=str(dev), backend="cuda")),
+        ("D", heat, on_grid),
+        ("D1", heat, pooled_target(on_grid, slots=1, devices=[dev])),
+        ("D8", heat, pooled_target(on_grid, slots=2, devices=[dev] * 8)),
+    ]
+
+
+def serving_phase(dev, *, record, card="", big=16384, small=1024) -> list:
+    """Phase 13: the stencil serving engine (``repro_torch.serve.stencil``)
+    on ``dev``, driven through ``submit``/``step``/``run``:
+
+    1. one engine, three full-width buckets: H (heat ``big``² so4, fused
+       k=4, K2) in a pool of 4 with 6 requests of 16-48 steps (two queue;
+       one streams a frame every 16 steps); W (wave, fused k=4) in a pool
+       of 2 with 3 requests of 16 steps; K (heat k=1, K1) in a pool of 4
+       with 4 requests of 16 steps;
+    2. 32 small tenants (heat ``small``² so4 k=1, 64 steps each) arriving
+       Poisson (mean 2 per engine step, ``default_rng(0)``) into a pool of
+       16 warmed by an untimed request; then the same 32 requests solo,
+       one after another;
+    3. a distributed bucket: H's heat over a 2x2 mesh of this device in a
+       pool of 2 (3 requests; the slot axis as wide as the inventory
+       allows: 1 on one card), and ``pooled_target(.., slots=2, devices=
+       [dev] * 8)`` compiled directly, 8 steps on ``[2, big, big]``;
+    4. at ``small``²: an autoscaled burst (a grow, a shrink, retirement),
+       then three requests (a frame every 8 steps) evacuated from one
+       engine into a temporary directory and admitted by another.
+
+    Raises unless: every result (resized, evacuated and admitted ones
+    too) and every frame is bitwise the request's solo
+    ``compile(program, target).time_loop``; each engine step's dispatch
+    counters match the live slots it dispatched; every dispatch is one
+    replay of its pool's graph, whose own kernel nodes are 1 K2 (H, W), 1
+    K1 per apply (K, case 2), 4 K2 (case 3; 8 on the 8-rank sibling)
+    however many slots are live, and each step's K1/K2 launches are those
+    nodes; each pool width captures one graph per rotation phase it
+    reached and keeps its ring; device memory falls back to within 64 MiB
+    once a case's buckets have retired; ``obs.snapshot()`` shows the
+    serve, checkpoint and kernel counts; the peak device memory stays
+    under 60 GiB and the phase under 150 s (on the card).  ``record(name,
+    compiled, launches, slots)`` makes a pooled kernel's entry of the
+    kernels line; returns the entries."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api, obs
+    from repro_torch.kernels import dispatch_stats
+    from repro_torch.serve.stencil import PoolSizerConfig, StencilEngine, StencilEngineConfig
+
+    t13 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    log(f"phase 13: the serving engine (repro_torch.serve.stencil), heat and wave {big}^2 so4, "
+        f"heat {small}^2 so4; {card}")
+    targets = {label: (prog, t) for label, prog, t in serving_targets(dev, big, small)}
+    heat, H = targets["H"]
+    wave, W = targets["W"]
+    _, K = targets["K"]
+    small_heat, S = targets["S"]
+    _, D = targets["D"]
+    gen = torch.Generator(device=dev)
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def state_of(prog, seed):
+        """Request ``seed``'s initial state, made anew on the device."""
+        gen.manual_seed(SEED + 1000 + seed)
+        return tuple(torch.randn(f.type.bounds.shape, device=dev, generator=gen)
+                     for f in prog.input_fields)
+
+    def allocated():
+        if not on_card:
+            return 0
+        torch.cuda.synchronize(dev)
+        return torch.cuda.memory_allocated(dev)
+
+    def census(ring):
+        """(K1, K2) nodes of one replay of a ring's graphs, as each graph's
+        census read them (every rotation phase the same)."""
+        counts = {(n.k1, n.k2) for _, n, _ in ring.graphs.values()}
+        check(len(counts) == 1, f"phase 13: a pool's graphs hold {counts} K1/K2 nodes")
+        return counts.pop()
+
+    def solo_check(what, prog, target, seed, n_steps, got, frames=()):
+        """``got``, and each frame at its step, bitwise the solo run of
+        request ``seed``; the solo artifact's graphs are released after."""
+        solo = api.compile(prog, target)
+        state, done = state_of(prog, seed), 0
+        for f in frames:
+            if f.step > done:
+                state = solo.time_loop(state, f.step - done)
+                done = f.step
+            check(all(np.array_equal(a, x.cpu().numpy()) for a, x in zip(f.arrays, state)),
+                  f"phase 13, {what}: the frame at step {f.step} differs from the solo run")
+        want = solo.time_loop(state, n_steps - done) if n_steps > done else state
+        diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"phase 13, {what}: differs from its solo time_loop (max |diff| {diff})")
+        solo.release_graphs()
+
+    class Tally:
+        """What the engine steps of one case did, per bucket (``names``:
+        bucket key -> label): its dispatches, their live slots, its K1/K2
+        launches, its rings (one per pool width); and the host's seconds
+        per engine step beside the dispatches.  A dispatch replays one
+        graph of its pool's ring; on the card the first dispatch of each
+        rotation phase also runs the phase once eagerly before capturing it,
+        so its launches count twice."""
+
+        def __init__(self, engine, names):
+            self.engine, self.names = engine, names
+            self.dispatches, self.live, self.launches, self.rings = {}, {}, {}, {}
+            self.graphs_seen, self.eager = {}, {}
+            self.host, self.wall, self.captures = [], 0.0, 0
+
+        def step(self):
+            eng = self.engine
+            working = [k for k, g in eng.scheduler.groups.items() if g.active or g.queue]
+            # live slots of each dispatch: admission fills the free slots
+            # from the queue first (a resize may change the width: then one
+            # bucket works, and the step's live count is its own)
+            going = {k: len(g.active) + min(len(g.free), len(g.queue))
+                     for k, g in eng.scheduler.groups.items() if k in working}
+            before, g0 = dispatch_stats().as_dict(), api.graph_stats()
+            replays0, captures0 = g0.replays, g0.captures
+            t0 = time.perf_counter()
+            m = eng.step()
+            dt = time.perf_counter() - t0
+            self.wall += dt
+            after, gs = dispatch_stats().as_dict(), api.graph_stats()
+            if eng.sizer is not None:
+                check(len(working) <= 1, "phase 13: an autoscaled step of several buckets")
+                going = {k: m.live_slots for k in working}
+            check(m.live_slots == sum(going.values())
+                  and m.batched_dispatches == sum(v >= 2 for v in going.values())
+                  and m.solo_dispatches == sum(v == 1 for v in going.values()),
+                  f"phase 13: step {m.engine_step}: {m.live_slots} live slots, "
+                  f"{m.batched_dispatches} batched and {m.solo_dispatches} solo dispatches for "
+                  f"the live slots {sorted(going.values())}")
+            check(gs.replays - replays0 == len(going),
+                  f"phase 13: {gs.replays - replays0} graph replays for {len(going)} dispatches")
+            want, seconds = [0, 0], 0.0
+            for key, n in going.items():
+                group, name = eng.scheduler.groups[key], self.names[key]
+                pool = group.executable
+                ring = pool._ring
+                # one ring for the life of each pool executable (one a width)
+                new = (name, id(pool)) not in self.rings
+                seen = self.rings.setdefault((name, id(pool)), (pool, group.capacity, ring))
+                check(seen[2] is ring,
+                      f"phase 13, {name}: the pool's ring was replaced at width {group.capacity}")
+                captured = len(ring.graphs) - (0 if new else self.graphs_seen[id(ring)])
+                self.graphs_seen[id(ring)] = len(ring.graphs)
+                per = census(ring)
+                runs = 1 + (captured if on_card else 0)  # the replay, and eager runs
+                nodes = (per[0] * runs, per[1] * runs)
+                want = [want[0] + nodes[0], want[1] + nodes[1]]
+                self.dispatches[name] = self.dispatches.get(name, 0) + 1
+                self.live.setdefault(name, []).append(n)
+                done = self.launches.get(name, (0, 0))
+                self.launches[name] = (done[0] + nodes[0], done[1] + nodes[1])
+                self.eager[name] = self.eager.get(name, 0) + runs - 1
+                seconds += eng.metrics.step_seconds[f"{key[0]}/{key[1]}"][-1]
+            got = [after["apply_launches"] - before["apply_launches"],
+                   after["fused_epoch_launches"] - before["fused_epoch_launches"]]
+            check(got == want, f"phase 13: step {m.engine_step} launched K1 {got[0]} and K2 "
+                  f"{got[1]} times; the graphs it replayed hold {want[0]} and {want[1]} nodes")
+            self.captures += gs.captures - captures0
+            self.host.append(dt - seconds)
+            return m
+
+        def finish(self, per_dispatch, work):
+            """Check each bucket's launches per dispatch (``per_dispatch``:
+            label -> (K1, K2) nodes) and the captures (one per rotation
+            phase a pool width reached); log each bucket's latencies and
+            GPts/s (``work``: label -> points x steps of its requests)."""
+            for name, per in per_dispatch.items():
+                d = self.dispatches[name] + self.eager[name]
+                check(self.launches[name] == (per[0] * d, per[1] * d),
+                      f"phase 13, bucket {name}: K1/K2 launches {self.launches[name]} for "
+                      f"{self.dispatches[name]} dispatches and {self.eager[name]} eager runs of "
+                      f"{per} nodes each")
+            graphs = [(name, width, len(r.graphs), r.phases)
+                      for (name, _), (_, width, r) in self.rings.items()]
+            check(self.captures == sum(g[2] for g in graphs)
+                  and all(1 <= g[2] <= g[3] for g in graphs),
+                  f"phase 13: {self.captures} captures; the pools' rings hold (bucket, width, "
+                  f"graphs, rotation phases) {graphs}")
+            lat = self.engine.metrics.step_latency()
+            for key, name in self.names.items():
+                if name not in self.dispatches:
+                    continue
+                stats = lat[f"{key[0]}/{key[1]}"]
+                log(f"  bucket {name}: {self.dispatches[name]} pooled dispatches ("
+                    f"{self.eager[name]} of them also ran eagerly before a capture; live slots "
+                    f"{min(self.live[name])}..{max(self.live[name])}), p50 "
+                    f"{stats['p50_s'] * 1e3:.3f} ms, p99 {stats['p99_s'] * 1e3:.3f} ms a dispatch, "
+                    f"{work[name] / 1e9 / (stats['mean_s'] * stats['count']):.3f} GPts/s over its "
+                    f"dispatches, K1/K2 launches {self.launches[name]} "
+                    f"(graph nodes {per_dispatch[name]} a dispatch)")
+            host = sorted(self.host)
+            log(f"  host: {1e3 * host[len(host) // 2]:.3f} ms per engine step beside the dispatches "
+                f"(median; mean {1e3 * sum(host) / len(host):.3f} ms, frames and results copied "
+                f"out included; {len(host)} steps, {self.wall:.3f} s stepping); captures (bucket, "
+                f"width, graphs, rotation phases) {graphs}")
+
+    def enqueue(engine, jobs, label, prog, target, seed, n_steps, **kw):
+        """Submit request ``seed`` (its state made on the device) and file
+        its handle under its rid in ``jobs``; nothing else keeps it."""
+        h = engine.submit(prog, state_of(prog, seed), n_steps, target=target, **kw)
+        jobs[h.rid] = (label, prog, target, seed, n_steps, h)
+
+    def bucket_names(**by_label):
+        """Bucket key -> label, for ``label=(program, target)``."""
+        return {(p.fingerprint, t.fingerprint): label for label, (p, t) in by_label.items()}
+
+    def retire_all(engine, tally):
+        for _ in range(engine.config.bucket_idle_steps + 1):
+            if not engine.scheduler.groups:
+                break
+            tally.step()
+        check(not engine.scheduler.groups, "phase 13: a drained bucket did not retire")
+
+    def run_checked(engine, tally, jobs, arrivals=()):
+        """Step ``engine`` until every job finished, submitting each of
+        ``arrivals`` ((engine step, submit)) at its step; each finished
+        request is checked against its solo run as it finishes, and the
+        engine's copy of its result dropped (the tenant has it)."""
+        arrivals, i = list(arrivals), 0
+        while engine.pending or arrivals:
+            while arrivals and arrivals[0][0] <= i:
+                arrivals.pop(0)[1]()
+            tally.step()
+            i += 1
+            for req in list(engine.finished):
+                label, prog, target, seed, n, h = jobs.pop(req.rid)
+                solo_check(f"{label} request {req.rid} ({n} steps)", prog, target, seed, n,
+                           h.result(), list(h.frames()))
+                engine.finished.remove(req)
+        check(not jobs, f"phase 13: requests {sorted(jobs)} never finished")
+
+    records = []
+    gib = 2**30
+
+    # -- case 1: three full-width buckets in one engine -------------------------
+    mem0 = allocated()
+    eng = StencilEngine(StencilEngineConfig(slots_per_group=4, bucket_idle_steps=1))
+    eng.scheduler.group_for(api.compile(wave, W), capacity=2)  # W's pool of 2
+    jobs, seed = {}, 0
+    plan = [("H", heat, H, n) for n in (16, 32, 32, 48, 16, 32)]
+    plan += [("W", wave, W, 16)] * 3 + [("K", heat, K, 16)] * 4
+    for label, prog, target, n in plan:
+        enqueue(eng, jobs, label, prog, target, seed, n, tenant=label,
+                frame_every=16 if (label, n) == ("H", 48) else 0)
+        seed += 1
+    tally = Tally(eng, bucket_names(H=(heat, H), W=(wave, W), K=(heat, K)))
+    t0 = time.perf_counter()
+    run_checked(eng, tally, jobs)
+    retire_all(eng, tally)
+    tally.finish({"H": (0, 1), "W": (0, 1), "K": (1, 0)},
+                 {"H": 176 * big * big, "W": 48 * big * big, "K": 64 * big * big})
+    check(len(set(tally.live["H"])) > 1, "phase 13: bucket H always had the same live slots")
+    log(f"  case 1: {time.perf_counter() - t0:.2f} s with the solo checks; "
+        f"{(176 + 48 + 64) * big * big / 1e9 / tally.wall:.3f} GPts/s over the engine's steps")
+    launches = dict(tally.launches)
+    del eng, tally
+    mem1 = allocated()
+    check(abs(mem1 - mem0) <= 64 * 2**20,
+          f"phase 13, case 1: {mem1 / 2**20:.1f} MiB allocated after its buckets retired, "
+          f"{mem0 / 2**20:.1f} MiB before their first request")
+    records += [record(f"{what} {big}x{big}, serving pool of {slots}", api.compile(prog, t),
+                       sum(launches[name]), slots)
+                for name, what, prog, t, slots in (
+                    ("H", "heat2d_so4 k=4 fused", heat, H, 4),
+                    ("W", "wave2d_so4 k=4 fused", wave, W, 2),
+                    ("K", "heat2d_so4 k=1", heat, K, 4))]
+
+    # -- case 2: many small tenants, then the same requests solo ----------------
+    arrive = np.cumsum(np.random.default_rng(0).exponential(1.0 / 2.0, size=32))
+    eng = StencilEngine(StencilEngineConfig(slots_per_group=16, bucket_idle_steps=1))
+    handles = []
+
+    def submitter(j):
+        def go():
+            handles.append(eng.submit(small_heat, state_of(small_heat, 100 + j), 64, target=S,
+                                      tenant=f"small{j}"))
+        return go
+
+    tally = Tally(eng, bucket_names(S=(small_heat, S)))
+    # untimed warm-up: one request of 4 steps builds the pool of 16's
+    # executable and captures both of its rotation phases, as the solo
+    # loop's warm-up below captures its own
+    jobs = {}
+    enqueue(eng, jobs, "S", small_heat, S, 99, 4, tenant="warm-up")
+    run_checked(eng, tally, jobs)
+    wall0, steps0, k1_0 = tally.wall, len(tally.host), tally.launches["S"][0]
+    live0 = len(tally.live["S"])
+    bucket = "/".join(next(iter(eng.scheduler.groups)))
+    dispatches0 = len(eng.metrics.step_seconds[bucket])
+    arrivals = [(int(a), submitter(j)) for j, a in enumerate(arrive)]
+    snap_a = obs.snapshot()
+    i = 0
+    while eng.pending or arrivals:
+        while arrivals and arrivals[0][0] <= i:
+            arrivals.pop(0)[1]()
+        tally.step()
+        i += 1
+    snap_b = obs.snapshot()
+    pooled_s = tally.wall - wall0
+    window = sorted(list(eng.metrics.step_seconds[bucket])[dispatches0:])
+    live = tally.live["S"][live0:]
+    retire_all(eng, tally)
+    work = 32 * 64 * small * small
+    tally.finish({"S": (1, 0)}, {"S": work + 4 * small * small})
+    for ns, key in (("kernel", "apply_launches"), ("serve", "requests_completed"),
+                    ("serve", "batched_dispatches")):
+        log(f"  obs.snapshot() {ns}.{key}: +{snap_b[ns][key] - snap_a[ns][key]}")
+    check(snap_b["kernel"]["apply_launches"] - snap_a["kernel"]["apply_launches"]
+          == tally.launches["S"][0] - k1_0, "phase 13: obs.snapshot()'s K1 launches are not the "
+          "graph census of the engine's steps")
+    check(snap_b["serve"]["requests_completed"] - snap_a["serve"]["requests_completed"] == 32,
+          "phase 13: obs.snapshot() does not count the 32 completed requests")
+    solo = api.compile(small_heat, S)
+    states = [state_of(small_heat, 100 + j) for j in range(32)]
+    solo.time_loop(states[0], 64)  # warm-up: the solo ring's graphs
+    t0 = time.perf_counter()
+    solos = [solo.time_loop(s, 64) for s in states]
+    if on_card:
+        torch.cuda.synchronize(dev)
+    solo_s = time.perf_counter() - t0
+    for h, want in zip(handles, solos):
+        check(all(torch.equal(g, w) for g, w in zip(h.result(), want)),
+              f"phase 13, small request {h.rid}: differs from its solo time_loop")
+    log(f"  case 2: 32 requests of 64 steps at {small}^2, Poisson arrivals (2 per engine step), "
+        f"after an untimed warm-up request: pooled {work / 1e9 / pooled_s:.3f} GPts/s "
+        f"({pooled_s:.3f} s of engine steps, {len(tally.host) - steps0} steps; dispatch p50 "
+        f"{1e3 * window[len(window) // 2]:.4f} ms, p99 "
+        f"{1e3 * window[min(len(window) - 1, int(0.99 * len(window)))]:.4f} ms over "
+        f"{len(window)} dispatches, {sum(window):.4f} s in all, the rest of the steps host work; "
+        f"{sum(live) / len(live):.2f} live slots a dispatch), solo one after another {work / 1e9 / solo_s:.3f} GPts/s "
+        f"({solo_s:.3f} s, {1e3 * solo_s / (32 * 64):.4f} ms a step); "
+        f"{pooled_s and solo_s / pooled_s:.2f}x")
+    launches_s = sum(tally.launches["S"])
+    del eng, tally, handles, solos, states
+    solo.release_graphs()
+    records.append(record(f"heat2d_so4 k=1 {small}x{small}, serving pool of 16",
+                          api.compile(small_heat, S), launches_s, 16))
+
+    # -- case 3: a distributed bucket, and an 8-rank slot-axis sibling -----------
+    mem0 = allocated()
+    eng = StencilEngine(StencilEngineConfig(slots_per_group=2, bucket_idle_steps=1))
+    jobs = {}
+    for j in range(3):
+        enqueue(eng, jobs, "D", heat, D, 200 + j, 16, tenant=f"grid{j}")
+    tally = Tally(eng, bucket_names(D=(heat, D)))
+    run_checked(eng, tally, jobs)
+    (group,) = eng.scheduler.groups.values()
+    width = group.executable.target.mesh.shape["slot"]
+    check(width == 1, f"phase 13: a slot axis of {width} on one card")
+    retire_all(eng, tally)
+    tally.finish({"D": (0, 4)}, {"D": 48 * big * big})
+    launches_d = sum(tally.launches["D"])
+    del eng, tally, group
+    mem1 = allocated()
+    check(abs(mem1 - mem0) <= 64 * 2**20,
+          f"phase 13, case 3: {mem1 / 2**20:.1f} MiB allocated after its bucket retired, "
+          f"{mem0 / 2**20:.1f} MiB before its first request")
+    records.append(record(f"heat2d_so4 k=4 fused {big}x{big} per rank of 2x2, serving pool of 2",
+                          api.compile(heat, targets["D1"][1]), launches_d, 2))
+    wide = api.compile(heat, targets["D8"][1])
+    pool = torch.stack([state_of(heat, 300 + j)[0] for j in range(2)])
+    wide.time_loop((pool,), 8)  # warm-up: every rotation phase captured
+    before = dispatch_stats().as_dict()
+    (out,) = wide.time_loop((pool,), 8)
+    k2n = dispatch_stats().fused_epoch_launches - before["fused_epoch_launches"]
+    check(census(wide._ring) == (0, 8) and k2n == 16,
+          f"phase 13: the 8-rank slot-axis sibling launched K2 {k2n} times in 2 epochs, its "
+          f"graph holds {census(wide._ring)} K1/K2 nodes")
+    solo = api.compile(heat, D)
+    for j in range(2):
+        (want,) = solo.time_loop((pool[j],), 8)
+        check(torch.equal(out[j], want), f"phase 13: slot {j} of the 8-rank sibling differs")
+    log(f"  case 3: 3 requests on a 2x2 mesh in a pool of 2 (slot axis {width}), and "
+        f"pooled_target(slots=2, devices=[card] * 8) on [2, {big}, {big}]: 8 K2 nodes a replay, "
+        "bitwise per slot")
+    wide.release_graphs()
+    solo.release_graphs()
+    del pool, out, want
+
+    # -- case 4: an autoscaled burst, then migration between engines -------------
+    ckpt0 = obs.snapshot()["checkpoint"]["saves"]
+    eng = StencilEngine(StencilEngineConfig(
+        slots_per_group=2, bucket_idle_steps=4,
+        autoscale=PoolSizerConfig(min_capacity=1, max_capacity=16, ewma_alpha=1.0,
+                                  cooldown_steps=1)))
+    resize_s = []
+    resize = eng.resize_bucket
+
+    def timed_resize(*a, **k):
+        t0 = time.perf_counter()
+        resize(*a, **k)
+        resize_s.append(time.perf_counter() - t0)
+
+    eng.resize_bucket = timed_resize
+    jobs = {}
+    for j, n in enumerate([8] * 11 + [96]):
+        enqueue(eng, jobs, "burst", small_heat, S, 400 + j, n, tenant=f"burst{j}")
+    tally = Tally(eng, bucket_names(S=(small_heat, S)))
+    run_checked(eng, tally, jobs)
+    retire_all(eng, tally)
+    snap = eng.metrics.snapshot()
+    auto = snap["autoscale"]
+    check(auto["grows"] >= 1 and auto["shrinks"] >= 1, f"phase 13: autoscale {auto}")
+    for event in auto["events"]:
+        missing = {"action", "from_capacity", "to_capacity", "queue_depth", "queue_ewma",
+                   "utilization_ewma"} - set(event)
+        check(not missing, f"phase 13: an autoscale event without {missing}")
+    check(snap["buckets_retired"] == 1, "phase 13: the drained burst bucket did not retire")
+    tally.finish({"S": (1, 0)}, {"S": (11 * 8 + 96) * small * small})
+    drained = eng.metrics.requests_evacuated
+    log(f"  case 4: {auto['grows']} grows and {auto['shrinks']} shrinks ("
+        + ", ".join(f"{e['from_capacity']}->{e['to_capacity']}" for e in auto["events"])
+        + f"), each resize {min(resize_s):.4f}-{max(resize_s):.4f} s (drain {drained} requests "
+        "to checkpoints, rebuild, readmit)")
+    del eng, tally
+    first = StencilEngine(StencilEngineConfig(slots_per_group=2))
+    hops = []
+    for j in range(3):
+        hops.append((first.submit(small_heat, state_of(small_heat, 500 + j), 32, target=S,
+                                  frame_every=8), 500 + j))
+    for _ in range(10):
+        first.step()
+    before_hop = [list(h.frames()) for h, _ in hops]
+    d = tempfile.mkdtemp(prefix="repro-torch-evacuate-")
+    try:
+        t0 = time.perf_counter()
+        evacuated = first.evacuate(small_heat.fingerprint, d)
+        evac_s = time.perf_counter() - t0
+        second = StencilEngine(StencilEngineConfig(slots_per_group=2))
+        t0 = time.perf_counter()
+        admitted = second.admit_evacuated(d, small_heat)
+        admit_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check([r.steps_done for r in evacuated] == [10, 10, 0]
+          and [h.steps_done for h in admitted] == [10, 10, 0],
+          f"phase 13: evacuated at {[r.steps_done for r in evacuated]}, admitted at "
+          f"{[h.steps_done for h in admitted]}")
+    second.run()
+    for (h0, s), h, early in zip(hops, admitted, before_hop):
+        frames = early + list(h.frames())
+        steps = [f.step for f in frames]
+        check(steps == [8, 16, 24, 32], f"phase 13: frames across the hop at {steps}")
+        solo_check(f"migrated request {h0.rid}", small_heat, S, s, 32, h.result(), frames)
+    snap_c = obs.snapshot()
+    saves = snap_c["checkpoint"]["saves"] - ckpt0
+    check(saves == drained + 3, f"phase 13: {saves} checkpoint saves, expected {drained} resize "
+          "drains + 3 evacuations")
+    check(snap_c["serve"]["engines"] >= 2 and snap_c["serve"]["requests_evacuated"] >= 3
+          and snap_c["serve"]["requests_resumed"] >= 3,
+          f"phase 13: obs.snapshot()['serve'] = {snap_c['serve']}")
+    log(f"  case 4: 3 requests evacuated in {evac_s:.4f} s, admitted in {admit_s:.4f} s, "
+        "bitwise, frames 8, 16, 24, 32 across the hop; obs.snapshot() checkpoint.saves "
+        f"+{saves}, serve {snap_c['serve']}")
+    del first, second, hops, admitted, evacuated
+    solo = api.compile(small_heat, S)
+    solo.release_graphs()
+    check(obs.snapshot()["compile"]["cache_capacity"] == api.cache_capacity(),
+          "phase 13: obs.snapshot()'s cache capacity")
+
+    sec = time.perf_counter() - t13
+    if on_card:
+        peak = torch.cuda.max_memory_allocated(dev) / gib
+        log(f"  peak device memory of phase 13: {peak:.2f} GiB; {card}")
+        check(peak < 60, f"phase 13: peak device memory {peak:.2f} GiB, not under 60 GiB")
+    log(f"phase 13: {sec:.1f} s")
+    if on_card:
+        check(sec < 150, f"phase 13 took {sec:.1f} s, more than 150 s")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -693,6 +1255,7 @@ def main() -> int:
         return star
 
     n2, n3 = 16384, 1024
+    n_pool = 1024  # phase 1's pooled K1 case and phase 13's small tenants
     rng = torch.Generator().manual_seed(SEED)
     rand_star = {(0, 0): 0.3}
     for d in range(2):
@@ -801,6 +1364,10 @@ def main() -> int:
     for _, op, kw, mesh_kw in dist_cases:
         sources += [k2.emit_epoch_cuda(e) for e in compiled(op, **kw, **mesh_kw).kernel_epochs()]
     sources += skewed_sources[2:]
+    for _, prog, target in serving_targets(dev):  # phase 13's pools (one source any width)
+        sources += api.compile(prog, target).kernel_sources()
+    pooled_k1 = (f"heat2d_so4 {n_pool}x{n_pool}", star_spec(heat_star(2, 4), (n_pool, n_pool), (2, 2)))
+    sources.append(k1.emit_apply_cuda(*pooled_k1[1]))
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
     k1.build(sources)
@@ -1017,12 +1584,75 @@ def main() -> int:
         del arrays
         torch.cuda.empty_cache()
 
+    def pooled_check(name, kernel, slots, spec=None, fused_op=None, tile=None, corners=({},)):
+        """One launch of K1 (``spec``) or K2 (``fused_op``, at each mesh
+        coordinate of ``corners``) over ``[slots, *shape]`` operands: bitwise
+        against its plain version and against a launch on each slot alone;
+        returns (max |err|, ms a pooled launch, ms of the slots' solo
+        launches, plain ms (slot by slot), the bound of ``slots`` times the
+        solo work (ms, by), the library call's ms or None), timed at the
+        last coordinate."""
+        shapes = spec[1] if kernel == "K1" else [a.type.bounds.shape for a in fused_op.body.args]
+        gen.manual_seed(SEED)
+        arrays = [torch.randn((slots,) + tuple(s_), device=dev, generator=gen) for s_ in shapes]
+        if kernel == "K1":
+            apply_op, _, origins, rb = spec
+            run = lambda xs, at: k1.run_apply_cuda(apply_op, xs, origins, rb)  # noqa: E731
+            plain = lambda xs, at: eval_apply_body(apply_op, xs, origins, rb)  # noqa: E731
+            n_ops, n_bytes = roofline.apply_counts(apply_op)
+        else:
+            run = lambda xs, at: k2.run_epoch_cuda(fused_op, xs, None, tile=tile, coords=at)  # noqa: E731
+            plain = lambda xs, at: k2._emit_region(  # noqa: E731
+                fused_op, xs, k2.region_masks(fused_op, dev, at), lambda v: v.type.bounds)
+            n_ops, n_bytes = roofline.epoch_counts(fused_op)
+        err, plain_ms, solo_ms = 0.0, 0.0, 0.0
+        for at in corners:
+            reset_dispatch_stats()
+            got = run(arrays, at)
+            torch.cuda.synchronize()
+            stats = dispatch_stats()
+            n = stats.apply_launches if kernel == "K1" else stats.fused_epoch_launches
+            check(n == 1, f"{name}: {n} {kernel} launches for a pool of {slots}, expected 1")
+            for b in range(slots):
+                single = [a[b].clone() for a in arrays]
+                solo, want = run(single, at), plain(single, at)
+                torch.cuda.synchronize()
+                err = max([err] + [float((g_[b] - w_).abs().max()) for g_, w_ in zip(got, want)])
+                check(all(torch.equal(g_[b], w_) and torch.equal(g_[b], s_)
+                          for g_, w_, s_ in zip(got, want, solo)),
+                      f"{name} at {at}: slot {b} of the pooled {kernel} launch differs from its "
+                      f"plain version or its solo launch (max |err| {err})")
+                if at is corners[-1]:
+                    solo_ms += cuda_ms(lambda: run(single, at), 10)
+                    plain_ms += cuda_ms(lambda: plain(single, at), 1)
+                del single, solo, want
+            del got
+        ms = cuda_ms(lambda: run(arrays, corners[-1]), 10)
+        b_ms, b_by = least_ms(slots * n_ops, slots * n_bytes)
+        lib_ms = None
+        w = conv_weights(spec) if kernel == "K1" else None
+        if w is not None:
+            conv = F.conv2d if spec[3].rank == 2 else F.conv3d
+            x = arrays[0].reshape((slots, 1) + tuple(arrays[0].shape[1:]))
+            lib_ms = cuda_ms(lambda: conv(x, w), 3)
+            del x
+        del arrays
+        torch.cuda.empty_cache()
+        log(f"  {name}, a pool of {slots}: bitwise its plain version and {slots} solo launches, "
+            f"max|err| {err}, {kernel} {ms:.4f} ms a pooled launch against {solo_ms:.4f} ms for "
+            f"{slots} solo launches, bound {b_ms:.4f} ms ({b_by}; {slots} x the solo work), "
+            f"{100 * b_ms / ms:.1f} % of bound, plain {plain_ms:.3f} ms"
+            + ("" if lib_ms is None else f", batched conv {lib_ms:.4f} ms"))
+        return err, ms, solo_ms, plain_ms, b_ms, b_by, lib_ms
+
     log("phase 1: K1 vs plain version on the card (bitwise)")
     for name, spec in phase1:
         k1_check(name, spec)
     for offset, align in misaligned:
         name, spec = skewed_k1
         k1_check(f"{name} at storage offset {offset} ({align}-byte pointers)", spec, offset, align)
+    k1_check(*pooled_k1)
+    pooled_check(pooled_k1[0], "K1", 16, spec=pooled_k1[1])
 
     kernels = []
 
@@ -1252,6 +1882,7 @@ def main() -> int:
     log("  heat2d_so4 k=4: tile (32, 128) bitwise equal to the default tile")
     del tiled, a_out, b_out
     torch.cuda.empty_cache()
+    pooled_check(phase6[2][0], "K2", 2, fused_op=phase6[2][1])
     for offset, align in misaligned:
         name, fused_op, _ = skewed_k2
         err, ms, _, dev_ms, _ = epoch_check(name, fused_op, None, offset, align)
@@ -1741,6 +2372,37 @@ def main() -> int:
     # -- phase 12: checkpoint and resilience ---------------------------------
     kernels += resilience_phase(dev, main_cases[1][1].program, wave_case[1].program,
                                 record=winner_record, card=card)
+
+    # -- phase 13: the serving engine ----------------------------------------
+    def pool_record(name, step, launches, slots):
+        """The kernel record of a serving pool's kernel at its main-path
+        shapes (``[slots, *shape]`` per rank; K2 where it has epochs, at
+        every rank's box)."""
+        if step.kernel_epochs():
+            (fused_op,) = step.kernel_epochs()
+            axis = step.target.slot_axis
+            corners = list({tuple(sorted((a, c) for a, c in co.items() if a != axis)): co
+                            for co in step._coords}.values())
+            err, ms, _, plain_ms, b_ms, b_by, lib_ms = pooled_check(
+                name, "K2", slots, fused_op=fused_op, tile=step.target.tile, corners=corners)
+            return {
+                "name": f"epoch_kernel[{name}]", "route": "cuda", "source": K2_SOURCE,
+                "replaces": K2_REPLACES, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None,
+            }
+        rows = [pooled_check(name, "K1", slots, spec=spec_of(a)) for a in step.kernel_applies()]
+        libs = [r[6] for r in rows]
+        return {
+            "name": f"stencil_apply[{name}]", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": launches, "max_abs_err": max(r[0] for r in rows),
+            "ms": sum(r[1] for r in rows), "plain_ms": sum(r[3] for r in rows),
+            "bound_ms": sum(r[4] for r in rows),
+            "bound_by": "bytes" if {r[5] for r in rows} == {"bytes"} else "operations",
+            "library_ms": None if None in libs else sum(libs),
+        }
+
+    kernels += serving_phase(dev, record=pool_record, card=card, big=n2, small=n_pool)
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())

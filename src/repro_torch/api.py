@@ -50,8 +50,16 @@ device); ``Target.tuned`` and ``compile(program, tune=...)`` search the
 ``Target`` space (:mod:`repro_torch.tune`).  ``resilient_loop`` and
 ``resume`` are the checkpointing time loop of
 :mod:`repro_torch.resilience`.  With tracing on (:mod:`repro_torch.obs`)
-``advance`` and ``time_loop`` record one ``epoch`` span per epoch.  Not
-ported yet (ROADMAP Queue 1): ``slot_axis``.
+``advance`` and ``time_loop`` record one ``epoch`` span per epoch.
+
+Slot pools (the serving engine, :mod:`repro_torch.serve.stencil`): a call
+may give every field one leading slot dim, ``[B, *shape]``, and then
+advances ``B`` independent simulations at once, each bitwise as a call of
+its own (the port's counterpart of the reference's ``jax.vmap`` over the
+step: K1 and K2 take the slot count as a launch argument).  Over a mesh,
+``Target(slot_axis=...)`` names a mesh axis that carries that dim
+(``pooled_target`` factors one out of the device inventory), so one call
+runs every slot block of ``(slot, *spatial)`` ranks.
 """
 from __future__ import annotations
 
@@ -217,6 +225,17 @@ class Target:
     # frames stay in shared memory.  Requires backend="cuda"; incompatible
     # with overlap (split frame applies cannot fuse into one kernel).
     fused_epoch: bool = False
+    # Slot mesh axis (serving / ensemble batching): the name of a mesh axis
+    # that carries a leading *batch* ("slot") dimension instead of an array
+    # dimension.  The compiled step then takes tensors of shape
+    # ``[B, *field_shape]`` and runs over ``(slot, *spatial)`` ranks: the
+    # batch dim is split over the slot axis and each rank advances its rows
+    # in one launch per kernel, so exchanges stay per-slot correct (they
+    # only ever run over the spatial axes).  ``B`` must divide by the
+    # slot axis's size.  Factored out of the device inventory with
+    # ``pooled_target`` / ``dist.sharding.factor_slot_mesh``: how the serve
+    # engine dispatches a whole distributed slot pool as one call.
+    slot_axis: Optional[str] = None
     # K2's tile over the epoch's core (None: kernels/epoch_kernel.py
     # choose_tile).  K1 picks its own tile (stencil_apply.SLICE_TILE) and ignores it.
     tile: Optional[tuple] = None
@@ -320,6 +339,27 @@ class Target:
                     "set both to the same epoch depth"
                 )
 
+        if self.slot_axis is not None:
+            # validated here like exchange_every: a slot-axis target either
+            # compiles or names the mismatch at construction
+            if not isinstance(self.slot_axis, str) or not self.slot_axis:
+                raise TargetError(f"slot_axis must be a mesh axis name, got {self.slot_axis!r}")
+            if self.mesh is None:
+                raise TargetError(
+                    f"Target(slot_axis={self.slot_axis!r}) needs a mesh carrying that axis; "
+                    "factor one out of the device inventory with api.pooled_target / "
+                    "dist.sharding.factor_slot_mesh"
+                )
+            if self.slot_axis not in self.mesh.axis_names:
+                raise TargetError(
+                    f"slot_axis {self.slot_axis!r} not in mesh axes {tuple(self.mesh.axis_names)}"
+                )
+            if self.strategy is not None and self.slot_axis in tuple(self.strategy.axis_names):
+                raise TargetError(
+                    f"slot_axis {self.slot_axis!r} is already a spatial decomposition axis of "
+                    f"the strategy {tuple(self.strategy.axis_names)}; the slot axis carries "
+                    "the batch dimension, not an array dimension"
+                )
         s = self.strategy
         if s is not None:
             decomposed = [
@@ -345,14 +385,18 @@ class Target:
     @property
     def distributed(self) -> bool:
         """True when the compiled step runs over a mesh of ranks: a
-        spatial decomposition with more than one rank."""
+        spatial decomposition with more than one rank, a slot mesh axis,
+        or both."""
+        if self.mesh is not None and self.slot_axis is not None:
+            return True
         return self.mesh is not None and self.strategy is not None and any(
             g > 1 for g in self.strategy.grid_shape
         )
 
     @property
     def spatial_ranks(self) -> int:
-        """Ranks of the spatial decomposition grid (1 when undecomposed)."""
+        """Ranks per slot: the product of the spatial decomposition grid
+        (1 when undecomposed)."""
         if self.strategy is None:
             return 1
         out = 1
@@ -446,6 +490,11 @@ class Target:
                 # explicit ``pipeline`` must still produce distinct cached
                 # artifacts per epoch depth (time_loop arithmetic differs)
                 f"exchange_every={self.exchange_every}",
+                # explicit even though the mesh desc carries the axis: a
+                # slot-axis artifact has another calling convention
+                # ([B, *shape] tensors), so it must never collide with its
+                # spatial-only sibling in the compile cache
+                f"slot_axis={self.slot_axis}",
                 f"fused_epoch={self.fused_epoch}",
                 f"tile={self.tile}",
                 f"device={self.device}",
@@ -509,7 +558,13 @@ class CompiledStencil:
     ``advance`` takes and returns the time-loop state as it lives between
     epochs (over a mesh: :class:`~repro_torch.dist.ShardedTensor` s, see
     :meth:`shard_state`).  ``time_loop`` shards once, keeps the state
-    sharded across every epoch and gathers once at the end."""
+    sharded across every epoch and gathers once at the end.
+
+    Each of them also takes slot pools: every tensor ``[B, *field_shape]``
+    (the reference's ``jax.vmap`` of the step).  On one device any ``B``
+    goes; over a mesh only a slot-axis target (``Target(slot_axis=...)``)
+    takes them, with ``B`` split over the slot axis, and it takes nothing
+    else.  Each pool width has its own ring of the compiled step."""
 
     def __init__(
         self,
@@ -584,10 +639,12 @@ class CompiledStencil:
         ring's live phase runs in place, and one that holds a buffer of the
         ring the last call did not return raises; any other state is
         copied into phase 0 of the ring (a new ring where the caller may
-        still hold what the current one handed out)."""
+        still hold what the current one handed out, or where the state's
+        pool width is not the ring's)."""
         ring = self._ring
-        if ring is None:
-            ring = self._ring = _Ring(self)
+        lead = self._local_lead(state)
+        if ring is None or ring.lead != lead:
+            ring = self._ring = _Ring(self, lead)
         if self.target.donate:
             if ring.stale(state):
                 raise RuntimeError(
@@ -599,7 +656,7 @@ class CompiledStencil:
             if p is not None and not ring.held(state):
                 return ring, p  # the last call's results, in place: no copy
         if ring.held(state):
-            ring = self._ring = _Ring(self)
+            ring = self._ring = _Ring(self, lead)
         ring.fill(state, 0)
         return ring, 0
 
@@ -650,18 +707,49 @@ class CompiledStencil:
         order of the local IR)."""
         return self._ret_indices
 
-    def _alloc(self, i: int, dtype):
-        """Output buffer of field ``i``: one local tensor per rank over a
-        mesh (never a global one), else a tensor on the target's device."""
+    def _lead(self, tensors: Sequence[Any]) -> tuple:
+        """The slot dim (``()`` or ``(B,)``, global) that the call's tensors
+        (global or sharded) carry; a slot-axis target takes only pools, and
+        a target over a mesh without a slot axis takes none."""
+        if not tensors:
+            return ()
+        x = tensors[0]
+        lead = tuple(x.shape[: max(len(x.shape) - self.program.rank, 0)])
+        if self.target.slot_axis is not None and len(lead) != 1:
+            raise ValueError(
+                f"Target(slot_axis={self.target.slot_axis!r}) takes [B, *field_shape] slot "
+                f"pools; got a tensor of shape {tuple(x.shape)}"
+            )
+        if lead and self._mesh is not None and self.target.slot_axis is None:
+            raise ValueError(
+                "a slot pool over a mesh needs a slot-axis target (api.pooled_target); "
+                f"got a tensor of shape {tuple(x.shape)}"
+            )
+        return lead
+
+    def _local_lead(self, state: Sequence[Any]) -> tuple:
+        """Each rank's slot dim of a state as :meth:`shard_state` gives it."""
+        self._lead(state)
+        if not state:
+            return ()
+        t = _shards(state[0])[0]
+        return tuple(t.shape[: t.ndim - self.program.rank])
+
+    def _alloc(self, i: int, dtype, lead: tuple = ()):
+        """Output buffer of field ``i`` (with the global slot dim ``lead``):
+        one local tensor per rank over a mesh (never a global one), else a
+        tensor on the target's device."""
         shape = tuple(self._local_fields[i].type.bounds.shape)
         alloc = torch.empty if i in self._overwritten else torch.zeros
         if self._mesh is None:
-            return alloc(shape, dtype=dtype, device=self.target.device)
+            return alloc(tuple(lead) + shape, dtype=dtype, device=self.target.device)
         mesh, spec = self._mesh, self.partition_specs[i]
+        local_lead = tuple(n // mesh.shape[spec[0]] for n in lead)
         return ShardedTensor(
             mesh, spec,
-            tuple(alloc(shape, dtype=dtype, device=mesh.device(r)) for r in range(mesh.size)),
-            tuple(self.program.field_args[i].type.bounds.shape),
+            tuple(alloc(local_lead + shape, dtype=dtype, device=mesh.device(r))
+                  for r in range(mesh.size)),
+            tuple(lead) + tuple(self.program.field_args[i].type.bounds.shape),
         )
 
     def _step_over(self, dtype=None) -> Callable:
@@ -673,8 +761,9 @@ class CompiledStencil:
         def fn(*inputs):
             it = iter(inputs)
             dt = dtype or (inputs[0].dtype if inputs else torch.float32)
+            lead = self._lead(inputs)
             args = [
-                self._alloc(i, dt) if i in outs else next(it)
+                self._alloc(i, dt, lead) if i in outs else next(it)
                 for i in range(len(self.program.field_args))
             ]
             rest = list(it)
@@ -718,6 +807,7 @@ class CompiledStencil:
         arrays or sharded tensors, on any device or mesh) as
         :meth:`advance` keeps it: one ``ShardedTensor`` per buffer over a
         mesh, else plain tensors on the target's device."""
+        self._lead(state)  # names a misplaced slot dim before resharding
         specs = [self.partition_specs[i] for i in self.input_indices]
         out = reshard(state, self._mesh, specs)
         if self._mesh is None:
@@ -726,7 +816,10 @@ class CompiledStencil:
 
     @property
     def _n_ranks(self) -> int:
-        return len(self._coords)
+        """Ranks per slot block: the spatial ranks (a slot axis not
+        counted)."""
+        slots = self._mesh.shape[self.target.slot_axis] if self.target.slot_axis else 1
+        return len(self._coords) // slots
 
     def sync(self) -> None:
         """Wait for the card(s) the step runs on (nothing on the CPU)."""
@@ -816,6 +909,25 @@ class CompiledStencil:
         memory goes back once nothing else holds it); the next graphed call
         captures anew."""
         self._ring = None
+
+    def for_pool(self) -> "CompiledStencil":
+        """A new artifact of this one's lowered program for a serving slot
+        pool: its target donates (``donate=True``), so under ``jit`` the
+        pool lives in the artifact's own ring and each :meth:`advance`
+        advances it in place, copying no pool in or out, and rotates it
+        through the ring's phases as :meth:`time_loop` does.  Nothing is
+        lowered again; each call gives an artifact with a ring of its own,
+        released with :meth:`release_graphs`."""
+        return CompiledStencil(
+            program=self.program,
+            target=dataclasses.replace(self.target, donate=True),
+            strategy=self.strategy,
+            local_ir=self.local_ir,
+            pipeline_report=self.pipeline_report,
+            interp=self._interp,
+            ret_indices=self._ret_indices,
+            partition_specs=self.partition_specs,
+        )
 
     def kernel_epochs(self) -> list:
         """The fused epochs one call hands to kernel K2 on each rank, in
@@ -981,16 +1093,17 @@ class _Ring:
     nodes to ``dispatch_stats()``'s launches, and every kernel node to
     ``graph_stats().kernel_nodes``."""
 
-    def __init__(self, stencil: CompiledStencil) -> None:
+    def __init__(self, stencil: CompiledStencil, lead: tuple = ()) -> None:
         self.st = stencil
         self.capture = torch.device(stencil.target.device).type == "cuda"
         self.n_in = len(stencil.input_indices)
         self.n_ret = len(stencil.ret_indices)
         self.n = self.n_in + self.n_ret
+        self.lead = tuple(lead)  # each rank's slot dim: a ring holds one pool width
         fields = stencil._local_fields
         slots = list(stencil.input_indices) + list(stencil.ret_indices)
         self.kinds = [
-            (tuple(fields[f].type.bounds.shape), tuple(stencil.partition_specs[f]))
+            (self.lead + tuple(fields[f].type.bounds.shape), tuple(stencil.partition_specs[f]))
             for f in slots
         ]
         rotates = len(set(self.kinds)) == 1 and self.n_ret > 0
@@ -1226,8 +1339,36 @@ _KEY_LOCKS: dict[tuple, threading.Lock] = {}
 
 
 def cache_stats() -> CacheStats:
-    """Process-wide compile-cache counters."""
+    """Process-wide compile-cache counters (shared by ``compile``,
+    ``lower_ir`` and ``cached_callable``): truthful hit/miss/eviction
+    counts of the LRU-bounded cache."""
     return _STATS
+
+
+def cache_capacity() -> int:
+    return _CAPACITY
+
+
+def set_cache_capacity(n: int) -> int:
+    """Bound the process-wide compile cache to ``n`` entries (LRU
+    eviction; evicting frees the artifact once nothing else holds it).
+    Returns the previous capacity.  ``n`` must be >= 1: a serving process
+    needs at least the artifact it is dispatching."""
+    global _CAPACITY
+    if int(n) < 1:
+        raise ValueError(f"cache capacity must be >= 1, got {n!r}")
+    with _LOCK:
+        prev, _CAPACITY = _CAPACITY, int(n)
+        _evict_over_capacity()
+    return prev
+
+
+def _evict_over_capacity() -> None:
+    # caller holds _LOCK
+    while len(_CACHE) > _CAPACITY:
+        old, _ = _CACHE.popitem(last=False)
+        _KEY_LOCKS.pop(old, None)
+        _STATS.evictions += 1
 
 
 def clear_cache() -> None:
@@ -1256,10 +1397,7 @@ def _cached(key: tuple, build: Callable[[], Any]) -> Any:
         with _LOCK:
             _STATS.misses += 1
             _CACHE[key] = out
-            while len(_CACHE) > _CAPACITY:
-                old, _ = _CACHE.popitem(last=False)
-                _KEY_LOCKS.pop(old, None)
-                _STATS.evictions += 1
+            _evict_over_capacity()
         return out
 
 
@@ -1282,6 +1420,34 @@ def forget(program: Program, target: Target) -> None:
         _KEY_LOCKS.pop(_key(program, target), None)
     if out is not None:
         out.release_graphs()
+
+
+def lower_ir(
+    func: ir.FuncOp,
+    pipeline: str,
+    strategy: Optional[SlicingStrategy] = None,
+    boundary: str = "zero",
+) -> ir.FuncOp:
+    """Run a pass-pipeline spec over generated IR through the process-wide
+    cache (keyed on the IR fingerprint and the spec)."""
+    s = strategy
+    strat_desc = "none" if s is None else f"{tuple(s.grid_shape)}{tuple(s.axis_names)}{tuple(s.dims)}"
+    key = ("lower_ir", ir.fingerprint(func, f"boundary={boundary}"), pipeline, strat_desc)
+
+    def build() -> ir.FuncOp:
+        pm = PassManager(build_pipeline(pipeline, PipelineContext(strategy=s, boundary=boundary)))
+        return pm.run(_clone_func(func))
+
+    return _cached(key, build)
+
+
+def cached_callable(key: tuple, build: Callable[[], Callable]) -> Callable:
+    """Process-wide cache for compiled callables keyed by explicit
+    fingerprints, built once per key.  Every caller of a key gets the same
+    object, so it suits stateless callables: a compiled step run under
+    ``jit`` on the card holds its ring (the serve engine memoizes its pool
+    executables per bucket instead)."""
+    return _cached(("callable",) + tuple(key), build)
 
 
 def trivial_strategy(rank: int) -> SlicingStrategy:
@@ -1434,6 +1600,39 @@ def _validate_tile(program: Program, target: Target) -> None:
             )
 
 
+def pooled_target(
+    target: Target,
+    slots: int = 1,
+    axis: str = "slot",
+    devices: Optional[Sequence] = None,
+) -> Target:
+    """The slot-axis sibling of a distributed ``target``: the same spatial
+    decomposition plus a leading slot mesh axis of size ``slots`` factored
+    out of the device inventory (``dist.sharding.factor_slot_mesh``;
+    ``devices`` default to every card, and may repeat).
+
+    The sibling's compiled step takes ``[B, *field_shape]`` tensors
+    (``B % slots == 0``) and advances every row in one call over
+    ``(slot, *spatial)`` ranks: the serve engine's pooled distributed
+    dispatch, and an ensemble axis (one compiled stencil over ``B``
+    perturbed initial conditions).  An inventory that cannot hold the slot
+    axis raises ``TargetError``."""
+    from repro_torch.dist.sharding import factor_slot_mesh
+
+    if target.mesh is None:
+        raise TargetError(
+            "pooled_target needs a distributed target (mesh + strategy); a "
+            "single-device pool is the compiled step called on [B, *shape] tensors"
+        )
+    if target.slot_axis is not None:
+        raise TargetError(f"target already carries slot axis {target.slot_axis!r}")
+    try:
+        mesh = factor_slot_mesh(target.mesh, slots, axis=axis, devices=devices)
+    except ValueError as e:
+        raise TargetError(f"pooled_target: {e}") from e
+    return dataclasses.replace(target, mesh=mesh, slot_axis=axis)
+
+
 def partition_specs(program: Program, strategy: SlicingStrategy) -> list:
     """PartitionSpec per field argument, from the decomposition map."""
     specs = []
@@ -1486,6 +1685,12 @@ def _build_inner(program: Program, target: Target) -> CompiledStencil:
         a for a in local.body.args if isinstance(a.type, stencil.FieldType)
     ]
     ret_indices = tuple(local_fields.index(f) for f in _stored_fields(local))
+    specs = partition_specs(program, strategy)
+    if target.slot_axis is not None:
+        # slot-axis calling convention: every field carries a leading batch
+        # dim split over the slot axis; exchanges bind the spatial axis
+        # names only, so each slot block runs the solo exchange pattern
+        specs = [PartitionSpec(target.slot_axis, *tuple(sp)) for sp in specs]
     return CompiledStencil(
         program=program,
         target=target,
@@ -1494,7 +1699,7 @@ def _build_inner(program: Program, target: Target) -> CompiledStencil:
         pipeline_report=report,
         interp=interp,
         ret_indices=ret_indices,
-        partition_specs=tuple(partition_specs(program, strategy)),
+        partition_specs=tuple(specs),
     )
 
 

@@ -34,6 +34,13 @@ rank before the next, as ``lax.ppermute`` inside ``shard_map`` does:
 Tensors are never written in place unless this interpreter allocated
 them in the same call and no later op reads them in their old state; a
 caller's tensor is never written, except a destination it names.
+
+Slot pools: every field tensor of a call may carry one leading *slot*
+dimension, ``[B, *shape]`` (the port's counterpart of the reference's
+``jax.vmap`` over the compiled step: a serving pool of ``B`` independent
+simulations).  Every op indexes the trailing dims, so each slot goes
+through the same per-point operations as a call without the slot
+dimension, and K1 and K2 advance all ``B`` slots in one launch.
 """
 from __future__ import annotations
 
@@ -81,6 +88,7 @@ def eval_apply_body(
     operand_origins: Sequence[tuple],
     result_bounds: stencil.Bounds,
     device: Optional[torch.device] = None,
+    lead: tuple = (),
 ) -> list:
     """Evaluate an apply's point function vectorized over ``result_bounds``.
 
@@ -88,15 +96,18 @@ def eval_apply_body(
     ``operand_origins[k]``; an access at offset ``o`` of operand ``k``
     becomes a slice view.  Every op is one float32 tensor op, rounded on
     its own, which is what the CUDA kernel computes point by point.
-    ``device`` is only read when the apply has no operands.
+    Operands may carry leading (slot) dims before the ``rank`` indexed
+    ones, and the results then carry them too; ``device`` and ``lead``
+    (those dims) are only read when the apply has no operands.
 
     Intermediates are dropped after their last use, so the live set stays
     a few result-sized tensors however long the body is.
     """
     rb = result_bounds
-    shape = rb.shape
     if operand_arrays:
         device = operand_arrays[0].device
+        lead = tuple(operand_arrays[0].shape[: operand_arrays[0].ndim - rb.rank])
+    shape = tuple(lead) + tuple(rb.shape)
     device = torch.device(device or "cpu")
     f32 = torch.float32
     ops = apply_op.body.ops
@@ -110,9 +121,9 @@ def eval_apply_body(
     def operand_slice(k: int, offset: tuple):
         idx = tuple(
             slice(rl + o - og, rl + o - og + n)
-            for rl, o, og, n in zip(rb.lb, offset, operand_origins[k], shape)
+            for rl, o, og, n in zip(rb.lb, offset, operand_origins[k], rb.shape)
         )
-        return operand_arrays[k][idx]
+        return operand_arrays[k][(Ellipsis,) + idx]
 
     for i, op in enumerate(ops):
         if isinstance(op, stencil.StencilReturnOp):
@@ -132,9 +143,9 @@ def eval_apply_body(
             env[res] = operand_slice(op.temp.index, op.offset)
         elif isinstance(op, stencil.IndexOp):
             d = op.dim
-            view = [1] * len(shape)
-            view[d] = shape[d]
-            io = torch.arange(shape[d], dtype=f32, device=device).reshape(view)
+            view = [1] * rb.rank
+            view[d] = rb.shape[d]
+            io = torch.arange(rb.shape[d], dtype=f32, device=device).reshape(view)
             env[res] = io + torch.full((), rb.lb[d], dtype=f32, device=device)
         elif isinstance(op, ir.ConstantOp):
             # a fill on the device: torch.tensor would copy from pageable
@@ -169,10 +180,12 @@ def eval_apply_body(
 
 
 def _pad_with_bc(x, lo: tuple, hi: tuple, grid: dmp.GridAttr, boundary: str):
-    """Grow ``x`` by halo widths; wrap-fill periodic *undecomposed* dims
-    locally, everything else zeros (decomposed dims are filled by
+    """Grow the trailing ``len(lo)`` dims of ``x`` by halo widths (a
+    leading slot dim is kept as it is); wrap-fill periodic *undecomposed*
+    dims locally, everything else zeros (decomposed dims are filled by
     exchanges)."""
-    rank = x.ndim
+    rank = len(lo)
+    skip = x.ndim - rank
     zero_dims = range(rank)
     if boundary == "periodic":
         wrap_dims = [
@@ -182,11 +195,11 @@ def _pad_with_bc(x, lo: tuple, hi: tuple, grid: dmp.GridAttr, boundary: str):
         ]
         for d in wrap_dims:
             # the wrap of jnp.pad(mode="wrap"): logical index i reads i mod n
-            n = x.shape[d]
+            n = x.shape[skip + d]
             idx = torch.arange(-lo[d], n + hi[d], device=x.device) % n
-            x = x.index_select(d, idx)
+            x = x.index_select(skip + d, idx)
         zero_dims = [d for d in range(rank) if d not in wrap_dims]
-    pad: list[int] = []
+    pad: list[int] = []  # the slot dim is not listed: F.pad leaves it whole
     for d in reversed(range(rank)):  # F.pad lists the last dim first
         pad += [lo[d], hi[d]] if d in zero_dims else [0, 0]
     if any(pad):
@@ -228,8 +241,9 @@ def keep_box(op: comm.BoundaryMaskOp, coords: Optional[Mapping[str, int]] = None
 def boundary_keep(op: comm.BoundaryMaskOp, shape: tuple, device,
                   coords: Optional[Mapping[str, int]] = None):
     """Boolean keep-mask broadcastable to ``shape`` (the masked value's
-    shape) for a boundary_mask op at mesh coordinate ``coords``, or
-    ``None`` when every point is kept."""
+    bounds' shape, so to any slot pool of it too) for a boundary_mask op
+    at mesh coordinate ``coords``, or ``None`` when every point is
+    kept."""
     vb: stencil.Bounds = op.temp.type.bounds
     keep = None
     for d, (lo, hi) in keep_box(op, coords).items():
@@ -257,6 +271,7 @@ class RankView:
     rank: int
     coords: dict
     device: torch.device
+    lead: tuple = ()  # the slot dim of this call's tensors, () without one
     env: dict = dataclasses.field(default_factory=dict)
     fields: dict = dataclasses.field(default_factory=dict)
     owned: set = dataclasses.field(default_factory=set)
@@ -271,8 +286,11 @@ class StencilInterpreter:
 
     Calling convention: positional float32 tensors for every *field*
     argument of the function; returns the updated tensors of every
-    stored-to field, in first-store order.  ``dmp.swap`` is rejected — run
-    the dmp→comm pipeline (``lower-comm``) first.
+    stored-to field, in first-store order.  A call may give every field
+    one leading slot dim of one size ``B`` (``[B, *shape]``): each op then
+    runs on all ``B`` slots at once, each slot as a call without it would.
+    ``dmp.swap`` is rejected — run the dmp→comm pipeline (``lower-comm``)
+    first.
 
     With ``distributed=True`` the function runs on every rank of a mesh at
     once (:meth:`run_ranks`): ``axis_sizes`` gives the size of each mesh
@@ -333,8 +351,9 @@ class StencilInterpreter:
         mesh axis.  ``dests[r]`` (optional) maps a field's position to a
         tensor of its shape on rank ``r``'s device that what is stored to
         that field ends in (it may be the field's own tensor, never one
-        that another field's tensor shares).  Returns, per rank, the tuple
-        the single-rank call returns."""
+        that another field's tensor shares).  Every tensor of a call may
+        carry one leading slot dim of one size (the same on every rank).
+        Returns, per rank, the tuple the single-rank call returns."""
         if len(per_rank) != self.n_ranks or len(coords) != self.n_ranks:
             raise ValueError(
                 f"{len(per_rank)} ranks of tensors and {len(coords)} coordinates "
@@ -343,16 +362,23 @@ class StencilInterpreter:
         fields = [
             a for a in self.func.body.args if isinstance(a.type, stencil.FieldType)
         ]
+        from repro_torch.kernels.stencil_apply import split_slots
+
         dests = dests if dests is not None else [{}] * self.n_ranks
         views = []
+        lead = None
         for r, (arrays, c, d) in enumerate(zip(per_rank, coords, dests)):
             if len(arrays) != len(fields):
                 raise ValueError(
                     f"expected {len(fields)} field tensors, got {len(arrays)}"
                 )
-            view = RankView(r, dict(c), _common_device(arrays))
+            if lead is None:
+                rank = fields[0].type.bounds.rank if fields else 0
+                slots, _ = split_slots(arrays, rank, "field tensors")
+                lead = () if slots is None else (slots,)
+            view = RankView(r, dict(c), _common_device(arrays), lead)
             for arg, arr in zip(fields, arrays):
-                expect = tuple(arg.type.bounds.shape)
+                expect = lead + tuple(arg.type.bounds.shape)
                 if tuple(arr.shape) != expect:
                     raise ValueError(
                         f"field {arg.name_hint}: tensor shape {tuple(arr.shape)} "
@@ -360,7 +386,7 @@ class StencilInterpreter:
                     )
                 view.fields[arg] = arr
             for i, t in d.items():
-                expect = tuple(fields[i].type.bounds.shape)
+                expect = lead + tuple(fields[i].type.bounds.shape)
                 if tuple(t.shape) != expect or t.device != view.device or t.dtype != torch.float32:
                     raise ValueError(
                         f"destination of field {fields[i].name_hint}: a {t.dtype} tensor of "
@@ -426,7 +452,8 @@ class StencilInterpreter:
                 buf = self._dest_of(comb.results[0], view)
                 if buf is None:
                     alloc = torch.empty if self._covered[comb] else torch.zeros
-                    buf = alloc(rb.shape, dtype=torch.float32, device=view.device)
+                    buf = alloc(view.lead + tuple(rb.shape), dtype=torch.float32,
+                                device=view.device)
                 elif not self._covered[comb]:
                     buf.zero_()  # points no part covers are zero
                 view.combined[comb] = buf
@@ -469,11 +496,11 @@ class StencilInterpreter:
                 with _obs.span(name, cat="compute", rank=view.rank,
                                ranks=self.n_ranks, shape=list(op.result_bounds.shape)):
                     outs = self._apply_backend(
-                        op, arrays, origins, op.result_bounds, view.device, out
+                        op, arrays, origins, op.result_bounds, view.device, out, view.lead
                     )
             else:
                 outs = self._apply_backend(
-                    op, arrays, origins, op.result_bounds, view.device, out
+                    op, arrays, origins, op.result_bounds, view.device, out, view.lead
                 )
             for res, arr in zip(op.results, outs):
                 env[res] = arr
@@ -481,7 +508,9 @@ class StencilInterpreter:
         elif isinstance(op, stencil.CombineOp):
             combined = view.combined.pop(op, None)
             # in place: every part has written its slice already
-            env[op.results[0]] = combined if combined is not None else self._exec_combine(op, env)
+            env[op.results[0]] = (
+                combined if combined is not None else self._exec_combine(op, env, view.lead)
+            )
             owned.add(op.results[0])
         elif isinstance(op, stencil.StoreOp):
             temp = env[op.temp]
@@ -540,19 +569,19 @@ class StencilInterpreter:
             raise NotImplementedError(f"function-level op {op.name}")
 
     # -- apply backends -------------------------------------------------
-    def _apply_backend(self, op, arrays, origins, rb, device, out=None):
-        """The apply's results, written into ``out``'s tensors where it
-        names them (:meth:`_result_tensors`)."""
+    def _apply_backend(self, op, arrays, origins, rb, device, out=None, lead=()):
+        """The apply's results (with the call's slot dim ``lead``), written
+        into ``out``'s tensors where it names them (:meth:`_result_tensors`)."""
         if self._routes_to_kernel(op):
             from repro_torch.kernels.stencil_apply import run_apply_cuda
 
-            return run_apply_cuda(op, arrays, origins, rb, device=device, out=out)
-        return write_into(eval_apply_body(op, arrays, origins, rb, device=device), out)
+            return run_apply_cuda(op, arrays, origins, rb, device=device, out=out, lead=lead)
+        return write_into(eval_apply_body(op, arrays, origins, rb, device=device, lead=lead), out)
 
-    def _exec_combine(self, op: stencil.CombineOp, env):
+    def _exec_combine(self, op: stencil.CombineOp, env, lead: tuple = ()):
         rb = op.result_bounds
         parts = [env[o] for o in op.operands]
-        out = torch.zeros(rb.shape, dtype=parts[0].dtype, device=parts[0].device)
+        out = torch.zeros(lead + tuple(rb.shape), dtype=parts[0].dtype, device=parts[0].device)
         for val, part in zip(op.operands, parts):
             out[_slices(val.type.bounds, rb)] = part
         return out
@@ -570,7 +599,7 @@ class StencilInterpreter:
         dest = dict(pairs)
         rank_of = {_coord_key(v.coords): v.rank for v in views}
         origin = op.temp.type.bounds.lb
-        idx = tuple(
+        idx = (Ellipsis,) + tuple(
             slice(o - g, o - g + s)
             for o, g, s in zip(op.send_offset, origin, op.size)
         )
@@ -596,7 +625,7 @@ class StencilInterpreter:
             patch = received.get(v.rank)
             if patch is None:
                 x = v.env[op.temp]
-                patch = torch.zeros(tuple(op.size), dtype=x.dtype, device=x.device)
+                patch = torch.zeros(v.lead + tuple(op.size), dtype=x.dtype, device=x.device)
             v.env[op.results[0]] = patch
             if _obs.enabled():
                 # the exchange window closes at the wait consuming this
@@ -626,7 +655,7 @@ class StencilInterpreter:
         """Zero every point outside the physical (global) domain — the
         temporal-tiling analogue of the zero-BC halo_pad, applied to
         redundantly-computed epoch intermediates."""
-        keep = boundary_keep(op, tuple(x.shape), view.device, view.coords)
+        keep = boundary_keep(op, tuple(op.temp.type.bounds.shape), view.device, view.coords)
         if keep is None:
             return x
         return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -684,8 +713,11 @@ def write_into(outs: list, out: Optional[Sequence]) -> list:
 
 
 def _slices(inner: stencil.Bounds, outer: stencil.Bounds) -> tuple:
-    """The index of ``inner`` in a tensor that covers ``outer``."""
-    return tuple(slice(l - o, l - o + n) for l, o, n in zip(inner.lb, outer.lb, inner.shape))
+    """The index of ``inner`` in a tensor that covers ``outer`` (its
+    trailing dims: a leading slot dim is taken whole)."""
+    return (Ellipsis,) + tuple(
+        slice(l - o, l - o + n) for l, o, n in zip(inner.lb, outer.lb, inner.shape)
+    )
 
 
 def _contiguous_strides(shape: Sequence[int]) -> tuple:

@@ -19,9 +19,12 @@ four cards of a node (each exchange a device-to-device copy).
 - :func:`shard_map` — the single-controller runner: shard the arguments,
   hand every rank's local tensors to one body that runs all ranks in
   lockstep, and wrap its per-rank results.
+- :func:`factor_slot_mesh` — a spatial mesh grown by a leading slot axis
+  (serving slot pools), and :func:`read_row` / :func:`write_row`, one
+  slot's row of a sharded ``[B, *shape]`` pool.
 
 The LM half of the reference module (``ShardingRules``, ``shard``,
-``kv_cache_layout``) and ``factor_slot_mesh`` are not ported yet.
+``kv_cache_layout``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -251,3 +254,88 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs: Sequence, out_specs: Sequenc
         )
 
     return run
+
+
+def factor_slot_mesh(mesh: Mesh, slots: int = 1, axis: str = "slot", devices=None) -> Mesh:
+    """Extend a spatial ``mesh`` with a leading slot axis of size ``slots``
+    factored out of the device inventory.
+
+    The slot axis carries a *batch* dimension (pooled serving slots, or
+    ensemble members), not an array dimension: exchanges keep binding the
+    spatial axis names, so each slot block of ``slots × spatial`` ranks
+    runs the solo exchange pattern.  ``slots == 1`` reuses the mesh's own
+    devices (every rank then holds all ``B`` rows of its shard);
+    ``slots > 1`` takes the first ``slots * spatial`` devices of
+    ``devices`` (default: ``tune.space.default_devices()``, every card),
+    slot-major, so slot block 0 is the original mesh's device prefix.
+    Devices may repeat, as in any :class:`Mesh`."""
+    if int(slots) != slots or slots < 1:
+        raise ValueError(f"slots must be a positive integer, got {slots!r}")
+    slots = int(slots)
+    if axis in mesh.axis_names:
+        raise ValueError(f"slot axis {axis!r} collides with mesh axes {tuple(mesh.axis_names)}")
+    spatial_shape = tuple(mesh.shape[a] for a in mesh.axis_names)
+    names = (axis,) + tuple(mesh.axis_names)
+    if slots == 1:
+        return Mesh(mesh.devices.reshape((1,) + spatial_shape), names)
+    n_spatial = int(np.prod(spatial_shape))
+    if devices is None:
+        from repro_torch.tune.space import default_devices
+
+        devices = default_devices()
+    pool = [torch.device(d) for d in devices]
+    need = slots * n_spatial
+    if need > len(pool):
+        raise ValueError(
+            f"slot axis of {slots} over a {n_spatial}-rank spatial mesh "
+            f"needs {need} devices, have {len(pool)}"
+        )
+    devs = np.empty(need, dtype=object)
+    for i, d in enumerate(pool[:need]):
+        devs[i] = d
+    return Mesh(devs.reshape((slots,) + spatial_shape), names)
+
+
+def _row_blocks(x: ShardedTensor, i: int):
+    """``(rank, local row, index of the rank's block after dim 0)`` for
+    every rank whose block of the sharded ``[B, *shape]`` tensor ``x``
+    holds row ``i``."""
+    if not 0 <= i < x.shape[0]:
+        raise IndexError(f"row {i} of a pool of {x.shape[0]}")
+    for r in range(x.mesh.size):
+        idx = _local_slices(x.shape, x.mesh, x.spec, r)
+        start = idx[0].start or 0
+        n = x.shards[r].shape[0]
+        if start <= i < start + n:
+            yield r, i - start, idx[1:]
+
+
+def read_row(x, i: int) -> torch.Tensor:
+    """Row ``i`` of a ``[B, *shape]`` pool as a new global tensor (on rank
+    0's device for a :class:`ShardedTensor`; a clone for a plain tensor):
+    it shares nothing with ``x``, so later writes to ``x`` leave it as it
+    is."""
+    if not isinstance(x, ShardedTensor):
+        return x[i].clone()
+    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.mesh.device(0))
+    for r, local, rest in _row_blocks(x, i):
+        # one copy per block, as gather takes it
+        if any(x.mesh.coords(r)[a] for a in x.mesh.axis_names if a not in x.spec):
+            continue
+        out[rest].copy_(x.shards[r][local])
+    return out
+
+
+def write_row(x, i: int, value) -> None:
+    """Write ``value`` (a global ``shape`` tensor or float32 array) into row
+    ``i`` of a ``[B, *shape]`` pool in place: every rank's copy of that
+    row's block, so the tensors (and the ring slots they may be) stay the
+    same objects."""
+    v = _as_tensor(value)
+    if not isinstance(x, ShardedTensor):
+        x[i].copy_(v)
+        return
+    if tuple(v.shape) != tuple(x.shape[1:]):
+        raise ValueError(f"a row of shape {tuple(v.shape)} for a pool of rows {tuple(x.shape[1:])}")
+    for r, local, rest in _row_blocks(x, i):
+        x.shards[r][local].copy_(v[rest])

@@ -79,6 +79,12 @@ one was slower on the card (PERF.md) and is not kept.  What
 bounds the kernel now is shared-memory traffic: the walk's loads, with
 the idle lanes of padded columns, take most of an epoch.
 
+Slot pools: as K1 does, the launch takes a slot count ``B``; the grid is
+``B`` times the tiles, the slot is ``blockIdx.x``'s slowest index, and
+every operand and escape pointer moves by that slot's size (all are
+contiguous ``[B, *bounds]`` pools), so one launch advances a serving
+pool's every slot and one build serves every pool width.
+
 Bitwise: the point function is emitted by K1's ``emit_body`` (one float32
 statement per IR op in body order, constants as bit patterns) and built
 with ``-fmad=false``, so K2 equals its plain version, the unfused K1
@@ -574,12 +580,13 @@ def emit_epoch_cuda(
 ) -> str:
     """CUDA C++ source of K2 for one fused epoch at one tile: a
     ``__global__`` kernel with one CTA per tile, the C launcher
-    ``k2_epoch_launch(in0, …, out0, …, stream) -> cudaError_t`` and the
-    occupancy query ``k2_epoch_occupancy(int* ctas_per_sm)``.
-    ``ptr_align`` is the alignment in bytes that every operand pointer
-    has; it bounds the width of the window copies.  The launcher takes,
-    after the output pointers, the ``int`` box bounds of
-    :func:`box_args`."""
+    ``k2_epoch_launch(in0, …, out0, …, box…, int slots, stream) ->
+    cudaError_t`` and the occupancy query ``k2_epoch_occupancy(int*
+    ctas_per_sm)``.  ``ptr_align`` is the alignment in bytes that every
+    operand pointer has; it bounds the width of the window copies.  The
+    launcher takes, after the output pointers, the ``int`` box bounds of
+    :func:`box_args`, then the slot count (each slot's operands and
+    escapes one bounds' size past the last's)."""
     plan = plan_epoch(fused_op, tile)
     st = _storage(fused_op, plan)
     offsets = st.offsets()
@@ -611,8 +618,8 @@ def emit_epoch_cuda(
     boxes = _box_keys(fused_op)
     n_box = len(set(boxes.values()))
     box_params = [f"int box{j}_{end}" for j in range(n_box) for end in ("lo", "hi")]
-    params = [f"const float* __restrict__ in{k}" for k in range(n_in)] + [
-        f"float* __restrict__ out{j}" for j in range(n_out)
+    params = [f"const float* __restrict__ in{k}_slots" for k in range(n_in)] + [
+        f"float* __restrict__ out{j}_slots" for j in range(n_out)
     ] + box_params
     src.append(
         f"__global__ void __launch_bounds__({THREADS}, {min_ctas}) k2_epoch("
@@ -621,9 +628,17 @@ def emit_epoch_cuda(
     src.append("  K1_DYNAMIC_SMEM(smem);")
     for s, off in enumerate(offsets):
         src.append(f"  float* const s{s} = smem + {off};")
-    # this CTA's tile: its index along each dim and its core-relative
-    # origin (32-bit: a core extent fits; device offsets are 64-bit)
-    src.append("  int blk = blockIdx.x;")
+    # this CTA's slot (slowest), its tile's index along each dim and its
+    # core-relative origin (32-bit: a core extent fits; device offsets are
+    # 64-bit)
+    src.append(f"  const long long slot = blockIdx.x / {plan.n_tiles}u;")
+    for k, a in enumerate(args):
+        src.append(f"  const float* __restrict__ const in{k} = in{k}_slots + slot * "
+                   f"{_k1._numel(a.type.bounds.shape)}LL;")
+    for j, e in enumerate(escapes):
+        src.append(f"  float* __restrict__ const out{j} = out{j}_slots + slot * "
+                   f"{_k1._numel(e.type.bounds.shape)}LL;")
+    src.append(f"  int blk = blockIdx.x % {plan.n_tiles}u;")
     for d in reversed(range(rank)):
         src.append(f"  const int g{d} = blk % {plan.grid[d]};")
         if d:
@@ -813,7 +828,7 @@ def emit_epoch_cuda(
 
     c_params = [f"const void* in{k}" for k in range(n_in)] + [
         f"void* out{j}" for j in range(n_out)
-    ] + box_params
+    ] + box_params + ["int slots"]
     call_args = [f"static_cast<const float*>(in{k})" for k in range(n_in)] + [
         f"static_cast<float*>(out{j})" for j in range(n_out)
     ] + [p.split()[1] for p in box_params]
@@ -824,9 +839,12 @@ def emit_epoch_cuda(
             "  if (attr != 0) return attr;",
         ]
     src += [f"K1_EXPORT int {_LAUNCHER}(" + ", ".join(c_params + ["void* stream"]) + ") {"]
+    src += [f"  if (slots < 1 || slots > {_k1._MAX_GRID // plan.n_tiles}) "
+            f"return {_k1._INVALID_VALUE};"]
     src += opt_in
     src += [
-        f"  K1_LAUNCH(k2_epoch, {plan.n_tiles}u, kThreads, {smem}, stream,",
+        f"  K1_LAUNCH(k2_epoch, static_cast<unsigned int>(slots) * {plan.n_tiles}u, kThreads, "
+        f"{smem}, stream,",
         "            " + ", ".join(call_args) + ");",
         "  return k1::launch_status();",
         "}",
@@ -858,7 +876,7 @@ def _kernel_for(fused_op: stencil.FusedEpochOp, tile: Optional[tuple], ptr_align
         source = emit_epoch_cuda(fused_op, tile, ptr_align)
         _graphs.register(source, fused_op)
         n_ptrs = len(fused_op.operands) + len(fused_op.results)
-        n_ints = 2 * len(set(_box_keys(fused_op).values()))
+        n_ints = 2 * len(set(_box_keys(fused_op).values())) + 1  # the boxes, the slots
         argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn = _k1._launcher(source, argtypes, _LAUNCHER)
         with _k1._LIBS_LOCK:
@@ -878,7 +896,9 @@ def run_epoch_cuda(
     on the rank at mesh coordinate ``coords`` (a mesh axis name → its
     coordinate; all zeros by default, as on one device).  ``out`` gives,
     per escape, a contiguous tensor to write it into (``None``: a new
-    one), which must not overlap an operand.
+    one), which must not overlap an operand.  The operands may be
+    ``[B, *bounds]`` slot pools (one ``B`` for all): the escapes then are
+    too, and one launch computes every slot.
 
     CPU tensors go through the plain version, with ``masks`` (one 0/1
     tensor per boundary_mask, built by :func:`region_masks` at ``coords``
@@ -897,14 +917,16 @@ def run_epoch_cuda(
     if not arrays:
         raise ValueError("a fused epoch without operands has no device to run on")
     dev = arrays[0].device
-    for k, (a, arg) in enumerate(zip(arrays, args)):
+    slots, shapes = _k1.split_slots(arrays, args[0].type.bounds.rank, "K2 operands")
+    lead = () if slots is None else (slots,)
+    for k, (a, shape, arg) in enumerate(zip(arrays, shapes, args)):
         if a.device != dev:
             raise ValueError(f"operand {k} on {a.device}, operand 0 on {dev}")
         if a.dtype != torch.float32:
             raise TypeError(f"operand {k} is {a.dtype}; K2 takes float32")
-        if tuple(a.shape) != tuple(arg.type.bounds.shape):
+        if shape != tuple(arg.type.bounds.shape):
             raise ValueError(
-                f"operand {k}: tensor shape {tuple(a.shape)} != its bounds' "
+                f"operand {k}: tensor shape {shape} != its bounds' "
                 f"shape {tuple(arg.type.bounds.shape)}"
             )
     tile = None if tile is None else tuple(int(t) for t in tile)
@@ -913,10 +935,10 @@ def run_epoch_cuda(
         raise ValueError(f"{len(out)} out tensors for an epoch of {len(fused_op.results)} escapes")
     for j, (o, r) in enumerate(zip(out, fused_op.results)):
         if o is not None and (o.device != dev or o.dtype != torch.float32 or not o.is_contiguous()
-                              or tuple(o.shape) != tuple(r.type.bounds.shape)):
+                              or tuple(o.shape) != lead + tuple(r.type.bounds.shape)):
             raise ValueError(
                 f"out {j}: expected a contiguous float32 tensor of shape "
-                f"{tuple(r.type.bounds.shape)} on {dev}"
+                f"{lead + tuple(r.type.bounds.shape)} on {dev}"
             )
     with _obs.span("cuda:fused_epoch", cat="kernel", rank=None, device=dev.type):
         if dev.type == "cpu":
@@ -943,15 +965,16 @@ def run_epoch_cuda(
             if not a.is_contiguous():
                 raise ValueError(f"operand {k} is not contiguous")
         outs = [
-            torch.empty(r.type.bounds.shape, dtype=torch.float32, device=dev) if o is None else o
+            torch.empty(lead + tuple(r.type.bounds.shape), dtype=torch.float32, device=dev)
+            if o is None else o
             for r, o in zip(fused_op.results, out)
         ]
-        fn = _kernel_for(fused_op, tile, _k1.ptr_alignment(arrays))
+        fn = _kernel_for(fused_op, tile, _k1.ptr_alignment(arrays, len(shapes[0])))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             status = fn(
                 *[a.data_ptr() for a in arrays], *[o.data_ptr() for o in outs],
-                *box_args(fused_op, coords), stream,
+                *box_args(fused_op, coords), slots or 1, stream,
             )
         if status != 0:
             raise RuntimeError(f"K2 launch failed with CUDA error {status}")

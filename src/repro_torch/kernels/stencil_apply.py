@@ -39,6 +39,18 @@ tile.  With one shared-memory read a tap and one barrier a row the
 kernel was bound by shared memory at so8 (PERF.md); the 8-row
 steps cut the reads to 5.5 a point for heat so4, 10 for so8.
 
+Slot pools.  The launch takes a slot count ``B``: the grid is ``B`` times
+one call's CTAs, the slot is ``blockIdx.x``'s slowest index, and every
+operand and result pointer moves by that slot's stride (the serving
+engine's ``[B, *shape]`` pools; the port's counterpart of ``jax.vmap`` of
+the reference's kernel, which adds a grid axis over the slots).  Operands
+are contiguous, so their slot stride is their size, baked into the
+source; a result's slot stride is a launch argument, because a result
+that is a slice of a combine's result strides by that result's size.
+``B`` is an argument too, so one build serves every pool width; the
+per-point arithmetic is unchanged, so each slot equals a launch of its
+own bit for bit.
+
 Build.  ``nvcc`` (found on ``PATH``, then under ``$CUDA_HOME/bin``, then
 ``/usr/local/cuda/bin``) compiles each generated source into
 ``build/repro_torch_kernels/<sha>.so`` at the repository root, with a
@@ -307,8 +319,11 @@ def emit_apply_cuda(
 ) -> str:
     """CUDA C++ source of K1 for one apply at these operand shapes and
     origins: one ``__global__`` kernel, the C launcher
-    ``k1_apply_launch(in0, …, out0, …, stream) -> cudaError_t`` and the
-    occupancy query ``k1_apply_occupancy(int* ctas_per_sm)``.
+    ``k1_apply_launch(in0, …, out0, …, int slots, long long out0_slot, …,
+    stream) -> cudaError_t`` (``slots`` copies of the apply, slot ``b``'s
+    operands ``b`` operand sizes and its result ``j`` ``b * outj_slot``
+    floats past the pointers) and the occupancy query
+    ``k1_apply_occupancy(int* ctas_per_sm)``.
     ``ptr_align`` is the alignment in bytes that every operand pointer
     has; it bounds the width of the slice copies.  ``out_strides`` gives
     each result's strides in floats (``None``, or a ``None`` entry: the
@@ -367,16 +382,23 @@ def emit_apply_cuda(
                if k in plans else ", not read")
         )
     src += [f'#include "{_HEADER}"', "", f"constexpr int kThreads = K1_BLOCK_THREADS({n_threads});", ""]
-    params = [f"const float* __restrict__ in{k}" for k in range(n_in)] + [
-        f"float* __restrict__ out{j}" for j in range(n_out)
-    ]
+    params = [f"const float* __restrict__ in{k}_slots" for k in range(n_in)] + [
+        f"float* __restrict__ out{j}_slots" for j in range(n_out)
+    ] + [f"long long out{j}_slot" for j in range(n_out)]
     src.append(
         f"__global__ void __launch_bounds__({n_threads}) k1_apply("
         + ", ".join(params) + ") {"
     )
     src.append("  K1_DYNAMIC_SMEM(smem);")
-    # this CTA: its chunk of rows and its tile of the minor dims, fastest last
-    src.append("  int blk = blockIdx.x;")
+    # this CTA: its slot (slowest), its chunk of rows and its tile of the
+    # minor dims, fastest last
+    src.append(f"  const long long slot = blockIdx.x / {n_ctas}u;")
+    for k in range(n_in):
+        src.append(f"  const float* __restrict__ const in{k} = in{k}_slots + slot * "
+                   f"{_numel(operand_shapes[k])}LL;")
+    for j in range(n_out):
+        src.append(f"  float* __restrict__ const out{j} = out{j}_slots + slot * out{j}_slot;")
+    src.append(f"  int blk = blockIdx.x % {n_ctas}u;")
     for d in reversed(range(rank)):
         src.append(f"  const int g{d} = blk % {grid[d]};")
         if d:
@@ -494,10 +516,10 @@ def emit_apply_cuda(
 
     c_params = [f"const void* in{k}" for k in range(n_in)] + [
         f"void* out{j}" for j in range(n_out)
-    ]
+    ] + ["int slots"] + [f"long long out{j}_slot" for j in range(n_out)]
     args = [f"static_cast<const float*>(in{k})" for k in range(n_in)] + [
         f"static_cast<float*>(out{j})" for j in range(n_out)
-    ]
+    ] + [f"out{j}_slot" for j in range(n_out)]
     opt_in = []
     if smem > 48 * 1024:
         opt_in = [
@@ -505,9 +527,10 @@ def emit_apply_cuda(
             "  if (attr != 0) return attr;",
         ]
     src += [f"K1_EXPORT int {_LAUNCHER}(" + ", ".join(c_params + ["void* stream"]) + ") {"]
+    src += [f"  if (slots < 1 || slots > {_MAX_GRID // n_ctas}) return {_INVALID_VALUE};"]
     src += opt_in
     src += [
-        f"  K1_LAUNCH(k1_apply, {n_ctas}u, kThreads, {smem}, stream,",
+        f"  K1_LAUNCH(k1_apply, static_cast<unsigned int>(slots) * {n_ctas}u, kThreads, {smem}, stream,",
         "            " + ", ".join(args) + ");",
         "  return k1::launch_status();",
         "}",
@@ -520,6 +543,19 @@ def emit_apply_cuda(
         "",
     ]
     return graphs.name_kernel(src, graphs.K1_KERNEL)
+
+
+# a 1-D grid's largest x extent, and cudaErrorInvalidValue: what a launcher
+# returns for a slot count whose grid would not fit
+_MAX_GRID = 0x7FFFFFFF
+_INVALID_VALUE = 1
+
+
+def _numel(shape: Sequence[int]) -> int:
+    n = 1
+    for x in shape:
+        n *= int(x)
+    return n
 
 
 def result_strides(
@@ -635,13 +671,33 @@ def build(sources: Sequence[str]) -> list:
     return paths
 
 
-def ptr_alignment(tensors: Sequence[torch.Tensor]) -> int:
+def ptr_alignment(tensors: Sequence[torch.Tensor], rank: Optional[int] = None) -> int:
     """The largest of 16, 8 and 4 bytes that every tensor's data pointer is
-    a multiple of: the widest asynchronous copy a kernel may use on them."""
+    a multiple of: the widest asynchronous copy a kernel may use on them.
+    Given ``rank``, tensors with a leading slot dim of more than one slot
+    also need each slot's start (the data pointer plus a multiple of the
+    slot's bytes, ``4 ×`` the last ``rank`` dims' size) to be aligned."""
     for a in (16, 8, 4):
-        if all(t.data_ptr() % a == 0 for t in tensors):
+        if all(t.data_ptr() % a == 0 for t in tensors) and all(
+            4 * _numel(t.shape[t.ndim - rank:]) % a == 0
+            for t in tensors if rank is not None and t.ndim > rank and t.shape[0] > 1
+        ):
             return a
     raise ValueError("a float32 tensor whose data is not 4-byte aligned")
+
+
+def split_slots(arrays: Sequence[torch.Tensor], rank: int, what: str) -> tuple:
+    """``(slots, per-slot shapes)`` of a kernel's operands: each is a
+    ``rank``-D tensor, or a ``[B, ...]`` pool of them with one ``B`` for
+    all (``slots`` is ``None`` without a slot dim)."""
+    leads = {tuple(a.shape[: a.ndim - rank]) for a in arrays}
+    if len(leads) > 1 or any(len(x) > 1 for x in leads) or any(a.ndim < rank for a in arrays):
+        raise ValueError(
+            f"{what} of shapes {[tuple(a.shape) for a in arrays]}: each must be {rank}-D, "
+            f"or carry one leading slot dim of one size for all"
+        )
+    lead = leads.pop() if leads else ()
+    return (lead[0] if lead else None), [tuple(a.shape[a.ndim - rank:]) for a in arrays]
 
 
 def _kernel_for(apply_op, shapes, origins, result_bounds, ptr_align: int = 16,
@@ -655,7 +711,9 @@ def _kernel_for(apply_op, shapes, origins, result_bounds, ptr_align: int = 16,
         source = emit_apply_cuda(apply_op, shapes, origins, result_bounds, ptr_align,
                                  out_strides)
         graphs.register(source, apply_op)
-        fn = _launcher(source, [ctypes.c_void_p] * (len(shapes) + len(apply_op.results) + 1))
+        n_out = len(apply_op.results)
+        fn = _launcher(source, [ctypes.c_void_p] * (len(shapes) + n_out) + [ctypes.c_int]
+                       + [ctypes.c_longlong] * n_out + [ctypes.c_void_p])
         with _LIBS_LOCK:
             per_op[key] = fn
     return fn
@@ -703,28 +761,35 @@ def run_apply_cuda(
     result_bounds: stencil.Bounds,
     device: Optional[torch.device] = None,
     out: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    lead: tuple = (),
 ) -> list:
     """Entry point used by the lowering's ``cuda`` backend.
 
     CPU tensors go through the plain version (``eval_apply_body``); CUDA
-    tensors go through the kernel, or the call raises.  ``device`` is only
-    read when the apply has no operands.  ``out`` gives, per result, the
-    tensor to write it into (``None``: a new contiguous tensor); it may be
-    a strided view, such as the part of a larger result, and must not
-    overlap an operand.  Each call counts in
-    ``dispatch_stats().apply_calls``, each launch in ``apply_launches``.
+    tensors go through the kernel, or the call raises.  ``device`` and
+    ``lead`` (the slot dim) are only read when the apply has no operands.
+    ``out`` gives, per result, the tensor to write it into (``None``: a new
+    contiguous tensor); it may be a strided view, such as the part of a
+    larger result, and must not overlap an operand.  Operands may be ``[B, *shape]`` slot pools (one
+    ``B`` for all): the results then are too, and one launch computes
+    every slot.  Each call counts in ``dispatch_stats().apply_calls``, each
+    launch in ``apply_launches``.
     """
     from repro_torch.core.lowering import eval_apply_body, write_into
 
     _DISPATCH.apply_calls += 1
     dev = arrays[0].device if arrays else torch.device(device or "cpu")
-    shapes = [tuple(a.shape) for a in arrays]
+    slots, shapes = split_slots(arrays, result_bounds.rank, "K1 operands")
+    if arrays or not lead:
+        lead = () if slots is None else (slots,)
+    else:
+        slots = lead[0]
     for k, a in enumerate(arrays):
         if a.device != dev:
             raise ValueError(f"operand {k} on {a.device}, operand 0 on {dev}")
         if a.dtype != torch.float32:
             raise TypeError(f"operand {k} is {a.dtype}; K1 takes float32")
-    shape = result_bounds.shape
+    shape = lead + tuple(result_bounds.shape)
     out = list(out) if out is not None else [None] * len(apply_op.results)
     if len(out) != len(apply_op.results):
         raise ValueError(f"{len(out)} out tensors for an apply of {len(apply_op.results)} results")
@@ -737,7 +802,9 @@ def run_apply_cuda(
             )
     if dev.type == "cpu":
         check_windows(apply_op, shapes, origins, result_bounds)
-        return write_into(eval_apply_body(apply_op, arrays, origins, result_bounds, device=dev), out)
+        return write_into(
+            eval_apply_body(apply_op, arrays, origins, result_bounds, device=dev, lead=lead), out
+        )
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or (plain version) CPU, not {dev}")
     for k, a in enumerate(arrays):
@@ -752,14 +819,23 @@ def run_apply_cuda(
         return outs
     strides = None
     if any(o is not None for o in out):
-        strides = tuple(tuple(o.stride()) for o in outs)
+        strides = tuple(tuple(o.stride()[len(lead):]) for o in outs)
         result_strides(apply_op, result_bounds, strides)  # refuse overlapping views
+    # a result's slot stride: a pool's slot may not overlap another slot
+    out_slot = [o.stride(0) if lead else 0 for o in outs]
+    span = [_numel(shape[1:]) if st is None else
+            1 + sum((n - 1) * x for n, x in zip(result_bounds.shape, st))
+            for st in (strides or [None] * len(outs))]
+    if lead and slots > 1 and any(x < n for x, n in zip(out_slot, span)):
+        raise ValueError(f"out slot strides {out_slot}: the slots of a result overlap")
     # the windows are checked when the source is emitted, once per shape
-    fn = _kernel_for(apply_op, shapes, origins, result_bounds, ptr_alignment(arrays), strides)
+    fn = _kernel_for(apply_op, shapes, origins, result_bounds,
+                     ptr_alignment(arrays, result_bounds.rank), strides)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(
-            *[a.data_ptr() for a in arrays], *[o.data_ptr() for o in outs], stream
+            *[a.data_ptr() for a in arrays], *[o.data_ptr() for o in outs],
+            slots or 1, *out_slot, stream,
         )
     if status != 0:
         raise RuntimeError(

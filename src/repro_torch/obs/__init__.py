@@ -1,5 +1,5 @@
-"""``repro_torch.obs`` — span tracing, trace export and roofline-drift
-detection (port of ``repro.obs``, DESIGN.md §12).
+"""``repro_torch.obs`` — span tracing, the unified counter registry, trace
+export and roofline-drift detection (port of ``repro.obs``, DESIGN.md §12).
 
 Quickstart::
 
@@ -11,16 +11,18 @@ Quickstart::
                                        # exchange windows on the comm lane
     obs.write_chrome("trace.json")     # open in https://ui.perfetto.dev
     print(obs.drift_report(terms=step.cost()))   # model vs measured
+    print(obs.snapshot())              # every subsystem's counters
 
 Tracing is off by default and the disabled path costs one attribute
 check per instrumented site — see ``repro_torch.obs.trace``.  With
 tracing on, the compiled step runs op by op (no CUDA graph replay) and
 each epoch span closes after the card has finished the epoch.
+Summarize a saved trace offline with ``python -m repro_torch.obs
+trace.json`` (``--snapshot``: the live process's counters).
 
-``trace``, ``export`` and ``drift`` are copies of the reference's
-modules.  Not ported yet: the unified registry (``snapshot``,
-``NAMESPACES``) and the ``python -m`` summary, which read the serving
-engine's counters (ROADMAP Queue 1 item 6).
+``trace``, ``export``, ``drift``, ``registry`` and ``__main__`` are copies
+of the reference's modules; the registry reads this package's counters
+(``kernel``: K1 and K2 calls and launches).
 """
 from repro_torch.obs.drift import DriftReport, drift_report
 from repro_torch.obs.export import (
@@ -31,6 +33,7 @@ from repro_torch.obs.export import (
     write_jsonl,
     write_rank_traces,
 )
+from repro_torch.obs.registry import NAMESPACES, snapshot
 from repro_torch.obs.trace import (
     LANE_COMM,
     LANE_EXECUTE,
@@ -59,6 +62,8 @@ __all__ = [
     "write_chrome",
     "write_jsonl",
     "write_rank_traces",
+    "NAMESPACES",
+    "snapshot",
     "LANE_COMM",
     "LANE_EXECUTE",
     "Span",

@@ -21,22 +21,27 @@ count or epoch depth:
 - ``faults.py``   — ``FaultPlan`` / ``SimulatedFault``: deterministic
   kill / straggler / torn-write injection (a copy of the reference's).
 
-The snapshot layout is the reference's, so a run that either package
-checkpointed resumes in the other.  Not ported yet: request migration
-between stencil-serving engines (``evacuate`` / ``admit``, ROADMAP
-Queue 1 item 6).
+- ``migrate.py``  — ``evacuate`` / ``admit``: request migration between
+  stencil-serving engines (``repro_torch.serve.stencil``) through
+  epoch-aligned per-request checkpoints (a copy of the reference's).
+
+The snapshot layout is the reference's, so a run or a request that
+either package checkpointed resumes in the other.
 
 Also reachable as ``repro_torch.api.resilient_loop`` /
 ``repro_torch.api.resume``.
 """
 from repro_torch.resilience.driver import ResilientLoop, ResumeError, resume
 from repro_torch.resilience.faults import FaultPlan, SimulatedFault, truncate_snapshot
+from repro_torch.resilience.migrate import admit, evacuate
 
 __all__ = [
     "FaultPlan",
     "ResilientLoop",
     "ResumeError",
     "SimulatedFault",
+    "admit",
+    "evacuate",
     "resume",
     "truncate_snapshot",
 ]

@@ -151,6 +151,7 @@ def target_to_dict(target) -> dict:
         "overlap": target.overlap,
         "diagonal": target.diagonal,
         "exchange_every": target.exchange_every,
+        "slot_axis": target.slot_axis,
         "fused_epoch": target.fused_epoch,
         "tile": list(target.tile) if target.tile else None,
         "device": target.device,
@@ -182,8 +183,7 @@ def target_from_dict(d: dict, devices: Optional[Sequence] = None):
     ``jnp``→``torch``, ``pallas``→``cuda`` and ``pallas_tile``→``tile``;
     its ``pallas_interpret`` is ignored, and it has no ``device``, so the
     devices decide.  Raises ``TuneCacheError`` when the entry needs more
-    devices than exist, names a slot axis (not ported) or does not make
-    a valid target here."""
+    devices than exist or does not make a valid target here."""
     from repro_torch.api import Target, TargetError
     from repro_torch.core.passes.decompose import SlicingStrategy
     from repro_torch.dist import Mesh
@@ -191,8 +191,6 @@ def target_from_dict(d: dict, devices: Optional[Sequence] = None):
     backend = _BACKENDS.get(d["backend"])
     if backend is None:
         raise TuneCacheError(f"unknown backend {d['backend']!r}")
-    if d.get("slot_axis") is not None:
-        raise TuneCacheError("a slot-axis target (repro_torch has no slot_axis yet)")
     device = d.get("device")
     if devices is not None:
         devs = [torch.device(x) for x in devices]
@@ -238,6 +236,7 @@ def target_from_dict(d: dict, devices: Optional[Sequence] = None):
             overlap=bool(d.get("overlap", False)),
             diagonal=bool(d.get("diagonal", False)),
             exchange_every=int(d.get("exchange_every", 1)),
+            slot_axis=d.get("slot_axis"),
             fused_epoch=bool(d.get("fused_epoch", False)),
             tile=tuple(tile) if tile else None,
             donate=bool(d.get("donate", False)),

@@ -265,6 +265,86 @@ def _local_shape(program, strategy) -> tuple:
 
 
 # --------------------------------------------------------------------------
+# pool widths (slot mesh axis: serving / ensemble batching)
+# --------------------------------------------------------------------------
+
+
+def slot_width_candidates(n_devices: int, spatial_ranks: int, capacity: int) -> list:
+    """Feasible slot-axis widths for a pool of ``capacity`` slots over a
+    ``spatial_ranks``-rank decomposition: every ``s`` that divides the
+    pool (the slot axis splits it evenly) and fits the inventory
+    (``s * spatial_ranks <= n_devices``), widest first.  Never empty:
+    width 1 (every slot in each spatial rank's leading dim) is feasible
+    whenever the spatial mesh itself is."""
+    cap = max(1, int(capacity))
+    spatial = max(1, int(spatial_ranks))
+    hi = max(1, min(cap, int(n_devices) // spatial))
+    out = [s for s in range(hi, 0, -1) if cap % s == 0]
+    return out or [1]
+
+
+def enumerate_pool_candidates(
+    program,
+    capacity: int,
+    devices: Optional[Sequence] = None,
+    backends: Sequence[str] = ("torch",),
+    exchange_every: Sequence[int] = (1,),
+    slot_axis: str = "slot",
+) -> list:
+    """An ensemble axis as a search space: every way to trade pool
+    (ensemble) width against mesh factorization on this inventory
+    (default: every card, ``default_devices``; devices may repeat).  For
+    each slot width ``s`` dividing ``capacity``, the remaining
+    ``n_devices // s`` devices enumerate spatial strategies
+    (``strategy_candidates``), and each feasible pair becomes a slot-axis
+    ``Target`` whose compiled step advances ``capacity`` same-fingerprint
+    simulations in one call over ``(slot, *spatial)`` ranks.
+
+    Candidates carry ``origin="pool"`` and the note ``slots=s``.  The
+    widest slot axis enumerates first: the serve engine takes the head as
+    its default factorization."""
+    from repro_torch import api
+    from repro_torch.dist import Mesh, factor_slot_mesh
+
+    devices = [torch.device(d) for d in devices] if devices is not None else default_devices()
+    cap = max(1, int(capacity))
+    out: list = []
+    seen: set = set()
+    widths = sorted({s for s in range(1, min(cap, len(devices)) + 1) if cap % s == 0}, reverse=True)
+    jit = not api.several_cards(devices)
+    for s in widths:
+        n_spatial = len(devices) // s
+        for strategy in strategy_candidates(program, n_spatial):
+            spatial_mesh = mesh_for_strategy(strategy, devices)
+            if spatial_mesh is None:
+                # a pure-ensemble pool: no spatial decomposition.  The
+                # lowered IR still binds spatial axis names for its
+                # (trivial) exchanges, so the mesh carries them at size 1
+                # beside the slot axis
+                strategy = api.trivial_strategy(program.rank)
+                devs = np.empty(s, dtype=object)
+                for i, d in enumerate(devices[:s]):
+                    devs[i] = d
+                mesh = Mesh(devs.reshape((s,) + (1,) * program.rank),
+                            (slot_axis,) + tuple(strategy.axis_names))
+            else:
+                mesh = factor_slot_mesh(spatial_mesh, s, axis=slot_axis, devices=devices)
+            kw = dict(mesh=mesh, strategy=strategy, slot_axis=slot_axis, jit=jit)
+            for k in exchange_every_candidates(program, strategy, exchange_every):
+                for backend in backends:
+                    try:
+                        t = api.Target(backend=backend, exchange_every=k, **kw)
+                        api._validate_for_program(program, t)
+                    except api.TargetError:
+                        continue
+                    if t.fingerprint in seen:
+                        continue
+                    seen.add(t.fingerprint)
+                    out.append(Candidate(target=t, origin="pool", note=f"slots={s}"))
+    return out
+
+
+# --------------------------------------------------------------------------
 # the full space
 # --------------------------------------------------------------------------
 

@@ -478,7 +478,9 @@ def test_emitted_source_is_one_kernel_with_staged_windows():
     src = k2.emit_epoch_cuda(op)
     r = k2.R_BY_RANK[2]
     assert src.count("__global__") == 1
-    assert src.count("K1_LAUNCH(k2_epoch, 32768u, kThreads, 88640, stream,") == 1
+    assert src.count(
+        "K1_LAUNCH(k2_epoch, static_cast<unsigned int>(slots) * 32768u, kThreads, 88640, stream,"
+    ) == 1
     assert "K1_OPT_IN_SMEM(k2_epoch, 88640)" in src  # 88,640 B: above the 48 KB default
     assert src.count("out0[") == r  # the last frame goes straight out, owned points only
     # the 80×144 window arrives by 16-byte asynchronous copies, then one wait

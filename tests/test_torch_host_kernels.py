@@ -17,6 +17,13 @@ strided results, as the executor launches them into one result of the
 combine's shape: their sources run on the host too, writing into one
 NaN-filled buffer, and every point outside the part stays NaN.
 
+Slot pools: a launch with a slot count ``B`` (here 3) over ``[B, *shape]``
+operands runs ``B`` times the grid, each slot bitwise equal to the plain
+version of that slot and to a launch of its own; the sources are emitted
+for the alignment the wrapper would pick (``ptr_alignment`` with the
+slots' strides), and a part of a combine writes its slice of each slot of
+a ``[B, *combine]`` result through its slot stride.
+
 Skips only where ``g++`` is not on ``PATH``.
 """
 import ctypes
@@ -196,6 +203,26 @@ K2_CASES = {
 }
 
 
+# pooled launches (B = 3): K1 cases and K2 cases run with a slot count; the
+# combine's parts write into a [B, *combine] result
+POOL_SLOTS = 3
+K1_POOL_CASES = ["heat2d-so4-zero", "heat2d-so2-periodic", "wave2d-so4", "index-chain",
+                 "heat3d-so4-ragged", "star1d", "pw-advection-3d"]
+K2_POOL_CASES = {
+    "heat2d-so4-zero-k4": (lambda: P.heat("repro_torch", (48, 40), 4), 4, (16, 8), None),
+    "wave2d-so4-k4": (lambda: P.wave("repro_torch", (24, 20), 4), 4, (8, 4), None),
+    "heat2d-so4-zero-k4-2x2-corner": (lambda: P.heat("repro_torch", (48, 40), 4), 4, (8, 4),
+                                      {"x": 1, "y": 0}),
+}
+
+
+def _pool_align(shapes, rank):
+    """The alignment the wrapper picks (``ptr_alignment``) for
+    ``[POOL_SLOTS, *shape]`` operands of :func:`_inputs` (16-byte aligned
+    bases) with these per-slot shapes."""
+    return k1.ptr_alignment(_inputs([(POOL_SLOTS,) + tuple(sh) for sh in shapes], 0), rank)
+
+
 # K2 on a rank of a 2×2 mesh, zero BC: the ranks keep different boxes, which
 # the kernel takes as launch arguments; name -> (program, k, tile)
 K2_RANK_CASES = {
@@ -237,6 +264,19 @@ def built(tmp_path_factory):
     for name, (prog, k, tile) in K2_RANK_CASES.items():
         op = _epoch(prog(), k, MESH_2X2)
         add(("k2", name), (op, tile), k2.emit_epoch_cuda(op, tile))
+    for name in K1_POOL_CASES:
+        for apply_op in K1_CASES[name]():
+            spec = _spec(apply_op)
+            add(("k1-pool", name), apply_op,
+                k1.emit_apply_cuda(*spec, ptr_align=_pool_align(spec[1], spec[3].rank)))
+    for apply_op, strides in K1_PART_CASES["heat2d-so4-zero-overlap-2x2"]():
+        add(("k1-part-pool", "heat2d-so4-zero-overlap-2x2"), (apply_op, strides),
+            k1.emit_apply_cuda(*_spec(apply_op), out_strides=strides))
+    for name, (prog, k, tile, coords) in K2_POOL_CASES.items():
+        op = _epoch(prog(), k, None if coords is None else MESH_2X2)
+        shapes = [a.type.bounds.shape for a in op.body.args]
+        add(("k2-pool", name), (op, tile, coords),
+            k2.emit_epoch_cuda(op, tile, ptr_align=_pool_align(shapes, len(shapes[0]))))
     (heat,) = K1_CASES["heat2d-so4-zero"]()
     add(("k1", "unaligned"), heat, k1.emit_apply_cuda(*_spec(heat), ptr_align=4))
     op = _epoch(P.heat("repro_torch", (48, 40), 4), 4)
@@ -260,15 +300,21 @@ def _inputs(shapes, seed, offset=0):
     return out
 
 
-def _run(path, symbol, inputs, out_shapes, ints=()):
+def _run(path, symbol, inputs, out_shapes, ints=(), slots=1):
     """Launch a built source's ``symbol`` on ``inputs``: pointers, then the
-    ``int`` arguments ``ints`` (K2's box bounds), then the stream."""
+    ``int`` arguments ``ints`` (K2's box bounds), the slot count, for K1
+    each result's slot stride (its size: the results are contiguous
+    ``[slots, *shape]`` pools when ``slots`` > 1), then the stream."""
     fn = getattr(ctypes.CDLL(str(path)), symbol)
+    k1_slot_strides = [int(np.prod(s)) for s in out_shapes] if symbol == "k1_apply_launch" else []
     fn.argtypes = ([ctypes.c_void_p] * (len(inputs) + len(out_shapes))
-                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+                   + [ctypes.c_int] * (len(ints) + 1) + [ctypes.c_longlong] * len(k1_slot_strides)
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    outs = [torch.full(tuple(s), float("nan")) for s in out_shapes]
-    status = fn(*[x.data_ptr() for x in inputs], *[o.data_ptr() for o in outs], *ints, None)
+    lead = (slots,) if slots > 1 else ()
+    outs = [torch.full(lead + tuple(s), float("nan")) for s in out_shapes]
+    status = fn(*[x.data_ptr() for x in inputs], *[o.data_ptr() for o in outs], *ints, slots,
+                *k1_slot_strides, None)
     assert status == 0  # the stand-in reports a copy wider than its pointers' alignment
     return outs
 
@@ -303,9 +349,10 @@ def _check_parts(built, name):
         idx = tuple(slice(l - c, l - c + n) for l, c, n in zip(rb.lb, cb.lb, rb.shape))
         view = buf[idx]
         fn = getattr(ctypes.CDLL(str(path)), "k1_apply_launch")
-        fn.argtypes = [ctypes.c_void_p] * (len(arrays) + 2)
+        fn.argtypes = ([ctypes.c_void_p] * (len(arrays) + 1) + [ctypes.c_int, ctypes.c_longlong]
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        assert fn(*[x.data_ptr() for x in arrays], view.data_ptr(), None) == 0
+        assert fn(*[x.data_ptr() for x in arrays], view.data_ptr(), 1, 0, None) == 0
         want[idx] = eval_apply_body(apply_op, arrays, origins, rb)[0]
     assert torch.equal(buf.isnan(), want.isnan())
     assert torch.equal(torch.nan_to_num(buf), torch.nan_to_num(want))
@@ -383,3 +430,79 @@ def test_occupancy_queries_are_exported(built):
         fn.restype = ctypes.c_int
         ctas = ctypes.c_int(0)
         assert fn(ctypes.addressof(ctas)) == 0 and ctas.value == 1
+
+
+def _pool_inputs(shapes, seed):
+    """Seeded ``[POOL_SLOTS, *shape]`` operands, 16-byte aligned bases."""
+    return _inputs([(POOL_SLOTS,) + tuple(sh) for sh in shapes], seed)
+
+
+@pytest.mark.parametrize("name", K1_POOL_CASES)
+def test_k1_pooled_source_on_host_matches_plain_and_solo_launches(built, name):
+    """One K1 launch with a slot count of 3 over ``[3, *shape]`` operands:
+    every slot bitwise equal to the plain version of the pool and to a
+    launch of the same source on that slot alone."""
+    for n, (apply_op, path) in enumerate(built["k1-pool", name]):
+        _, shapes, origins, rb = _spec(apply_op)
+        arrays = _pool_inputs(shapes, seed=n)
+        assert k1.ptr_alignment(arrays, rb.rank) == _pool_align(shapes, rb.rank)
+        got = _run(path, "k1_apply_launch", arrays, [rb.shape] * len(apply_op.results),
+                   slots=POOL_SLOTS)
+        want = eval_apply_body(apply_op, arrays, origins, rb)
+        assert all(tuple(w.shape) == (POOL_SLOTS,) + tuple(rb.shape) for w in want)
+        for b in range(POOL_SLOTS):
+            solo = _run(path, "k1_apply_launch", [a[b].clone() for a in arrays],
+                        [rb.shape] * len(apply_op.results))
+            for g, w, o in zip(got, want, solo):
+                assert torch.equal(g[b], w[b]) and torch.equal(g[b], o)
+
+
+def test_k1_pooled_parts_write_their_slice_of_every_slot(built):
+    """The overlap path's parts launched with a slot count of 3 into one
+    ``[3, *combine]`` result (each part a strided view, its slot stride
+    the combine's size): each slot's slices bitwise the plain version, the
+    points of no part still NaN in every slot."""
+    parts = built["k1-part-pool", "heat2d-so4-zero-overlap-2x2"]
+    (comb,) = {u.operation for (a, _), _ in parts for u in a.results[0].uses}
+    cb = comb.result_bounds
+    buf = torch.full((POOL_SLOTS,) + tuple(cb.shape), float("nan"))
+    want = torch.full((POOL_SLOTS,) + tuple(cb.shape), float("nan"))
+    inputs = {}
+    for (apply_op, strides), path in parts:
+        _, shapes, origins, rb = _spec(apply_op)
+        arrays = [inputs.setdefault((o, s), _pool_inputs([s], seed=len(inputs))[0])
+                  for o, s in zip(apply_op.operands, shapes)]
+        idx = (slice(None),) + tuple(
+            slice(l - c, l - c + n) for l, c, n in zip(rb.lb, cb.lb, rb.shape))
+        view = buf[idx]
+        assert tuple(view.stride()[1:]) == tuple(strides[0])
+        fn = getattr(ctypes.CDLL(str(path)), "k1_apply_launch")
+        fn.argtypes = ([ctypes.c_void_p] * (len(arrays) + 1) + [ctypes.c_int, ctypes.c_longlong]
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        assert fn(*[x.data_ptr() for x in arrays], view.data_ptr(), POOL_SLOTS, view.stride(0),
+                  None) == 0
+        want[idx] = eval_apply_body(apply_op, arrays, origins, rb)[0]
+    assert torch.equal(buf.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(buf), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize("name", sorted(K2_POOL_CASES))
+def test_k2_pooled_source_on_host_matches_plain_and_solo_launches(built, name):
+    """One K2 launch with a slot count of 3 over ``[3, *bounds]`` operands
+    (heat's fused masks, wave's overhang escape, a rank's box of a 2×2
+    mesh): every slot bitwise equal to the plain version of the pool and
+    to a launch on that slot alone."""
+    ((op, tile, coords), path), = built["k2-pool", name]
+    shapes = [a.type.bounds.shape for a in op.body.args]
+    arrays = _pool_inputs(shapes, seed=2)
+    assert k1.ptr_alignment(arrays, len(shapes[0])) == _pool_align(shapes, len(shapes[0]))
+    outs = [r.type.bounds.shape for r in op.results]
+    boxes = k2.box_args(op, coords)
+    got = _run(path, "k2_epoch_launch", arrays, outs, boxes, slots=POOL_SLOTS)
+    want = k2._emit_region(op, arrays, k2.region_masks(op, "cpu", coords),
+                           lambda v: v.type.bounds)
+    for b in range(POOL_SLOTS):
+        solo = _run(path, "k2_epoch_launch", [a[b].clone() for a in arrays], outs, boxes)
+        for g, w, o in zip(got, want, solo):
+            assert torch.equal(g[b], w[b]) and torch.equal(g[b], o)

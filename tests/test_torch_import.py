@@ -1,7 +1,9 @@
 """The port stands alone: importing ``repro_torch`` (every module of it,
 ``repro_torch.dist`` and the psyclone-like frontend among them) and
 ``chip_smoke.py`` loads neither JAX nor the reference package; the
-checkpointing, resilience and trace-export modules among them."""
+checkpointing, resilience and trace-export modules among them, and the
+serving engine (``repro_torch.serve``), request migration and the counter
+registry."""
 import os
 import re
 import subprocess
@@ -19,7 +21,11 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     names.append(m.name)
 for n in ("repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.frontends.psyclone_like",
           "repro_torch.checkpoint.checkpointer", "repro_torch.resilience.driver",
-          "repro_torch.resilience.faults", "repro_torch.obs.export", "repro_torch.obs.drift"):
+          "repro_torch.resilience.faults", "repro_torch.obs.export", "repro_torch.obs.drift",
+          "repro_torch.serve", "repro_torch.serve.stencil", "repro_torch.serve.stencil.engine",
+          "repro_torch.serve.stencil.scheduler", "repro_torch.serve.stencil.request",
+          "repro_torch.serve.stencil.metrics", "repro_torch.resilience.migrate",
+          "repro_torch.obs.registry", "repro_torch.obs.__main__"):
     assert n in names, n
 for n in names:
     importlib.import_module(n)
@@ -41,7 +47,7 @@ def test_import_loads_no_jax_and_no_reference():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 28  # the IR copy, lowering, kernels, api, dist, frontends
+    assert n_modules >= 36  # the IR copy, lowering, kernels, api, dist, frontends, serve
 
 
 _FORBIDDEN = re.compile(

@@ -350,8 +350,8 @@ def test_chip_smoke_phase_12_with_the_card_stubbed(monkeypatch, capsys):
         sys.path.remove(str(ROOT))
     real_init = api._Ring.__init__
 
-    def init(ring, stencil):
-        real_init(ring, stencil)
+    def init(ring, stencil, *args):
+        real_init(ring, stencil, *args)
         ring.capture = True
 
     monkeypatch.setattr(api.CompiledStencil, "_graphed",
@@ -380,3 +380,130 @@ def test_chip_smoke_phase_12_with_the_card_stubbed(monkeypatch, capsys):
         ("A", 1, 4 + 1), ("B", 1, 4 * 3), ("C", 0, 4 * 5), ("D", 0, 11),
     ]
     assert [r["launches"] for r in records] == [m[2] for m in made]
+
+
+def test_chip_smoke_phase_13_with_the_card_stubbed(monkeypatch, capsys):
+    """``chip_smoke.serving_phase`` at 32² and 16² on the CPU, with the
+    compiled step's ring forced on and each CUDA graph replaced by the
+    stand-in: every case's checks pass, and the kernels line gets one
+    entry per pool with the launches its graphs' nodes made."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    real_init = api._Ring.__init__
+
+    def init(ring, stencil, *args):
+        real_init(ring, stencil, *args)
+        ring.capture = True
+
+    monkeypatch.setattr(api.CompiledStencil, "_graphed",
+                        lambda self: self.target.jit and not obs.enabled())
+    monkeypatch.setattr(api._Ring, "__init__", init)
+    monkeypatch.setattr(api._Ring, "_graph", _stand_in_graph)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    made = []
+
+    def record(name, step, launches, slots):
+        made.append((name, len(step.kernel_epochs()), launches, slots))
+        return {"name": name, "launches": launches}
+
+    try:
+        records = chip_smoke.serving_phase(CPU, record=record, card="the CPU", big=32, small=16)
+    finally:
+        api.clear_cache()
+    out = capsys.readouterr().out
+    assert "phase 13:" in out and "case 4:" in out and "GPts/s" in out
+    # one K2 node a dispatch of H (6 requests of 4-12 epochs in a pool of
+    # 4: 16 dispatches) and W (3 requests of 4 epochs in a pool of 2: 8),
+    # one K1 node a dispatch of K (16 steps) and of the small tenants, four
+    # K2 nodes (one a rank) a dispatch of the 2x2 bucket (8 dispatches)
+    assert [(k2, slots) for _, k2, _, slots in made] == [(1, 4), (1, 2), (0, 4), (0, 16), (1, 2)]
+    assert [m[2] for m in made[:3]] + [made[4][2]] == [16, 8, 16, 4 * 8]
+    assert 64 <= made[3][2] <= 32 * 64 // 2  # at least 64 steps, at most 2 slots a dispatch
+    assert [r["launches"] for r in records] == [m[2] for m in made]
+
+
+# --------------------------------------------------------------------------
+# unified registry and the summary CLI
+# --------------------------------------------------------------------------
+
+
+def test_snapshot_unifies_five_counter_islands():
+    snap = obs.snapshot()
+    for ns in ("compile", "kernel", "serve", "checkpoint", "tune"):
+        assert ns in snap, f"missing namespace {ns}"
+        assert isinstance(snap[ns], dict) and snap[ns], snap[ns]
+    assert {"hits", "misses", "pipeline_runs", "cache_capacity"} <= set(snap["compile"])
+    assert {"apply_calls", "apply_launches", "fused_epoch_calls",
+            "fused_epoch_launches"} <= set(snap["kernel"])
+    assert "engines" in snap["serve"]
+    assert {"saves", "restores"} <= set(snap["checkpoint"])
+    assert "hits" in snap["tune"]
+    assert snap["trace"]["enabled"] is False
+    flat = obs.snapshot(flat=True)
+    assert "compile.hits" in flat and "checkpoint.saves" in flat
+    assert tuple(obs.NAMESPACES) == ("compile", "kernel", "serve", "checkpoint", "tune")
+
+
+def test_snapshot_sees_live_traffic():
+    from repro_torch.frontends.oec_like import ProgramBuilder
+
+    p = ProgramBuilder("obs_snap", (8, 8))
+    u = p.input("u")
+    out = p.output("out")
+    r = p.apply([p.load(u)], lambda b, u: u.at(0, 0) * 2.0)
+    p.store(r, out)
+    prog = p.finish(boundary="zero")
+    before = obs.snapshot()
+    step = api.compile(prog, Target(device="cpu", backend="cuda"))
+    step(torch.zeros(8, 8), torch.zeros(8, 8))
+    after = obs.snapshot()
+    assert after["compile"]["pipeline_runs"] > before["compile"]["pipeline_runs"]
+    total = after["compile"]["hits"] + after["compile"]["misses"]
+    assert total > before["compile"]["hits"] + before["compile"]["misses"]
+    assert after["kernel"]["apply_calls"] == before["kernel"]["apply_calls"] + 1
+
+
+def test_snapshot_shows_the_engine_and_its_migration(tmp_path):
+    """A live engine's serve counters (summed over live engines) and the
+    checkpoint counters of its evacuation show in the snapshot."""
+    from repro_torch.serve.stencil import StencilEngine
+
+    prog = P.jacobi("repro_torch", (16, 16))
+    before = obs.snapshot()
+    eng = StencilEngine()
+    for i in range(2):
+        eng.submit(prog, (np.zeros((16, 16), np.float32),), 4, target=Target(device="cpu"))
+    eng.step()
+    eng.evacuate(prog.fingerprint, str(tmp_path / "evac"))
+    after = obs.snapshot()
+    assert after["serve"]["engines"] >= before["serve"]["engines"] + 1
+    assert after["serve"]["requests_submitted"] >= before["serve"]["requests_submitted"] + 2
+    assert after["serve"]["requests_evacuated"] >= before["serve"]["requests_evacuated"] + 2
+    assert after["serve"]["batched_dispatches"] >= before["serve"]["batched_dispatches"] + 1
+    assert after["checkpoint"]["saves"] == before["checkpoint"]["saves"] + 2
+
+
+def test_obs_cli_summarizes_a_trace(tmp_path):
+    import subprocess
+
+    spans = [
+        Span("epoch", "dispatch", ts=float(e), dur=0.8, args={"k": 4, "epoch": e})
+        for e in range(2)
+    ]
+    path = obs.write_chrome(str(tmp_path / "t.json"), spans)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", path, "--modeled-step", "0.1"],
+        capture_output=True, text=True, timeout=120, env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "epoch" in proc.stdout and "drift" in proc.stdout
+    snap = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "--snapshot"],
+        capture_output=True, text=True, timeout=120, env=env,
+    )
+    assert snap.returncode == 0, snap.stderr
+    assert set(json.loads(snap.stdout)) >= set(obs.NAMESPACES)

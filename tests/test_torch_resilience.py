@@ -2,12 +2,14 @@
 (``repro_torch.checkpoint``, ``repro_torch.resilience``,
 ``repro_torch.resilient_loop``/``resume``), on the CPU.
 
-The port of ``tests/test_resilience.py`` case by case (the engine
-migration cases wait for the serving port), of its two tune-transfer
+The port of ``tests/test_resilience.py`` case by case (its engine
+migration cases through ``repro_torch.serve.stencil``), of its two tune-transfer
 cases against ``repro_torch.tune.cache.lookup_transfer``, and of
 ``tests/dist_worker.py``'s ``resilience-*`` scenario on virtual CPU ranks
 in process: 4 → 2 ranks, one device → 2×2 and 2×2 → one device.  Within
-torch a resumed run is bitwise equal to the uninterrupted one.  Across
+torch a resumed run (or a migrated request) is bitwise equal to the
+uninterrupted one; a request that either package's engine evacuates, the
+other's admits, within rtol=atol=1e-5 of the reference's solo run.  Across
 the packages a snapshot written by either resumes in the other, within
 rtol=atol=1e-5 of the reference's uninterrupted run, and both write the
 same manifest keys and leaf files.  The compiled step's ring runs on the
@@ -740,3 +742,179 @@ def test_resilience_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# -------------------------------------------------------------------------
+# serve migration: evacuate -> admit across engines
+# -------------------------------------------------------------------------
+
+
+def test_engine_evacuate_admit_is_bitwise(tmp_path):
+    from repro_torch.serve.stencil import StencilEngine, StencilEngineConfig
+    from repro_torch.serve.stencil.request import EVACUATED
+
+    prog = _heat(name="heat_res_migrate")
+    tgt = _cpu(exchange_every=2)
+    states = [_rand((16, 16), 20 + i) for i in range(3)]
+    refs = [api.compile(prog, tgt).time_loop((s,), 12) for s in states]
+
+    first = StencilEngine(StencilEngineConfig(slots_per_group=2))
+    for s in states:
+        first.submit(prog, (s,), 12, target=tgt)
+    for _ in range(2):  # two slots advance to step 4; one stays queued
+        first.step()
+    d = str(tmp_path / "evac")
+    evacuated = first.evacuate(prog.fingerprint, d)
+    assert [r.steps_done for r in evacuated] == [4, 4, 0]
+    assert all(r.status == EVACUATED for r in evacuated)
+    assert first.pending == 0
+    assert first.metrics.requests_evacuated == 3
+    assert first.metrics.snapshot()["requests_evacuated"] == 3
+
+    second = StencilEngine(StencilEngineConfig(slots_per_group=2))
+    handles = second.admit_evacuated(d, prog)
+    assert [h.steps_done for h in handles] == [4, 4, 0]
+    second.run()
+    assert second.metrics.requests_resumed == 3
+    assert second.metrics.snapshot()["requests_resumed"] == 3
+    for h, ref in zip(handles, refs):
+        _assert_bitwise(h.result(), ref, f"migrated request {h.rid}")
+
+
+def test_admit_requires_matching_program(tmp_path):
+    from repro_torch.serve.stencil import StencilEngine
+
+    prog = _heat(name="heat_res_mig_owner")
+    other = _heat(alpha=0.2, name="heat_res_mig_other")
+    first = StencilEngine()
+    first.submit(prog, (_rand((16, 16), 30),), 4, target=_cpu())
+    d = str(tmp_path / "evac")
+    first.evacuate(prog.fingerprint, d)
+    with pytest.raises(ResumeError, match="no matching Program"):
+        StencilEngine().admit_evacuated(d, other)
+    with pytest.raises(ResumeError, match="no evacuated requests"):
+        StencilEngine().admit_evacuated(str(tmp_path / "nothing_here"), prog)
+
+
+def test_submit_start_step_is_validated():
+    from repro_torch.serve.stencil import StencilEngine
+
+    prog = _heat(name="heat_res_startstep")
+    engine = StencilEngine()
+    with pytest.raises(ValueError, match="start_step"):
+        engine.submit(prog, (_rand((16, 16), 31),), 8,
+                      target=_cpu(exchange_every=2), start_step=3)
+    with pytest.raises(ValueError, match="start_step"):
+        engine.submit(prog, (_rand((16, 16), 31),), 8, target=_cpu(), start_step=8)
+
+
+@pytest.mark.parametrize("family", ["heat", "wave"])
+def test_a_request_the_reference_evacuates_the_port_admits(family, tmp_path):
+    """The reference's engine (JAX on the CPU) runs a request 4 steps and
+    evacuates it; the port's engine admits it mid-run and finishes it
+    within rtol=atol=1e-5 of the reference's solo run (the reference's
+    serialized target names its backend ``jnp``, so the receiving engine
+    gives its own target, as a migration across hardware does)."""
+    from repro.serve.stencil import StencilEngine as RefEngine
+    from repro_torch.serve.stencil import StencilEngine
+
+    rapi, _ = _ref_pkg()
+    make = _heat if family == "heat" else _wave
+    n_in = 1 if family == "heat" else 2
+    s0 = tuple(_rand((16, 16), 110 + i) for i in range(n_in))
+    rprog, prog = make(name=f"{family}_mig_in", pkg="repro"), make(name=f"{family}_mig_in")
+    want = rapi.compile(rprog, rapi.Target(exchange_every=2)).time_loop(s0, 12)
+    ref_eng = RefEngine()
+    ref_eng.submit(rprog, s0, 12, target=rapi.Target(exchange_every=2))
+    for _ in range(2):
+        ref_eng.step()
+    d = str(tmp_path / "evac")
+    assert [r.steps_done for r in ref_eng.evacuate(rprog.fingerprint, d)] == [4]
+    eng = StencilEngine()
+    (h,) = eng.admit_evacuated(d, prog, target=_cpu(exchange_every=2))
+    assert h.steps_done == 4
+    eng.run()
+    for g, w in zip(h.result(), want):
+        np.testing.assert_allclose(_host(g), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("family", ["heat", "wave"])
+def test_a_request_the_port_evacuates_the_reference_admits(family, tmp_path):
+    """The reverse hop: the port's engine (over two CPU ranks, so the
+    pooled slot-axis dispatch runs) evacuates mid-run, the reference's
+    engine admits and finishes within rtol=atol=1e-5 of its solo run."""
+    from repro.serve.stencil import StencilEngine as RefEngine
+    from repro_torch.serve.stencil import StencilEngine, StencilEngineConfig
+
+    rapi, _ = _ref_pkg()
+    make = _heat if family == "heat" else _wave
+    n_in = 1 if family == "heat" else 2
+    s0 = tuple(_rand((16, 16), 120 + i) for i in range(n_in))
+    rprog, prog = make(name=f"{family}_mig_out", pkg="repro"), make(name=f"{family}_mig_out")
+    want = rapi.compile(rprog, rapi.Target()).time_loop(s0, 12)
+    eng = StencilEngine(StencilEngineConfig(slots_per_group=2))
+    eng.submit(prog, s0, 12, target=_on_ranks((2,), exchange_every=2))
+    eng.submit(prog, s0, 12, target=_on_ranks((2,), exchange_every=2))
+    for _ in range(3):
+        eng.step()
+    d = str(tmp_path / "evac")
+    assert [r.steps_done for r in eng.evacuate(prog.fingerprint, d)] == [6, 6]
+    ref_eng = RefEngine()
+    handles = ref_eng.admit_evacuated(d, rprog, target=rapi.Target(exchange_every=2))
+    assert [h.steps_done for h in handles] == [6, 6]
+    ref_eng.run()
+    for h in handles:
+        for g, w in zip(h.result(), want):
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w), **TOL)
+
+
+def test_serving_signatures_are_the_references():
+    """The serving engine, its migration and the API and tune pieces it
+    calls take the reference's parameters, in order, with its defaults
+    (the port's backends are ``torch``/``cuda``)."""
+    import dataclasses
+    import inspect
+
+    import repro.api as rapi_mod
+    import repro.dist.sharding as rsharding
+    import repro.obs as robs
+    import repro.resilience.migrate as rmigrate
+    import repro.serve.stencil as rserve
+    import repro.tune.space as rspace
+
+    import repro_torch.dist.sharding as psharding
+    import repro_torch.obs as pobs
+    import repro_torch.resilience as pres
+    import repro_torch.serve.stencil as pserve
+    import repro_torch.tune.space as pspace
+
+    pairs = [(getattr(rserve.StencilEngine, n), getattr(pserve.StencilEngine, n))
+             for n in ("__init__", "submit", "step", "run", "evacuate", "admit_evacuated",
+                       "resize_bucket")]
+    pairs += [(getattr(rserve, n), getattr(pserve, n))
+              for n in ("Scheduler", "SlotPool", "PoolSizer", "PoolSizerConfig",
+                        "StepMetrics", "EngineMetrics", "RequestHandle", "Frame",
+                        "StencilRequest")]
+    pairs += [(getattr(rserve.Scheduler, n), getattr(pserve.Scheduler, n))
+              for n in ("group_for", "enqueue", "admit", "reclaim", "retire_idle")]
+    pairs += [(getattr(rserve.SlotPool, n), getattr(pserve.SlotPool, n))
+              for n in ("write_slot", "read_slot", "commit_rows", "rebuild", "release")]
+    pairs += [(getattr(rapi_mod, n), getattr(api, n))
+              for n in ("pooled_target", "lower_ir", "cached_callable", "cache_capacity",
+                        "set_cache_capacity")]
+    pairs += [(rsharding.factor_slot_mesh, psharding.factor_slot_mesh),
+              (rspace.slot_width_candidates, pspace.slot_width_candidates),
+              (rmigrate.evacuate, pres.evacuate), (rmigrate.admit, pres.admit),
+              (robs.snapshot, pobs.snapshot)]
+    for ref_fn, port_fn in pairs:
+        ref_sig, port_sig = inspect.signature(ref_fn), inspect.signature(port_fn)
+        assert list(ref_sig.parameters) == list(port_sig.parameters), port_fn
+        assert [p.default for p in ref_sig.parameters.values()] == [
+            p.default for p in port_sig.parameters.values()], port_fn
+    ref_pool = inspect.signature(rspace.enumerate_pool_candidates).parameters
+    port_pool = inspect.signature(pspace.enumerate_pool_candidates).parameters
+    assert list(ref_pool) == list(port_pool) and port_pool["backends"].default == ("torch",)
+    ref_cfg = [f.name for f in dataclasses.fields(rserve.StencilEngineConfig)]
+    port_cfg = [f.name for f in dataclasses.fields(pserve.StencilEngineConfig)]
+    assert port_cfg == ref_cfg
+    assert robs.NAMESPACES == pobs.NAMESPACES

@@ -3,8 +3,7 @@
 ``Target.tuned`` and ``compile(tune=...)``), on the CPU.
 
 The port of ``tests/test_tune.py`` case by case (backends ``torch``/
-``cuda`` in place of ``jnp``/``pallas``; the two slot-pool cases wait for
-the serving port), of ``tests/test_temporal.py``'s
+``cuda`` in place of ``jnp``/``pallas``), of ``tests/test_temporal.py``'s
 ``test_cost_carries_tiling_terms_and_recommends``, and of
 ``tests/dist_worker.py``'s ``tune-4rank`` and ``tune-transfer`` scenarios
 on 4 and 2 virtual CPU ranks, in process.  Held against the reference:
@@ -601,8 +600,10 @@ def test_target_dict_roundtrips_fused_epoch():
 @pytest.mark.parametrize("tile", [None, (8, 16)])
 def test_target_from_dict_reads_the_reference_dict(tile):
     """The reference's ``target_to_dict`` of a 2×2 fused k=4 target (and
-    of a single-device pallas target with a tile) becomes the port's
-    counterpart; its own round trip keeps its fingerprint."""
+    of a single-device pallas target with a tile, and of the 2×2 target's
+    slot-axis sibling) becomes the port's counterpart; its own round trip
+    keeps its fingerprint.  A slot axis that is not a mesh axis makes no
+    target."""
     import jax
     from jax.sharding import Mesh as JaxMesh
 
@@ -619,6 +620,10 @@ def test_target_from_dict_reads_the_reference_dict(tile):
     one = target_from_dict(
         rcache.target_to_dict(rapi.Target(backend="pallas", pallas_tile=tile)), devices=ONE)
     assert one.fingerprint == Target(backend="cuda", tile=tile, device="cpu").fingerprint
+    pooled = target_from_dict(rcache.target_to_dict(rapi.pooled_target(ref, slots=1)),
+                              devices=[CPU] * 4)
+    assert pooled.fingerprint == api.pooled_target(want, slots=1).fingerprint
+    assert target_from_dict(target_to_dict(pooled)).fingerprint == pooled.fingerprint
     with pytest.raises(tune_cache.TuneCacheError, match="slot"):
         target_from_dict({**rcache.target_to_dict(ref), "slot_axis": "slot"}, devices=[CPU] * 4)
 
@@ -988,3 +993,51 @@ def test_tuned_winner_over_several_cards_is_bitwise_to_one_card(tmp_path, monkey
         got = api.compile(prog, target).time_loop(state, 8)
         torch.cuda.synchronize()
         assert torch.equal(got[0].to(dev), want[0]), target
+
+
+# -------------------------------------------------------------------------
+# slot-pool widths (the ensemble axis of the serving engine)
+# -------------------------------------------------------------------------
+
+
+def test_slot_width_candidates_divide_capacity_and_fit_inventory():
+    from repro_torch.tune.space import slot_width_candidates
+
+    assert slot_width_candidates(8, 2, 4) == [4, 2, 1]
+    assert slot_width_candidates(8, 4, 6) == [2, 1]  # 6 devices short of 3×4
+    assert slot_width_candidates(8, 2, 6) == [3, 2, 1]  # 4 ∤ 6 dropped
+    assert slot_width_candidates(1, 1, 4) == [1]  # a single device still pools
+    for s in slot_width_candidates(16, 2, 12):
+        assert 12 % s == 0 and s * 2 <= 16
+    ref = _ref("tune.space").slot_width_candidates
+    for args in [(8, 2, 4), (8, 4, 6), (8, 2, 6), (1, 1, 4), (16, 2, 12), (3, 5, 7)]:
+        assert slot_width_candidates(*args) == ref(*args)
+
+
+def test_enumerate_pool_candidates_single_device():
+    """On a one-device inventory the pool space is the pure-ensemble
+    slot-axis candidate (a trivial spatial grid at width 1), a valid,
+    compilable slot-axis Target; on four repeated devices every width
+    that divides the pool appears, widest first."""
+    from repro_torch.tune.space import enumerate_pool_candidates
+
+    prog = P.jacobi("repro_torch", (16, 16))
+    cands = enumerate_pool_candidates(prog, capacity=4, devices=ONE)
+    assert cands, "always at least the width-1 pool"
+    for c in cands:
+        assert c.origin == "pool"
+        assert c.target.slot_axis == "slot"
+        assert "slot" in c.target.mesh.axis_names
+        assert c.note.startswith("slots=")
+    fps = [c.fingerprint for c in cands]
+    assert len(fps) == len(set(fps))
+    assert Target(device="cpu").fingerprint not in fps
+    step = api.compile(prog, cands[0].target)
+    u = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 16, 16)).astype(np.float32))
+    (got,) = step.time_loop((u,), 2)
+    solo = api.compile(prog, Target(device="cpu"))
+    for b in range(4):
+        assert torch.equal(got[b], solo.time_loop((u[b],), 2)[0])
+    wide = enumerate_pool_candidates(prog, capacity=4, devices=[CPU] * 4)
+    widths = [int(c.note.split("=")[1]) for c in wide]
+    assert widths == sorted(widths, reverse=True) and set(widths) == {4, 2, 1}
