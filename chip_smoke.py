@@ -122,6 +122,17 @@ check raises and the script exits non-zero:
    under 150 s.  Each pool's kernel joins the kernels line (``[B, *shape]``
    operands against the plain version and B solo launches, its bound B x
    the solo work, K1's yardstick a batched ``F.conv2d``).
+14. the language-model serving engine (``lm_phase``; no kernel of its
+   own, so nothing joins the kernels line): ``repro_torch.serve.Engine``
+   over qwen2-7b at full width and depth in bfloat16 (8 slots of 512
+   positions, 16 prompts of 16-250 tokens, 32 new tokens each: prefill
+   ms per bucket, decode ms per engine step, tokens/s, time to first
+   token, host ms per step, one decode step's card busy time by kernel,
+   peak memory); the same params in float32, every request of 4 slots
+   equal to its solo greedy run (a first difference only at a near-tie);
+   every other config at its published width with one supercell, through
+   the engine or (seamless, internvl2) prefill and decode; every reduced
+   config on the card against the CPU within 1e-4; under 180 s and 70 GiB.
 
 Phase 1 also runs K1 heat so4 at 1024² on a pool of 16 slots, and phase 6
 K2 heat so4 k=4 at 16384² on a pool of 2, each in one launch, bitwise
@@ -1158,6 +1169,428 @@ def serving_phase(dev, *, record, card="", big=16384, small=1024) -> list:
     if on_card:
         check(sec < 150, f"phase 13 took {sec:.1f} s, more than 150 s")
     return records
+
+
+# -- phase 14: the language-model serving engine ---------------------------
+
+LM_MAIN = "qwen2-7b"
+NEAR_TIE = 1e-3  # a top-two logit margin under this is a near-tie
+
+
+def solo_greedy(params, cfg, prompt, n_new, max_len, dev):
+    """One request alone: ``forward_prefill``, ``grow_cache``, then
+    ``decode_step`` token by token (``tests/test_serve.py``'s
+    ``_reference_greedy``).  Returns ``(tokens, first_logits, margins)``:
+    the greedy tokens, the logits of the first, and each step's top-two
+    logit margin."""
+    import torch
+
+    from repro_torch.models import lm
+
+    v = cfg.vocab_size
+    logits, cache = lm.forward_prefill(params, cfg, torch.tensor([prompt], device=dev),
+                                       q_chunk=min(len(prompt), 512))
+    cache = lm.grow_cache(cfg, cache, max_len, len(prompt))
+    first = logits[0, :v].float().cpu()
+    toks, margins = [], []
+    pos = len(prompt)
+    for i in range(n_new):
+        row = logits[0, :v].float()
+        top = torch.topk(row, 2).values
+        margins.append(float(top[0] - top[1]))
+        toks.append(int(torch.argmax(row)))
+        if i == n_new - 1:
+            break
+        logits, cache = lm.decode_step(params, cfg, torch.tensor([toks[-1]], device=dev), pos, cache)
+        pos += 1
+    return toks, first, margins
+
+
+def same_as_solo(label, got, solo) -> str:
+    """``got`` equals the solo run's tokens, or first differs where the solo
+    run's top-two margin is a near-tie (then nothing after it is
+    compared); any other difference fails.  Returns what was found."""
+    toks, _, margins = solo
+    check(len(got) == len(toks), f"{label}: {len(got)} tokens, its solo run {len(toks)}")
+    for i, (g, s) in enumerate(zip(got, toks)):
+        if g != s:
+            check(margins[i] < NEAR_TIE,
+                  f"{label}: token {i} is {g}, its solo run's {s} (top-two margin "
+                  f"{margins[i]:.3g}, not a near-tie under {NEAR_TIE})")
+            return (f"token {i} differs at a near-tie (solo top-two margin {margins[i]:.3g}); "
+                    f"not compared further")
+    return "every token equals its solo run"
+
+
+def lm_phase(dev, *, card="", cut=None, prompt_lens=(16, 250), max_len=512, n_new=32,
+             buckets=(32, 64, 128, 256)) -> None:
+    """Phase 14: ``repro_torch.serve.Engine`` and the language models.
+
+    1. qwen2-7b at full width and depth in bfloat16 (its dtype): params from
+       a seeded generator on the card; 8 slots of 512 positions, 16 prompts
+       of seeded lengths in ``prompt_lens``, 32 new tokens each; every
+       request gets its tokens and every logit is finite; prefill ms per
+       bucket (first call and warmed), decode ms per engine step, decode
+       tokens/s over live slots, time to first token, host ms per step and
+       peak memory are logged;
+    2. the same params in float32: 6 requests through 4 slots, each equal
+       to its solo greedy run (a first difference is allowed only where the
+       solo run's top-two margin is under ``NEAR_TIE``, and then nothing
+       after it is compared);
+    3. every other config at its published width, depth cut to one
+       supercell (seamless: one encoder layer), float32: decoder-only
+       configs through the Engine (4 requests, 8 new tokens) against their
+       solo runs, MoE routing lossless (capacity drops depend on what
+       shares the batch); seamless and internvl2 (the Engine passes no
+       modality) through ``forward_prefill`` and 8 ``decode_step``s on a
+       batch of 2, each row against the row alone;
+    4. every ``reduced_config`` in float32 on the card and on the CPU:
+       prefill logits and 4 decode steps within rtol = atol = 1e-4 (plus
+       the rounding noise of the config, measured as in
+       ``tests/test_torch_models.py``).
+
+    ``cut`` maps each config to the one run (on the card: none; the CPU
+    rehearsal passes ``reduced_config``).  Raises on any failed check."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs.base import reduced_config
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, EngineConfig
+
+    on_card = dev.type == "cuda"
+    cut = cut or (lambda c: c)
+    gib = 2**30
+    t14 = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def allocated() -> float:
+        if not on_card:
+            return 0.0
+        sync()
+        return torch.cuda.memory_allocated(dev) / gib
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    free()
+    log(f"phase 14: the language-model serving engine (repro_torch.serve.Engine); "
+        f"{allocated():.2f} GiB allocated on entry; {card}")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def reckon(cfg) -> float:
+        """The params' bytes, from their shapes alone."""
+        return sum(t.numel() * 4 for t in lm.leaves(lm.init_params(cfg, device="meta")).values())
+
+    def params_of(cfg, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return lm.init_params(cfg, generator=gen, device=dev)
+
+    def prompts_of(cfg, n, lo, hi, seed):
+        rng = np.random.default_rng(seed)
+        return [rng.integers(0, cfg.vocab_size, size=int(rng.integers(lo, hi + 1))).tolist()
+                for _ in range(n)]
+
+    # -- 1. qwen2-7b, bf16, full width and depth -------------------------------
+    cfg = cut(get_config(LM_MAIN))
+    log(f"  case 1: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}; params {reckon(cfg) / 1e9:.2f} GB (float32)")
+    params = params_of(cfg, SEED)
+    log(f"  params on the card: {allocated():.2f} GiB allocated")
+
+    def serve_main():
+        """Case 1; its locals (the engine, its wrapped methods) go on return."""
+        ecfg = EngineConfig(max_slots=8, max_len=max_len, max_new_tokens=n_new, prefill_buckets=buckets)
+        prompts = prompts_of(cfg, 16, *prompt_lens, SEED)
+
+        # prefill ms per bucket: first call, then warmed (3 calls, CUDA events)
+        eng = Engine(params, cfg, ecfg)
+        for b in buckets:
+            fn = eng._prefill_fn(b)
+            toks = torch.randint(0, cfg.vocab_size, (1, b), device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(b))
+            first_s = _seconds(lambda: fn(params, toks), dev)
+            warm_s = min(_seconds(lambda: fn(params, toks), dev) for _ in range(3))
+            log(f"  prefill bucket {b}: first call {first_s * 1e3:.3f} ms, warmed "
+                f"{warm_s * 1e3:.3f} ms ({b / warm_s:.0f} tokens/s); {card}")
+        del eng
+
+        eng = Engine(params, cfg, ecfg)
+        steps, ttft, admitting = [], {}, [False]
+        decode_calls = []  # (seconds, the step's own decode (not an admission's)?, live slots)
+        real_decode, real_admit, real_sample = eng._decode, eng._admit, eng._sample
+
+        def decode(*args):
+            s = _seconds(lambda: decode.out.append(real_decode(*args)), dev)
+            decode_calls.append((s, not admitting[0], int(eng.live.sum())))
+            return decode.out.pop()
+
+        decode.out = []
+
+        prefill_calls = []
+        real_prefill_fn = eng._prefill_fn
+
+        def prefill_fn(bucket):
+            fn = real_prefill_fn(bucket)
+
+            def timed(*args):
+                out = []
+                prefill_calls.append(_seconds(lambda: out.append(fn(*args)), dev))
+                check(bool(torch.isfinite(out[0][0]).all()), "case 1: a non-finite prefill logit")
+                return out[0]
+
+            return timed
+
+        def admit(req, slot):
+            admitting[0] = True
+            try:
+                real_admit(req, slot)
+            finally:
+                admitting[0] = False
+            sync()
+            ttft[req.rid] = time.perf_counter() - t_run
+
+        def sample(logits):
+            check(bool(torch.isfinite(logits).all()), f"case 1: a non-finite logit ({cfg.name})")
+            return real_sample(logits)
+
+        eng._decode, eng._admit, eng._sample, eng._prefill_fn = decode, admit, sample, prefill_fn
+        rids = [eng.add_request(p) for p in prompts]
+        t_run = time.perf_counter()
+        while eng.queue or eng.active:
+            n_calls, n_prefills = len(decode_calls), len(prefill_calls)
+            t0 = time.perf_counter()
+            eng.step()
+            sync()
+            wall = time.perf_counter() - t0
+            calls = decode_calls[n_calls:]
+            (main,) = [(s, n) for s, is_main, n in calls if is_main]
+            inside = sum(s for s, _, _ in calls) + sum(prefill_calls[n_prefills:])
+            steps.append((wall, main[0], inside, main[1]))
+        run_s = time.perf_counter() - t_run
+        done = {r.rid: r for r in eng.finished}
+        check(sorted(done) == rids and all(len(done[r].out) == n_new for r in rids),
+              f"case 1: requests finished with {sorted(len(r.out) for r in eng.finished)} tokens, "
+              f"expected 16 with {n_new}")
+        decode_ms = [s * 1e3 for _, s, _, _ in steps]
+        tok_s = sum(n for _, _, _, n in steps) / (sum(decode_ms) / 1e3)
+        host_ms = [(w - inside) * 1e3 for w, _, inside, _ in steps]
+        log(f"  case 1: 16 requests, {n_new} tokens each, in {len(steps)} engine steps, {run_s:.3f} s; "
+            f"decode ms per step: median {float(np.median(decode_ms)):.3f}, min {min(decode_ms):.3f}, "
+            f"max {max(decode_ms):.3f} (CUDA events, card synchronized); decode tokens/s over live "
+            f"slots {tok_s:.1f}; host ms per step (step wall time minus its decode and prefill "
+            f"calls): median {float(np.median(host_ms)):.3f}, max {max(host_ms):.3f}; {card}")
+        log(f"  case 1: time to first token, s (request: prompt length): " + ", ".join(
+            f"{r}: {ttft[r]:.3f} ({len(prompts[r])})" for r in rids))
+        if on_card:
+            log(f"  case 1: peak device memory {torch.cuda.max_memory_allocated(dev) / gib:.2f} GiB; {card}")
+            decode_profile(eng)
+        del eng
+
+    def decode_profile(eng):
+        """Where a decode step's time goes: one step over the 8 slots (the
+        run's last positions), the host's time to enqueue it (no call waits
+        for the card), and the card's busy time by kernel
+        (``torch.profiler``)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        tok, pos = eng.last_token, eng.positions
+
+        def call():
+            return lm.decode_step(params, cfg, tok, pos, eng.cache)
+
+        call()
+        sync()
+        t0 = time.perf_counter()
+        call()
+        host = time.perf_counter() - t0
+        sync()
+        wall = _seconds(call, dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            sync()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+        def us(e):
+            v = getattr(e, "self_device_time_total", None)
+            return getattr(e, "self_cuda_time_total", 0) if v is None else v
+
+        busy = sum(us(e) for e in rows) / 1e3
+        top = sorted(rows, key=us, reverse=True)[:6]
+        log(f"  case 1: one decode step: {wall * 1e3:.3f} ms (CUDA events), host enqueue "
+            f"{host * 1e3:.3f} ms, card busy {busy:.3f} ms in {sum(e.count for e in rows)} kernels "
+            f"(idle {max(0.0, 1 - busy / (wall * 1e3)) * 100:.1f} %); by kernel, ms: " + "; ".join(
+                f"{e.key[:60]} x{e.count} {us(e) / 1e3:.3f}" for e in top) + f"; {card}")
+
+    # -- 2. the same params in float32: continuous batching is transparent ------
+    def transparent():
+        """Case 2; its locals go on return."""
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        n_new32 = 8
+        prompts32 = prompts_of(cfg32, 6, *prompt_lens, SEED + 2)
+        eng = Engine(params, cfg32, EngineConfig(max_slots=4, max_len=max_len, max_new_tokens=n_new32,
+                                                 prefill_buckets=buckets))
+        firsts, last = {}, [None]
+        real_first, real_sample = eng._first_token, eng._sample
+
+        def sample32(logits):
+            last[0] = logits
+            return real_sample(logits)
+
+        def first_token(req, n, bucket, padded_logits):
+            t = real_first(req, n, bucket, padded_logits)
+            firsts[req.rid] = last[0][0 if bucket == n else req.slot, : cfg32.vocab_size].float().cpu()
+            return t
+
+        eng._sample, eng._first_token = sample32, first_token
+        rids = [eng.add_request(p) for p in prompts32]
+        done = {r.rid: r.out for r in eng.run()}
+        for rid, p in zip(rids, prompts32):
+            solo = solo_greedy(params, cfg32, p, n_new32, max_len, dev)
+            found = same_as_solo(f"case 2, request {rid}", done[rid], solo)
+            diff = float((firsts[rid] - solo[1]).abs().max())
+            log(f"  case 2, request {rid} (prompt {len(p)}): {found}; first token's logits differ "
+                f"from its solo run by at most {diff:.3g}")
+
+    serve_main()
+    transparent()
+    del params
+    free()
+    log(f"  cases 1-2 done, {allocated():.2f} GiB allocated after freeing their params")
+
+    # -- 3. every other config at its published width, one supercell ------------
+    for arch in ARCHS:
+        if arch == LM_MAIN:
+            continue
+        full = get_config(arch)
+        cell = len(full.block_pattern)
+        over = dict(n_layers=cell, dtype="float32")
+        if full.is_encoder_decoder:
+            over["n_encoder_layers"] = 1
+        if full.moe is not None:
+            # lossless routing: which assignments a full expert drops
+            # depends on what else shares the batch
+            over["moe"] = dataclasses.replace(full.moe, capacity_factor=float(full.moe.num_experts))
+        cfg = cut(dataclasses.replace(full, **over))
+        notes = [f"n_layers {full.n_layers} -> {cfg.n_layers}"]
+        if full.is_encoder_decoder:
+            notes.append(f"n_encoder_layers {full.n_encoder_layers} -> {cfg.n_encoder_layers}")
+        if full.moe is not None:
+            notes.append(f"capacity_factor {full.moe.capacity_factor} -> {cfg.moe.capacity_factor}")
+        notes.append(f"dtype {full.dtype} -> float32")
+        t_cfg = time.perf_counter()
+        log(f"  case 3, {arch}: d_model {cfg.d_model}, vocab {cfg.vocab_size}, params "
+            f"{reckon(cfg) / 1e9:.2f} GB (float32), {allocated():.2f} GiB allocated before them; "
+            f"reduced: {'; '.join(notes)}")
+        params = params_of(cfg, SEED + 3)
+        if cfg.modality is None:
+            prompts = prompts_of(cfg, 4, 5, 24, SEED + 4)
+            eng = Engine(params, cfg, EngineConfig(max_slots=4, max_len=64, max_new_tokens=8,
+                                                   prefill_buckets=(32,)))
+            rids = [eng.add_request(p) for p in prompts]
+            done = {r.rid: r.out for r in eng.run()}
+            found = [same_as_solo(f"case 3, {arch}, request {rid}", done[rid],
+                                  solo_greedy(params, cfg, p, 8, 64, dev))
+                     for rid, p in zip(rids, prompts)]
+            del eng
+        else:
+            # a batch of 2 through forward_prefill and 8 decode_steps, each
+            # row against the same row alone
+            g = torch.Generator(device=dev).manual_seed(SEED + 5)
+            n_text = 12
+            frames = cfg.num_modality_tokens if cfg.modality == "vision" else 16
+            mod = torch.randn(2, frames, cfg.modality_dim, generator=g, device=dev)
+            toks = torch.randint(0, cfg.vocab_size, (2, n_text), generator=g, device=dev)
+
+            def greedy(rows):
+                logits, cache = lm.forward_prefill(params, cfg, toks[rows], mod[rows])
+                n = cache["slot0"]["k"].shape[2]  # positions of the prompt
+                cache = lm.grow_cache(cfg, cache, n + 8, n)
+                out, margins = [], []
+                for i in range(8):
+                    rows_l = logits[:, : cfg.vocab_size].float()
+                    check(bool(torch.isfinite(rows_l).all()), f"case 3, {arch}: a non-finite logit")
+                    top = torch.topk(rows_l, 2, dim=-1).values
+                    margins.append((top[:, 0] - top[:, 1]).tolist())
+                    out.append(rows_l.argmax(-1))
+                    if i < 7:
+                        logits, cache = lm.decode_step(params, cfg, out[-1], n + i, cache)
+                return torch.stack(out, 1).tolist(), list(zip(*margins))
+
+            both, _ = greedy(slice(0, 2))
+            found = []
+            for r in range(2):
+                alone, margins = greedy(slice(r, r + 1))
+                found.append(same_as_solo(f"case 3, {arch}, row {r}", both[r],
+                                          (alone[0], None, list(margins[0]))))
+        log(f"  case 3, {arch}: {'; '.join(sorted(set(found)))}; {time.perf_counter() - t_cfg:.1f} s")
+        del params
+        free()
+
+    # -- 4. the card against the CPU, every reduced config -----------------------
+    cpu = torch.device("cpu")
+    for arch in ARCHS:
+        cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32")
+        host = lm.init_params(cfg, generator=torch.Generator().manual_seed(SEED + 6), device=cpu)
+        rng = np.random.default_rng(SEED + 7)
+        n_text = 16 - (cfg.num_modality_tokens if cfg.modality == "vision" else 0)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, n_text)))
+        mod = None
+        if cfg.modality is not None:
+            frames = cfg.num_modality_tokens if cfg.modality == "vision" else 16
+            mod = torch.as_tensor(rng.standard_normal((2, frames, cfg.modality_dim)).astype(np.float32))
+
+        def run(params, d):
+            logits, cache = lm.forward_prefill(params, cfg, toks.to(d), None if mod is None else mod.to(d),
+                                               q_chunk=8)
+            n = 16
+            cache = lm.grow_cache(cfg, cache, n + 4, n)
+            outs = [logits]
+            tok = torch.as_tensor(rng_tok, device=d)
+            for i in range(4):
+                logits, cache = lm.decode_step(params, cfg, tok, n + i, cache)
+                outs.append(logits)
+                tok = (tok + 1 + i) % cfg.vocab_size
+            return [o.float().cpu() for o in outs]
+
+        rng_tok = rng.integers(0, cfg.vocab_size, size=(2,))
+        want = run(host, cpu)
+        card_params = lm.tree_map(lambda t: t.to(dev), host)
+        got = run(card_params, dev)
+        g = torch.Generator().manual_seed(0)
+        moved = lm.tree_map(lambda a: a * (1 + 2.0**-24 * torch.randn(a.shape, generator=g)), host)
+        noise = max(float((a - b).abs().max()) for a, b in zip(run(moved, cpu), want))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        for i, (a, b) in enumerate(zip(got, want)):
+            ok = torch.allclose(a, b, rtol=1e-4, atol=1e-4 + noise)
+            check(ok, f"case 4, {arch}: {'prefill' if i == 0 else f'decode step {i}'} logits differ "
+                      f"between the card and the CPU by {float((a - b).abs().max()):.3g} (rounding "
+                      f"noise {noise:.3g})")
+        log(f"  case 4, {arch} (reduced): card against CPU, prefill + 4 decode steps, max |diff| "
+            f"{err:.3g} (rounding noise {noise:.3g})")
+        del card_params
+    free()
+
+    sec = time.perf_counter() - t14
+    if on_card:
+        peak = torch.cuda.max_memory_allocated(dev) / gib
+        log(f"  peak device memory of phase 14: {peak:.2f} GiB; {card}")
+        check(peak < 70, f"phase 14: peak device memory {peak:.2f} GiB, not under 70 GiB")
+    log(f"phase 14: {sec:.1f} s")
+    if on_card:
+        check(sec < 180, f"phase 14 took {sec:.1f} s, more than 180 s")
 
 
 def main() -> int:
@@ -2403,6 +2836,9 @@ def main() -> int:
         }
 
     kernels += serving_phase(dev, record=pool_record, card=card, big=n2, small=n_pool)
+
+    # -- phase 14: the language-model serving engine (no kernel of its own) ----
+    lm_phase(dev, card=card)
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -15,13 +15,13 @@ A miniature symbolic layer in the spirit of Devito's SymPy DSL:
     mesh = Mesh(np.array([torch.device("cuda")] * 4, dtype=object).reshape(2, 2), ("x", "y"))
     state = op.apply(state, timesteps=100, target=Target(
         mesh=mesh, strategy=make_strategy_2d((2, 2)), backend="cuda"))
+    # the legacy spelling (DEPRECATED): mesh/strategy/options
+    state = op.apply(state, timesteps=100, options=CompileOptions(backend="cuda"))
 
 Derivatives expand to central FD coefficient taps (``repro_torch.core.fd``);
 the lowering emits the shared ``stencil`` dialect and everything below
 (fusion, dmp decomposition, halo exchanges, the CUDA kernel backend) is
-the common stack.  Port of ``repro.frontends.devito_like`` without the
-legacy ``mesh``/``strategy``/``options`` spelling and the deprecated
-``computation`` shim.
+the common stack.  Port of ``repro.frontends.devito_like``.
 """
 from __future__ import annotations
 
@@ -35,6 +35,8 @@ from repro_torch.api import Program, Target
 from repro_torch.core import fd, ir
 from repro_torch.core.builder import ApplyArgHandle, Expr, IRBuilder, build_apply
 from repro_torch.core.dialects import stencil
+from repro_torch.core.passes.decompose import SlicingStrategy
+from repro_torch.core.program import CompileOptions, time_loop  # noqa: F401  (re-export)
 
 
 # --------------------------------------------------------------------------
@@ -325,10 +327,50 @@ class Operator:
         return n
 
     # -- execution --------------------------------------------------------
-    def compile_step(self, target: Optional[Target] = None):
+    @property
+    def computation(self):
+        """DEPRECATED: the old StencilComputation shim over ``.program``
+        (built lazily, once — its last_local/last_timings state persists
+        across accesses like the old stored attribute did)."""
+        if getattr(self, "_computation", None) is None:
+            from repro_torch.core.program import StencilComputation
+
+            self._computation = StencilComputation(
+                self.func, boundary=self.boundary
+            )
+        return self._computation
+
+    def _target(
+        self,
+        mesh=None,
+        strategy: Optional[SlicingStrategy] = None,
+        options: Optional[CompileOptions] = None,
+        target: Optional[Target] = None,
+    ) -> Target:
+        if target is not None:
+            if mesh is not None or strategy is not None or options is not None:
+                raise ValueError(
+                    "pass either target= or the legacy mesh/strategy/options, "
+                    "not both"
+                )
+            return target
+        opts = options or CompileOptions()
+        return opts.to_target(mesh=mesh, strategy=strategy)
+
+    def compile_step(
+        self,
+        mesh=None,
+        strategy: Optional[SlicingStrategy] = None,
+        options: Optional[CompileOptions] = None,
+        target: Optional[Target] = None,
+    ):
         """Step over the *input* time buffers only; output buffers (fully
-        overwritten every step) are supplied internally."""
-        return api.compile(self.program, target).step()
+        overwritten every step) are supplied internally.  Prefer
+        ``target=``; mesh/strategy/options are the legacy spelling."""
+        artifact = api.compile(
+            self.program, self._target(mesh, strategy, options, target)
+        )
+        return artifact.step()
 
     def zero_state(self, dtype=torch.float32, device="cuda") -> list:
         return [
@@ -336,7 +378,15 @@ class Operator:
             for _ in self.arg_layout
         ]
 
-    def apply(self, state: Sequence, timesteps: int, target: Optional[Target] = None):
+    def apply(
+        self,
+        state: Sequence,
+        timesteps: int,
+        mesh=None,
+        strategy: Optional[SlicingStrategy] = None,
+        options: Optional[CompileOptions] = None,
+        target: Optional[Target] = None,
+    ):
         """Run ``timesteps`` with time-buffer rotation (oldest→newest).
 
         ``timesteps`` counts single time steps; a
@@ -347,8 +397,11 @@ class Operator:
         different bounds, which rotate like the unfused epoch's.  With a
         distributed ``Target(mesh=…, strategy=…)`` the state is sharded
         once, stays sharded across every epoch and is gathered at the
-        end."""
-        artifact = api.compile(self.program, target)
+        end.  Prefer ``target=``; mesh/strategy/options are the legacy
+        spelling."""
+        artifact = api.compile(
+            self.program, self._target(mesh, strategy, options, target)
+        )
         return artifact.time_loop(tuple(state), timesteps)
 
 

@@ -1,10 +1,14 @@
-"""Carrying state from the reference package into the port.
+"""Carrying state and weights from the reference package into the port.
 
 A program's IR is what weights are to a model: both packages build it
 from the same frontend calls, and ``Program.fingerprint`` shows that the
 two builds are the same program.  What crosses over at run time is the
 time-loop state, as numpy arrays (what ``np.asarray`` makes of the
 reference's ``jax.Array`` state).
+
+A language model's parameters cross over the same way: the reference's
+parameter pytree as numpy (``jax.tree.map(np.asarray, params)``), leaf for
+leaf by path.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.api import Program
+from repro_torch.configs.base import ModelConfig
 
 
 def state_from_numpy(program: Program, arrays: Sequence, device="cuda") -> tuple:
@@ -43,3 +48,36 @@ def state_from_numpy(program: Program, arrays: Sequence, device="cuda") -> tuple
             )
         out.append(torch.tensor(a, dtype=torch.float32, device=device))
     return tuple(out)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
+    """The port's parameters of ``cfg`` (``repro_torch.models.lm``'s nested
+    dict) as float32 tensors on ``device``, copied from ``tree``, the
+    reference's parameter pytree as nested dicts of numpy arrays.
+
+    Leaves are matched by path (``cells.slot0.attn.wq``).  This raises on a
+    missing or extra leaf, a shape that is not the leaf's, or a dtype that
+    is not float32: it never casts or reshapes."""
+    from repro_torch.models import lm
+
+    want = lm.leaves(lm.init_params(cfg, device="meta"))
+    got = lm.leaves(tree)
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    if missing or extra:
+        raise KeyError(f"{cfg.name}: missing leaves {missing}, extra leaves {extra}")
+    out = {}
+    for path, like in want.items():
+        a = got[path]
+        if not isinstance(a, np.ndarray):
+            raise TypeError(f"leaf {path!r}: expected a numpy array, got {type(a).__name__}")
+        if a.dtype != np.float32:
+            raise TypeError(f"leaf {path!r}: dtype {a.dtype}, expected float32")
+        if tuple(a.shape) != tuple(like.shape):
+            raise ValueError(f"leaf {path!r}: shape {tuple(a.shape)}, expected {tuple(like.shape)}")
+        node = out
+        *parents, name = path.split(".")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[name] = torch.tensor(a, dtype=torch.float32, device=device)
+    return out

@@ -136,3 +136,179 @@ def test_advection_matches_the_reference_and_distributes_bitwise(name, boundary)
     dist = api.compile(port, Target(mesh=mesh, strategy=strategy, backend="cuda"))
     for g, d in zip(got, dist(*tensors)):
         assert torch.equal(d, g)
+
+
+# -------------------------------------------------------------------------
+# the rest of tests/test_frontends.py: the devito-like and oec-like cases,
+# the cross-frontend agreement and the time-loop rotation, on the port
+# (the psyclone cases are the recognizer tests above)
+# -------------------------------------------------------------------------
+
+from repro.core.fd import laplacian_star as r_laplacian_star  # noqa: E402
+from repro_torch.api import time_loop  # noqa: E402
+from repro_torch.core.fd import laplacian_star  # noqa: E402
+from repro_torch.frontends.devito_like import Eq, Grid, Operator, TimeFunction  # noqa: E402
+from repro_torch.frontends.oec_like import ProgramBuilder  # noqa: E402
+
+CPU = Target(device="cpu")
+
+
+def np_jacobi(u, boundary="zero"):
+    if boundary == "periodic":
+        return 0.25 * (
+            np.roll(u, 1, 0) + np.roll(u, -1, 0) + np.roll(u, 1, 1) + np.roll(u, -1, 1)
+        )
+    p = np.pad(u, 1)
+    return 0.25 * (p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:])
+
+
+def np_heat(u, alpha, dt, h, order=2, boundary="zero"):
+    star = laplacian_star(2, order, spacing=h)
+    assert star == r_laplacian_star(2, order, spacing=h)
+    out = np.zeros_like(u)
+    for off, c in star.items():
+        if boundary == "periodic":
+            out += c * np.roll(np.roll(u, -off[0], 0), -off[1], 1)
+        else:
+            r = max(abs(o) for offs in star for o in offs)
+            p = np.pad(u, r)
+            out += c * p[
+                r + off[0] : r + off[0] + u.shape[0],
+                r + off[1] : r + off[1] + u.shape[1],
+            ]
+    return u + dt * alpha * out
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("boundary", ["zero", "periodic"])
+def test_devito_heat_matches_numpy(order, boundary):
+    shape = (32, 32)
+    g = Grid(shape=shape, extent=(1.0, 1.0))
+    u = TimeFunction(name="u", grid=g, space_order=order)
+    dt = 1e-5
+    op = Operator(Eq(u.dt, 0.7 * u.laplace), dt=dt, boundary=boundary)
+
+    rng = np.random.default_rng(0)
+    u0 = rng.standard_normal(shape).astype(np.float32)
+    (got,) = op.apply(_t(u0), timesteps=3, target=CPU)
+
+    want = u0.copy().astype(np.float64)
+    for _ in range(3):
+        want = np_heat(want, 0.7, dt, g.spacing[0], order=order, boundary=boundary)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-6)
+
+
+def test_devito_wave_equation_second_order_time():
+    """u.dt2 = c²∇²u — the paper's acoustic benchmark shape (3 time slots)."""
+    shape = (24, 24)
+    g = Grid(shape=shape, extent=(1.0, 1.0))
+    u = TimeFunction(name="u", grid=g, space_order=4, time_order=2)
+    dt = 1e-4
+    op = Operator(Eq(u.dt2, 1.5 * u.laplace), dt=dt, boundary="zero")
+
+    rng = np.random.default_rng(1)
+    um1 = rng.standard_normal(shape).astype(np.float32)
+    u0 = rng.standard_normal(shape).astype(np.float32)
+    assert len(op.zero_state(device="cpu")) == 2  # needs t-1 and t
+    got = op.apply(_t(um1, u0), timesteps=1, target=CPU)[-1]  # newest buffer
+
+    star = laplacian_star(2, 4, spacing=g.spacing[0])
+    lap = np.zeros(shape)
+    r = 2
+    p = np.pad(u0.astype(np.float64), r)
+    for off, c in star.items():
+        lap += c * p[r + off[0]: r + off[0] + 24, r + off[1]: r + off[1] + 24]
+    want = 2 * u0 - um1 + dt**2 * 1.5 * lap
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-6)
+
+
+def test_devito_3d():
+    g = Grid(shape=(12, 12, 12), extent=(1.0, 1.0, 1.0))
+    u = TimeFunction(name="u", grid=g, space_order=2)
+    op = Operator(Eq(u.dt, u.laplace), dt=1e-6)
+    u0 = np.random.default_rng(2).standard_normal((12, 12, 12)).astype(np.float32)
+    (got,) = op.apply(_t(u0), timesteps=2, target=CPU)
+    assert tuple(got.shape) == (12, 12, 12)
+    assert torch.isfinite(got).all()
+
+
+def test_devito_coupled_fields():
+    """Two coupled equations (v reads u) — multiple updates per step."""
+    g = Grid(shape=(16, 16))
+    u = TimeFunction(name="u", grid=g, space_order=2)
+    v = TimeFunction(name="v", grid=g, space_order=2)
+    op = Operator(
+        [Eq(u.forward, u + 0.1 * v), Eq(v.forward, v.laplace)],
+        boundary="periodic",
+    )
+    rng = np.random.default_rng(3)
+    u0 = rng.standard_normal((16, 16)).astype(np.float32)
+    v0 = rng.standard_normal((16, 16)).astype(np.float32)
+    got_u, got_v = op.apply(_t(u0, v0), timesteps=1, target=CPU)
+    np.testing.assert_allclose(got_u.numpy(), u0 + 0.1 * v0, rtol=1e-5)
+
+
+def test_oec_builder_jacobi():
+    p = ProgramBuilder("jacobi", shape=(20, 20))
+    u = p.input("u")
+    out = p.output("out")
+    t = p.load(u)
+    r = p.apply(
+        [t],
+        lambda b, u: (u.at(-1, 0) + u.at(1, 0) + u.at(0, -1) + u.at(0, 1)) * 0.25,
+    )
+    p.store(r, out)
+    prog = p.finish(boundary="zero")
+    rng = np.random.default_rng(7)
+    u0 = rng.standard_normal((20, 20)).astype(np.float32)
+    (got,) = api.compile(prog, CPU)(*_t(u0, np.zeros_like(u0)))
+    np.testing.assert_allclose(got.numpy(), np_jacobi(u0, "zero"), rtol=1e-5)
+
+
+def test_three_frontends_agree():
+    shape = (24, 24)
+    rng = np.random.default_rng(8)
+    u0 = rng.standard_normal(shape).astype(np.float32)
+    args = _t(u0, np.zeros_like(u0))
+
+    # 1. OEC
+    p = ProgramBuilder("j", shape=shape)
+    uf = p.input("u")
+    of = p.output("out")
+    t = p.load(uf)
+    r = p.apply(
+        [t],
+        lambda b, u: (u.at(-1, 0) + u.at(1, 0) + u.at(0, -1) + u.at(0, 1)) * 0.25,
+    )
+    p.store(r, of)
+    r_oec = api.compile(p.finish(boundary="periodic"), CPU)(*args)[0]
+
+    # 2. PSyclone-like
+    r_psy = api.compile(psy.recognize(jacobi, shape=shape, boundary="periodic"), CPU)(*args)[0]
+
+    # 3. Devito-like: u.forward = jacobi average — expressed directly via taps
+    g = Grid(shape=shape, extent=shape)  # spacing 1
+    u = TimeFunction(name="u", grid=g, space_order=2)
+    expr = (
+        u.shifted(0, -1) + u.shifted(0, 1) + u.shifted(1, -1) + u.shifted(1, 1)
+    ) * 0.25
+    op = Operator(Eq(u.forward, expr), boundary="periodic")
+    (r_dev,) = op.apply(args[:1], timesteps=1, target=CPU)
+
+    torch.testing.assert_close(r_oec, r_psy, rtol=1e-6, atol=0)
+    torch.testing.assert_close(r_oec, r_dev, rtol=1e-6, atol=0)
+
+
+def test_time_loop_rotation():
+    """time_loop rotates buffers oldest→newest (paper's time-buffering)."""
+
+    def step(a, b):
+        return (a + b,)
+
+    out = time_loop(step, (torch.tensor(1.0), torch.tensor(1.0)), 5)
+    # fibonacci: after 5 steps state = (f5, f6) = (8, 13)
+    assert float(out[0]) == 8.0 and float(out[1]) == 13.0

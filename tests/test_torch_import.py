@@ -3,7 +3,9 @@
 ``chip_smoke.py`` loads neither JAX nor the reference package; the
 checkpointing, resilience and trace-export modules among them, and the
 serving engine (``repro_torch.serve``), request migration and the counter
-registry."""
+registry; the language models (``repro_torch.models``), their configs
+(``repro_torch.configs``) and the language-model serving engine
+(``repro_torch.serve.engine``)."""
 import os
 import re
 import subprocess
@@ -25,7 +27,12 @@ for n in ("repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.frontend
           "repro_torch.serve", "repro_torch.serve.stencil", "repro_torch.serve.stencil.engine",
           "repro_torch.serve.stencil.scheduler", "repro_torch.serve.stencil.request",
           "repro_torch.serve.stencil.metrics", "repro_torch.resilience.migrate",
-          "repro_torch.obs.registry", "repro_torch.obs.__main__"):
+          "repro_torch.obs.registry", "repro_torch.obs.__main__",
+          "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.registry",
+          "repro_torch.configs.qwen2_7b", "repro_torch.models.lm", "repro_torch.models.layers",
+          "repro_torch.models.attention", "repro_torch.models.moe", "repro_torch.models.mamba",
+          "repro_torch.models.xlstm", "repro_torch.serve.engine", "repro_torch.core.program",
+          "repro_torch.core.passes.__main__"):
     assert n in names, n
 for n in names:
     importlib.import_module(n)
@@ -47,7 +54,7 @@ def test_import_loads_no_jax_and_no_reference():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 36  # the IR copy, lowering, kernels, api, dist, frontends, serve
+    assert n_modules >= 56  # the IR copy, lowering, kernels, api, dist, frontends, serve, models
 
 
 _FORBIDDEN = re.compile(
