@@ -133,6 +133,16 @@ check raises and the script exits non-zero:
    every other config at its published width with one supercell, through
    the engine or (seamless, internvl2) prefill and decode; every reduced
    config on the card against the CPU within 1e-4; under 180 s and 70 GiB.
+15. language-model training (``train_phase``; no kernel of its own, so
+   nothing joins the kernels line): ``repro_torch.train.Trainer`` over
+   granite-moe-1b-a400m at full width and depth (1.385 B float32
+   parameters, bf16 compute, remat, 2 microbatches of 4 x 4096 tokens),
+   6 steps with a checkpoint every 3: ms per step, tokens/s, host ms,
+   every loss and aux loss finite, peak memory; then SIGTERM during step
+   3 and a resume in a new trainer, steps 4-6 bitwise the uninterrupted
+   run (params, moments, losses; deterministic algorithms); every
+   reduced config's loss and gradients on the card against the CPU;
+   under 180 s and 70 GiB.
 
 Phase 1 also runs K1 heat so4 at 1024² on a pool of 16 slots, and phase 6
 K2 heat so4 k=4 at 16384² on a pool of 2, each in one launch, bitwise
@@ -158,6 +168,11 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+# cuBLAS reads this when it starts: a fixed workspace makes its GEMMs
+# deterministic, which phase 15's bitwise resume (under
+# torch.use_deterministic_algorithms) needs
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 STEPS = 8
 SEED = 0
@@ -1593,6 +1608,302 @@ def lm_phase(dev, *, card="", cut=None, prompt_lens=(16, 250), max_len=512, n_ne
         check(sec < 180, f"phase 14 took {sec:.1f} s, more than 180 s")
 
 
+# -- phase 15: language-model training ----------------------------------------
+
+TRAIN_MAIN = "granite-moe-1b-a400m"
+
+
+def train_phase(dev, *, card="", cut=None, seq_len=4096, global_batch=8, steps=6, every=3,
+                q_chunk=1024, microbatches=2) -> None:
+    """Phase 15: ``repro_torch.train`` (optimizer, train step, trainer, data).
+
+    1. granite-moe-1b-a400m at its published width and depth (24 layers,
+       d_model 1024, 32 experts top-8; 1.385 B float32 parameters from a
+       seeded generator, bf16 compute), ``TrainOptions(remat=True,
+       q_chunk=1024, microbatches=2)``, synthetic tokens of ``seq_len``
+       at a global batch of ``global_batch``: the ``Trainer`` takes
+       ``steps`` steps with a checkpoint every ``every`` into a temporary
+       directory (free disk checked first); every loss and aux loss finite;
+       ms per step (the loss read back: the card synchronized), tokens/s,
+       the host's enqueue ms and loop ms per step, each save's to-host and
+       write seconds, peak memory.  Then again, SIGTERM to this process
+       during step ``every``: the trainer stops after it with a committed
+       checkpoint, a new ``Trainer`` resumes from it, and its last steps
+       give params, moments and counters bitwise the uninterrupted run's,
+       every step's loss too.  Both runs under
+       ``torch.use_deterministic_algorithms(True)`` (index_add_ and the
+       index backward accumulate with atomics otherwise);
+    2. every ``reduced_config`` in float32, card against CPU: the loss of
+       one train step within 1e-5 and every gradient leaf within 1e-4 of
+       its largest magnitude, plus, for xlstm-1.3b, its rounding noise (the
+       same run with parameters moved by a relative 2**-24, on the CPU).
+
+    ``cut`` maps the config to the one run (on the card: none; the CPU
+    rehearsal passes ``reduced_config``).  Raises on any failed check."""
+    import dataclasses
+    import gc
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs.base import reduced_config
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer, TrainerConfig, put_batch_on
+
+    on_card = dev.type == "cuda"
+    cut = cut or (lambda c: c)
+    gib = 2**30
+    t15 = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    free()
+    alloc0 = torch.cuda.memory_allocated(dev) / gib if on_card else 0.0
+    log(f"phase 15: language-model training (repro_torch.train); {alloc0:.2f} GiB allocated on "
+        f"entry; {card}")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # -- 1. granite-moe-1b-a400m at full width and depth ----------------------
+    cfg = cut(get_config(TRAIN_MAIN))
+    n_params = sum(t.numel() for t in lm.leaves(lm.init_params(cfg, device="meta")).values())
+    options = ts.TrainOptions(remat=True, q_chunk=q_chunk, microbatches=microbatches)
+    opt_cfg = opt.OptimizerConfig()
+    data = DataConfig(seq_len=seq_len, global_batch=global_batch, vocab_size=cfg.vocab_size,
+                      seed=SEED + 9)
+    tokens = seq_len * global_batch
+    log(f"  case 1: {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv_heads} KV), {cfg.moe.num_experts} experts top-{cfg.moe.top_k}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B float32 parameters "
+        f"({16 * n_params / 1e9:.1f} GB with gradients and two moments), {cfg.dtype} compute; "
+        f"{options}; {global_batch} x {seq_len} tokens a step")
+
+    def init_state():
+        return ts.init_train_state(torch.Generator(device=dev).manual_seed(SEED + 8), cfg, dev)
+
+    train_step = ts.make_train_step(cfg, opt_cfg, options)
+
+    class Recorder:
+        """The train step as the trainer calls it, recording each step's
+        metrics and the host's time to enqueue it; ``sigterm_at`` sends
+        SIGTERM to this process while that step (1-based) runs."""
+
+        def __init__(self, sigterm_at=None):
+            self.rows, self.sigterm_at, self.last = [], sigterm_at, None
+
+        def __call__(self, state, batch):
+            t0 = time.perf_counter()
+            loop_s = None if self.last is None else t0 - self.last
+            n = int(state["step"]) + 1
+            if n == self.sigterm_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            new, metrics = train_step(state, batch)
+            enqueue_s = time.perf_counter() - t0
+            sync()
+            step_s = time.perf_counter() - t0
+            self.rows.append(dict({k: float(v) for k, v in metrics.items()}, step=n,
+                                  enqueue_s=enqueue_s, step_s=step_s, loop_s=loop_s))
+            self.last = time.perf_counter()
+            return new, metrics
+
+    def report(what, rec, trainer):
+        for r in rec.rows:
+            vals = [r[k] for k in ("loss", "ce", "z_loss", "moe_lb_loss", "moe_z_loss", "grad_norm")]
+            check(all(np.isfinite(vals)), f"case 1, {what}, step {r['step']}: a non-finite metric {r}")
+            log(f"    {what}, step {r['step']}: {1e3 * r['step_s']:.1f} ms ({tokens / r['step_s']:.0f} "
+                f"tokens/s), host enqueue {1e3 * r['enqueue_s']:.1f} ms"
+                + ("" if r["loop_s"] is None else
+                   f", host between steps {1e3 * r['loop_s']:.1f} ms (data, batch to the card, saves)")
+                + f"; loss {r['loss']:.6f} (ce {r['ce']:.6f}, z {r['z_loss']:.6g}, moe_lb "
+                  f"{r['moe_lb_loss']:.6f}, moe_z {r['moe_z_loss']:.6g}), grad_norm "
+                  f"{r['grad_norm']:.4f}, lr {r['lr']:.3g}")
+        if trainer.ckpt is not None and trainer.ckpt.last_save:
+            ls = trainer.ckpt.last_save
+            log(f"    {what}: the last save {ls.get('to_host_s', 0):.3f} s to the host, write "
+                f"{ls.get('write_s', float('nan')):.3f} s ({trainer.ckpt.stats.saves} saves)")
+
+    def remove(path):
+        """``shutil.rmtree(path)`` on a thread: unlinking two snapshots
+        (31 GiB) takes the card's host ~7-12 s, which the next work overlaps."""
+        t = threading.Thread(target=shutil.rmtree, args=(path, True), daemon=True)
+        t.start()
+        return t
+
+    root = tempfile.mkdtemp(prefix="repro-torch-train-")
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    sigterm = signal.getsignal(signal.SIGTERM)
+    try:
+        need = 2.2 * 12 * n_params / gib + 1.0  # two snapshots of params and moments
+        disk = shutil.disk_usage(root).free / gib
+        check(disk >= need, f"phase 15 needs {need:.1f} GiB of free disk under {root}, {disk:.1f} free")
+        log(f"  checkpoints under {root}: {disk:.1f} GiB free, {need:.1f} GiB needed")
+        torch.use_deterministic_algorithms(True)
+
+        def trainer(rec, d):
+            return Trainer(rec, init_state, data,
+                           TrainerConfig(total_steps=steps, checkpoint_every=every,
+                                         checkpoint_dir=d, log_every=1), device=dev)
+
+        # the uninterrupted run
+        t0 = time.perf_counter()
+        rec_a = Recorder()
+        tr_a = trainer(rec_a, os.path.join(root, "a"))
+        out_a = tr_a.run()
+        sec_a = time.perf_counter() - t0
+        check(out_a["final_step"] == steps, f"case 1: the run ended at step {out_a['final_step']}")
+        report("uninterrupted", rec_a, tr_a)
+        times = sorted(r["step_s"] for r in rec_a.rows[1:]) or [rec_a.rows[0]["step_s"]]
+        med = times[len(times) // 2]
+        log(f"  case 1, uninterrupted: {steps} steps in {sec_a:.1f} s; median {1e3 * med:.1f} ms a step "
+            f"after the first ({tokens / med:.0f} tokens/s), host enqueue median "
+            f"{1e3 * sorted(r['enqueue_s'] for r in rec_a.rows)[steps // 2]:.1f} ms; {card}")
+        want, want_losses = tr_a.state, [r["loss"] for r in rec_a.rows]
+        del tr_a
+        removing = remove(os.path.join(root, "a"))  # while the next run computes
+
+        # preempted by SIGTERM during step `every`, then resumed by a new trainer
+        t0 = time.perf_counter()
+        rec_b = Recorder(sigterm_at=every)
+        tr_b = trainer(rec_b, os.path.join(root, "b"))
+        tr_b.install_signal_handler()
+        out_b = tr_b.run()
+        signal.signal(signal.SIGTERM, sigterm)
+        check(out_b["final_step"] == every,
+              f"case 1: SIGTERM during step {every}, but the run ended at step {out_b['final_step']}")
+        check(tr_b.ckpt.available_steps() == [every],
+              f"case 1: committed snapshots {tr_b.ckpt.available_steps()} after SIGTERM")
+        report("preempted", rec_b, tr_b)
+        del tr_b
+        free()
+        t1 = time.perf_counter()
+        rec_c = Recorder()
+        tr_c = trainer(rec_c, os.path.join(root, "b"))
+        restore_s = time.perf_counter() - t1
+        check(tr_c.start_step == every, f"case 1: resumed at step {tr_c.start_step}")
+        out_c = tr_c.run()
+        sec_b = time.perf_counter() - t0
+        report("resumed", rec_c, tr_c)
+        check(out_c["final_step"] == steps, f"case 1: the resumed run ended at {out_c['final_step']}")
+        got, exp = lm.leaves(tr_c.state), lm.leaves(want)
+        check(sorted(got) == sorted(exp), "case 1: the resumed state has other leaves")
+        differ = [k for k in exp if got[k].dtype != exp[k].dtype or not torch.equal(got[k], exp[k])]
+        check(not differ, f"case 1: resumed != uninterrupted at {differ[:5]} ({len(differ)} leaves)")
+        losses = [r["loss"] for r in rec_b.rows] + [r["loss"] for r in rec_c.rows]
+        check(losses == want_losses, f"case 1: losses {losses} against {want_losses}")
+        log(f"  case 1, preempted and resumed: restore and placement {restore_s:.3f} s, {len(exp)} "
+            f"leaves (params, m, v, count, step) bitwise the uninterrupted run's, every loss equal; "
+            f"{sec_b:.1f} s")
+        del tr_c, want, got, exp
+        removing.join()
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+        torch.use_deterministic_algorithms(deterministic)
+        removing = remove(root)  # joined at the end of the phase
+    free()
+    if on_card:
+        peak1 = torch.cuda.max_memory_allocated(dev) / gib
+        log(f"  case 1: peak device memory {peak1:.2f} GiB; {card}")
+
+    # -- where a step's time goes: the same step with 2 of the layers -----------
+    # (a profile of all 24 takes the profiler ~40 s to digest: 58 k kernels)
+    t_prof = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=min(2, cfg.n_layers))
+    state2 = ts.init_train_state(torch.Generator(device=dev).manual_seed(SEED + 8), cfg2, dev)
+    step2 = ts.make_train_step(cfg2, opt_cfg, options)
+    batch2 = put_batch_on(dev)(make_source(data).batch_at(0))
+    step2(state2, batch2)
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA] if on_card else [ProfilerActivity.CPU]) as prof:
+        step2(state2, batch2)
+        sync()
+    wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return getattr(e, "self_cuda_time_total", 0) if v is None else v
+
+    busy = sum(us(e) for e in rows) / 1e3
+    top = sorted(rows, key=us, reverse=True)[:10]
+    log(f"  case 1, one step with {cfg2.n_layers} of the layers under torch.profiler: {wall * 1e3:.1f} ms, "
+        + (f"card busy {busy:.1f} ms in {sum(e.count for e in rows)} kernels (idle "
+           f"{max(0.0, 1 - busy / (wall * 1e3)) * 100:.1f} %); by kernel, ms: " + "; ".join(
+               f"{e.key[:48]} x{e.count} {us(e) / 1e3:.1f}" for e in top) if on_card
+           else "card busy not measured (no card)") + f"; {time.perf_counter() - t_prof:.1f} s in all; {card}")
+    del state2, step2, batch2, prof
+    free()
+
+    # -- 2. every reduced config, card against CPU ------------------------------
+    cpu = torch.device("cpu")
+    for arch in ARCHS:
+        t_cfg = time.perf_counter()
+        rcfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32")
+        host = lm.init_params(rcfg, generator=torch.Generator().manual_seed(SEED + 10), device=cpu)
+        rng = np.random.default_rng(SEED + 11)
+        n_text = 16 - (rcfg.num_modality_tokens if rcfg.modality == "vision" else 0)
+        batch = {"tokens": torch.as_tensor(rng.integers(0, rcfg.vocab_size, size=(2, n_text)))}
+        if rcfg.modality is not None:
+            frames = rcfg.num_modality_tokens if rcfg.modality == "vision" else 16
+            batch["modality"] = torch.as_tensor(
+                rng.standard_normal((2, frames, rcfg.modality_dim)).astype(np.float32))
+        grad_fn = ts.value_and_grad(ts.make_loss_fn(rcfg, ts.TrainOptions(q_chunk=8)))
+
+        def run(params, d):
+            (loss, _), grads = grad_fn(params, {k: v.to(d) for k, v in batch.items()})
+            return loss.cpu(), {k: g.cpu() for k, g in lm.leaves(grads).items()}
+
+        want_loss, want = run(host, cpu)
+        scale = {k: max(float(g.abs().max()), 1e-30) for k, g in want.items()}
+        got_loss, got = run(lm.tree_map(lambda t: t.to(dev), host), dev)
+        noise = 0.0
+        if arch == "xlstm-1.3b":  # ill-conditioned at its reduced size (PERF.md)
+            g = torch.Generator().manual_seed(0)
+            moved = lm.tree_map(lambda a: a * (1 + 2.0**-24 * torch.randn(a.shape, generator=g)), host)
+            m_loss, m_grads = run(moved, cpu)
+            noise = max([float((m_loss - want_loss).abs())]
+                        + [float((m_grads[k] - want[k]).abs().max()) / scale[k] for k in want])
+        loss_err = float((got_loss - want_loss).abs())
+        check(loss_err <= 1e-5 + noise,
+              f"case 2, {arch}: loss {float(got_loss)} on the card, {float(want_loss)} on the CPU "
+              f"(noise {noise:.3g})")
+        err = 0.0
+        for k in want:
+            e = float((got[k] - want[k]).abs().max()) / scale[k]
+            err = max(err, e)
+            check(e <= 1e-4 + noise, f"case 2, {arch}: gradient {k} differs by {e:.3g} of its max "
+                                     f"between the card and the CPU (noise {noise:.3g})")
+        log(f"  case 2, {arch} (reduced): one train step's loss and {len(want)} gradient leaves, card "
+            f"against CPU: loss |diff| {loss_err:.3g}, gradients max |diff| {err:.3g} of each leaf's "
+            f"max (rounding noise {noise:.3g}); {time.perf_counter() - t_cfg:.1f} s")
+    free()
+
+    removing.join()
+    sec = time.perf_counter() - t15
+    if on_card:
+        peak = torch.cuda.max_memory_allocated(dev) / gib
+        log(f"  peak device memory of phase 15: {peak:.2f} GiB; {card}")
+        check(peak < 70, f"phase 15: peak device memory {peak:.2f} GiB, not under 70 GiB")
+    log(f"phase 15: {sec:.1f} s")
+    if on_card:
+        check(sec < 180, f"phase 15 took {sec:.1f} s, more than 180 s")
+
+
 def main() -> int:
     import torch
 
@@ -2839,6 +3150,9 @@ def main() -> int:
 
     # -- phase 14: the language-model serving engine (no kernel of its own) ----
     lm_phase(dev, card=card)
+
+    # -- phase 15: language-model training (no kernel of its own) -------------
+    train_phase(dev, card=card)
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -1524,6 +1524,8 @@ def _validate_for_program(program: Program, target: Target) -> None:
         _validate_tile(program, target)
     if target.exchange_every > 1:
         _validate_exchange_every(program, target)
+    elif any(g > 1 for g, _ in _grid_of_dim(target).values()):
+        _validate_step_halo(program, target)
 
 
 def _grid_of_dim(target: Target) -> dict:
@@ -1570,6 +1572,55 @@ def _validate_exchange_every(program: Program, target: Target) -> None:
                 f"{k} steps) along dim {d} ({_where(g, ax)}) exceeds the local "
                 f"shard extent {local_n}; use exchange_every <= {max_k} or "
                 f"decompose dim {d} over fewer ranks"
+            )
+
+
+def _validate_step_halo(program: Program, target: Target) -> None:
+    """At ``exchange_every=1`` a step still exchanges its chain's whole
+    accumulated halo in one shot, and the send slab must come out of the
+    immediate neighbour's core: on every decomposed dim the per-step depth
+    may not exceed the local shard extent (the reference accepts such a
+    target and returns wrong numbers; the port refuses it)."""
+    from repro_torch.core.passes.temporal import TemporalTilingError, epoch_halo
+
+    if not program.field_args:
+        return
+    grid_of_dim = _grid_of_dim(target)
+    shape = program.field_args[0].type.bounds.shape
+    local = {d: shape[d] // g for d, (g, _) in grid_of_dim.items() if g > 1}
+    try:
+        lo, hi = epoch_halo(program.func, 1)
+        depth = {d: max(lo[d], hi[d]) for d in local}
+    except TemporalTilingError:
+        depth = {}
+    if depth and all(depth[d] <= n for d, n in local.items()):
+        return
+    # what the pipeline really exchanges (also where epoch_halo cannot
+    # analyse the program): the widths of the emitted swaps and exchanges
+    from repro_torch.core.dialects import comm, dmp
+
+    dim_of_axis = {ax: d for d, (_, ax) in grid_of_dim.items()}
+    depth = dict.fromkeys(local, 0)
+    ir_local, _ = lower_local(program, target)
+    for op in ir_local.body.ops:
+        if isinstance(op, dmp.SwapOp):
+            lo, hi = op.halo_widths()
+            for d in depth:
+                depth[d] = max(depth[d], lo[d], hi[d])
+        elif isinstance(op, comm.ExchangeStartOp):
+            size = [a.value for a in op.attributes["size"]]
+            for ax, step in op.axis_shifts:
+                d = dim_of_axis.get(ax)
+                if step and d in depth:
+                    depth[d] = max(depth[d], size[d])
+    for d, n in sorted(local.items()):
+        if depth[d] > n:
+            g, ax = grid_of_dim[d]
+            raise TargetError(
+                f"Target(exchange_every=1) on {program.name!r}: per-step halo "
+                f"{depth[d]} along dim {d} ({_where(g, ax)}) exceeds the local "
+                f"shard extent {n}; a rank takes its halo from its immediate "
+                f"neighbour's core only: decompose dim {d} over fewer ranks"
             )
 
 

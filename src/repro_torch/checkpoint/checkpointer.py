@@ -16,8 +16,9 @@ as ``[i]``) and the file names (``key.replace("/", "__") + ".npy"``) are
 the reference's, so a snapshot written by either package restores in the
 other.
 
-A save copies every leaf to the host before it returns or starts its
-writer: a tensor is copied off its device (a
+A save copies every leaf to the host (page-locked memory for a card's
+tensor) before it returns or starts its writer: a tensor is copied off
+its device (a
 :class:`~repro_torch.dist.ShardedTensor` is gathered to one global tensor
 first), so the snapshot holds no reference to the caller's tensors and a
 later epoch may overwrite them while an async write runs.  Restore
@@ -98,11 +99,18 @@ def _unflatten(tree_like, leaves: dict):
 
 
 def _to_host(x) -> np.ndarray:
-    """A host copy of one leaf that shares no memory with it."""
+    """A host copy of one leaf that shares no memory with it.  A card's
+    tensor lands in page-locked memory: a copy into pageable memory runs
+    at a fraction of the link's rate (PERF.md), and torch's host allocator
+    keeps the freed buffers for the next snapshot."""
     if isinstance(x, ShardedTensor):
         x = gather(x)
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        x = x.detach()
+        if x.is_cuda:
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            return host.copy_(x).numpy()
+        return x.to("cpu", copy=True).numpy()
     return np.asarray(x)
 
 

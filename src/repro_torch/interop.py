@@ -8,7 +8,8 @@ reference's ``jax.Array`` state).
 
 A language model's parameters cross over the same way: the reference's
 parameter pytree as numpy (``jax.tree.map(np.asarray, params)``), leaf for
-leaf by path.
+leaf by path, and so does a whole train state (parameters, AdamW moments
+and counters: a reference checkpoint resumed by the port's trainer).
 """
 from __future__ import annotations
 
@@ -81,3 +82,34 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
             node = node.setdefault(k, {})
         node[name] = torch.tensor(a, dtype=torch.float32, device=device)
     return out
+
+
+def train_state_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
+    """The port's train state of ``cfg`` (``repro_torch.train.train_step``:
+    ``{"params", "opt_state": {"m", "v", "count"}, "step"}``) on
+    ``device``, copied from ``tree``, the reference's train state as nested
+    dicts of numpy arrays (``jax.tree.map(np.asarray, state)``, or what the
+    port's ``Checkpointer.restore`` returns).
+
+    ``params``, ``m`` and ``v`` go through :func:`params_from_numpy` (float32,
+    every leaf by path); ``count`` and ``step`` must be int32 scalars."""
+    missing = sorted({"params", "opt_state", "step"} - set(tree))
+    if missing:
+        raise KeyError(f"{cfg.name}: train state without {missing}")
+    opt_state = tree["opt_state"]
+
+    def scalar(name, a):
+        a = np.asarray(a) if isinstance(a, np.generic) else a
+        if not isinstance(a, np.ndarray) or a.shape != () or a.dtype != np.int32:
+            raise TypeError(f"{name!r}: expected an int32 scalar array, got {a!r}")
+        return torch.tensor(a, dtype=torch.int32, device=device)
+
+    return {
+        "params": params_from_numpy(cfg, tree["params"], device),
+        "opt_state": {
+            "m": params_from_numpy(cfg, opt_state["m"], device),
+            "v": params_from_numpy(cfg, opt_state["v"], device),
+            "count": scalar("opt_state.count", opt_state["count"]),
+        },
+        "step": scalar("step", tree["step"]),
+    }

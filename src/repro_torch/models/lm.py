@@ -6,12 +6,16 @@ supercells (``[n_cells, …]`` leaves, the reference's pytree paths) and the
 forward passes loop over the stacked cell dim (the reference's
 ``lax.scan``).
 
-Three entry points per model, each under ``torch.no_grad()``:
-  forward_train    — full-sequence forward, logits for the loss (forward
-                     only: ``remat`` is accepted and does nothing until
-                     the backward exists);
-  forward_prefill  — forward + cache construction (inference prefill);
-  decode_step      — one token against the cache (decode / long-context).
+Three entry points per model:
+  forward_train    — full-sequence forward, logits for the loss; autograd
+                     differentiates it (``repro_torch.train``), and
+                     ``remat=True`` recomputes each supercell in the
+                     backward (``torch.utils.checkpoint``, the reference's
+                     ``jax.checkpoint``);
+  forward_prefill  — forward + cache construction (inference prefill),
+                     under ``torch.no_grad()``;
+  decode_step      — one token against the cache (decode / long-context),
+                     under ``torch.no_grad()``.
 
 Encoder-decoder (seamless) adds an encoder stack + cross-attention;
 modality stubs (audio frames / ViT patches) enter as precomputed
@@ -25,6 +29,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA, MLSTM, ModelConfig, SLSTM
 from repro_torch.models import attention as attn
@@ -61,16 +66,27 @@ def default_device(device=None) -> torch.device:
     return dev
 
 
-def tree_map(fn, tree):
-    """``fn`` over the leaves of a nested dict (leaf order: insertion)."""
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a nested dict (leaf order: insertion) and
+    the matching leaves of ``rest``, nested dicts of the same keys."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def _cell(tree: dict, c: int) -> dict:
     """Supercell ``c`` of stacked ``[n_cells, …]`` leaves (views)."""
     return tree_map(lambda t: t[c], tree)
+
+
+def _cells(tree: dict, n: int) -> list:
+    """Every supercell of stacked ``[n_cells, …]`` leaves (views, like
+    :func:`_cell`): one ``unbind`` a leaf, whose backward stacks the cells'
+    gradients once instead of scattering each into a full-size zero."""
+    if isinstance(tree, dict):
+        per_key = {k: _cells(v, n) for k, v in tree.items()}
+        return [{k: v[c] for k, v in per_key.items()} for c in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _stack(cells: list) -> dict:
@@ -213,8 +229,7 @@ def encode(params, cfg: ModelConfig, frames, dtype=None):
     x = frames.to(dtype)
     enc_cfg = dataclasses.replace(cfg, block_pattern=(ATTN,))
     layers = params["encoder"]["layers"]
-    for i in range(cfg.n_encoder_layers):
-        lp = _cell(layers, i)
+    for lp in _cells(layers, cfg.n_encoder_layers):
         h = rms_norm(x, lp["norm_mixer"], cfg.norm_eps)
         q, k, v = attn._project_qkv(lp["attn"], h, h, enc_cfg, dtype, None, None)
         o = attn.chunked_attention(q, k, v, causal=False, dtype=dtype)
@@ -234,11 +249,12 @@ def _logits(params, cfg, x, dtype):
 # --------------------------------------------------------------------------
 
 
-@torch.no_grad()
 def forward_train(params, cfg: ModelConfig, tokens, modality=None, remat: bool = True,
                   q_chunk: int = 1024):
-    """tokens: [B, S_text] → (logits [B,S,Vpad], aux dict)."""
-    del remat  # no backward in this module yet
+    """tokens: [B, S_text] → (logits [B,S,Vpad], aux dict).
+
+    Differentiable: under grad mode with ``remat``, each supercell keeps
+    only its input for the backward and runs again there."""
     dtype = _dtype(cfg)
     memory = None
     if cfg.is_encoder_decoder:
@@ -253,10 +269,19 @@ def forward_train(params, cfg: ModelConfig, tokens, modality=None, remat: bool =
         if cfg.moe is not None and cfg.moe_every > 0
         else {}
     )
-    for c in range(cfg.n_supercells):
-        cell_p = _cell(params["cells"], c)
+
+    def cell(x, aux, cell_p):
         for s in range(len(cfg.block_pattern)):
             x, aux = _run_slot_train(cell_p[f"slot{s}"], x, cfg, s, dtype, memory, aux, q_chunk)
+        return x, aux
+
+    remat = remat and torch.is_grad_enabled()
+    for cell_p in _cells(params["cells"], cfg.n_supercells):
+        if remat:
+            x, aux = checkpoint(cell, x, aux, cell_p, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = cell(x, aux, cell_p)
     return _logits(params, cfg, x, dtype), aux
 
 

@@ -41,12 +41,46 @@ def _route(p, xt, cfg, dtype):
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, mcfg.top_k)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
-    density = torch.zeros(mcfg.num_experts, dtype=torch.float32, device=xt.device)
-    density.index_add_(0, gate_idx.reshape(-1), torch.ones(gate_idx.numel(), device=xt.device))
+    # each expert's count of assignments: the reference's scatter-add of
+    # ones, exact in float32 (counts < 2**24), without atomics
+    experts = torch.arange(mcfg.num_experts, device=xt.device)[:, None]
+    density = (gate_idx.reshape(1, -1) == experts).sum(1).to(torch.float32)
     density = density / gate_idx.numel()
     lb_loss = mcfg.num_experts * torch.sum(density * probs.mean(0))
     z_loss = mcfg.router_z_loss * torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
     return gate_vals, gate_idx, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
+
+
+class _RowGather(torch.autograd.Function):
+    """``out[r] = src[idx[r]]``, a zero row where ``idx[r]`` is
+    ``len(src)``, for an ``idx`` that is one-to-one onto the rows it
+    takes, with ``inv`` its inverse (``inv[idx[r]] = r``; ``len(out)``
+    for a row no one takes).  The backward is then the inverse gather,
+    ``grad_src[i] = grad_out[inv[i]]``: each row's gradient is one row,
+    where autograd's index backward would scatter-add with atomics (or
+    sort, under deterministic algorithms)."""
+
+    @staticmethod
+    def forward(ctx, src, idx, inv):
+        ctx.save_for_backward(inv)
+        return torch.cat([src, src.new_zeros((1, src.shape[1]))]).index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inv,) = ctx.saved_tensors
+        return torch.cat([grad, grad.new_zeros((1, grad.shape[1]))]).index_select(0, inv), None, None
+
+
+def _holder(dest, rows: int):
+    """The assignment that fills each of ``rows`` buffer rows, where
+    assignment ``i`` fills row ``dest[i]`` (the kept ones are distinct;
+    ``rows`` is the dropped row): ``len(dest)`` for a row no one fills.
+    A sort and a search, so no scatter with colliding indices."""
+    n = dest.shape[0]
+    sorted_dest, order = torch.sort(dest, stable=True)
+    r = torch.arange(rows, device=dest.device)
+    at = torch.searchsorted(sorted_dest, r).clamp_(max=n - 1)
+    return torch.where(sorted_dest[at] == r, order[at], n)
 
 
 def _dispatch_scatter(xt, gate_idx, E: int, C: int):
@@ -54,14 +88,17 @@ def _dispatch_scatter(xt, gate_idx, E: int, C: int):
     n, K = gate_idx.shape
     flat_e = gate_idx.reshape(-1)                               # [n*K]
     # rank of each assignment within its expert bucket, in flattened order
-    onehot_pos = F.one_hot(flat_e, E)
-    pos = torch.cumsum(onehot_pos, dim=0) - 1                   # [n*K, E]
-    slot = torch.gather(pos, 1, flat_e[:, None])[:, 0]
+    # (a scan along the last dim of the one-hot's transpose: along its first
+    # dim the card scans 32 columns, one thread each)
+    onehot_t = (flat_e[None, :] == torch.arange(E, device=xt.device)[:, None]).to(torch.int64)
+    pos = torch.cumsum(onehot_t, dim=1) - 1                     # [E, n*K]
+    slot = torch.gather(pos, 0, flat_e[None, :])[0]
     kept = slot < C
     dest = torch.where(kept, flat_e * C + slot, E * C)          # overflow → dropped row
-    buf = torch.zeros((E * C + 1, xt.shape[1]), dtype=xt.dtype, device=xt.device)
-    buf.index_add_(0, dest, xt.repeat_interleave(K, dim=0) * kept[:, None].to(xt.dtype))
-    return buf[: E * C].reshape(E, C, xt.shape[1]), dest, kept
+    rows = xt[:, None, :].expand(n, K, xt.shape[1]).reshape(n * K, xt.shape[1])
+    # + 0: the reference scatter-adds into zeros (0 + -0.0 is +0.0)
+    buf = _RowGather.apply(rows * kept[:, None].to(xt.dtype), _holder(dest, E * C), dest) + 0
+    return buf.reshape(E, C, xt.shape[1]), dest, kept
 
 
 def _expert_ffn(p, h_in, dtype):
@@ -74,8 +111,7 @@ def _expert_ffn(p, h_in, dtype):
 
 def _combine(buf_out, dest, kept, gate_vals, n: int, K: int, D: int, dtype):
     flat = buf_out.reshape(-1, D)
-    flat = torch.cat([flat, flat.new_zeros((1, D))], dim=0)
-    per_assignment = flat[dest]                                 # [n*K, D]
+    per_assignment = _RowGather.apply(flat, dest, _holder(dest, flat.shape[0]))  # [n*K, D]
     w = (gate_vals.reshape(-1) * kept).to(dtype)
     return (per_assignment * w[:, None]).reshape(n, K, D).sum(dim=1)
 

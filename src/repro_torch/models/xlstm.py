@@ -71,7 +71,8 @@ def mlstm_chunk_scan(q, k, v, logf, logi, chunk: int, state=None):
         logw = cum[:, :, None, :] - cum[:, None, :, :] + ik[:, None, :, :]  # [B,t,s,nh]
         logw = torch.where(tri, logw, -torch.inf)
         m_intra = logw.amax(dim=2)                            # [B,t,nh]
-        m = torch.clamp(torch.maximum(m_intra, cum), min=0.0)
+        # maximum, not clamp: at a tie its gradient splits, as jnp.maximum's does
+        m = torch.maximum(torch.maximum(m_intra, cum), m_intra.new_zeros(()))
         w = torch.exp(logw - m[:, :, None, :])                # [B,t,s,nh]
         scores = torch.einsum("bthd,bshd->btsh", qk, kk) * scale
         num_intra = torch.einsum("btsh,btsh,bshd->bthd", scores, w, vk)
@@ -160,7 +161,7 @@ def slstm_apply(p, x, cfg, dtype, state=None):
         f_s = torch.exp(log_f + m - m_new)
         c = f_s * c + i_s * torch.tanh(zt)
         n = f_s * n + i_s
-        h = torch.sigmoid(ot) * c / torch.clamp(n, min=1.0)
+        h = torch.sigmoid(ot) * c / torch.maximum(n, n.new_ones(()))  # n is 1.0 at t=0: a tie
         m = m_new
         hs.append(h.to(x.dtype))
     y = torch.stack(hs, dim=1).reshape(B, S, D)

@@ -5,7 +5,9 @@ checkpointing, resilience and trace-export modules among them, and the
 serving engine (``repro_torch.serve``), request migration and the counter
 registry; the language models (``repro_torch.models``), their configs
 (``repro_torch.configs``) and the language-model serving engine
-(``repro_torch.serve.engine``)."""
+(``repro_torch.serve.engine``); training (``repro_torch.train``), the data
+pipeline (``repro_torch.data``) and gradient compression
+(``repro_torch.dist.compression``)."""
 import os
 import re
 import subprocess
@@ -32,7 +34,9 @@ for n in ("repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.frontend
           "repro_torch.configs.qwen2_7b", "repro_torch.models.lm", "repro_torch.models.layers",
           "repro_torch.models.attention", "repro_torch.models.moe", "repro_torch.models.mamba",
           "repro_torch.models.xlstm", "repro_torch.serve.engine", "repro_torch.core.program",
-          "repro_torch.core.passes.__main__"):
+          "repro_torch.core.passes.__main__", "repro_torch.train", "repro_torch.train.optimizer",
+          "repro_torch.train.train_step", "repro_torch.train.trainer", "repro_torch.data",
+          "repro_torch.data.pipeline", "repro_torch.dist.compression"):
     assert n in names, n
 for n in names:
     importlib.import_module(n)
@@ -54,7 +58,7 @@ def test_import_loads_no_jax_and_no_reference():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 56  # the IR copy, lowering, kernels, api, dist, frontends, serve, models
+    assert n_modules >= 63  # the IR copy, lowering, kernels, api, dist, frontends, serve, models, train
 
 
 _FORBIDDEN = re.compile(
