@@ -143,6 +143,23 @@ check raises and the script exits non-zero:
    run (params, moments, losses; deterministic algorithms); every
    reduced config's loss and gradients on the card against the CPU;
    under 180 s and 70 GiB.
+16. language models over a mesh of ranks on this card (``lm_mesh_phase``;
+   no kernel of its own, so nothing joins the kernels line), every mesh's
+   ranks on the card, float32, through ``launch.steps.build_step`` and
+   ``use_mesh``: (1) yi-9b at published width, 8 of 48 layers, B=8 against
+   a 32768-long seeded cache on (data=2, model=8), the ``"seq"`` layout:
+   the flash-decode's logits and cache within 2e-5 of the flat decode, no
+   second cache copy; (2) the same at B=1, T=131072, 4 layers,
+   ``"seq_all"``; (3) granite-moe-1b-a400m, 8 layers, capacity factor 4.0,
+   on (2, 4): an 8 x 4096 prefill (``ep_block``, the all-to-alls) and a B=2
+   decode (``ep_block_small``) within 1e-5 of the single-rank path, the
+   aux losses data shard 0's within 1e-6; (4) reduced granite and olmoe
+   loss and gradients on the mesh, card against CPU ranks; (5)
+   ``causal_conv_cp`` (d_inner 8192, S 32768) and
+   ``sliding_window_attention_cp`` (window 4096, head_dim 128) over 8
+   sequence ranks, bitwise one rank / the window function on the global
+   slice, and 16 ranks refused; ms per call flat against the mesh, peak
+   memory; under 150 s and 70 GiB.
 
 Phase 1 also runs K1 heat so4 at 1024² on a pool of 16 slots, and phase 6
 K2 heat so4 k=4 at 16384² on a pool of 2, each in one launch, bitwise
@@ -1904,6 +1921,346 @@ def train_phase(dev, *, card="", cut=None, seq_len=4096, global_batch=8, steps=6
         check(sec < 180, f"phase 15 took {sec:.1f} s, more than 180 s")
 
 
+MESH_DECODE = "yi-9b"
+MESH_EP = "granite-moe-1b-a400m"
+
+
+def lm_mesh_phase(dev, *, card="", cut=None, layers=(8, 4, 8), decode=(8, 32768),
+                  long=(1, 131072), prefill=(8, 4096), small_decode=(2, 512),
+                  conv=(32768, 8192), window=(32768, 4096, 128), max_s=150.0,
+                  max_gib=70.0) -> None:
+    """Phase 16: the language models over a mesh of ranks on this card.
+
+    Every mesh is a ``repro_torch.dist.Mesh`` whose ranks all sit on
+    ``dev``; everything runs in float32.  Per case: ms per call (flat
+    against the mesh), the mesh and its layout, peak memory.
+
+    1. yi-9b decode, ``"seq"`` layout: published widths, ``layers[0]`` of
+       48 layers, B, T = ``decode`` (decode_32k's cache, batch cut from 128)
+       filled from a seeded generator, pos T-100, a (data=2, model=8) mesh
+       through ``launch.steps.build_step``: logits and every cache leaf
+       within 2e-5 of the flat decode (``_online_softmax_decode``) on the
+       same card; a mesh step allocates no second copy of the cache (less
+       than one layer's K between before and after);
+    2. yi-9b decode, ``"seq_all"``: B, T = ``long`` (long_500k's cache cut
+       by 4), ``layers[1]`` layers, the same mesh: logits within 2e-5;
+    3. granite-moe-1b-a400m, expert parallelism: published widths,
+       ``layers[2]`` of 24 layers, capacity factor 4.0 (no shard drops a
+       token), a (data=2, model=4) mesh: a prefill of ``prefill`` tokens
+       through ``build_step("prefill")`` (``ep_block``: the all-to-alls)
+       and a decode step of B = ``small_decode[0]`` through
+       ``build_step("decode")`` (``ep_block_small``), each within 1e-5 of
+       the single-rank path; ``moe_apply`` on layer 0 for both paths, its
+       aux losses data shard 0's (recomputed from ``_route`` on that
+       shard's slices) within 1e-6;
+    4. the expert-parallel train step: ``forward_train`` loss and
+       gradients of reduced granite-moe-1b-a400m and olmoe-1b-7b on a (2, 4)
+       mesh, the card against the same mesh of CPU ranks: loss within
+       1e-5, every gradient leaf within 1e-4 of its largest magnitude;
+    5. context parallelism over 8 sequence ranks: ``causal_conv_cp`` at
+       jamba's d_inner 8192 (``conv``: S, channels), conv width 4, bitwise
+       one rank; ``sliding_window_attention_cp`` at gemma2's window 4096
+       and head_dim 128, one head (``window``: S, W, D): each rank's output
+       bitwise the window function on the global slice, the first 8192
+       queries within 1e-5 of ``kernels.ref.sliding_window_attention_ref``,
+       and over 16 ranks (a shard thinner than the window) ``ValueError``.
+
+    ``cut`` maps each config to the one run (on the card: none; the CPU
+    rehearsal passes ``reduced_config``).  Raises on any failed check; the
+    phase must take under ``max_s`` seconds and ``max_gib`` GiB."""
+    import dataclasses
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, reduced_config
+    from repro_torch.dist import Mesh, kv_cache_layout, use_mesh
+    from repro_torch.dist.context_parallel import (
+        causal_conv_cp,
+        sliding_window_attention_cp,
+        window_attention_local,
+    )
+    from repro_torch.kernels.ref import sliding_window_attention_ref
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import lm, moe
+    from repro_torch.models.mamba import _causal_conv
+    from repro_torch.train import train_step as ts
+
+    on_card = dev.type == "cuda"
+    cut = cut or (lambda c: c)
+    gib = 2**30
+    t16 = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def allocated() -> int:
+        sync()
+        return torch.cuda.memory_allocated(dev) if on_card else 0
+
+    def peak() -> float:
+        return torch.cuda.max_memory_allocated(dev) / gib if on_card else 0.0
+
+    def mesh_of(shape, names):
+        devs = np.empty(math.prod(shape), dtype=object)
+        for i in range(devs.size):
+            devs[i] = dev
+        return Mesh(devs.reshape(shape), names)
+
+    def ms(fn, reps=3) -> float:
+        fn()  # warm
+        return min(_seconds(fn, dev) for _ in range(reps)) * 1e3
+
+    def config(arch, n_layers, **kw):
+        return dataclasses.replace(cut(get_config(arch)), dtype="float32", n_layers=n_layers, **kw)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def fill(tree, seed):
+        g = gen(seed)
+        lm.tree_map(lambda t: t.normal_(generator=g), tree)
+        return tree
+
+    def close(what, got, want, tol):
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, rtol=tol, atol=tol)),
+              f"{what}: max |mesh - flat| {err:.3e} over the tolerance {tol}")
+        return err
+
+    free()
+    log(f"phase 16: language models over a mesh of ranks on this card (launch.steps.build_step, "
+        f"use_mesh); {allocated() / gib:.2f} GiB allocated on entry; {card}")
+
+    def decode_case(label, cfg, B, T, want_layout, seed):
+        t0 = time.perf_counter()
+        mesh = mesh_of((2, 8), ("data", "model"))
+        layout = kv_cache_layout(B, T, cfg.n_kv_heads, mesh)
+        check(layout == want_layout, f"{label}: layout {layout}, expected {want_layout}")
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        params = lm.init_params(cfg, generator=gen(seed), device=dev)
+        fn, _, in_specs, out_specs = build_step(cfg, ShapeConfig(label, T, B, "decode"), mesh)
+        cache = fill(lm.init_cache(cfg, B, T, device=dev), seed + 1)
+        flat_cache = lm.tree_map(torch.clone, cache)
+        token = torch.randint(0, cfg.vocab_size, (B,), generator=gen(seed + 2), device=dev,
+                              dtype=torch.int32)
+        at = T - min(100, T // 4)
+        pos = torch.tensor(at, dtype=torch.int32, device=dev)
+        batch = {"token": token, "pos": pos, "cache": cache}
+        flat_logits, _ = lm.decode_step(params, cfg, token, pos, flat_cache)
+        before = allocated()
+        logits, new_cache = fn(params, batch)
+        after = allocated()
+        layer_k = cache["slot0"]["k"][0].numel() * cache["slot0"]["k"].element_size()
+        check(all(a is b for a, b in zip(lm.leaves(new_cache).values(), lm.leaves(cache).values())),
+              f"{label}: the mesh step returned other cache tensors than it was given")
+        check(after - before < layer_k,
+              f"{label}: a mesh step left {(after - before) / gib:.3f} GiB more allocated "
+              f"(one layer's K is {layer_k / gib:.3f} GiB): a copy of the cache")
+        err = close(f"{label} logits", logits, flat_logits, 2e-5)
+        cache_err = max(close(f"{label} cache {k}", v, lm.leaves(flat_cache)[k], 2e-5)
+                        for k, v in lm.leaves(new_cache).items())
+        flat_ms = ms(lambda: lm.decode_step(params, cfg, token, pos, flat_cache))
+        mesh_ms = ms(lambda: fn(params, batch))
+        cache_gb = sum(t.numel() * t.element_size() for t in lm.leaves(cache).values()) / 1e9
+        log(f"  {label}: {cfg.name} {cfg.n_layers} layers, B={B}, T={T}, pos={at}, mesh "
+            f"(data=2, model=8) on this card, layout {layout} (cache spec "
+            f"{tuple(in_specs[1]['cache']['slot0']['k'])}), cache {cache_gb:.2f} GB a copy; "
+            f"max |mesh - flat| logits {err:.3e}, cache {cache_err:.3e}; a mesh step's "
+            f"allocation change {(after - before) / 2**20:.1f} MiB (one layer's K "
+            f"{layer_k / 2**20:.0f} MiB); ms per decode step: flat {flat_ms:.3f}, mesh "
+            f"{mesh_ms:.3f}; logits spec {tuple(out_specs[0])}; peak {peak():.2f} GiB; "
+            f"{time.perf_counter() - t0:.1f} s")
+        return peak()
+
+    # -- 1-2. yi-9b decode: "seq" and "seq_all" --------------------------------
+    peaks = [decode_case("case 1 (seq)", config(MESH_DECODE, layers[0]), *decode, "seq",
+                         SEED + 160)]
+    free()
+    peaks.append(decode_case("case 2 (seq_all)", config(MESH_DECODE, layers[1]), *long,
+                             "seq_all", SEED + 163))
+    free()
+
+    # -- 3. granite-moe-1b-a400m, expert parallelism -----------------------------
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = cut(get_config(MESH_EP))
+    cfg = config(MESH_EP, layers[2], moe=dataclasses.replace(base.moe, capacity_factor=4.0))
+    mesh = mesh_of((2, 4), ("data", "model"))
+    params = lm.init_params(cfg, generator=gen(SEED + 166), device=dev)
+    Bp, Sp = prefill
+    fn, _, _, _ = build_step(cfg, ShapeConfig("prefill", Sp, Bp, "prefill"), mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (Bp, Sp), generator=gen(SEED + 167), device=dev,
+                           dtype=torch.int32)
+    logits, cache = fn(params, {"tokens": tokens})
+    flat_logits, flat_cache = lm.forward_prefill(params, cfg, tokens, q_chunk=min(1024, Sp))
+    err = close("case 3 prefill logits", logits, flat_logits, 1e-5)
+    cache_err = max(close(f"case 3 prefill cache {k}", v, lm.leaves(flat_cache)[k], 1e-5)
+                    for k, v in lm.leaves(cache).items())
+    del cache, flat_cache
+    flat_ms = ms(lambda: lm.forward_prefill(params, cfg, tokens, q_chunk=min(1024, Sp)), 2)
+    mesh_ms = ms(lambda: fn(params, {"tokens": tokens}), 2)
+    log(f"  case 3 prefill: {cfg.name} {cfg.n_layers} layers, {cfg.moe.num_experts} experts "
+        f"top-{cfg.moe.top_k}, capacity factor {cfg.moe.capacity_factor}, {Bp} x {Sp} tokens, "
+        f"mesh (data=2, model=4): ep_block; max |mesh - flat| logits {err:.3e}, cache "
+        f"{cache_err:.3e}; ms per prefill: flat {flat_ms:.2f}, mesh {mesh_ms:.2f}; peak "
+        f"{peak():.2f} GiB")
+    p0 = lm.tree_map(lambda t: t[0], params["cells"]["slot0"]["moe"])
+    f32 = torch.float32
+    for label, shape in (("ep_block", (Bp, Sp, cfg.d_model)), ("ep_block_small", (2, 1, cfg.d_model))):
+        x = torch.randn(shape, generator=gen(SEED + 168), device=dev)
+        y1, _ = moe.moe_apply(p0, x, cfg, f32)
+        with use_mesh(mesh):
+            y2, aux = moe.moe_apply(p0, x, cfg, f32)
+        y_err = close(f"case 3 moe_apply {label} y", y2, y1, 1e-5)
+        xt = x[: shape[0] // 2].reshape(-1, shape[-1])
+        if label == "ep_block_small":
+            want = moe._route(p0, xt, cfg, f32)[2]
+        else:
+            parts = [moe._route(p0, s, cfg, f32)[2] for s in xt.chunk(4)]
+            want = {k: sum(a[k] for a in parts) / 4 for k in parts[0]}
+        aux_err = max(float((aux[k] - want[k]).abs()) for k in aux)
+        check(aux_err <= 1e-6, f"case 3 moe_apply {label}: aux {aux_err:.3e} from data shard 0's")
+
+        def ep():
+            with use_mesh(mesh):
+                moe.moe_apply(p0, x, cfg, f32)
+
+        log(f"  case 3 moe_apply {label} {tuple(shape)}: max |EP - single rank| y {y_err:.3e}; "
+            f"aux = data shard 0's within {aux_err:.3e}; ms: single rank "
+            f"{ms(lambda: moe.moe_apply(p0, x, cfg, f32)):.3f}, EP {ms(ep):.3f}")
+    Bd, Td = small_decode
+    fn, _, _, _ = build_step(cfg, ShapeConfig("decode", Td, Bd, "decode"), mesh)
+    cache = fill(lm.init_cache(cfg, Bd, Td, device=dev), SEED + 169)
+    flat_cache = lm.tree_map(torch.clone, cache)
+    token = torch.randint(0, cfg.vocab_size, (Bd,), generator=gen(SEED + 170), device=dev,
+                          dtype=torch.int32)
+    pos = torch.tensor(Td - 50, dtype=torch.int32, device=dev)
+    logits, _ = fn(params, {"token": token, "pos": pos, "cache": cache})
+    flat_logits, _ = lm.decode_step(params, cfg, token, pos, flat_cache)
+    err = close("case 3 decode logits", logits, flat_logits, 1e-5)
+    flat_ms = ms(lambda: lm.decode_step(params, cfg, token, pos, flat_cache))
+    mesh_ms = ms(lambda: fn(params, {"token": token, "pos": pos, "cache": cache}))
+    log(f"  case 3 decode: B={Bd}, T={Td}: ep_block_small; max |mesh - flat| logits {err:.3e}; "
+        f"ms per decode step: flat {flat_ms:.3f}, mesh {mesh_ms:.3f}; peak {peak():.2f} GiB")
+    log(f"  case 3: {time.perf_counter() - t0:.1f} s")
+    peaks.append(peak())
+    del params, cache, flat_cache, logits, flat_logits, fn
+    free()
+
+    # -- 4. the expert-parallel train step, card against CPU ranks ----------------
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cpu_devs = np.empty(8, dtype=object)
+    for i in range(8):
+        cpu_devs[i] = cpu
+    cpu_mesh = Mesh(cpu_devs.reshape(2, 4), ("data", "model"))
+    for arch in (MESH_EP, "olmoe-1b-7b"):
+        rcfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32")
+        seed = SEED + 171 + 2 * len(arch)
+        host = lm.init_params(rcfg, generator=torch.Generator().manual_seed(seed), device=cpu)
+        toks = torch.from_numpy(
+            np.random.default_rng(seed + 1).integers(0, rcfg.vocab_size, (4, 16)))
+
+        def loss_grads(params, tokens, m, rcfg=rcfg):
+            def loss(p, b):
+                with use_mesh(m):
+                    return ts.make_loss_fn(rcfg, ts.TrainOptions(q_chunk=8))(p, b)
+            return ts.value_and_grad(loss)(params, {"tokens": tokens})
+
+        (want, _), wgrads = loss_grads(host, toks, cpu_mesh)
+        t_arch = time.perf_counter()
+        (got, _), grads = loss_grads(lm.tree_map(lambda t: t.to(dev), host), toks.to(dev), mesh)
+        sync()
+        sec = time.perf_counter() - t_arch
+        check(abs(float(got) - float(want)) <= 1e-5,
+              f"case 4 {arch}: loss {float(got)} on the card, {float(want)} on CPU ranks")
+        worst = 0.0
+        for k, g in lm.leaves(grads).items():
+            w = lm.leaves(wgrads)[k]
+            scale = max(float(w.abs().max()), 1e-30)
+            e = float((g.cpu() - w).abs().max()) / scale
+            check(e <= 1e-4, f"case 4 {arch} grad {k}: {e:.3e} of its max")
+            worst = max(worst, e)
+        log(f"  case 4 {arch} (reduced): loss {float(got):.6f} (|card - CPU ranks| "
+            f"{abs(float(got) - float(want)):.3e}), gradients within {worst:.3e} of each "
+            f"leaf's max, mesh (data=2, model=4) on this card; {sec * 1e3:.1f} ms a loss and "
+            f"its gradients")
+
+    log(f"  case 4: {time.perf_counter() - t0:.1f} s")
+
+    # -- 5. context parallelism over 8 sequence ranks ----------------------------
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    seq8 = mesh_of((8,), ("seq",))
+    Sc, C = conv
+    g = gen(SEED + 173)
+    x = torch.randn(1, Sc, C, generator=g, device=dev)
+    w = torch.randn(4, C, generator=g, device=dev)
+    b = torch.randn(C, generator=g, device=dev)
+    one = _causal_conv(x, w, b)[0]
+    got = causal_conv_cp(x, w, b, seq8, "seq")
+    check(torch.equal(got, one), "case 5 causal_conv_cp over 8 ranks differs from one rank")
+    conv_ms = ms(lambda: causal_conv_cp(x, w, b, seq8, "seq"), 2)
+    one_ms = ms(lambda: _causal_conv(x, w, b), 2)
+    log(f"  case 5 causal_conv_cp: [1, {Sc}, {C}], width 4, 8 ranks: bitwise one rank; ms: one "
+        f"rank {one_ms:.3f}, 8 ranks {conv_ms:.3f}")
+    del x, w, b, one, got
+    free()
+    Sw, W, D = window
+    q, k, v = (torch.randn(1, Sw, 1, D, generator=g, device=dev) for _ in range(3))
+    t_win = time.perf_counter()
+    out = sliding_window_attention_cp(q, k, v, W, seq8, "seq")
+    sync()
+    win_s = time.perf_counter() - t_win
+    S_loc = Sw // 8
+    kv = F.pad(torch.stack([k, v]), (0, 0, 0, 0, W - 1, 0))
+    for r in range(8):
+        want = window_attention_local(kv[:, :, r * S_loc:r * S_loc + W - 1 + S_loc], r * S_loc,
+                                      q[:, r * S_loc:(r + 1) * S_loc], W)
+        check(torch.equal(out[:, r * S_loc:(r + 1) * S_loc], want),
+              f"case 5 window attention rank {r}: not the window function on the global slice")
+        del want
+    del kv
+    n = min(8192, Sw)
+    ref = sliding_window_attention_ref(*(t[0, :n].transpose(0, 1) for t in (q, k, v)), W)
+    err = close("case 5 window attention against the oracle", out[0, :n].transpose(0, 1), ref,
+                1e-5)
+    try:
+        sliding_window_attention_cp(q, k, v, W, mesh_of((16,), ("seq",)), "seq")
+        raise AssertionError("case 5: 16 ranks (a shard thinner than the window) did not raise")
+    except ValueError as e:
+        check("deeper than the shard length" in str(e), f"case 5: {e}")
+        refused = str(e)
+    log(f"  case 5 sliding_window_attention_cp: [1, {Sw}, 1, {D}], window {W}, 8 ranks "
+        f"(S_loc {S_loc}): each rank bitwise the window function on the global slice; first "
+        f"{n} queries within {err:.3e} of the oracle; {win_s * 1e3:.1f} ms a call; 16 ranks: "
+        f"ValueError ({refused}); peak {peak():.2f} GiB")
+    log(f"  case 5: {time.perf_counter() - t0:.1f} s")
+    peaks.append(peak())
+    del q, k, v, out, ref
+    free()
+
+    sec = time.perf_counter() - t16
+    log(f"phase 16: {sec:.1f} s, peak {max(peaks):.2f} GiB; {card}")
+    check(sec < max_s, f"phase 16 took {sec:.1f} s, more than {max_s} s")
+    check(max(peaks) < max_gib, f"phase 16 peaked at {max(peaks):.2f} GiB, more than {max_gib}")
+
+
 def main() -> int:
     import torch
 
@@ -3153,6 +3510,9 @@ def main() -> int:
 
     # -- phase 15: language-model training (no kernel of its own) -------------
     train_phase(dev, card=card)
+
+    # -- phase 16: language models over a mesh (no kernel of its own) ---------
+    lm_mesh_phase(dev, card=card)
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())

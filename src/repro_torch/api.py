@@ -548,6 +548,18 @@ class PipelineReport:
         return "\n".join(lines)
 
 
+@dataclasses.dataclass(frozen=True)
+class LoweredCall:
+    """What :meth:`CompiledStencil.lower` gives in place of XLA's
+    ``Lowered``: one rank's arguments of one call (meta tensors of the
+    local shapes), each argument's spec over the mesh, and one rank's
+    argument bytes."""
+
+    args: tuple
+    specs: tuple
+    argument_bytes: int
+
+
 class CompiledStencil:
     """A compiled stencil step: callable over whole-domain tensors, plus
     the artifacts a user inspects — the comm-lowered rank-local IR, the
@@ -964,6 +976,33 @@ class CompiledStencil:
         ]
         out += [epoch_kernel.emit_epoch_cuda(e, self.target.tile) for e in self.kernel_epochs()]
         return list(dict.fromkeys(out))
+
+    def lower(self, dtype=torch.float32) -> "LoweredCall":
+        """The dry run's stand-in for the reference's ``jax.jit(...).lower``
+        with ``ShapeDtypeStruct`` inputs: one rank's arguments of one call
+        as meta tensors (nothing is allocated), their specs and their
+        bytes.  The port compiles nothing ahead of time, so there is no
+        XLA ``Lowered`` (no ``.compile()``, no ``memory_analysis()``):
+        ``argument_bytes`` is the one number of it that the arguments
+        decide.  A slot-axis target is lowered at one row per slot-axis
+        rank, as the reference lowers it."""
+        mesh = self._mesh
+        slot = self.target.slot_axis
+        lead = (int(mesh.shape[slot]),) if slot is not None else ()
+        args, specs = [], []
+        for f, spec in zip(self.program.field_args, self.partition_specs):
+            shape = lead + tuple(f.type.bounds.shape)
+            spec = PartitionSpec(*(((slot,) if slot is not None else ()) + tuple(spec)))
+            local = tuple(
+                n // math.prod(mesh.shape[a] for a in (() if e is None else (e,)))
+                if mesh is not None else n
+                for n, e in zip(shape, tuple(spec) + (None,) * len(shape))
+            )
+            args.append(torch.empty(local, dtype=dtype, device="meta"))
+            specs.append(spec)
+        return LoweredCall(
+            tuple(args), tuple(specs), sum(a.numel() * a.element_size() for a in args)
+        )
 
     def cost(self, dtype=torch.float32):
         """Roofline terms of one call (``launch.roofline``): per-rank

@@ -822,3 +822,32 @@ def run_func_dataflow(
             return tuple(view.env[o] for o in op.operands)
         interp._run_op(op, [view], i)
     raise AssertionError(f"{func.sym_name}: missing func.return")
+
+
+def run_func_dataflow_ranks(
+    func: ir.FuncOp,
+    per_rank: Sequence[Sequence[Any]],
+    coords: Sequence[Mapping[str, int]],
+    axis_sizes: dict[str, int],
+) -> list:
+    """Execute a *value-returning* comm-level function on every rank of a
+    mesh in lockstep (:meth:`StencilInterpreter.run_ranks` for a function
+    of temps): ``per_rank[r]`` holds rank ``r``'s arguments, ``coords[r]``
+    its coordinate along each mesh axis.  Returns, per rank, the tuple of
+    ``func.return`` values."""
+    interp = StencilInterpreter(func, axis_sizes=axis_sizes, distributed=True)
+    if len(per_rank) != interp.n_ranks or len(coords) != interp.n_ranks:
+        raise ValueError(
+            f"{len(per_rank)} ranks of tensors and {len(coords)} coordinates "
+            f"for a function over {interp.n_ranks} ranks"
+        )
+    views = [
+        RankView(r, dict(c), _common_device(ins), env=dict(zip(func.body.args, ins)))
+        for r, (ins, c) in enumerate(zip(per_rank, coords))
+    ]
+    interp._open_exchanges = {}
+    for i, op in enumerate(func.body.ops):
+        if isinstance(op, ir.ReturnOp):
+            return [tuple(v.env[o] for o in op.operands) for v in views]
+        interp._run_op(op, views, i)
+    raise AssertionError(f"{func.sym_name}: missing func.return")

@@ -150,6 +150,24 @@ class StencilComputation:
     def partition_specs(self, strategy: SlicingStrategy) -> list:
         return api.partition_specs(self.program, strategy)
 
+    def lower(
+        self,
+        mesh: Mesh,
+        strategy: SlicingStrategy,
+        options: Optional[CompileOptions] = None,
+        dtype=torch.float32,
+    ) -> "api.LoweredCall":
+        """For the dry run: compile for ``mesh``/``strategy`` and return one
+        rank's call arguments as meta tensors with their bytes
+        (``CompiledStencil.lower``: the port's stand-in for XLA's
+        ``Lowered``; nothing is allocated)."""
+        opts = options or CompileOptions()
+        artifact = api.compile(self.program, opts.to_target(mesh=mesh, strategy=strategy))
+        self.last_local = artifact.local_ir
+        self.last_pipeline = artifact.pipeline_report.spec
+        self.last_timings = list(artifact.pipeline_report.timings)
+        return artifact.lower(dtype=dtype)
+
     def global_zeros(self, dtype=torch.float32, device="cuda") -> list:
         return self.program.global_zeros(dtype, device=device)
 

@@ -1,10 +1,12 @@
-"""Plain PyTorch oracles for the stencil kernels.
+"""Plain PyTorch oracles for the stencil kernels and sliding-window
+attention.
 
 Independent implementations (no code shared with ``core.lowering`` or the
 kernels) used by the allclose test sweeps.  Ports of ``repro.kernels.ref``.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -45,3 +47,24 @@ def wave_step_ref(u_t, u_tm1, c2dt2: float, order: int, halo: int):
     core = tuple(slice(halo, s - halo) for s in u_t.shape)
     c = torch.tensor(c2dt2, dtype=u_t.dtype, device=u_t.device)
     return 2.0 * u_t[core] - u_tm1[core] + c * lap
+
+
+def sliding_window_attention_ref(q, k, v, window: int, causal: bool = True):
+    """O(S²) oracle of sliding-window attention by explicit masking of
+    full attention (small shapes).
+
+    q,k,v: [heads, seq, dim] (kv may have fewer heads — GQA broadcast).
+    Token i attends to [i-window+1, i] (causal sliding window)."""
+    hq, s, d = q.shape
+    hk = k.shape[0]
+    rep = hq // hk
+    k = torch.repeat_interleave(k, rep, dim=0)
+    v = torch.repeat_interleave(v, rep, dim=0)
+    scores = torch.einsum("hsd,htd->hst", q, k) / math.sqrt(d)
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    mask = (j > i) if causal else torch.zeros((s, s), dtype=torch.bool, device=q.device)
+    mask = mask | (j <= i - window)
+    scores = torch.where(mask[None], -torch.inf, scores)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("hst,htd->hsd", p, v)

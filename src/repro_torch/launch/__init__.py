@@ -1,4 +1,5 @@
-"""Launch-side analysis for the port.  Only the stencil half of the
-reference's ``repro.launch.roofline`` is here (``launch.roofline``:
-``RooflineTerms`` with the H100's terms, and the counts it reads from the
-IR); the LM half (cells, reports, the dry run) is not ported yet."""
+"""Launch-side analysis for the port: the reference's production meshes
+as port meshes (``launch.mesh``), the step builders of every (arch ×
+shape) cell (``launch.steps``), the dry run on meta tensors
+(``launch.dryrun``) and the roofline of stencil steps and dry-run cells
+(``launch.roofline``)."""

@@ -1,5 +1,8 @@
-"""Three-term roofline of one compiled stencil step, with an H100's terms
-(port of the stencil half of ``repro.launch.roofline``).
+"""Three-term roofline analysis with an H100's terms (port of
+``repro.launch.roofline``): the stencil half (one compiled stencil step)
+and the language-model half (the dry run's cells).
+
+    PYTHONPATH=src python -m repro_torch.launch.roofline [--outdir build/dryrun] [--markdown]
 
     compute    = flops per rank            / PEAK_FLOPS
     memory     = bytes per rank            / HBM_BW
@@ -15,13 +18,24 @@ of one call must do on one rank (each operand window read once, each
 result written once, each send rectangle that reaches another rank sent
 once), so the modeled time is a bound the card cannot beat.
 
+The language-model half reads the dry run's records
+(``repro_torch.launch.dryrun``): :class:`Cell`, :func:`load_cells`,
+:func:`report`.  Its terms are per rank of the reference's production
+mesh, with the H100's data-sheet bf16 dense tensor-core peak and NVLink
+bandwidth (``LM_PEAK_FLOPS``, ``NVLINK_BW``): what the cell would take
+per rank on H100s, not a measurement.
+
 The constants are an NVIDIA H100 80GB HBM3 (SXM) at its 700 W power
 limit, as ``nvidia-smi --query-gpu=name,power.limit`` names it.
 """
 from __future__ import annotations
 
+import argparse
+import glob
 import itertools
+import json
 import math
+import os
 from dataclasses import dataclass, field
 from typing import Mapping, Optional
 
@@ -40,6 +54,10 @@ LINK_BW = HBM_BW / 2
 # columns) as a node of a captured CUDA graph, the time per node over 256
 # nodes, as chip_smoke.py phase 11 measures and logs it on that card.
 LINK_LATENCY = 1.6462e-6
+
+# The language-model half (dry-run cells), data-sheet constants of the same card:
+LM_PEAK_FLOPS = 989e12  # bf16 dense on the tensor cores (data sheet)
+NVLINK_BW = 450e9       # bytes/s per direction of NVLink 4 (data sheet: 900 GB/s both ways)
 
 # point-function ops that count as one float32 operation each
 ARITH_OPS = (
@@ -353,3 +371,236 @@ def count_ir(func: ir.FuncOp, axis_sizes: Optional[Mapping[str, int]] = None,
         bytes_accessed=max(c.bytes_accessed for c in per_rank),
         collectives={k: max(c.collectives.get(k, 0.0) for c in per_rank) for k in kinds},
     )
+
+
+# --------------------------------------------------------------------------
+# the language-model half: dry-run cells
+# --------------------------------------------------------------------------
+
+SHAPE_TOKENS = {
+    "train_4k": 4_096 * 256,
+    "prefill_32k": 32_768 * 32,
+    "decode_32k": 128,          # one token per sequence
+    "long_500k": 1,
+}
+TRAIN_MULT = {"train_4k": 3.0}  # fwd+bwd ≈ 3× forward FLOPs
+
+_DIMS_CACHE: dict = {}
+
+
+def _arch_dims(arch: str) -> tuple:
+    if arch not in _DIMS_CACHE:
+        try:
+            from repro_torch.configs import get_config
+
+            cfg = get_config(arch)
+            _DIMS_CACHE[arch] = (cfg.d_model, cfg.n_layers)
+        except KeyError:
+            _DIMS_CACHE[arch] = (4096, 32)
+    return _DIMS_CACHE[arch]
+
+
+@dataclass
+class Cell:
+    """One dry-run record's terms, per rank.  ``bytes_accessed`` is
+    ``None`` in the port's records (no HLO): the memory term is then the
+    analytic one."""
+
+    arch: str
+    shape: str
+    mesh: str
+    n_devices: int
+    flops: float
+    bytes_accessed: Optional[float]
+    collective_bytes: float
+    collectives: dict
+    params: int
+    active_params: int
+    arg_bytes: float = 0.0  # per-rank resident args (params + caches)
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops / LM_PEAK_FLOPS
+
+    @property
+    def t_memory(self) -> float:
+        """Recorded bytes over HBM, else :attr:`t_memory_analytic`."""
+        if self.bytes_accessed is None:
+            return self.t_memory_analytic
+        return self.bytes_accessed / HBM_BW
+
+    @property
+    def t_memory_analytic(self) -> float:
+        """Algorithmic minimum HBM traffic per rank.
+
+        train:   3 passes over the params at 4 B (fwd read, bwd read,
+                 update r/w of param+m+v ≈ 12 B) + layer activation
+                 checkpoints (2 B, written fwd + read bwd) + logits.
+        prefill: params once (2 B) + activations once + KV cache write.
+        decode:  resident state once (params + caches ≈ arg_bytes)."""
+        d_model, n_layers = _arch_dims(self.arch)
+        toks = SHAPE_TOKENS.get(self.shape, 0) / self.n_devices
+        if self.shape.startswith("train"):
+            param_traffic = self.active_params * 24.0 / self.n_devices
+            act_traffic = 4.0 * toks * 2.0 * d_model * n_layers
+            return (param_traffic + act_traffic) / HBM_BW
+        if self.shape.startswith("prefill"):
+            p_dev = 2.0 * self.active_params / 16  # bf16, TP-sharded; DP replicates
+            act_traffic = 4.0 * toks * 2.0 * d_model * n_layers
+            return (p_dev + act_traffic) / HBM_BW
+        return max(self.arg_bytes, 1.0) / HBM_BW
+
+    @property
+    def t_collective(self) -> float:
+        return self.collective_bytes / NVLINK_BW
+
+    @property
+    def dominant(self) -> str:
+        terms = {
+            "compute": self.t_compute,
+            "memory": self.t_memory_analytic,
+            "collective": self.t_collective,
+        }
+        return max(terms, key=terms.get)
+
+    @property
+    def t_overlapped(self) -> float:
+        return max(self.t_compute, self.t_memory_analytic, self.t_collective)
+
+    @property
+    def t_serial(self) -> float:
+        return self.t_compute + self.t_memory_analytic + self.t_collective
+
+    @property
+    def model_flops(self) -> float:
+        tokens = SHAPE_TOKENS.get(self.shape, 0)
+        mult = TRAIN_MULT.get(self.shape, 1.0)
+        return 2.0 * self.active_params * tokens * mult  # 2ND/token fwd
+
+    @property
+    def useful_ratio(self) -> float:
+        """MODEL_FLOPS / (counted FLOPs × ranks)."""
+        total = self.flops * self.n_devices
+        return self.model_flops / total if total else 0.0
+
+    @property
+    def is_decode(self) -> bool:
+        return self.shape.startswith(("decode", "long"))
+
+    @property
+    def roofline_fraction(self) -> float:
+        """Fraction of the modeled (overlapped) step time that is
+        irreducible: useful model FLOPs at peak (train/prefill), one read
+        of the resident state at full HBM bandwidth (decode/long)."""
+        if self.t_overlapped == 0:
+            return 0.0
+        if self.is_decode:
+            if not self.arg_bytes:
+                return 0.0
+            t_ideal = self.arg_bytes / HBM_BW
+            t_model = max(self.t_compute, self.t_memory, self.t_collective)
+        else:
+            t_ideal = self.model_flops / self.n_devices / LM_PEAK_FLOPS
+            t_model = self.t_overlapped
+        return min(1.0, t_ideal / t_model)
+
+
+def advice(c: Cell) -> str:
+    if c.dominant == "collective":
+        kinds = sorted(c.collectives, key=c.collectives.get, reverse=True)
+        top = kinds[0] if kinds else "?"
+        return f"cut {top} volume (resharding/fusion of collectives, overlap with compute)"
+    if c.dominant == "memory":
+        if c.shape.startswith("decode") or c.shape.startswith("long"):
+            return "KV/state residency: smaller cache dtype, fused decode reads"
+        return "remat policy / fusion to cut HBM round-trips"
+    return "tensor-core utilization: larger per-rank matmul tiles, less padding"
+
+
+def load_cells(outdir: str) -> list:
+    """The dry run's records in ``outdir`` (``ok`` ones), as cells."""
+    cells = []
+    for path in sorted(glob.glob(os.path.join(outdir, "*.json"))):
+        with open(path) as f:
+            d = json.load(f)
+        if not d.get("ok"):
+            continue
+        coll = d.get("collective_bytes", {})
+        mem = d.get("memory") or {}
+        cells.append(
+            Cell(
+                arch=d["arch"],
+                shape=d["shape"],
+                mesh=d["mesh"],
+                n_devices=d["n_devices"],
+                flops=d["cost"]["flops"] or 0.0,
+                bytes_accessed=d["cost"].get("bytes_accessed"),
+                collective_bytes=sum(coll.values()),
+                collectives=coll,
+                params=d.get("params", 0),
+                active_params=d.get("active_params", 0) or d.get("params", 0),
+                arg_bytes=mem.get("argument_bytes") or 0.0,
+            )
+        )
+    return cells
+
+
+def fmt_s(t: float) -> str:
+    if t >= 1.0:
+        return f"{t:.2f}s"
+    if t >= 1e-3:
+        return f"{t*1e3:.1f}ms"
+    return f"{t*1e6:.0f}µs"
+
+
+def report(cells: list, markdown: bool = False, mesh: str = "16x16") -> str:
+    rows = []
+    for c in cells:
+        if c.mesh != mesh:
+            continue
+        rows.append(
+            (
+                c.arch, c.shape,
+                fmt_s(c.t_compute), fmt_s(c.t_memory_analytic),
+                "-" if c.bytes_accessed is None else fmt_s(c.t_memory),
+                fmt_s(c.t_collective),
+                c.dominant,
+                f"{c.useful_ratio:.2f}",
+                f"{c.roofline_fraction*100:.0f}%",
+                advice(c),
+            )
+        )
+    headers = ["arch", "shape", "t_comp", "t_mem", "t_mem(hlo)", "t_coll",
+               "dominant", "useful", "roofline", "to improve"]
+    if markdown:
+        out = ["| " + " | ".join(headers) + " |",
+               "|" + "|".join("---" for _ in headers) + "|"]
+        out += ["| " + " | ".join(str(x) for x in r) + " |" for r in rows]
+        return "\n".join(out)
+    widths = [max(len(str(h)), max((len(str(r[i])) for r in rows), default=0))
+              for i, h in enumerate(headers)]
+    out = ["  ".join(h.ljust(w) for h, w in zip(headers, widths))]
+    out += ["  ".join(str(c).ljust(w) for c, w in zip(r, widths)) for r in rows]
+    return "\n".join(out)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--outdir", default="build/dryrun")
+    ap.add_argument("--markdown", action="store_true")
+    ap.add_argument("--mesh", default="16x16")
+    args = ap.parse_args()
+    cells = load_cells(args.outdir)
+    print(report(cells, markdown=args.markdown, mesh=args.mesh))
+    sp = [c for c in cells if c.mesh == args.mesh]
+    if sp:
+        worst = min(sp, key=lambda c: c.roofline_fraction)
+        coll = max(sp, key=lambda c: c.t_collective / max(c.t_overlapped, 1e-12))
+        print(f"\nworst roofline fraction : {worst.arch} × {worst.shape} "
+              f"({worst.roofline_fraction*100:.0f}%)")
+        print(f"most collective-bound   : {coll.arch} × {coll.shape} "
+              f"(t_coll {fmt_s(coll.t_collective)})")
+
+
+if __name__ == "__main__":
+    main()

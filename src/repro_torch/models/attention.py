@@ -1,6 +1,6 @@
 """GQA attention: chunked training/prefill attention and cached decode.
 
-Port of ``repro.models.attention`` without a mesh.  Covers the per-arch
+Port of ``repro.models.attention``.  Covers the per-arch
 variants: RoPE, QKV bias (qwen2), attention-logit softcap (gemma2),
 sliding-window local attention (gemma2 local layers — a stencil on the
 sequence axis), and cross-attention (seamless decoder).
@@ -10,11 +10,23 @@ never materializes; scores stay in float32.  Every product is spelled out
 (no fused library attention), so the port computes what the reference's
 ``chunked_attention`` and decode paths compute, step by step.
 
-Decode uses the flat cache layout: one ``[B, T, Kh, hd]`` ring per layer,
-written in place at each slot's position; caches longer than
-``DECODE_KV_CHUNK`` reduce over KV chunks with an online softmax.  The
-reference's sharded layouts and its distributed flash-decode are not in
-the port.
+Decode keeps one ``[B, T, Kh, hd]`` ring per layer, written in place at
+each slot's position.  Under an active mesh (``repro_torch.dist.use_mesh``)
+the layout comes from ``kv_cache_layout``, as in the reference:
+
+- ``"seq"`` / ``"seq_all"``: the cache is sequence-sharded and decode is
+  the distributed flash-decode (:func:`_flash_decode_sharded`): each rank
+  reduces its slice with a softmax of its own, and the ranks combine by
+  LSE weights (``pmax`` of the maxima, ``psum`` of the weighted sums).
+  The ranks' slices are views of the one cache tensor, stacked (every
+  rank on the cache's device): the cache is never copied or re-laid out
+  between steps, and the new token's K/V is written into it in place;
+- ``"heads"``, ``"batch"`` and ``"flat"`` compute as without a mesh; the
+  reference's layout constraint on the cache (:func:`_constrain_cache`)
+  is recorded, not applied, as ``shard`` does.
+
+Without a mesh, caches longer than ``DECODE_KV_CHUNK`` reduce over KV
+chunks with an online softmax.
 """
 from __future__ import annotations
 
@@ -23,6 +35,19 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist.sharding import (
+    PartitionSpec as P,
+    _valid_spec,
+    active_mesh,
+    active_rules,
+    default_rules,
+    kv_cache_layout,
+    pmax,
+    psum,
+    record_spec,
+    shard,
+    shard_map,
+)
 from repro_torch.models.layers import apply_rope, dense_init, einsum32, einsum_lp, softcap, zeros
 
 NEG_INF = -1e30
@@ -56,17 +81,24 @@ def _project(eq: str, x, w, bias, dtype):
 def _project_qkv(p, x, xkv, cfg, dtype, q_positions, kv_positions):
     """x: [B,S,D] queries source; xkv: [B,T,D] key/value source."""
     bias = cfg.qkv_bias
-    q = _project("bsd,dhk->bshk", x, p["wq"], p["bq"] if bias else None, dtype)
-    k = _project("btd,dhk->bthk", xkv, p["wk"], p["bk"] if bias else None, dtype)
-    v = _project("btd,dhk->bthk", xkv, p["wv"], p["bv"] if bias else None, dtype)
+    wq = shard(p["wq"], "embed", "q_heads_p", None)
+    wk = shard(p["wk"], "embed", "kv_heads_p", None)
+    wv = shard(p["wv"], "embed", "kv_heads_p", None)
+    q = _project("bsd,dhk->bshk", x, wq, p["bq"] if bias else None, dtype)
+    k = _project("btd,dhk->bthk", xkv, wk, p["bk"] if bias else None, dtype)
+    v = _project("btd,dhk->bthk", xkv, wv, p["bv"] if bias else None, dtype)
     if q_positions is not None:  # rope (self-attention only)
         q = apply_rope(q, q_positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     return q, k, v
 
 
 def _out_proj(p, o, cfg, dtype):
-    return einsum_lp("bshk,hkd->bsd", o, p["wo"], dtype)
+    wo = shard(p["wo"], "q_heads_p", None, "embed")
+    return shard(einsum_lp("bshk,hkd->bsd", o, wo, dtype), "batch", "seq", "embed_act")
 
 
 def chunked_attention(
@@ -156,7 +188,8 @@ def project_cross_kv(p, memory, cfg, dtype):
 def cross_decode_attention(p, x, ck, cv, cfg, *, dtype):
     """One-token cross-attention against cached encoder K/V."""
     B = x.shape[0]
-    q = _project("bsd,dhk->bshk", x, p["wq"], p["bq"] if cfg.qkv_bias else None, dtype)
+    wq = shard(p["wq"], "embed", "q_heads_p", None)
+    q = _project("bsd,dhk->bshk", x, wq, p["bq"] if cfg.qkv_bias else None, dtype)
     Kh, H, hd = ck.shape[2], q.shape[2], q.shape[-1]
     qg = q.reshape(B, 1, Kh, H // Kh, hd)
     s = einsum32("bckgd,btkd->bckgt", qg, ck, dtype=dtype) / math.sqrt(hd)
@@ -178,6 +211,11 @@ def decode_self_attention(p, x, cache_k, cache_v, pos, cfg, *, kind: str, dtype)
     """
     B = x.shape[0]
     T = cache_k.shape[1]
+    mesh = active_mesh()
+    layout = (
+        kv_cache_layout(B, T, cache_k.shape[2], mesh)
+        if mesh is not None and mesh.shape.get("model", 1) > 1 else "flat"
+    )
     dev = x.device
     pos = torch.as_tensor(pos, device=dev)
     per_seq = pos.ndim == 1
@@ -189,8 +227,12 @@ def decode_self_attention(p, x, cache_k, cache_v, pos, cfg, *, kind: str, dtype)
         cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
         cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
     else:
-        cache_k[:, slot[0]] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, slot[0]] = v[:, 0].to(cache_v.dtype)
+        # index_copy_ with a device index: no read of the slot on the
+        # host (which a meta tensor, in the dry run, cannot give)
+        cache_k.index_copy_(1, slot[:1].long(), k.to(cache_k.dtype))
+        cache_v.index_copy_(1, slot[:1].long(), v.to(cache_v.dtype))
+    _constrain_cache(cache_k, layout, mesh)
+    _constrain_cache(cache_v, layout, mesh)
 
     window = cfg.local_window if kind == "attn_local" else 0
     # valid entries: rolling cache holds [max(0,pos-T+1), pos]
@@ -210,7 +252,11 @@ def decode_self_attention(p, x, cache_k, cache_v, pos, cfg, *, kind: str, dtype)
     hd = q.shape[-1]
     qg = q.reshape(B, Kh, H // Kh, hd)
 
-    if T > DECODE_KV_CHUNK and T % DECODE_KV_CHUNK == 0:
+    if layout in ("seq", "seq_all"):
+        # distributed flash-decode over the sequence-sharded cache: each
+        # rank reduces its slice, the ranks combine by LSE weights
+        o = _flash_decode_sharded(qg, cache_k, cache_v, valid, cfg, dtype, mesh, layout)
+    elif T > DECODE_KV_CHUNK and T % DECODE_KV_CHUNK == 0:
         # online softmax over KV chunks: the float32 score tensor is
         # [B,Kh,G,chunk] instead of [...,T]
         o = _online_softmax_decode(qg, cache_k, cache_v, valid, cfg, dtype)
@@ -223,6 +269,82 @@ def decode_self_attention(p, x, cache_k, cache_v, pos, cfg, *, kind: str, dtype)
         o = einsum_lp("bkgt,btkd->bkgd", pattn, cache_v, dtype)
     o = o.reshape(B, 1, H, hd).to(dtype)
     return _out_proj(p, o, cfg, dtype), cache_k, cache_v
+
+
+def _cache_spec(layout: str, mesh, shape: tuple) -> P:
+    """The spec of a [B,T,Kh,hd] cache in ``layout`` (clamped)."""
+    rules = active_rules() or default_rules("pod" in mesh.axis_names)
+    batch_ax = rules.physical("batch")
+    if layout == "heads":
+        spec = P(batch_ax, None, "model", None)
+    elif layout == "seq":
+        spec = P(batch_ax, "model", None, None)
+    elif layout == "seq_all":
+        axes = batch_ax if isinstance(batch_ax, tuple) else (batch_ax,)
+        spec = P(None, tuple(a for a in axes if a) + ("model",), None, None)
+    else:  # "batch"
+        spec = P(batch_ax, None, None, None)
+    return _valid_spec(mesh, spec, tuple(shape))
+
+
+def _constrain_cache(c, layout: str, mesh):
+    """The reference pins a [B,T,Kh,hd] cache to the layout from
+    ``kv_cache_layout`` (``with_sharding_constraint``); the port records
+    that spec, as ``shard`` does, and returns ``c`` unchanged: the cache
+    is one tensor, whose ranks' slices the flash-decode takes as views."""
+    if mesh is None or layout == "flat":
+        return c
+    record_spec(tuple(c.shape), _cache_spec(layout, mesh, tuple(c.shape)))
+    return c
+
+
+def _flash_decode_sharded(qg, cache_k, cache_v, valid, cfg, dtype, mesh, layout):
+    """qg: [B,Kh,G,hd] (seq-replicated); cache_k/v: [B,T,Kh,hd] with T
+    sharded — over "model" (layout "seq") or over every axis (layout
+    "seq_all"); valid: [B,T].  Returns o [B,Kh,G,hd].
+
+    Per rank an online-softmax block over its slice (``m``, ``l``,
+    ``acc``), then the LSE combine over the sequence axes: ``pmax`` of m,
+    ``psum`` of ``l·r`` and ``acc·r`` with ``r = exp(m - max)``.  The specs
+    mirror ``launch.steps.kv_cache_spec``; the ranks' inputs are views of
+    the global tensors, stacked (``shard_map(stacked_ranks=True)``)."""
+    rules = active_rules() or default_rules("pod" in mesh.axis_names)
+    batch_ax = rules.physical("batch")
+    B, T = valid.shape
+    hd = qg.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+
+    if layout == "seq":
+        kv_spec = _valid_spec(mesh, P(batch_ax, "model", None, None), tuple(cache_k.shape))
+        q_spec = _valid_spec(mesh, P(batch_ax, None, None, None), tuple(qg.shape))
+    else:  # "seq_all": batch too small to shard — everything on T
+        axes = batch_ax if isinstance(batch_ax, tuple) else (batch_ax,)
+        seq_axes = tuple(a for a in axes if a) + ("model",)
+        kv_spec = _valid_spec(mesh, P(None, seq_axes, None, None), tuple(cache_k.shape))
+        q_spec = P(None, None, None, None)
+    v_spec = _valid_spec(mesh, P(q_spec[0], kv_spec[1]), (B, T))
+    ax = kv_spec[1]
+
+    def block(qg_l, k_l, v_l, ok_l):
+        # every rank at once: [*mesh dims, *local]
+        s = einsum32("...kgd,...tkd->...kgt", qg_l, k_l, dtype=dtype) * scale
+        s = softcap(s, cfg.attn_softcap)
+        s = torch.where(ok_l[..., :, None, None, :], s, NEG_INF)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        l = p.sum(-1)
+        acc = einsum32("...kgt,...tkd->...kgd", p, v_l, dtype=dtype)
+        # LSE combine across the sequence shards
+        if ax is not None:
+            g = pmax(m, ax, mesh)
+            r = torch.exp(m - g)
+            l = psum(l * r, ax, mesh)
+            acc = psum(acc * r[..., None], ax, mesh)
+        return (acc / torch.maximum(l, l.new_full((), 1e-30))[..., None],)
+
+    (o,) = shard_map(block, mesh=mesh, in_specs=(q_spec, kv_spec, kv_spec, v_spec),
+                     out_specs=(q_spec,), stacked_ranks=True)(qg, cache_k, cache_v, valid)
+    return o
 
 
 def _online_softmax_decode(qg, cache_k, cache_v, valid, cfg, dtype):

@@ -15,8 +15,10 @@ Port of ``repro.models.layers``.  Conventions, as in the reference:
   ``lead`` of stacked dims (supercells, layers) that each draw carries in
   front of its own shape.  ``gen=None`` with the ``meta`` device gives the
   shapes alone (``repro_torch.interop.params_from_numpy`` reads them);
-- there is no mesh here, so the reference's ``shard`` annotations (no-ops
-  without an active mesh) have no counterpart.
+- the reference's ``shard`` annotations sit where the reference has
+  them; the port's ``repro_torch.dist.sharding.shard`` records the layout
+  under an active mesh and returns its input unchanged (no-op without
+  one), so no value changes.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.sharding import shard
 
 VOCAB_PAD = 512  # embedding tables padded for clean TP sharding
 
@@ -171,7 +175,8 @@ def swiglu_init(gen, device, d_model: int, d_ff: int, lead: tuple = ()) -> dict:
 
 
 def swiglu_apply(p: dict, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    g = matmul(x, p["wi"], dtype)
-    u = matmul(x, p["wu"], dtype)
-    h = (F.silu(g) * u).to(dtype)
-    return matmul_lp(h, p["wo"], dtype)
+    x = shard(x, "batch", "seq", "embed_act")
+    g = matmul(x, shard(p["wi"], "embed", "mlp"), dtype)
+    u = matmul(x, shard(p["wu"], "embed", "mlp"), dtype)
+    h = shard((F.silu(g) * u).to(dtype), "batch", "seq", "mlp_act")
+    return shard(matmul_lp(h, shard(p["wo"], "mlp", "embed"), dtype), "batch", "seq", "embed_act")

@@ -21,6 +21,13 @@ Encoder-decoder (seamless) adds an encoder stack + cross-attention;
 modality stubs (audio frames / ViT patches) enter as precomputed
 embeddings.  Parameters and caches live on the card unless the caller
 asks for another device.
+
+Under ``repro_torch.dist.use_mesh`` the same entry points run the mesh
+branches: the sequence-sharded flash-decode (``attention``) and expert
+parallelism (``moe``) compute per rank; every ``shard`` annotation (the
+reference's ``with_sharding_constraint``) records its layout and returns
+its input unchanged, so the rest computes as without a mesh.  A remat'd
+supercell runs again in the backward under the forward's mesh.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA, MLSTM, ModelConfig, SLSTM
+from repro_torch.dist.sharding import active_mesh, active_rules, shard, use_mesh
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -220,7 +228,7 @@ def embed_inputs(params, cfg: ModelConfig, tokens, modality=None, dtype=None):
         h = F.gelu(h, approximate="tanh").to(dtype)  # jax.nn.gelu's default
         vis = einsum_lp("bme,ef->bmf", h, params["projector"]["w2"], dtype)
         x = torch.cat([vis, x], dim=1)
-    return x
+    return shard(x, "batch", "seq", "embed_act")
 
 
 def encode(params, cfg: ModelConfig, frames, dtype=None):
@@ -270,9 +278,17 @@ def forward_train(params, cfg: ModelConfig, tokens, modality=None, remat: bool =
         else {}
     )
 
+    # the backward recomputes a remat'd cell after this function returns:
+    # it runs under the mesh (and rules) of the forward
+    mesh, rules = active_mesh(), active_rules()
+
     def cell(x, aux, cell_p):
+        if mesh is not None and active_mesh() is not mesh:
+            with use_mesh(mesh, rules):
+                return cell(x, aux, cell_p)
         for s in range(len(cfg.block_pattern)):
             x, aux = _run_slot_train(cell_p[f"slot{s}"], x, cfg, s, dtype, memory, aux, q_chunk)
+            x = shard(x, "batch", "seq", "embed_act")
         return x, aux
 
     remat = remat and torch.is_grad_enabled()
@@ -282,7 +298,7 @@ def forward_train(params, cfg: ModelConfig, tokens, modality=None, remat: bool =
                                 preserve_rng_state=False)
         else:
             x, aux = cell(x, aux, cell_p)
-    return _logits(params, cfg, x, dtype), aux
+    return shard(_logits(params, cfg, x, dtype), "batch", "seq", "vocab_act"), aux
 
 
 # --------------------------------------------------------------------------
@@ -420,6 +436,7 @@ def forward_prefill(params, cfg: ModelConfig, tokens, modality=None, q_chunk: in
                 hc = rms_norm(x, slot_p["norm_cross"], cfg.norm_eps)
                 x = x + attn.cross_attention(slot_p["cross"], hc, memory, cfg, dtype=dtype)
             x, _ = _ffn_part(slot_p, x, cfg, dtype, None)
+            x = shard(x, "batch", "seq", "embed_act")
         cells.append(caches)
     return _logits(params, cfg, x[:, -1], dtype), _stack(cells)
 

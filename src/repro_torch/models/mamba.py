@@ -5,6 +5,10 @@ attention-like L×L products, and the inter-chunk state carried by a loop
 over chunks (the reference's ``lax.scan``).  The causal conv reads
 ``[t-3, t]`` and the scan carries a [heads, N, P] state, so decode is the
 same function over one token with the carried (conv, h) state.
+
+The reference's ``shard`` annotations of the projections sit where it has
+them; the port's ``shard`` records the layout under an active mesh and
+returns the weight unchanged.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import shard
 from repro_torch.models.layers import dense_init, einsum32, einsum_lp, normal, zeros
 
 HEAD_P = 64  # channels per SSD head
@@ -113,7 +118,7 @@ def mamba_apply(p, x, cfg, dtype, chunk: int = 256, state=None):
     """
     B_, S, D = x.shape
     d_inner, nh = mamba_dims(cfg)
-    xz = einsum32("bsd,de->bse", x, p["in_proj"], dtype=dtype)
+    xz = einsum32("bsd,de->bse", x, shard(p["in_proj"], "embed", "mlp"), dtype=dtype)
     xr, z = xz.chunk(2, dim=-1)
     conv_state = state[0] if state is not None else None
     xr, new_conv_state = _causal_conv(xr, p["conv_w"], p["conv_b"], conv_state)
@@ -129,7 +134,7 @@ def mamba_apply(p, x, cfg, dtype, chunk: int = 256, state=None):
     y, h = mamba_ssd_scan(xh, dt, Bm, Cm, A, chunk=chunk, h0=h0)
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(B_, S, d_inner) * F.silu(z)
-    out = einsum_lp("bse,ed->bsd", y, p["out_proj"], dtype)
+    out = einsum_lp("bse,ed->bsd", y, shard(p["out_proj"], "mlp", "embed"), dtype)
     return out, (new_conv_state.to(dtype), h)
 
 

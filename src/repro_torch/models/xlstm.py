@@ -13,12 +13,17 @@ Port of ``repro.models.xlstm``:
 
 The xLSTM-1.3b config uses d_ff = 0: mLSTM blocks pre-up-project 2×,
 sLSTM blocks carry a 4/3 gated MLP.
+
+The reference's ``shard`` annotations (hd_v-sharded v, z and down
+projection) sit where it has them; the port's ``shard`` records the
+layout under an active mesh and returns its input unchanged.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import shard
 from repro_torch.models.layers import dense_init, einsum32, einsum_lp, normal, rms_norm, zeros
 
 
@@ -96,17 +101,17 @@ def mlstm_chunk_scan(q, k, v, logf, logi, chunk: int, state=None):
 
 
 def mlstm_apply(p, x, cfg, dtype, chunk: int = 256, state=None):
-    xi = einsum_lp("bsd,de->bse", x, p["up_x"], dtype)
-    z = einsum_lp("bsd,dhk->bshk", x, p["up_z"], dtype)
+    xi = einsum_lp("bsd,de->bse", x, shard(p["up_x"], "embed", None), dtype)
+    z = einsum_lp("bsd,dhk->bshk", x, shard(p["up_z"], "embed", None, "mlp"), dtype)
     q = einsum32("bse,ehd->bshd", xi, p["wq"], dtype=dtype)
     k = einsum32("bse,ehd->bshd", xi, p["wk"], dtype=dtype)
-    v = einsum32("bse,ehd->bshd", xi, p["wv"], dtype=dtype)
+    v = shard(einsum32("bse,ehd->bshd", xi, p["wv"], dtype=dtype), "batch", "seq", None, "mlp_act")
     logi = einsum32("bse,eh->bsh", xi, p["wi"], dtype=dtype)
     logf = F.logsigmoid(einsum32("bse,eh->bsh", xi, p["wf"], dtype=dtype) + p["bf"])
     h, new_state = mlstm_chunk_scan(q, k, v, logf, logi, chunk, state)
     # per-head norm (xLSTM's MultiHeadLayerNorm) over [B,S,nh,hd]
     h = rms_norm(h, p["out_norm"]) * F.silu(z.float()).to(dtype)
-    out = einsum_lp("bshk,hkd->bsd", h, p["down_proj"], dtype)
+    out = einsum_lp("bshk,hkd->bsd", h, shard(p["down_proj"], None, "mlp", "embed"), dtype)
     return out, new_state
 
 

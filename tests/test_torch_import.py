@@ -7,7 +7,10 @@ registry; the language models (``repro_torch.models``), their configs
 (``repro_torch.configs``) and the language-model serving engine
 (``repro_torch.serve.engine``); training (``repro_torch.train``), the data
 pipeline (``repro_torch.data``) and gradient compression
-(``repro_torch.dist.compression``)."""
+(``repro_torch.dist.compression``); the language models' distribution
+(``repro_torch.dist.param_specs``, ``repro_torch.dist.context_parallel``,
+``repro_torch.models.flags``) and launch layer (``repro_torch.launch.mesh``,
+``.steps``, ``.dryrun``)."""
 import os
 import re
 import subprocess
@@ -36,7 +39,10 @@ for n in ("repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.frontend
           "repro_torch.models.xlstm", "repro_torch.serve.engine", "repro_torch.core.program",
           "repro_torch.core.passes.__main__", "repro_torch.train", "repro_torch.train.optimizer",
           "repro_torch.train.train_step", "repro_torch.train.trainer", "repro_torch.data",
-          "repro_torch.data.pipeline", "repro_torch.dist.compression"):
+          "repro_torch.data.pipeline", "repro_torch.dist.compression",
+          "repro_torch.dist.param_specs", "repro_torch.dist.context_parallel",
+          "repro_torch.models.flags", "repro_torch.launch.mesh", "repro_torch.launch.steps",
+          "repro_torch.launch.dryrun"):
     assert n in names, n
 for n in names:
     importlib.import_module(n)
@@ -58,7 +64,7 @@ def test_import_loads_no_jax_and_no_reference():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 63  # the IR copy, lowering, kernels, api, dist, frontends, serve, models, train
+    assert n_modules >= 69  # the IR copy, lowering, kernels, api, dist, frontends, serve, models, train, launch
 
 
 _FORBIDDEN = re.compile(
