@@ -160,6 +160,33 @@ check raises and the script exits non-zero:
    sequence ranks, bitwise one rank / the window function on the global
    slice, and 16 ranks refused; ms per call flat against the mesh, peak
    memory; under 150 s and 70 GiB.
+17. one process per card (``process_phase``, ``repro_torch.dist.processes``):
+   ``torch.cuda.device_count()`` processes started by
+   ``torch.multiprocessing`` (spawn), each on ``cuda:rank`` over NCCL, on a
+   2x2 process mesh on four cards (1 x n else): (a) heat 16384² so4 k=1
+   zero and periodic, with ``overlap=True``, fused k=4 heat and wave, (b)
+   heat k=1 and fused k=4 at 16384² a rank, each under ``jit=False`` and
+   ``jit=True, donate=True``, bitwise, K1/K2 launches and each graph's
+   K1/K2/NCCL nodes counted, ms/step, each process's NCCL and K1/K2 device
+   time (profiler), the strong-scaling speed-up and weak-scaling
+   efficiency against phase 10, peak memory; (c) ``comm.allreduce`` over
+   both axes; (d) a ``ResilientLoop`` killed after its snapshot; (e)
+   yi-9b's decode (8 layers, B=8, T=32768) and its seq-sharded
+   flash-decode at published widths, (f) granite-moe-1b-a400m's
+   expert-parallel prefill (8 x 4096) and B=2 decode, on (data=1,
+   model=n) processes, bitwise the stacked ranks on one card and within
+   phase 16's tolerances of the flat run, with the routing decisions one
+   batched router product over the stacked ranks would change.  Here,
+   every (a)-(c) block is bitwise the single controller's ``jit=False``
+   run over the same cards (SHA-256 of each rank's block), the snapshot
+   resumes on this card's single controller bitwise, and each kernel of
+   the path joins the kernels line (launches: every process's, summed).
+   Each process records every part as it ends, and every part that ended
+   is checked and logged before a failure fails the phase.  On one card
+   the world is one process (``phase 17: world=1, no message crosses
+   processes``).  A failed process, or a wait over 150 s, fails it.
+   ``python3 chip_smoke.py --phase 17`` runs phase 0 and phase 17 alone,
+   against one card's times of its cases taken in that run.
 
 Phase 1 also runs K1 heat so4 at 1024² on a pool of 16 slots, and phase 6
 K2 heat so4 k=4 at 16384² on a pool of 2, each in one launch, bitwise
@@ -666,10 +693,10 @@ def resilience_phase(dev, heat, wave, *, record, card="", steps=16, keep_last=2)
     return records
 
 
-def oec_heat(shape, so=4, alpha=0.1):
+def oec_heat(shape, so=4, alpha=0.1, boundary="zero"):
     """Heat through the oec-like builder, as the serving tests build their
     programs: ``u + alpha * lap(u)``, the ``so``-th order Laplacian star at
-    spacing 1 (``core.fd``), zero BC."""
+    spacing 1 (``core.fd``), zero BC (or ``boundary``)."""
     from repro_torch.core.fd import laplacian_star
     from repro_torch.frontends.oec_like import ProgramBuilder
 
@@ -682,7 +709,7 @@ def oec_heat(shape, so=4, alpha=0.1):
         return v.at(*(0,) * len(shape)) + lap * alpha
 
     pb.store(pb.apply([pb.load(u)], body), out)
-    return pb.finish(boundary="zero")
+    return pb.finish(boundary=boundary)
 
 
 def oec_wave(shape, so=4, c2=0.1):
@@ -2261,12 +2288,825 @@ def lm_mesh_phase(dev, *, card="", cut=None, layers=(8, 4, 8), decode=(8, 32768)
     check(max(peaks) < max_gib, f"phase 16 peaked at {max(peaks):.2f} GiB, more than {max_gib}")
 
 
+# -- phase 17: one process per card ------------------------------------------
+
+LM_DECODE = "yi-9b"
+
+
+def process_cases(world, n2, weak):
+    """``(name, (kind, boundary), target kwargs, global shape)`` of phase
+    17's stencil cases over a world of ``world`` processes: strong scaling
+    at ``n2``² (k=1 zero, periodic and with overlap, fused k=4 heat and
+    wave) and weak scaling at ``weak``² a rank (k=1 and fused k=4); a world
+    of one runs the periodic k=1 and fused k=4 heat at ``n2``² alone."""
+    fused = {"exchange_every": 4, "fused_epoch": True}
+    gx, gy = process_grid(world)
+    strong = [
+        ("heat k=1 zero", ("heat", "zero"), {}),
+        ("heat k=1 periodic", ("heat", "periodic"), {}),
+        ("heat k=1 overlap", ("heat", "zero"), {"overlap": True}),
+        ("heat k=4 fused", ("heat", "zero"), fused),
+        ("wave k=4 fused", ("wave", "zero"), fused),
+    ]
+    if world == 1:
+        return [(n, p, kw, (n2, n2)) for n, p, kw in (strong[1], strong[3])]
+    weak_cases = [("weak heat k=1", ("heat", "zero"), {}),
+                  ("weak heat k=4 fused", ("heat", "zero"), fused)]
+    return ([(n, p, kw, (n2, n2)) for n, p, kw in strong]
+            + [(n, p, kw, (weak * gx, weak * gy)) for n, p, kw in weak_cases])
+
+
+def process_grid(world):
+    """The 2-D process mesh of phase 17: 2x2 on four cards, 1 x n else."""
+    return (2, 2) if world == 4 else (1, world)
+
+
+def process_program(kind, boundary, shape):
+    return oec_heat(shape, 4, boundary=boundary) if kind == "heat" else oec_wave(shape, 4)
+
+
+def process_state(prog, dev):
+    """The seeded global input state of a phase-17 case on ``dev`` (the
+    same values on every card and on the CPU generator's device)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 170)
+    outs = set(prog.output_fields)
+    return [torch.randn(f.type.bounds.shape, generator=g, device=dev)
+            for f in prog.field_args if f not in outs]
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _advance(step, state, epochs):
+    for _ in range(epochs):
+        state = step.advance(state)
+    return state
+
+
+def process_child(rank, world, tmp, spec):
+    """One process of phase 17: join the world (NCCL on ``cuda:rank``, or
+    gloo on the CPU for a rehearsal), run every case on this process's
+    rank and write what it measured to ``<tmp>/rank<r>.json``, again after
+    each case, so that the parent can check the cases that ended before a
+    failure.  Any failed check raises, and the process exits non-zero; the
+    language models' differences are recorded, and the parent checks
+    them.  Its progress, and every
+    thread's stack if it is still running ``spec["dump_s"]`` seconds in,
+    go to ``<tmp>/rank<r>.log`` (the parent prints them if it fails)."""
+    import faulthandler
+
+    sys.path.insert(0, spec["src"])
+    import torch
+
+    from repro_torch.dist import processes
+
+    progress = open(os.path.join(tmp, f"rank{rank}.log"), "w", buffering=1)
+    faulthandler.dump_traceback_later(spec["dump_s"], file=progress)
+    t0 = time.perf_counter()
+
+    def note(msg):
+        progress.write(f"{time.perf_counter() - t0:7.1f} s  {msg}\n")
+
+    if spec["device"] == "cpu":  # a rehearsal: one thread a process
+        torch.set_num_threads(1)
+    store = os.path.abspath(os.path.join(tmp, "store"))
+    w = processes.init(device=spec["device"], rank=rank, world_size=world, local_rank=rank,
+                       init_method=f"file://{store}", timeout_s=120)
+    note(f"joined the world on {w.device} ({w.backend})")
+    out = {"rank": rank, "cases": {}}
+
+    def save():
+        path = os.path.join(tmp, f"rank{rank}.json")
+        with open(path + ".part", "w") as f:
+            json.dump(out, f)
+        os.replace(path + ".part", path)
+
+    try:
+        for name, (kind, bc), kw, shape in process_cases(world, spec["n2"], spec["weak"]):
+            out["cases"][name] = _process_case(w, name, process_program(kind, bc, shape), kw,
+                                               spec["steps"], note)
+            save()
+        out["allreduce"] = _process_allreduce(w)
+        save()
+        note("comm.allreduce")
+        out["snapshot"] = _process_snapshot(w, tmp, spec)
+        save()
+        note("snapshot")
+        out["lm"] = {}
+        _process_lm(w, spec, out["lm"], save)
+        note("language models")
+        out["done"] = True
+        save()
+        processes.barrier()
+    except BaseException:
+        # a failed check: its traceback for the parent, and an exit that
+        # waits on no peer (leaving the world would wait on them all)
+        import traceback
+
+        note("failed:\n" + traceback.format_exc())
+        progress.close()
+        os._exit(1)
+    faulthandler.cancel_dump_traceback_later()
+    processes.shutdown()
+    progress.close()
+
+
+def _process_case(w, name, prog, kw, steps, note):
+    """One stencil case on this process's rank: ``jit=False`` and ``jit=True,
+    donate=True`` from the same state, bitwise; the launches of the
+    counted compiled run; each graph's census; ms per step; the NCCL and
+    K1/K2 device time by the profiler; peak memory; K1 and K2 against
+    their plain versions at this rank's shapes and box; the digest of this
+    rank's block of the result."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core.lowering import eval_apply_body
+    from repro_torch.core.passes.decompose import make_strategy_2d
+    from repro_torch.dist import processes
+    from repro_torch.kernels import dispatch_stats, reset_dispatch_stats
+    from repro_torch.kernels import epoch_kernel as k2
+    from repro_torch.kernels import stencil_apply as k1
+
+    dev, on_card = w.device, w.device.type == "cuda"
+    grid = process_grid(w.size)
+    mesh = processes.process_mesh(grid, ("x", "y"))
+    coords = mesh.coords(w.rank)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = dict(mesh=mesh, strategy=make_strategy_2d(grid), backend="cuda", **kw)
+    eager = api.compile(prog, api.Target(jit=False, **base))
+    graphed = api.compile(prog, api.Target(jit=True, donate=True, **base))
+    epochs = eager.epochs(steps)
+    state0 = process_state(prog, dev)
+    want = [x.shards[0] for x in _advance(eager, eager.shard_state(state0), epochs)]
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
+    sync()
+    note(f"{name}: jit=False")
+    _advance(graphed, graphed.shard_state(state0), epochs)  # captures every rotation phase
+    sync()
+    note(f"{name}: captured")
+    reset_dispatch_stats()
+    got = _advance(graphed, graphed.shard_state(state0), epochs)
+    sync()
+    stats = dispatch_stats()
+    k1n, k2n = stats.apply_launches, stats.fused_epoch_launches
+    for g, x in zip(got, want):
+        check(torch.equal(g.shards[0], x), f"phase 17 {name}: rank {w.rank}'s jit=True block "
+                                           "differs from its jit=False block")
+    applies, fused = graphed.kernel_applies(), graphed.kernel_epochs()
+    # on the CPU (a rehearsal) the wrappers run their plain versions, which
+    # launch nothing
+    want_n = (len(applies) * epochs, len(fused) * epochs) if on_card else (0, 0)
+    check((k1n, k2n) == want_n,
+          f"phase 17 {name}: rank {w.rank} launched K1 {k1n} and K2 {k2n} times in {epochs} "
+          f"epochs, expected {len(applies)} and {len(fused)} an epoch")
+    rec = {"k1": k1n, "k2": k2n, "epochs": epochs, "digest": [_digest(x) for x in want],
+           "census": []}
+    if on_card:
+        for _, nodes, _ in graphed._ring.graphs.values():
+            check((nodes.k1, nodes.k2) == (len(applies), len(fused)),
+                  f"phase 17 {name}: a graph of rank {w.rank} holds {nodes.k1} K1 and "
+                  f"{nodes.k2} K2 nodes")
+            check(w.size == 1 or nodes.nccl > 0,
+                  f"phase 17 {name}: a graph of rank {w.rank} holds no NCCL node")
+            rec["census"].append([nodes.k1, nodes.k2, nodes.nccl, nodes.copies, nodes.fills])
+        state = got
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state = _advance(graphed, state, epochs)
+        b.record()
+        b.synchronize()
+        rec["ms"] = a.elapsed_time(b) / steps
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state = _advance(graphed, state, epochs)
+            sync()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+        def dev_ms(pred):
+            us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                     for e in rows if pred(e.key))
+            return us / 1e3 / steps
+
+        rec["nccl_ms"] = dev_ms(lambda k: "nccl" in k.lower())
+        rec["k1_ms"] = dev_ms(lambda k: "k1_apply" in k)
+        rec["k2_ms"] = dev_ms(lambda k: "k2_epoch" in k)
+        rec["busy_ms"] = dev_ms(lambda k: True)
+        del state
+    else:
+        t0 = time.perf_counter()
+        _advance(graphed, got, epochs)
+        rec["ms"] = (time.perf_counter() - t0) * 1e3 / steps
+    del got
+    # each kernel of this rank's path against its plain version, on its box
+    g = torch.Generator(device=dev).manual_seed(SEED + 171)
+    for op in applies:
+        arrays = [torch.randn(o.type.bounds.shape, generator=g, device=dev) for o in op.operands]
+        origins = [o.type.bounds.lb for o in op.operands]
+        k1_out = k1.run_apply_cuda(op, arrays, origins, op.result_bounds, device=dev)
+        for x, y in zip(k1_out, eval_apply_body(op, arrays, origins, op.result_bounds)):
+            check(torch.equal(x, y), f"phase 17 {name}: K1 differs from its plain version on "
+                                     f"rank {w.rank}")
+    for op in fused:
+        arrays = [torch.randn(a.type.bounds.shape, generator=g, device=dev) for a in op.body.args]
+        k2_out = k2.run_epoch_cuda(op, arrays, None if on_card else k2.region_masks(op, dev, coords),
+                                   tile=graphed.target.tile, coords=coords)
+        plain = k2._emit_region(op, arrays, k2.region_masks(op, dev, coords),
+                                lambda v: v.type.bounds)
+        check(all(torch.equal(x, y) for x, y in zip(k2_out, plain)),
+              f"phase 17 {name}: K2 differs from its plain version at rank {w.rank}'s box {coords}")
+    sync()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0
+    api.forget(prog, eager.target)
+    api.forget(prog, graphed.target)
+    if on_card:
+        torch.cuda.empty_cache()
+    note(f"{name}: done")
+    return rec
+
+
+def allreduce_values(rank, dev):
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 172 + rank)
+    return torch.randn((3, 5), generator=g).to(dev)
+
+
+def allreduce_func():
+    """``comm.allreduce`` (sum) over both mesh axes of a 3x5 field."""
+    from repro_torch.core import ir
+    from repro_torch.core.dialects import comm, stencil
+
+    core = stencil.Bounds((0, 0), (3, 5))
+    func = ir.FuncOp("reduce", [stencil.FieldType(core), stencil.FieldType(core)])
+    src, dst = func.body.args
+    load = func.body.add_op(stencil.LoadOp(src))
+    red = func.body.add_op(comm.AllReduceOp(load.results[0], ("x", "y"), "sum"))
+    func.body.add_op(stencil.StoreOp(red.results[0], dst, core))
+    func.body.add_op(ir.ReturnOp([]))
+    return func
+
+
+def _process_allreduce(w):
+    import torch
+
+    from repro_torch.core.lowering import StencilInterpreter
+    from repro_torch.dist import processes
+
+    grid = process_grid(w.size)
+    mesh = processes.process_mesh(grid, ("x", "y"))
+    interp = StencilInterpreter(allreduce_func(), dict(mesh.shape), distributed=True, mesh=mesh)
+    x = allreduce_values(w.rank, w.device)
+    ((got,),) = interp.run_ranks([(x, torch.zeros_like(x))], [mesh.coords(w.rank)])
+    return got.cpu().tolist()
+
+
+SNAPSHOT_STEPS, SNAPSHOT_KILL = 8, 5
+
+
+def _process_snapshot(w, tmp, spec):
+    """A ``ResilientLoop`` of heat k=1 over the process mesh, a snapshot
+    every 2 epochs, killed before epoch ``SNAPSHOT_KILL``: process 0 has
+    written the snapshot of step 4 under ``<tmp>/ckpt``."""
+    from repro_torch import api
+    from repro_torch.core.passes.decompose import make_strategy_2d
+    from repro_torch.dist import processes
+    from repro_torch.resilience import FaultPlan, ResilientLoop, SimulatedFault
+
+    grid = process_grid(w.size)
+    prog = process_program("heat", "zero", (spec["n2"], spec["n2"]))
+    target = api.Target(mesh=processes.process_mesh(grid, ("x", "y")),
+                        strategy=make_strategy_2d(grid), backend="cuda", jit=True, donate=True)
+    loop = ResilientLoop(prog, target, process_state(prog, w.device), SNAPSHOT_STEPS,
+                         directory=os.path.join(tmp, "ckpt"), checkpoint_every=2, keep_last=1,
+                         fault_plan=FaultPlan(kill_at_epoch=SNAPSHOT_KILL))
+    try:
+        loop.run()
+        raise AssertionError("phase 17: the snapshot run was not killed")
+    except SimulatedFault:
+        pass
+    api.forget(prog, target)
+    return {"killed_at_step": loop.step_count}
+
+
+def _process_lm(w, spec, out, save):
+    """(e) yi-9b's decode and its seq-sharded flash-decode, (f)
+    granite-moe-1b-a400m's expert-parallel prefill and decode, on the
+    production axes over the world (data=1, model=world): each forward
+    against the stacked ranks of the same mesh on this card and against
+    the flat run, and ms per call for all three, into ``out`` (saved after
+    each part); the parent checks the differences.  For the prefill also
+    the routing decisions that plain router products would take otherwise
+    (see ``routing_flips``).  Over several processes granite's B=2 decode
+    runs ``ep_block_small``, which gives each expert ceil(B K / E) = 1 slot
+    and drops an assignment when both tokens pick one expert (the
+    reference's capacity); its flat run takes the same capacity."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, reduced_config
+    from repro_torch.dist import Mesh, kv_cache_layout, use_mesh
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import attention, lm, moe
+
+    dev, on_card = w.device, w.device.type == "cuda"
+    cut = reduced_config if spec["reduced"] else (lambda c: c)
+    pmesh = make_process_mesh()
+    devs = np.empty(w.size, dtype=object)
+    for i in range(w.size):
+        devs[i] = dev
+    stacked = Mesh(devs.reshape(1, w.size), ("data", "model"))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def ms(fn):
+        fn()
+        sync()
+        best = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    def compare(part, procs, stack, flat, tol):
+        """Record the process mesh against the stacked ranks of one card
+        (bitwise or not, the largest difference) and against the flat run
+        (``tol``, phase 16's)."""
+        got, want = procs.float(), flat.float()
+        err = float((got - want).abs().max())
+        out[part] = {
+            "bitwise": bool(torch.equal(procs, stack)),
+            "vs_stacked": float((got - stack.float()).abs().max()),
+            "err": err, "tol": tol,
+            "close": err <= tol * (1 + float(want.abs().max()))
+                     and bool(torch.allclose(got, want, rtol=tol, atol=tol)),
+        }
+
+    # (e) yi-9b decode: build_step on the world's axes, then the seq-sharded
+    # flash-decode at its widths
+    B, T = spec["decode"]
+    cfg = dataclasses.replace(cut(get_config(LM_DECODE)), dtype="float32",
+                              n_layers=spec["layers"][0])
+    params = lm.init_params(cfg, generator=gen(SEED + 180), device=dev)
+    cache = lm.tree_map(lambda t: t.normal_(generator=gen(SEED + 181)),
+                        lm.init_cache(cfg, B, T, device=dev))
+    token = torch.randint(0, cfg.vocab_size, (B,), generator=gen(SEED + 182), device=dev,
+                          dtype=torch.int32)
+    pos = torch.tensor(T - min(100, T // 4), dtype=torch.int32, device=dev)
+    runs = {}
+    for label, mesh in (("processes", pmesh), ("stacked", stacked), ("flat", None)):
+        fn = build_step(cfg, ShapeConfig("decode", T, B, "decode"), mesh)[0] if mesh else None
+        c = lm.tree_map(torch.clone, cache)
+        batch = {"token": token, "pos": pos, "cache": c}
+        step = (lambda b=batch, fn=fn: fn(params, b)) if fn else (
+            lambda c=c: lm.decode_step(params, cfg, token, pos, c))
+        runs[label] = (step()[0], ms(step))
+        del c, batch
+    compare("decode", *(runs[k][0] for k in ("processes", "stacked", "flat")), 2e-5)
+    out["decode"].update(layout=kv_cache_layout(B, T, cfg.n_kv_heads, pmesh),
+                         ms={k: v[1] for k, v in runs.items()})
+    save()
+    del runs
+    k, v = cache["slot0"]["k"][0], cache["slot0"]["v"][0]
+    Kh, hd = cfg.n_kv_heads, cfg.head_dim
+    qg = torch.randn(B, Kh, cfg.n_heads // Kh, hd, generator=gen(SEED + 183), device=dev)
+    valid = torch.ones(B, T, dtype=torch.bool, device=dev)
+    f32 = torch.float32
+    flash = {}
+    for label, mesh in (("processes", pmesh), ("stacked", stacked)):
+        with use_mesh(mesh):
+            call = (lambda mesh=mesh: attention._flash_decode_sharded(
+                qg, k, v, valid, cfg, f32, mesh, "seq"))
+            flash[label] = (call(), ms(call))
+    def flat():  # one softmax over the whole cache, in float32
+        s = torch.einsum("bkgd,btkd->bkgt", qg, k) / math.sqrt(hd)
+        s = attention.softcap(s, cfg.attn_softcap)
+        s = torch.where(valid[:, None, None, :], s, attention.NEG_INF)
+        return torch.einsum("bkgt,btkd->bkgd", torch.softmax(s, dim=-1), v)
+
+    compare("flash", flash["processes"][0], flash["stacked"][0], flat(), 2e-5)
+    out["flash"]["ms"] = {"processes": flash["processes"][1], "stacked": flash["stacked"][1],
+                          "flat": ms(flat)}
+    save()
+    del params, cache, flash, k, v, qg, valid
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (f) granite-moe-1b-a400m: expert-parallel prefill and decode
+    base = cut(get_config("granite-moe-1b-a400m"))
+    cfg = dataclasses.replace(base, dtype="float32", n_layers=spec["layers"][1],
+                              moe=dataclasses.replace(base.moe, capacity_factor=4.0))
+    params = lm.init_params(cfg, generator=gen(SEED + 184), device=dev)
+    Bp, Sp = spec["prefill"]
+    tokens = torch.randint(0, cfg.vocab_size, (Bp, Sp), generator=gen(SEED + 185), device=dev,
+                           dtype=torch.int32)
+    runs, routed = {}, []
+    for label, mesh in (("processes", pmesh), ("stacked", stacked), ("flat", None)):
+        if mesh is None:
+            call = (lambda: lm.forward_prefill(params, cfg, tokens, q_chunk=min(1024, Sp)))
+        else:
+            fn = build_step(cfg, ShapeConfig("prefill", Sp, Bp, "prefill"), mesh)[0]
+            call = (lambda fn=fn: fn(params, {"tokens": tokens}))
+        if label == "stacked":  # each rank's router call of the first run
+            plain_route = moe._route
+            moe._route = lambda p, xt, *a: routed.append((xt, p["router"])) or plain_route(p, xt, *a)
+            try:
+                first = call()[0]
+            finally:
+                moe._route = plain_route
+            runs[label] = (first, ms(call))
+        else:
+            runs[label] = (call()[0], ms(call))
+    compare("prefill", *(runs[k][0] for k in ("processes", "stacked", "flat")), 1e-5)
+    out["prefill"]["ms"] = {k: v[1] for k, v in runs.items()}
+    out["prefill"]["routing"] = routing_flips(routed, w.size, cfg.moe.top_k)
+    save()
+    del runs, routed
+    Bd, Td = spec["small_decode"]
+    cache = lm.tree_map(lambda t: t.normal_(generator=gen(SEED + 186)),
+                        lm.init_cache(cfg, Bd, Td, device=dev))
+    token = torch.randint(0, cfg.vocab_size, (Bd,), generator=gen(SEED + 187), device=dev,
+                          dtype=torch.int32)
+    pos = torch.tensor(Td - min(50, Td // 4), dtype=torch.int32, device=dev)
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    flat_cfg = cfg
+    if w.size > 1 and E % w.size == 0:  # ep_block_small's capacity on the flat run
+        slots = max(1, -(-(Bd * K) // E))
+        flat_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=slots * E / (Bd * K)))
+    runs = {}
+    for label, mesh in (("processes", pmesh), ("stacked", stacked), ("flat", None)):
+        c = lm.tree_map(torch.clone, cache)
+        if mesh is None:
+            call = (lambda c=c: lm.decode_step(params, flat_cfg, token, pos, c))
+        else:
+            fn = build_step(cfg, ShapeConfig("decode", Td, Bd, "decode"), mesh)[0]
+            call = (lambda fn=fn, c=c: fn(params, {"token": token, "pos": pos, "cache": c}))
+        runs[label] = (call()[0], ms(call))
+    compare("ep_decode", *(runs[k][0] for k in ("processes", "stacked", "flat")), 1e-5)
+    out["ep_decode"]["ms"] = {k: v[1] for k, v in runs.items()}
+    del runs, params, cache
+    sync()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0
+    save()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def routing_flips(routed, n, k):
+    """The router calls of a stacked expert-parallel run, ``n`` a layer
+    (one per rank, in rank order: ``(tokens [t, d], router [d, e])``): per
+    layer, how many tokens two plain products route to another set of
+    top-``k`` experts than the router's own product in fixed blocks
+    (``moe.router_logits``) does: one batched product over the stacked
+    ranks (``[1, n, t, d] x [1, n, d, e]``) and one product over all the
+    layer's tokens (``[n t, d] x [d, e]``, as a single rank takes them);
+    and the tokens routed."""
+    import torch
+
+    from repro_torch.models.moe import router_logits, top_k
+
+    def experts(logits):
+        return top_k(torch.softmax(logits, dim=-1), k)[1].sort(-1).values
+
+    batched, flat, tokens = [], [], 0
+    for i in range(0, len(routed), n):
+        xs, router = [x for x, _ in routed[i:i + n]], routed[i][1]
+        own = torch.cat([experts(router_logits(x, router, torch.float32)) for x in xs])
+        stacked = torch.einsum("...nd,...de->...ne", torch.stack(xs)[None],
+                               router.expand(1, n, *router.shape))
+        batched.append(int((experts(stacked[0]).flatten(0, 1) != own).any(-1).sum()))
+        flat.append(int((experts(torch.cat(xs) @ router) != own).any(-1).sum()))
+        tokens += own.shape[0]
+    return {"batched": batched, "flat": flat, "tokens": tokens}
+
+
+def process_phase(dev, *, card="", world=None, n2=16384, weak=16384, steps=STEPS,
+                  one_card_ms=None, reduced=False, layers=(8, 8), decode=(8, 32768),
+                  prefill=(8, 4096), small_decode=(2, 512), max_s=150.0, max_gib=70.0) -> dict:
+    """Phase 17: one process per card (``repro_torch.dist.processes``),
+    ``torch.cuda.device_count()`` of them on the card (``world`` gloo
+    processes on the CPU for a rehearsal), each on ``cuda:rank`` over
+    NCCL, started by ``torch.multiprocessing`` (spawn).
+
+    Each process runs :func:`process_child`: the stencil cases of
+    :func:`process_cases` on a 2-D process mesh (2x2 on four cards, 1 x n
+    else), ``comm.allreduce`` over both axes, a ``ResilientLoop`` killed
+    after its snapshot, and the language models on (data=1, model=world).
+    Here, afterwards: every case's blocks are bitwise the single
+    controller's ``jit=False`` run of the same mesh over the same cards
+    (``Mesh`` of ``cuda:0..n-1``; one device for a world of one), by a
+    SHA-256 of each rank's block; the all-reduce is the single
+    controller's; the snapshot resumes on this card's single controller
+    bitwise its uninterrupted run; each language model's forward is
+    bitwise its stacked ranks and within phase 16's tolerances of the flat
+    run.  Every part that every process ended is checked and logged; then
+    a process that failed, a wait over ``max_s`` seconds or any failed
+    check fails the phase.  Returns, per case, the K1 and K2 launches of
+    every process summed and each process's measurements."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core.lowering import StencilInterpreter
+    from repro_torch.core.passes.decompose import make_strategy_2d
+    from repro_torch.dist import Mesh
+    from repro_torch.kernels import stencil_apply as k1
+    from repro_torch.resilience import resume
+
+    on_card = dev.type == "cuda"
+    n = torch.cuda.device_count() if on_card else int(world)
+    grid = process_grid(n)
+    t17 = time.perf_counter()
+    log(f"phase 17: one process per card, {n} process(es) over "
+        f"{'NCCL' if on_card else 'gloo'}, a {grid[0]}x{grid[1]} process mesh; {card}")
+    if n == 1:
+        log("phase 17: world=1, no message crosses processes")
+    cases = process_cases(n, n2, weak)
+    cards = np.empty(n, dtype=object)
+    for r in range(n):
+        cards[r] = torch.device("cuda", r) if on_card else torch.device("cpu")
+    single_mesh = Mesh(cards.reshape(grid), ("x", "y"))
+    if on_card:  # every source the processes launch, built here in parallel
+        sources = []
+        for name, (kind, bc), kw, shape in cases:
+            t = api.Target(mesh=single_mesh, strategy=make_strategy_2d(grid), backend="cuda",
+                           jit=False, **kw)
+            sources += api.compile(process_program(kind, bc, shape), t).kernel_sources()
+        k1.build(list(dict.fromkeys(sources)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="phase17-")
+    spec = {"src": str(Path(__file__).resolve().parent / "src"),
+            "device": "cuda" if on_card else "cpu", "n2": n2, "weak": weak, "steps": steps,
+            "reduced": reduced, "layers": list(layers), "decode": list(decode),
+            "prefill": list(prefill), "small_decode": list(small_decode), "dump_s": max(max_s - 10, 1.0)}
+    try:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=process_child, args=(r, n, tmp, spec)) for r in range(n)]
+        t_spawn = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            # until every process has ended, one has failed (its peers then
+            # wait on it forever) or the time is up
+            while (any(p.is_alive() for p in procs)
+                   and not any(p.exitcode not in (None, 0) for p in procs)
+                   and time.perf_counter() - t_spawn < max_s):
+                time.sleep(0.2)
+        finally:
+            hung = [p for p in procs if p.is_alive()]
+            for p in hung:
+                p.terminate()
+            for p in procs:
+                p.join(10)
+        wait_s = time.perf_counter() - t_spawn
+        codes = [p.exitcode for p in procs]
+        if hung or codes != [0] * n:
+            for r in range(n):
+                path = os.path.join(tmp, f"rank{r}.log")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        log(f"  rank {r}'s progress:\n" + f.read()[-6000:])
+        results = []
+        for r in range(n):
+            path = os.path.join(tmp, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    results.append(json.load(f))
+            else:
+                results.append({"cases": {}})
+        log(f"  {n} process(es) ran in {wait_s:.1f} s (start, process-group set-up, every case), "
+            f"exit codes {codes}")
+        # every part that each process ended is checked and logged before
+        # the phase fails on any of them
+        failed = []
+
+        def verify(ok, msg):
+            if not ok:
+                failed.append(msg)
+                log(f"  FAILED: {msg}")
+
+        def ended(part):
+            return all(part in res for res in results)
+
+        # the single controller over the same cards, jit=False, block by block
+        summary = {}
+        for name, (kind, bc), kw, shape in cases:
+            if not all(name in res["cases"] for res in results):
+                continue
+            prog = process_program(kind, bc, shape)
+            t = api.Target(mesh=single_mesh, strategy=make_strategy_2d(grid), backend="cuda",
+                           jit=False, **kw)
+            step = api.compile(prog, t)
+            state = _advance(step, step.shard_state(process_state(prog, cards[0])),
+                             step.epochs(steps))
+            for r in range(n):
+                blocks = [x.shards[r] if hasattr(x, "shards") else x for x in state]
+                verify([_digest(b) for b in blocks] == results[r]["cases"][name]["digest"],
+                       f"phase 17 {name}: rank {r}'s block differs from the single controller's")
+            del state
+            api.forget(prog, t)
+            recs = [res["cases"][name] for res in results]
+            summary[name] = {"k1": sum(x["k1"] for x in recs), "k2": sum(x["k2"] for x in recs),
+                             "per_rank": recs, "shape": shape, "kind": kind, "boundary": bc,
+                             "kw": kw}
+            worst = max(x["ms"] for x in recs)
+            line = (f"  {name} {shape[0]}x{shape[1]} over {n} process(es), against the single "
+                    f"controller; {worst:.4f} ms/step under jit (the slowest process; "
+                    f"{', '.join('%.4f' % x['ms'] for x in recs)}); K1 {summary[name]['k1']}, "
+                    f"K2 {summary[name]['k2']} launches in {recs[0]['epochs']} epochs")
+            if on_card:
+                line += ("; per process NCCL / K1 / K2 / busy device ms a step: "
+                         + "; ".join(f"{x['nccl_ms']:.4f} / {x['k1_ms']:.4f} / {x['k2_ms']:.4f} / "
+                                     f"{x['busy_ms']:.4f}" for x in recs)
+                         + f"; graph census [K1, K2, NCCL, copies, fills] {recs[0]['census']}; "
+                         + f"peak {max(x['peak_gib'] for x in recs):.2f} GiB a process")
+                verify(max(x["peak_gib"] for x in recs) < max_gib,
+                       f"phase 17 {name}: a process peaked over {max_gib} GiB")
+            one = (one_card_ms or {}).get(name)
+            if one and not name.startswith("weak"):
+                line += f"; speed-up {one / worst:.2f}x over {one:.4f} ms/step on one card"
+            elif one:
+                line += (f"; weak-scaling efficiency {one / worst:.3f} ({one:.4f} ms/step for "
+                         f"one {weak}^2 rank on one card)")
+            log(line)
+            if on_card:
+                torch.cuda.empty_cache()
+        verify(len(summary) == len(cases),
+               f"phase 17: {len(cases) - len(summary)} stencil case(s) did not end on every process")
+
+        # comm.allreduce over both axes: the single controller's ranks
+        if ended("allreduce"):
+            interp = StencilInterpreter(allreduce_func(), dict(single_mesh.shape),
+                                        distributed=True)
+            vals = [allreduce_values(r, cards[r]) for r in range(n)]
+            want = interp.run_ranks([(x, torch.zeros_like(x)) for x in vals],
+                                    [single_mesh.coords(r) for r in range(n)])
+            for r in range(n):
+                verify(want[r][0].cpu().tolist() == results[r]["allreduce"],
+                       f"phase 17: comm.allreduce on rank {r} differs from the single controller")
+            log(f"  comm.allreduce (sum over x and y) on {n} process(es), against the single "
+                "controller's ranks")
+
+        # the snapshot the processes wrote, resumed on this card's single controller
+        if ended("snapshot"):
+            prog = process_program("heat", "zero", (n2, n2))
+            one = api.Target(device=str(dev), backend="cuda", jit=True, donate=True)
+            t0 = time.perf_counter()
+            loop = resume(prog, os.path.join(tmp, "ckpt"), one)
+            verify(loop.step_count == 4, f"phase 17: the snapshot resumed at step {loop.step_count}")
+            got = [api.gather(x).clone() for x in loop.run()]
+            resume_s = time.perf_counter() - t0
+            ref = api.compile(prog, api.Target(device=str(dev), backend="cuda", jit=False))
+            for g_, w_ in zip(got, ref.time_loop(process_state(prog, dev), SNAPSHOT_STEPS)):
+                verify(torch.equal(g_, w_), "phase 17: the processes' snapshot resumed on one "
+                                            "device differs from the uninterrupted run")
+            del got, loop
+            api.forget(prog, one)
+            log(f"  ResilientLoop over {n} process(es) killed at step "
+                f"{results[0]['snapshot']['killed_at_step']}; its step-4 snapshot (written by "
+                f"process 0) resumed on the single controller of this card in {resume_s:.2f} s, "
+                "against the uninterrupted run")
+
+        # the language models: every process bitwise its stacked ranks, and
+        # within phase 16's tolerances of the flat run
+        lm_recs = [res.get("lm", {}) for res in results]
+        names = {"decode": f"(e) {LM_DECODE} decode logits",
+                 "flash": f"(e) {LM_DECODE} seq-sharded flash-decode",
+                 "prefill": "(f) granite prefill logits",
+                 "ep_decode": "(f) granite B=2 decode logits (flat: at ep_block_small's capacity)"}
+        for part, what in names.items():
+            if not all(part in x for x in lm_recs):
+                verify(False, f"phase 17 {what}: did not end on every process")
+                continue
+            recs = [x[part] for x in lm_recs]
+            verify(all(x["bitwise"] for x in recs),
+                   f"phase 17 {what}: the process mesh differs from the stacked ranks (max |diff| "
+                   f"{max(x['vs_stacked'] for x in recs):.3e})")
+            verify(all(x["close"] for x in recs),
+                   f"phase 17 {what}: {max(x['err'] for x in recs):.3e} from the flat run, over "
+                   f"{recs[0]['tol']}")
+            m = recs[0]["ms"]
+            line = (f"  {what} on (data=1, model={n}) processes: "
+                    f"{max(x['vs_stacked'] for x in recs):.3e} from the stacked ranks "
+                    f"({'bitwise' if all(x['bitwise'] for x in recs) else 'not bitwise'}), "
+                    f"{max(x['err'] for x in recs):.3e} from flat; ms: processes "
+                    f"{m['processes']:.3f}, stacked on one card {m['stacked']:.3f}, flat "
+                    f"{m['flat']:.3f}")
+            if part == "decode":
+                line += (f"; layout {recs[0]['layout']}, B={decode[0]}, T={decode[1]}, "
+                         f"{layers[0]} layers")
+            if part == "prefill":
+                rt = recs[0]["routing"]
+                line += (f"; {prefill[0]}x{prefill[1]}, {layers[1]} layers, capacity factor 4.0; "
+                         f"of {rt['tokens']} tokens routed, a batched router product over the "
+                         f"stacked ranks would send {sum(rt['batched'])} to other experts (per "
+                         f"layer {rt['batched']}), one product over all of a layer's tokens "
+                         f"{sum(rt['flat'])} ({rt['flat']})")
+            log(line)
+        if all("peak_gib" in x for x in lm_recs):
+            log(f"  language models: peak {max(x['peak_gib'] for x in lm_recs):.2f} GiB a process")
+            if on_card:
+                verify(max(x["peak_gib"] for x in lm_recs) < max_gib,
+                       f"phase 17: a language-model process peaked over {max_gib} GiB")
+        check(codes == [0] * n, f"phase 17: the processes exited with {codes} "
+                                f"({len(hung)} still running after {wait_s:.1f} s were stopped)")
+        check(not failed, f"phase 17: {len(failed)} check(s) failed: {failed}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sec = time.perf_counter() - t17
+    log(f"phase 17: {sec:.1f} s; {card}")
+    check(sec < max_s, f"phase 17 took {sec:.1f} s, more than {max_s} s")
+    return summary
+
+
+def one_card_ms(dev, n2, steps=STEPS) -> dict:
+    """Phase 17's cases at ``n2``² on one card under ``jit`` (ms/step by
+    CUDA events after a warm-up run, the best of 3): the baseline of the
+    speed-ups and of the weak-scaling efficiency when phase 17 runs alone;
+    the whole script takes phase 10's."""
+    import torch
+
+    from repro_torch import api
+
+    fused = {"exchange_every": 4, "fused_epoch": True}
+    got = []
+    for kind, kw in (("heat", {}), ("heat", fused), ("wave", fused)):
+        prog = process_program(kind, "zero", (n2, n2))
+        target = api.Target(device=str(dev), backend="cuda", jit=True, donate=True, **kw)
+        step = api.compile(prog, target)
+        epochs = step.epochs(steps)
+        state = _advance(step, step.shard_state(process_state(prog, dev)), epochs)
+        best = float("inf")
+        for _ in range(3):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            state = _advance(step, state, epochs)
+            b.record()
+            b.synchronize()
+            best = min(best, a.elapsed_time(b) / steps)
+        got.append(best)
+        del state
+        api.forget(prog, target)
+        torch.cuda.empty_cache()
+    k1, heat4, wave4 = got
+    log(f"  one card, {n2}x{n2} under jit: heat k=1 {k1:.4f}, heat k=4 fused {heat4:.4f}, wave "
+        f"k=4 fused {wave4:.4f} ms/step")
+    return {"heat k=1 zero": k1, "heat k=1 overlap": k1, "heat k=4 fused": heat4,
+            "wave k=4 fused": wave4, "weak heat k=1": k1, "weak heat k=4 fused": heat4}
+
+
+def phase17_alone() -> int:
+    """``python3 chip_smoke.py --phase 17``: the card and phase 17 alone,
+    against one card's times of its cases taken here (the whole script
+    runs for minutes, which four cards pay four times over)."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    log(card)
+    log(f"phase 17 alone on {torch.cuda.device_count()} card(s)")
+    process_phase(dev, card=card, one_card_ms=one_card_ms(dev, 16384))
+    log(card_line())
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--phase", "17"]:
+        return phase17_alone()
     t_start = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
@@ -3029,7 +3869,7 @@ def main() -> int:
     log("phase 7: pytest -m gpu on this card")
     root = Path(__file__).resolve().parent
     tests = ["tests/test_torch_kernels.py", "tests/test_torch_epoch_kernel.py", "tests/test_torch_jit.py",
-             "tests/test_torch_tune.py"]
+             "tests/test_torch_tune.py", "tests/test_torch_processes.py"]
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     run = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-m", "gpu", "-p", "no:cacheprovider", *tests],
@@ -3388,9 +4228,9 @@ def main() -> int:
     state = (torch.randn(prog.input_fields[0].type.bounds.shape, device=dev, generator=gen),)
     want = api.compile(prog, Target(backend="cuda", jit=False)).time_loop(state, STEPS)
     searches = [  # (label, tune arguments)
-        ("a (Target.tuned, the reference's options, one device)", {}),
+        ("a (Target.tuned, the reference's options, one device)", {"devices": [dev]}),
         ("b (exchange_every=(4,), every candidate measured)",
-         {"exchange_every": (4,), "keep_quantile": 1.0}),
+         {"devices": [dev], "exchange_every": (4,), "keep_quantile": 1.0}),
         ("c (4 ranks on this card, exchange_every=(1, 4))",
          {"ranks": 4, "devices": [dev] * 4, "exchange_every": (1, 4)}),
     ]
@@ -3417,10 +4257,10 @@ def main() -> int:
             reset_dispatch_stats()
             api.reset_graph_stats()
             t0 = time.perf_counter()
-            if kw:
-                again = tune(prog, measure=True, **kw).target
+            if label.startswith("a "):
+                again = Target.tuned(prog, measure=True, **kw)
             else:
-                again = Target.tuned(prog, measure=True)
+                again = tune(prog, measure=True, **kw).target
             hit_s = time.perf_counter() - t0
             stats = cache_stats().as_dict()
             check(again.fingerprint == res.target.fingerprint
@@ -3513,6 +4353,40 @@ def main() -> int:
 
     # -- phase 16: language models over a mesh (no kernel of its own) ---------
     lm_mesh_phase(dev, card=card)
+
+    # -- phase 17: one process per card ----------------------------------------
+    one_card = {  # phase 10's ms/step under jit on one card, for the speed-ups
+        "heat k=1 zero": jit_ms[main_cases[1][0]], "heat k=1 overlap": jit_ms[main_cases[1][0]],
+        "heat k=4 fused": jit_ms[fused_cases[0][0]], "wave k=4 fused": jit_ms[fused_cases[1][0]],
+        "weak heat k=1": jit_ms[main_cases[1][0]], "weak heat k=4 fused": jit_ms[fused_cases[0][0]],
+    }
+    p17 = process_phase(dev, card=card, n2=n2, weak=n2, one_card_ms=one_card)
+    # each kernel of phase 17's path at a rank's shapes, on this card: the
+    # same local program as a rank of the process mesh (its launches are
+    # the processes', counted from their graphs)
+    grid = process_grid(torch.cuda.device_count())
+    on_grid = {"mesh": Mesh([[dev] * grid[1]] * grid[0], ("x", "y")),
+               "strategy": make_strategy_2d(grid)}
+    corners = [{"x": x, "y": y} for x in range(grid[0]) for y in range(grid[1])]
+    for name, case in p17.items():
+        prog = process_program(case["kind"], case["boundary"], case["shape"])
+        step = compiled(prog, **on_grid, **case["kw"])
+        label = f"phase 17 {name} {case['shape'][0]}x{case['shape'][1]}, one process per card"
+        if not step.kernel_epochs():
+            kernels.append(kernel_record(label, [spec_of(a) for a in step.kernel_applies()],
+                                         case["k1"], step))
+            continue
+        (fused_op,) = step.kernel_epochs()
+        err, ms, plain_ms, _, _ = epoch_check(label, fused_op, None, corners=corners)
+        b_ms, b_by = epoch_bound(fused_op)
+        kernels.append({
+            "name": f"epoch_kernel[{label}]", "route": "cuda", "source": K2_SOURCE,
+            "replaces": K2_REPLACES, "launches": case["k2"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+        log(f"  K2 {label}: bitwise at each rank's box, {ms:.4f} ms/launch, bound {b_ms:.4f} "
+            f"ms ({b_by}), plain {plain_ms:.3f} ms")
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())

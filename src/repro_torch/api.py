@@ -28,6 +28,14 @@
 Everything runs on the card unless the target says ``device="cpu"`` or
 its mesh's devices are CPUs.
 
+One process per rank (``dist.processes``, started by ``torchrun``): over
+a process mesh every process compiles the same target and calls the
+same methods with the same global tensors; each runs its own rank, its
+exchanges are NCCL sends and receives (gloo on the CPU), and every
+process gets the global results.  ``Target(jit=True)`` captures each
+process's epoch, its sends and receives included, as one CUDA graph.
+A single-controller mesh over several cards still runs op by op.
+
 ``Target(jit=True)`` (the default, as in the reference) is the compiled
 step.  On the card each call of the artifact is one replay of a captured
 ``torch.cuda.CUDAGraph`` that holds every op of the epoch on every rank,
@@ -276,6 +284,7 @@ class Target:
             raise TargetError(
                 f"mesh must be a repro_torch.dist.Mesh, got {type(self.mesh).__name__}"
             )
+        processes = self.mesh is not None and self.mesh.processes
         if self.device is None:
             object.__setattr__(
                 self, "device", self.mesh.device_type if self.mesh is not None else "cuda"
@@ -289,16 +298,26 @@ class Target:
                 f"{self.mesh.device_type}: with a mesh, its devices decide where "
                 "tensors live"
             )
+        if processes:
+            # the device type alone, the same on every process (so are the
+            # fingerprints): "cuda" is this process's current card
+            own = self.mesh.device(self.mesh.process_rank)
+            if dev.type == "cuda" and dev.index is not None and dev != own:
+                raise TargetError(
+                    f"Target(device={self.device!r}) over a process mesh whose rank "
+                    f"{self.mesh.process_rank} (this process) is on {own}"
+                )
+            dev = torch.device(dev.type)
         object.__setattr__(self, "device", str(dev))
-        if self.jit and self.mesh is not None and self.mesh.device_type == "cuda":
+        if self.jit and self.mesh is not None and not processes and self.mesh.device_type == "cuda":
             cards = {str(d) for d in self.mesh.devices.flat}
             if len(cards) > 1:
                 raise TargetError(
                     f"Target(jit=True) over a mesh on {len(cards)} CUDA devices "
-                    f"({sorted(cards)}): one captured graph runs on one device; ranks "
-                    "on several cards need the multi-process transport (ROADMAP "
-                    "Queue 1 item 2, not ported yet); pass jit=False to run them "
-                    "op by op from one thread"
+                    f"({sorted(cards)}): one captured graph runs on one device; for ranks "
+                    "on several cards use a process mesh (dist.processes.process_mesh, "
+                    "one process per card), or pass jit=False to run them op by op "
+                    "from one thread"
                 )
         if int(self.exchange_every) != self.exchange_every or self.exchange_every < 1:
             raise TargetError(
@@ -361,6 +380,21 @@ class Target:
                     "the batch dimension, not an array dimension"
                 )
         s = self.strategy
+        if processes:
+            if self.slot_axis is not None:
+                raise TargetError(
+                    f"Target(slot_axis={self.slot_axis!r}) over a process mesh: the slot "
+                    "axis runs on a single-controller mesh only"
+                )
+            grid = {} if s is None else {
+                ax: g for g, ax in zip(s.grid_shape, s.axis_names) if g > 1
+            }
+            if s is None or grid != {a: n for a, n in self.mesh.shape.items() if n > 1}:
+                raise TargetError(
+                    f"a process mesh of {dict(self.mesh.shape)} needs a strategy that "
+                    "decomposes over every axis of it, with the mesh's sizes (one rank a "
+                    f"process); got {None if s is None else dict(zip(s.axis_names, s.grid_shape))}"
+                )
         if s is not None:
             decomposed = [
                 (g, ax) for g, ax in zip(s.grid_shape, s.axis_names) if g > 1
@@ -386,8 +420,8 @@ class Target:
     def distributed(self) -> bool:
         """True when the compiled step runs over a mesh of ranks: a
         spatial decomposition with more than one rank, a slot mesh axis,
-        or both."""
-        if self.mesh is not None and self.slot_axis is not None:
+        both, or a process mesh (of any size)."""
+        if self.mesh is not None and (self.slot_axis is not None or self.mesh.processes):
             return True
         return self.mesh is not None and self.strategy is not None and any(
             g > 1 for g in self.strategy.grid_shape
@@ -413,8 +447,23 @@ class Target:
         virtual ranks on the CPU, one by default).  Ranks on several cards
         run op by op (``jit=False``; one captured graph runs on one card).
         Without a ``device`` and without a card, or with more ranks than
-        cards, raises ``TargetError``."""
+        cards, raises ``TargetError``.
+
+        Inside a world (``dist.processes.init``) it decomposes 1-D over the
+        world's processes instead, one rank a process, with ``jit=True``
+        (``ranks``, if given, must be the world's size)."""
+        from repro_torch.dist import processes
+
         device = overrides.get("device")
+        if processes.initialized():
+            w = processes.world()
+            if ranks is not None and int(ranks) != w.size:
+                raise TargetError(f"Target.auto: {ranks} ranks in a world of {w.size} processes")
+            from repro_torch.core.passes.decompose import make_strategy_1d
+
+            kw = {"jit": True, **overrides}
+            return Target(mesh=processes.process_mesh((w.size,), ("x",)),
+                          strategy=make_strategy_1d(w.size), **kw)
         if device is not None:
             devices = [torch.device(device)] * (1 if ranks is None else max(int(ranks), 1))
         elif not has_cuda():
@@ -623,7 +672,7 @@ class CompiledStencil:
             self._fn = interp
         else:
             mesh = self._mesh
-            coords = self._coords = [mesh.coords(r) for r in range(mesh.size)]
+            coords = self._coords = [mesh.coords(r) for r in mesh.local_ranks]
             self._fn = shard_map(
                 lambda local: interp.run_ranks(local, coords),
                 mesh=mesh,
@@ -760,7 +809,7 @@ class CompiledStencil:
         return ShardedTensor(
             mesh, spec,
             tuple(alloc(local_lead + shape, dtype=dtype, device=mesh.device(r))
-                  for r in range(mesh.size)),
+                  for r in mesh.local_ranks),
             tuple(lead) + tuple(self.program.field_args[i].type.bounds.shape),
         )
 
@@ -831,12 +880,12 @@ class CompiledStencil:
         """Ranks per slot block: the spatial ranks (a slot axis not
         counted)."""
         slots = self._mesh.shape[self.target.slot_axis] if self.target.slot_axis else 1
-        return len(self._coords) // slots
+        return (self._mesh.size if self._mesh is not None else 1) // slots
 
     def sync(self) -> None:
         """Wait for the card(s) the step runs on (nothing on the CPU)."""
         devices = [torch.device(self.target.device)] if self._mesh is None else [
-            self._mesh.device(r) for r in range(self._mesh.size)
+            self._mesh.device(r) for r in self._mesh.local_ranks
         ]
         for d in dict.fromkeys(d for d in devices if d.type == "cuda"):
             torch.cuda.synchronize(d)
@@ -1150,7 +1199,7 @@ class _Ring:
         mesh = stencil._mesh
         self.devices = (
             [torch.device(stencil.target.device)] if mesh is None
-            else [mesh.device(r) for r in range(mesh.size)]
+            else [mesh.device(r) for r in mesh.local_ranks]
         )
         self.bufs = [
             tuple(torch.empty(shape, dtype=torch.float32, device=d) for d in self.devices)
@@ -1288,8 +1337,11 @@ class _Ring:
             main.wait_stream(side)
             before = _DISPATCH.as_dict()
             graph = torch.cuda.CUDAGraph(keep_graph=True)
+            # over processes the NCCL watchdog thread polls its events while
+            # this thread captures: only this thread's calls must be safe
+            mode = "thread_local" if self.st._mesh is not None and self.st._mesh.processes else "global"
             try:
-                with torch.cuda.graph(graph, pool=self.pool):
+                with torch.cuda.graph(graph, pool=self.pool, capture_error_mode=mode):
                     self._run(p)
                 nodes = _census(graph)
                 graph.instantiate()
@@ -1408,6 +1460,17 @@ def _evict_over_capacity() -> None:
         old, _ = _CACHE.popitem(last=False)
         _KEY_LOCKS.pop(old, None)
         _STATS.evictions += 1
+
+
+def release_all_graphs() -> None:
+    """Drop the graphs and ring buffers of every compiled step in the
+    compile cache (each captures anew at its next graphed call).  Before a
+    process leaves its world: NCCL waits for the graphs that captured its
+    sends and receives to be destroyed before it destroys a communicator."""
+    with _LOCK:
+        steps = [v for v in _CACHE.values() if isinstance(v, CompiledStencil)]
+    for step in steps:
+        step.release_graphs()
 
 
 def clear_cache() -> None:
@@ -1767,6 +1830,7 @@ def _build_inner(program: Program, target: Target) -> CompiledStencil:
         distributed=target.distributed,
         backend=target.backend,
         tile=target.tile,
+        mesh=target.mesh,
     )
     # return arity/order comes from the LOCAL IR (first-store order): an
     # epoched carried-state program (wave, p > q) stores — and returns —

@@ -28,6 +28,16 @@ checkpointed over four ranks restores onto one device unchanged.  Async
 saves run on a daemon thread; ``wait`` joins before the next save or
 shutdown, and raises what the write raised.
 
+Inside a world of processes (``repro_torch.dist.processes.init``, one
+process per rank) every process of the world takes part in each save and
+restore: a save gathers every sharded leaf to process 0 (the others only
+send their blocks and copy nothing to the host), waits for every
+process, and process 0 alone writes the snapshot, in the same format,
+``COMMITTED`` last; a restore reads on process 0 and broadcasts each leaf
+to the others.  So a snapshot written by processes
+resumes on any number of processes, on the single controller and in
+``repro``.
+
 Retention and crash hygiene: after each successful COMMITTED save, the
 ``keep_last`` newest committed snapshots are retained and older ones
 pruned; construction garbage-collects leftovers of preempted writers —
@@ -98,13 +108,17 @@ def _unflatten(tree_like, leaves: dict):
     return build(tree_like, [])
 
 
-def _to_host(x) -> np.ndarray:
-    """A host copy of one leaf that shares no memory with it.  A card's
-    tensor lands in page-locked memory: a copy into pageable memory runs
-    at a fraction of the link's rate (PERF.md), and torch's host allocator
-    keeps the freed buffers for the next snapshot."""
+def _to_host(x, writer: bool = True) -> Optional[np.ndarray]:
+    """A host copy of one leaf that shares no memory with it, on the
+    process that writes (``None`` elsewhere: a leaf sharded over
+    processes is gathered to process 0 alone).  A card's tensor lands in
+    page-locked memory: a copy into pageable memory runs at a fraction of
+    the link's rate (PERF.md), and torch's host allocator keeps the freed
+    buffers for the next snapshot."""
     if isinstance(x, ShardedTensor):
-        x = gather(x)
+        x = gather(x, root=0) if x.mesh.processes else gather(x)
+    if not writer:
+        return None
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.is_cuda:
@@ -164,7 +178,21 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._failed: Optional[BaseException] = None  # the last async write's error
-        self._startup_gc()
+        # inside a world the processes save and restore together, and
+        # process 0 alone touches the files
+        from repro_torch.dist import processes
+
+        self.world = processes.world() if processes.initialized() else None
+        self.writer = self.world is None or self.world.rank == 0
+        if self.writer:
+            self._startup_gc()
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self.world is not None:
+            from repro_torch.dist import processes
+
+            processes.barrier()
 
     def _bump(self, field: str) -> None:
         # per-instance truth plus the process-wide mirror
@@ -202,8 +230,11 @@ class Checkpointer:
         metadata a resumer needs but that is not an array leaf."""
         self.wait()
         t0 = time.perf_counter()
-        flat = {key: _to_host(leaf) for key, leaf in _flatten(tree).items()}
+        flat = {key: _to_host(leaf, self.writer) for key, leaf in _flatten(tree).items()}
         self.last_save = {"to_host_s": time.perf_counter() - t0}
+        self._barrier()  # every process has handed its blocks over
+        if not self.writer:
+            return
 
         def write():
             t1 = time.perf_counter()
@@ -243,6 +274,12 @@ class Checkpointer:
         else:
             self._thread = threading.Thread(target=write_async, daemon=True)
             self._thread.start()
+
+    def sync(self) -> None:
+        """:meth:`wait`, then (over processes) wait for every process, so
+        that what process 0 committed is there for all of them."""
+        self.wait()
+        self._barrier()
 
     def wait(self) -> None:
         """Join the pending async write; raise what it raised."""
@@ -304,10 +341,32 @@ class Checkpointer:
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         loaded = {}
-        for key in _flatten(tree_like):
+        keys = list(_flatten(tree_like))
+        for key in keys:
             meta = manifest["leaves"].get(key)
             if meta is None:
                 raise KeyError(f"checkpoint missing leaf {key}")
-            loaded[key] = np.load(os.path.join(path, meta["file"]))
+            if self.writer:
+                loaded[key] = np.load(os.path.join(path, meta["file"]))
+        if self.world is not None:
+            loaded = self._broadcast(keys, loaded, manifest)
         self._bump("restores")
         return _unflatten(tree_like, loaded)
+
+    def _broadcast(self, keys: list, loaded: dict, manifest: dict) -> dict:
+        """Process 0's leaves ``keys`` on every process (through this
+        process's device: the card over NCCL, the CPU over gloo)."""
+        import torch.distributed as dist
+
+        device = self.world.device
+        out = {}
+        for key in keys:
+            meta = manifest["leaves"][key]
+            if self.writer:
+                t = torch.from_numpy(np.ascontiguousarray(loaded[key])).to(device)
+            else:
+                dtype = torch.from_numpy(np.empty(0, dtype=np.dtype(meta["dtype"]))).dtype
+                t = torch.empty(meta["shape"], dtype=dtype, device=device)
+            dist.broadcast(t, src=0)
+            out[key] = loaded[key] if self.writer else t.cpu().numpy()
+        return out

@@ -31,6 +31,16 @@ rank before the next, as ``lax.ppermute`` inside ``shard_map`` does:
 ``comm.boundary_mask`` keeps the box of the rank's mesh coordinate.
 ``comm.wait`` inserts the patches.
 
+Over a process mesh (one process per rank, ``dist.processes``) each
+process runs its own rank: ``comm.exchange_start`` sends its send
+rectangle to the paired process and receives from the process paired
+with it in one ``torch.distributed.batch_isend_irecv`` (NCCL on the
+card, gloo on the CPU), and the ``comm.wait`` that consumes the patch
+awaits the requests, so whatever runs between the two (the interior
+apply under ``overlap``) can run while the message is in flight.
+``comm.allreduce`` gathers the operands of its group and reduces them
+in rank order, as the single controller does.
+
 Tensors are never written in place unless this interpreter allocated
 them in the same call and no later op reads them in their old state; a
 caller's tensor is never written, except a destination it names.
@@ -314,6 +324,7 @@ class StencilInterpreter:
         distributed: bool = False,
         backend: str = "torch",
         tile: Optional[tuple] = None,
+        mesh=None,
     ) -> None:
         if backend not in ("torch", "cuda"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -330,13 +341,21 @@ class StencilInterpreter:
         self._part_of, self._covered = in_place_combines(func)
         self._stored_whole = _whole_stores(func, self._covered)
         self.n_ranks = math.prod(self.axis_sizes.values()) if distributed else 1
+        # a process mesh (one process per rank): this process runs its
+        # own rank, and exchanges and reductions go between processes
+        self.mesh = mesh if mesh is not None and mesh.processes and distributed else None
+        self.n_local = 1 if self.mesh is not None else self.n_ranks
         # open exchange windows: (rank, ExchangeStartOp result) -> obs
         # token, closed by the WaitOp consuming that patch (reset per call)
         self._open_exchanges: dict = {}
+        # messages in flight: (rank, ExchangeStartOp result) -> (requests,
+        # the tensors they read or write), awaited by the WaitOp consuming
+        # that patch
+        self._in_flight: dict = {}
 
     # -- public --------------------------------------------------------
     def __call__(self, *arrays):
-        if self.n_ranks > 1:
+        if self.n_local > 1:
             raise ValueError(
                 f"a function distributed over {self.n_ranks} ranks runs every "
                 "rank at once: call run_ranks with each rank's tensors"
@@ -348,23 +367,24 @@ class StencilInterpreter:
                   dests: Optional[Sequence[Mapping[int, torch.Tensor]]] = None) -> list:
         """Run the function on every rank in lockstep: ``per_rank[r]`` holds
         rank ``r``'s field tensors, ``coords[r]`` its coordinate along each
-        mesh axis.  ``dests[r]`` (optional) maps a field's position to a
-        tensor of its shape on rank ``r``'s device that what is stored to
-        that field ends in (it may be the field's own tensor, never one
-        that another field's tensor shares).  Every tensor of a call may
-        carry one leading slot dim of one size (the same on every rank).
+        mesh axis (over a process mesh, one entry: this process's rank).
+        ``dests[r]`` (optional) maps a field's position to a tensor of its
+        shape on rank ``r``'s device that what is stored to that field ends
+        in (it may be the field's own tensor, never one that another
+        field's tensor shares).  Every tensor of a call may carry one
+        leading slot dim of one size (the same on every rank).
         Returns, per rank, the tuple the single-rank call returns."""
-        if len(per_rank) != self.n_ranks or len(coords) != self.n_ranks:
+        if len(per_rank) != self.n_local or len(coords) != self.n_local:
             raise ValueError(
                 f"{len(per_rank)} ranks of tensors and {len(coords)} coordinates "
-                f"for a function over {self.n_ranks} ranks"
+                f"for a function over {self.n_local} ranks of this process"
             )
         fields = [
             a for a in self.func.body.args if isinstance(a.type, stencil.FieldType)
         ]
         from repro_torch.kernels.stencil_apply import split_slots
 
-        dests = dests if dests is not None else [{}] * self.n_ranks
+        dests = dests if dests is not None else [{}] * self.n_local
         views = []
         lead = None
         for r, (arrays, c, d) in enumerate(zip(per_rank, coords, dests)):
@@ -376,7 +396,7 @@ class StencilInterpreter:
                 rank = fields[0].type.bounds.rank if fields else 0
                 slots, _ = split_slots(arrays, rank, "field tensors")
                 lead = () if slots is None else (slots,)
-            view = RankView(r, dict(c), _common_device(arrays), lead)
+            view = RankView(self._rank_of(c), dict(c), _common_device(arrays), lead)
             for arg, arr in zip(fields, arrays):
                 expect = lead + tuple(arg.type.bounds.shape)
                 if tuple(arr.shape) != expect:
@@ -396,6 +416,7 @@ class StencilInterpreter:
                 view.dests[fields[i]] = t
             views.append(view)
         self._open_exchanges = {}
+        self._in_flight = {}
         for i, op in enumerate(self.func.body.ops):
             self._run_op(op, views, i)
         return [tuple(v.fields[f] for f in self.output_fields) for v in views]
@@ -469,6 +490,13 @@ class StencilInterpreter:
 
     def _axis_size(self, name: str) -> int:
         return self.axis_sizes.get(name, 1) if self.distributed else 1
+
+    def _rank_of(self, coords: Mapping[str, int]) -> int:
+        """The row-major rank of a mesh coordinate (axes in mesh order)."""
+        r = 0
+        for a in self.axis_sizes:
+            r = r * self._axis_size(a) + (coords.get(a, 0) if self._axis_size(a) > 1 else 0)
+        return r
 
     # -- op execution ---------------------------------------------------
     def _run_op(self, op: ir.Operation, views: list, i: int) -> None:
@@ -591,42 +619,65 @@ class StencilInterpreter:
         """``lax.ppermute`` of every rank's send rectangle: rank ``r``'s
         patch goes to the rank ``comm.permute_pairs`` pairs it with (the
         same coordinate along every other mesh axis); a rank that receives
-        nothing gets zeros."""
+        nothing gets zeros.  A patch between ranks of one process is a
+        copy; between processes, a message (:meth:`_send_receive`)."""
         periodic = bool(op.attributes.get("periodic", ir.IntAttr(0)).value)
         names = [a for a, _ in op.axis_shifts]
         sizes = {a: self._axis_size(a) for a in names}
         _, pairs = comm.permute_pairs(op.axis_shifts, sizes, periodic)
         dest = dict(pairs)
-        rank_of = {_coord_key(v.coords): v.rank for v in views}
+        source = {d: s for s, d in pairs}
+        local = {v.rank: v for v in views}
         origin = op.temp.type.bounds.lb
         idx = (Ellipsis,) + tuple(
             slice(o - g, o - g + s)
             for o, g, s in zip(op.send_offset, origin, op.size)
         )
-        received: dict = {}
-        for v in views:
+
+        def lin_of(c):
             lin = 0
             for a in names:
-                lin = lin * sizes[a] + (v.coords.get(a, 0) if sizes[a] > 1 else 0)
-            if lin not in dest:
-                continue
-            to = dict(v.coords)
-            rem = dest[lin]
+                lin = lin * sizes[a] + (c.get(a, 0) if sizes[a] > 1 else 0)
+            return lin
+
+        def rank_at(c, lin):
+            to = dict(c)
             for a in reversed(names):
                 if sizes[a] > 1:
-                    to[a] = rem % sizes[a]
-                rem //= sizes[a]
-            target = views[rank_of[_coord_key(to)]]
-            # a copy, not a view: a later wait may write into the sender's
-            # tensor in place; device to device where the ranks' devices differ
-            patch = v.env[op.temp][idx].clone(memory_format=torch.contiguous_format)
-            received[target.rank] = patch.to(target.device)
+                    to[a] = lin % sizes[a]
+                lin //= sizes[a]
+            return self._rank_of(to)
+
+        received: dict = {}
+        sends, receives = [], {}
+        for v in views:
+            lin = lin_of(v.coords)
+            if lin in dest:
+                # a copy, not a view: a later wait may write into the sender's
+                # tensor in place; device to device where the ranks' devices differ
+                patch = v.env[op.temp][idx].clone(memory_format=torch.contiguous_format)
+                to = rank_at(v.coords, dest[lin])
+                if to in local:
+                    received[to] = patch.to(local[to].device)
+                else:
+                    sends.append((patch, to))
+            frm = rank_at(v.coords, source[lin]) if lin in source else None
+            if frm is not None and frm not in local:
+                x = v.env[op.temp]
+                receives[v.rank] = (torch.empty(v.lead + tuple(op.size), dtype=x.dtype,
+                                                device=x.device), frm)
+        requests = self._send_receive(sends, list(receives.values()))
+        keep = [p for p, _ in sends] + [b for b, _ in receives.values()]
         for v in views:
             patch = received.get(v.rank)
+            if v.rank in receives:
+                patch = receives[v.rank][0]
             if patch is None:
                 x = v.env[op.temp]
                 patch = torch.zeros(v.lead + tuple(op.size), dtype=x.dtype, device=x.device)
             v.env[op.results[0]] = patch
+            if requests:
+                self._in_flight[(v.rank, op.results[0])] = (requests, keep)
             if _obs.enabled():
                 # the exchange window closes at the wait consuming this
                 # patch; on the comm lane it shows over the interior apply
@@ -635,10 +686,37 @@ class StencilInterpreter:
                     ranks=self.n_ranks, size=list(op.size),
                 )
 
+    @staticmethod
+    def _send_receive(sends: list, receives: list) -> list:
+        """Start every ``(tensor, peer rank)`` send and receive of one
+        exchange together (``torch.distributed.batch_isend_irecv``: the
+        same batch on every process, so none waits on another's order);
+        the requests, to be awaited where the patches are consumed."""
+        if not sends and not receives:
+            return []
+        import torch.distributed as dist
+
+        ops = [dist.P2POp(dist.isend, t, peer) for t, peer in sends]
+        ops += [dist.P2POp(dist.irecv, t, peer) for t, peer in receives]
+        return dist.batch_isend_irecv(ops)
+
     def _exec_allreduce(self, op: comm.AllReduceOp, views: list) -> None:
         """Reduce over the ranks that differ only along ``op.axes``, in rank
-        order; every rank of a group gets the result on its device."""
+        order; every rank of a group gets the result on its device.  Over
+        a process mesh the group's operands are gathered from its
+        processes first, so the sum is the single controller's, bitwise."""
         red = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}[op.op]
+        if self.mesh is not None:
+            from repro_torch.dist import processes
+
+            (v,) = views
+            axes = tuple(a for a in op.axes if a in self.mesh.shape)
+            group = processes.all_gather(v.env[op.operands[0]], self.mesh, axes)
+            acc = group[0]
+            for x in group[1:]:
+                acc = red(acc, x)
+            v.env[op.results[0]] = acc
+            return
         axes = set(op.axes)
         groups: dict = {}
         for v in views:
@@ -694,6 +772,9 @@ class StencilInterpreter:
         else:
             out = x.clone()
         for p in op.patches:
+            requests, _ = self._in_flight.pop((view.rank, p), ((), ()))
+            for req in requests:
+                req.wait()  # on the card: this stream waits for the message
             out[_slices(p.type.bounds, op.temp.type.bounds)] = env[p]
             if _obs.enabled():
                 _obs.end_window(self._open_exchanges.pop((view.rank, p), None))

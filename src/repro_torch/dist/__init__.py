@@ -2,8 +2,12 @@
 tensors, the single-controller ``shard_map`` and its collectives, the slot
 axis of pooled serving, and the language-model half — sharding rules,
 the mesh context, ``shard`` and the KV-cache layout policy
-(``dist/sharding.py``); parameter specs (``dist/param_specs.py``) and
-sequence-dimension context parallelism (``dist/context_parallel.py``)."""
+(``dist/sharding.py``); parameter specs (``dist/param_specs.py``),
+sequence-dimension context parallelism (``dist/context_parallel.py``) and
+one process per rank over ``torch.distributed`` (``dist/processes.py``:
+``processes.init``, ``process_mesh``)."""
+from repro_torch.dist import processes
+from repro_torch.dist.processes import process_mesh
 from repro_torch.dist.sharding import (
     Mesh,
     P,
@@ -27,5 +31,6 @@ from repro_torch.dist.sharding import (
 __all__ = [
     "Mesh", "P", "PartitionSpec", "ShardedTensor", "ShardingRules", "active_mesh",
     "active_rules", "default_rules", "factor_slot_mesh", "gather", "kv_cache_layout",
-    "read_row", "reshard", "shard", "shard_map", "use_mesh", "write_row",
+    "read_row", "reshard", "shard", "shard_map", "use_mesh", "write_row", "processes",
+    "process_mesh",
 ]

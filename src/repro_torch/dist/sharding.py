@@ -5,7 +5,10 @@ One process drives every rank, as ``jax.shard_map`` drives every device
 of a mesh from one program: a rank is a coordinate of a :class:`Mesh`
 and the device its shard lives on.  Devices may repeat, so four ranks can
 share one card (each exchange then is a copy on that card) or sit on
-four cards of a node (each exchange a device-to-device copy).
+four cards of a node (each exchange a device-to-device copy).  A process
+mesh (``dist.processes.process_mesh``) has one process per rank instead:
+each process holds its own rank's shards, and what crosses ranks goes
+over ``torch.distributed`` (NCCL between cards).
 
 - :class:`Mesh` — an ndarray of ``torch.device``, one per rank, with named
   axes; ``.shape`` maps each axis name to its size, as
@@ -34,8 +37,13 @@ four cards of a node (each exchange a device-to-device copy).
   ``axis_index``); :func:`unstack` gives the global results back with the
   reference's gradient for replicated outputs.  The language-model mesh
   branches (flash-decode, expert parallelism) run so: one op for all
-  ranks instead of one per rank.  Ranks on several devices need one
-  process each (the multi-process transport), and raise;
+  ranks, but each product and float reduction one call per rank
+  (:func:`per_rank`), so that a rank's numbers do not depend on how many
+  ranks share the call.  On a single controller the ranks must
+  share one device (ranks on several devices raise); on a process mesh
+  the body gets this process's rank alone, with mesh dims of size 1 in
+  front, and the collectives gather over process groups and reduce as
+  the stacked ones do (bitwise the same forward);
 - per-rank lists (the default ``shard_map``): :func:`as_views` lays a
   tensor out as views of itself (no copy) and :func:`assemble` puts a
   body's results together again, differentiably (context parallelism,
@@ -65,6 +73,7 @@ from typing import Callable, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 
 class Mesh:
@@ -75,9 +84,16 @@ class Mesh:
     in row-major order, so its coordinate along each axis is
     ``np.unravel_index(r, shape)``.  Every device has one type (``cuda``
     or ``cpu``).
+
+    A *process mesh* (``process_rank`` given; made by
+    :func:`repro_torch.dist.processes.process_mesh`) has one process per
+    rank: rank ``r`` is process ``r`` of the ``torch.distributed`` world,
+    and this process holds rank ``process_rank`` only.  Without it one
+    process (a single controller) holds every rank.
     """
 
-    def __init__(self, devices, axis_names: Sequence[str]) -> None:
+    def __init__(self, devices, axis_names: Sequence[str],
+                 process_rank: Optional[int] = None) -> None:
         arr = np.asarray(devices, dtype=object)
         names = tuple(axis_names)
         if arr.ndim != len(names):
@@ -101,6 +117,20 @@ class Mesh:
         self.shape = dict(zip(names, arr.shape))
         self.size = int(arr.size)
         self.device_type = types.pop()
+        if process_rank is not None and not 0 <= process_rank < self.size:
+            raise ValueError(f"process rank {process_rank} outside a mesh of {self.size}")
+        self.process_rank = process_rank
+
+    @property
+    def processes(self) -> bool:
+        """Whether each rank is a process of its own (a process mesh)."""
+        return self.process_rank is not None
+
+    @property
+    def local_ranks(self) -> tuple:
+        """The ranks this process holds: every rank on a single controller,
+        its own on a process mesh."""
+        return (self.process_rank,) if self.processes else tuple(range(self.size))
 
     def device(self, rank: int) -> torch.device:
         return self.devices.flat[rank]
@@ -116,6 +146,7 @@ class Mesh:
         return (
             f"axes={self.axis_names}shape={tuple(self.shape.values())}"
             f"devices={tuple(str(d) for d in self.devices.flat)}"
+            + (f"processes={self.size}" if self.processes else "")
         )
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
@@ -140,9 +171,10 @@ P = PartitionSpec
 @dataclasses.dataclass(frozen=True, eq=False)
 class ShardedTensor:
     """A global tensor of ``shape`` laid out over ``mesh`` by ``spec``:
-    ``shards[r]`` is rank ``r``'s contiguous local tensor, on
-    ``mesh.device(r)``.  Ranks that differ only along axes the spec does
-    not name hold equal copies."""
+    ``shards[i]`` is the contiguous local tensor of ``mesh.local_ranks[i]``
+    (rank ``i`` on a single controller; on a process mesh the one shard
+    is this process's), on that rank's device.  Ranks that differ only
+    along axes the spec does not name hold equal copies."""
 
     mesh: Mesh
     spec: PartitionSpec
@@ -242,7 +274,7 @@ def _shard_one(a, mesh: Mesh, spec: Sequence) -> ShardedTensor:
     shape = tuple(x.shape)
     _check_spec(shape, mesh, spec)
     shards = tuple(
-        _fresh(x[_local_slices(shape, mesh, spec, r)], mesh.device(r)) for r in range(mesh.size)
+        _fresh(x[_local_slices(shape, mesh, spec, r)], mesh.device(r)) for r in mesh.local_ranks
     )
     return ShardedTensor(mesh, spec, shards, shape)
 
@@ -261,15 +293,30 @@ def reshard(arrays, mesh: Optional[Mesh], specs) -> tuple:
     return tuple(_shard_one(a, mesh, s) for a, s in zip(arrays, specs))
 
 
-def gather(x, device=None) -> torch.Tensor:
+def gather(x, device=None, *, root: Optional[int] = None) -> Optional[torch.Tensor]:
     """The global tensor of a :class:`ShardedTensor`, on ``device`` (rank
-    0's device by default); a plain tensor is returned as it is."""
+    0's device by default; this process's on a process mesh, where every
+    process takes part and gets the whole tensor, or with ``root`` only
+    process ``root`` does, and the others get ``None``); a plain tensor is
+    returned as it is."""
     if not isinstance(x, ShardedTensor):
         return x
     mesh = x.mesh
+    shards = x.shards
+    if mesh.processes:
+        from repro_torch.dist import processes
+
+        (local,) = shards
+        if root is None:
+            shards = processes.all_gather(local, mesh)
+        else:
+            shards = processes.gather_to(local, mesh, root)
+            if shards is None:
+                return None
+        device = device or local.device
     out = torch.empty(x.shape, dtype=x.dtype, device=device or mesh.device(0))
     for r in _block_ranks(x):
-        out[_local_slices(x.shape, mesh, x.spec, r)].copy_(x.shards[r])
+        out[_local_slices(x.shape, mesh, x.spec, r)].copy_(shards[r])
     return out
 
 
@@ -307,14 +354,22 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs: Sequence, out_specs: Sequenc
     tensors, no copy), computes per rank over those leading dims with the
     stacked collectives (:func:`psum`, :func:`pmax`, :func:`pmean`,
     :func:`all_to_all`) and returns a tuple of stacked outputs; the
-    function returns the global tensors (:func:`unstack`)."""
+    function returns the global tensors (:func:`unstack`).
+
+    On a process mesh (one process per rank, every process calling with
+    the same global tensors) ``f`` runs this process's rank only: the
+    per-rank list holds one entry, and a stacked body gets this rank's
+    block with every mesh dim in front of size 1, so the same body runs
+    unchanged and its collectives go over process groups; every process
+    gets the whole results."""
     in_specs, out_specs = tuple(in_specs), tuple(out_specs)
+    enter, leave = (_enter, _leave) if mesh.processes else (stacked, unstack)
 
     def run_stacked(*arrays):
         if len(arrays) != len(in_specs):
             raise ValueError(f"{len(arrays)} arguments for {len(in_specs)} input specs")
-        outs = f(*(stacked(a, mesh, s) for a, s in zip(arrays, in_specs)))
-        return tuple(unstack(o, mesh, s) for o, s in zip(outs, out_specs))
+        outs = f(*(enter(a, mesh, s) for a, s in zip(arrays, in_specs)))
+        return tuple(leave(o, mesh, s) for o, s in zip(outs, out_specs))
 
     if stacked_ranks:
         return run_stacked
@@ -323,9 +378,10 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs: Sequence, out_specs: Sequenc
         if len(arrays) != len(in_specs):
             raise ValueError(f"{len(arrays)} arguments for {len(in_specs)} input specs")
         sharded = reshard(arrays, mesh, in_specs)
-        per_rank = f([tuple(s.shards[r] for s in sharded) for r in range(mesh.size)])
-        if len(per_rank) != mesh.size:
-            raise ValueError(f"{len(per_rank)} rank results for a mesh of {mesh.size}")
+        n = len(mesh.local_ranks)
+        per_rank = f([tuple(s.shards[i] for s in sharded) for i in range(n)])
+        if len(per_rank) != n:
+            raise ValueError(f"{len(per_rank)} rank results for {n} ranks of this process")
         return tuple(
             ShardedTensor(
                 mesh,
@@ -516,7 +572,8 @@ def stacked(x: torch.Tensor, mesh: Mesh, spec: Sequence) -> torch.Tensor:
     spec = PartitionSpec(*spec)
     shape = tuple(x.shape)
     _check_spec(shape, mesh, spec)
-    if x.device.type != "meta" and not all(_same_device(d, x.device) for d in mesh.devices.flat):
+    if (x.device.type != "meta" and not mesh.processes
+            and not all(_same_device(d, x.device) for d in mesh.devices.flat)):
         raise ValueError(
             f"the ranks of {mesh!r} are not all on {x.device}: the stacked "
             "shard_map runs ranks that share one device (ranks on several "
@@ -579,27 +636,190 @@ def unstack(y: torch.Tensor, mesh: Mesh, spec: Sequence) -> torch.Tensor:
     return y.permute(perm).reshape(shape)
 
 
+def _axis_names(axis) -> tuple:
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
 def _axis_dims(mesh: Mesh, axis) -> list:
-    axes = tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
-    return [mesh.axis_names.index(a) for a in axes]
+    return [mesh.axis_names.index(a) for a in _axis_names(axis)]
+
+
+# -- one process per rank: this rank's block with size-1 mesh dims in front
+
+
+def _own(mesh: Mesh, axes=None) -> tuple:
+    """The index of this process's entry in the mesh dims of a stacked
+    tensor that is full along ``axes`` (default: every axis) and of size
+    1 along the others."""
+    c = mesh.coords(mesh.process_rank)
+    axes = mesh.axis_names if axes is None else axes
+    return tuple(slice(c[a], c[a] + 1) if a in axes else slice(None) for a in mesh.axis_names)
+
+
+def _gather_axes(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """This process's stacked block ``x`` (``[1, ..., 1, *local]``) and
+    those of the processes that differ from it only along ``axes``: a
+    tensor full along those mesh dims (in rank order) and of size 1 along
+    the others, as the stacked path holds them."""
+    from repro_torch.dist import processes
+
+    L = len(mesh.axis_names)
+    parts = processes.all_gather(x, mesh, axes)
+    shape = [mesh.shape[a] if a in axes else 1 for a in mesh.axis_names] + list(x.shape[L:])
+    return torch.stack(parts).reshape(shape)
+
+
+class _GatherAxes(torch.autograd.Function):
+    """:func:`_gather_axes`, differentiable: this process's block gets the
+    sum, over the processes of its group in rank order, of their
+    cotangents at its entry."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _gather_axes(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.dist import processes
+
+        own = _own(ctx.mesh, ctx.axes)
+        parts = processes.all_gather(g, ctx.mesh, ctx.axes)
+        acc = parts[0][own]
+        for p in parts[1:]:
+            acc = acc + p[own]
+        return acc, None, None
+
+
+def _gather(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+    return _GatherAxes.apply(x, mesh, tuple(a for a in mesh.axis_names if a in _axis_names(axis)))
+
+
+class _Enter(torch.autograd.Function):
+    """This process's stacked block of the global ``x``; the backward sums
+    every process's cotangent of its block into the global gradient, as
+    the stacked path sums its ranks' (so every process holds the global
+    gradient of the one program they run together)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, spec):
+        ctx.mesh, ctx.spec, ctx.like = mesh, spec, (x.shape, x.dtype, x.device)
+        return stacked(x, mesh, spec)[_own(mesh)].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        full = _gather_axes(g, mesh, mesh.axis_names)
+        shape, dtype, device = ctx.like
+        with torch.enable_grad():
+            z = torch.zeros(shape, dtype=dtype, device=device, requires_grad=True)
+            (gx,) = torch.autograd.grad(stacked(z, mesh, ctx.spec), z, full)
+        return gx, None, None
+
+
+def _enter(x: torch.Tensor, mesh: Mesh, spec: Sequence) -> torch.Tensor:
+    """On a process mesh, this rank's block of the global ``x`` laid out
+    by ``spec``: ``[1, ..., 1, *local]`` (a view where no gradient is
+    wanted)."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return stacked(x, mesh, spec)[_own(mesh)]
+    return _Enter.apply(x, mesh, PartitionSpec(*spec))
+
+
+class _Leave(torch.autograd.Function):
+    """The global tensor of every process's stacked block: the blocks are
+    gathered and put together as :func:`unstack` puts the stacked ranks
+    together (one copy of each block).  Every process runs the same
+    program on the result, so the backward hands this process the
+    cotangent of its own block only, as :func:`unstack`'s backward hands
+    each stacked rank its own."""
+
+    @staticmethod
+    def forward(ctx, y, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        full = _gather_axes(y, mesh, mesh.axis_names)
+        ctx.like = (full.shape, full.dtype, full.device)
+        return unstack(full, mesh, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.like
+        with torch.enable_grad():
+            z = torch.zeros(shape, dtype=dtype, device=device, requires_grad=True)
+            (gz,) = torch.autograd.grad(unstack(z, ctx.mesh, ctx.spec), z, g)
+        return gz[_own(ctx.mesh)], None, None
+
+
+def _leave(y: torch.Tensor, mesh: Mesh, spec: Sequence) -> torch.Tensor:
+    return _Leave.apply(y, mesh, PartitionSpec(*spec))
+
+
+def _chain(x: torch.Tensor, dims: list, red) -> torch.Tensor:
+    """``x`` reduced by ``red`` (``torch.add``, ...) over the mesh dims
+    ``dims``, one entry after another in row-major order of those dims,
+    keeping them as dims of size 1: the same arithmetic for every entry
+    whether the ranks are stacked or gathered from processes."""
+    k = len(dims)
+    y = x.movedim(dims, list(range(k)))
+    y = y.reshape(math.prod(y.shape[:k]), *y.shape[k:])
+    acc = y[0]
+    for i in range(1, y.shape[0]):
+        acc = red(acc, y[i])
+    for d in sorted(dims):
+        acc = acc.unsqueeze(d)
+    return acc
+
+
+def _rank_block(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and, on a card, 256-byte aligned (a copy where it is
+    not: cuBLAS picks its kernel by the operands' alignment too), so that a
+    library call on it sees the same layout on every rank."""
+    x = x.contiguous()
+    return x.clone() if x.is_cuda and x.data_ptr() % 256 else x
+
+
+def per_rank(f: Callable, *xs: torch.Tensor, mesh: Mesh):
+    """``f`` on each rank's entry of stacked ranks ``xs`` (``[*mesh dims,
+    *local]``), one call per rank on its local tensors, and its results
+    (tensors, or tuples and dicts of them) stacked again.  A rank's numbers
+    are then those of the same call in a process that holds only its
+    block: one batched call over the stacked ranks may take another cuBLAS
+    kernel, or sum a reduction in another order, than a call on one rank's
+    block.  Meta tensors (the dry run) take one call for all."""
+    if any(x.is_meta for x in xs):
+        return f(*xs)
+    L = len(mesh.axis_names)
+    lead = torch.broadcast_shapes(*(x.shape[:L] for x in xs))
+    outs = [f(*(_rank_block(x.expand(*lead, *x.shape[L:])[idx]) for x in xs))
+            for idx in np.ndindex(*lead)]
+    leaves, tree = pytree.tree_flatten(outs[0])
+    cols = [pytree.tree_flatten(o)[0] for o in outs]
+    return pytree.tree_unflatten(
+        [(cols[0][i] if len(cols) == 1 else torch.stack([c[i] for c in cols]))
+         .reshape(*lead, *leaf.shape) for i, leaf in enumerate(leaves)], tree)
 
 
 def psum(x: torch.Tensor, axis, mesh: Mesh) -> torch.Tensor:
     """``jax.lax.psum`` over ``axis`` (a name or a tuple of names) of
-    stacked ranks: every rank of a group gets the group's sum."""
+    stacked ranks: every rank of a group gets the group's sum (on a
+    process mesh over the processes of the group)."""
     _count("all-reduce", x, mesh)
-    return x.sum(dim=_axis_dims(mesh, axis), keepdim=True).expand(x.shape)
+    if mesh.processes:
+        return _chain(_gather(x, mesh, axis), _axis_dims(mesh, axis), torch.add)
+    return _chain(x, _axis_dims(mesh, axis), torch.add).expand(x.shape)
 
 
 def pmax(x: torch.Tensor, axis, mesh: Mesh) -> torch.Tensor:
     """``jax.lax.pmax`` over ``axis`` of stacked ranks."""
     _count("all-reduce", x, mesh)
+    if mesh.processes:
+        return _gather(x, mesh, axis).amax(dim=_axis_dims(mesh, axis), keepdim=True)
     return x.amax(dim=_axis_dims(mesh, axis), keepdim=True).expand(x.shape)
 
 
 def pmean(x: torch.Tensor, axis, mesh: Mesh) -> torch.Tensor:
     """``jax.lax.pmean`` over ``axis``: the group's sum over its size."""
-    n = math.prod(x.shape[d] for d in _axis_dims(mesh, axis))
+    n = math.prod(mesh.shape[a] for a in _axis_names(axis))
     return psum(x, axis, mesh) / n
 
 
@@ -608,7 +828,9 @@ def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh, split_axis: int, concat_a
     """``jax.lax.all_to_all(..., tiled=True)`` over ``axis`` of stacked
     ranks: rank ``j`` of a group gets chunk ``j`` (along the local dim
     ``split_axis``) of every rank ``i`` of the group, concatenated along
-    the local dim ``concat_axis`` in the order of ``i``."""
+    the local dim ``concat_axis`` in the order of ``i``.  On a process
+    mesh the group's blocks are gathered and this process keeps its
+    entry of the stacked result."""
     if not tiled:
         raise NotImplementedError("all_to_all takes tiled=True only")
     _count("all-to-all", x, mesh)
@@ -620,6 +842,8 @@ def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh, split_axis: int, concat_a
             f"all_to_all over {axis!r}: local dim {split_axis} of extent "
             f"{x.shape[L + split_axis]} does not split into {n} chunks"
         )
+    if mesh.processes:
+        x = _gather(x, mesh, axis)
     # labels: mesh dims ("m", k) with ("i",) the source rank on the axis,
     # local dims ("l", k) with the split one cut into ("j",) × ("l", split)
     src = [("i",) if k == a else ("m", k) for k in range(L)]
@@ -632,7 +856,8 @@ def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh, split_axis: int, concat_a
         ext = y.shape[src.index(("l", k))]
         dst += [("i",), ("l", k)] if k == concat_axis else [("l", k)]
         shape.append(ext * n if k == concat_axis else ext)
-    return y.permute([src.index(t) for t in dst]).reshape(shape)
+    out = y.permute([src.index(t) for t in dst]).reshape(shape)
+    return out[_own(mesh, (axis,))] if mesh.processes else out
 
 
 def axis_index(mesh: Mesh, axis: str, rank: int) -> int:
@@ -649,6 +874,8 @@ def own_chunk(x: torch.Tensor, axis: str, mesh: Mesh, dim: int) -> torch.Tensor:
     a = mesh.axis_names.index(axis)
     n = mesh.shape[axis]
     y = x.unflatten(L + dim, (n, x.shape[L + dim] // n))
+    if mesh.processes:
+        return y.select(L + dim, mesh.coords(mesh.process_rank)[axis])
     return torch.diagonal(y, dim1=a, dim2=L + dim).movedim(-1, a)
 
 
@@ -661,8 +888,12 @@ def place_chunk(x: torch.Tensor, axis: str, mesh: Mesh, dim: int) -> torch.Tenso
     a = mesh.axis_names.index(axis)
     n = mesh.shape[axis]
     y = x.unsqueeze(L + dim)
-    eye = torch.eye(n, dtype=torch.bool, device=x.device)
-    mask = eye.reshape([n if k in (a, L + dim) else 1 for k in range(y.ndim)])
+    if mesh.processes:
+        j = torch.arange(n, device=x.device) == mesh.coords(mesh.process_rank)[axis]
+        mask = j.reshape([n if k == L + dim else 1 for k in range(y.ndim)])
+    else:
+        eye = torch.eye(n, dtype=torch.bool, device=x.device)
+        mask = eye.reshape([n if k in (a, L + dim) else 1 for k in range(y.ndim)])
     y = torch.where(mask, y, torch.zeros((), dtype=x.dtype, device=x.device))
     return y.flatten(L + dim, L + dim + 1)
 
@@ -688,7 +919,8 @@ def counting_collectives():
 
 def _count(kind: str, x: torch.Tensor, mesh: Mesh) -> None:
     for counts in _counters():
-        per_rank = x.numel() // mesh.size * x.element_size()
+        ranks = 1 if mesh.processes else mesh.size  # a process holds one rank's block
+        per_rank = x.numel() // ranks * x.element_size()
         counts[kind] = counts.get(kind, 0) + per_rank
 
 

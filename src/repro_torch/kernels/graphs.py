@@ -10,7 +10,8 @@ instantiated, :func:`census` walks its nodes through CUDA's graph API in
 counts them: kernel nodes by their kernel's name, memcpy and memset
 nodes, and nodes of any other type.  A :class:`GraphCensus` then tells
 how many K1 and K2 launches a replay makes, how many of them belong to
-given ops, and what else the graph launches.
+given ops, how many NCCL kernels carry its exchanges and reductions
+between processes, and what else the graph launches.
 
 Only :func:`census` needs a card; the rest runs anywhere.
 """
@@ -98,6 +99,12 @@ class GraphCensus:
         return self._count(lambda s: any(id(op) in ids for op in ops_of(s)))
 
     @property
+    def nccl(self) -> int:
+        """Launches of an NCCL kernel: the sends, receives and gathers of
+        the exchanges and reductions between processes."""
+        return self._count(_is_nccl)
+
+    @property
     def copies(self) -> int:
         """Memcpy nodes and launches of a copy kernel (PyTorch's
         ``copy_``, ``cat``)."""
@@ -109,13 +116,17 @@ class GraphCensus:
         return self.memset + self._count(lambda s: "FillFunctor" in s)
 
     def others(self) -> dict:
-        """Kernel nodes that are none of K1, K2, a copy or a fill (an
-        elementwise op evaluated by PyTorch, say), by name."""
+        """Kernel nodes that are none of K1, K2, NCCL, a copy or a fill
+        (an elementwise op evaluated by PyTorch, say), by name."""
         return {
             name: n for name, n in self.kernels.items()
             if f"{K1_KERNEL}_" not in name and f"{K2_KERNEL}_" not in name
-            and "copy" not in name.lower() and "FillFunctor" not in name
+            and not _is_nccl(name) and "copy" not in name.lower() and "FillFunctor" not in name
         }
+
+
+def _is_nccl(name: str) -> bool:
+    return "ncclDevKernel" in name or "ncclKernel" in name  # plain or mangled
 
 
 class _KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2

@@ -8,6 +8,10 @@ parameter, state and cache out over them and counts one rank's bytes.
 They are not an H100 deployment.  The ranks' devices are ``cpu``,
 repeated (nothing is allocated on them: the dry run's tensors are meta
 tensors), or any devices the caller passes.
+
+:func:`make_process_mesh` is the deployable counterpart: the production
+axes over the processes of a ``torch.distributed`` world (one process a
+card), as far as one node's cards go: every axis of size 1 but "model".
 """
 from __future__ import annotations
 
@@ -32,6 +36,14 @@ def make_mesh(shape, axes, devices: Optional[Sequence] = None) -> Mesh:
     for i, d in enumerate(pool):
         devs[i] = d
     return Mesh(devs.reshape(shape), axes)
+
+
+def make_process_mesh() -> Mesh:
+    """The production axes over this world's processes
+    (``repro_torch.dist.processes``): (data=1, model=world size)."""
+    from repro_torch.dist import processes
+
+    return processes.process_mesh((1, processes.world().size), ("data", "model"))
 
 
 def make_production_mesh(*, multi_pod: bool = False, devices: Optional[Sequence] = None) -> Mesh:

@@ -19,8 +19,10 @@ the layout comes from ``kv_cache_layout``, as in the reference:
   reduces its slice with a softmax of its own, and the ranks combine by
   LSE weights (``pmax`` of the maxima, ``psum`` of the weighted sums).
   The ranks' slices are views of the one cache tensor, stacked (every
-  rank on the cache's device): the cache is never copied or re-laid out
-  between steps, and the new token's K/V is written into it in place;
+  rank on the cache's device): the cache is never re-laid out between
+  steps, and the new token's K/V is written into it in place.  Each
+  rank's block is reduced by calls of its own (``per_rank``), as a
+  process that holds only that rank's slice reduces it;
 - ``"heads"``, ``"batch"`` and ``"flat"`` compute as without a mesh; the
   reference's layout constraint on the cache (:func:`_constrain_cache`)
   is recorded, not applied, as ``shard`` does.
@@ -42,6 +44,7 @@ from repro_torch.dist.sharding import (
     active_rules,
     default_rules,
     kv_cache_layout,
+    per_rank,
     pmax,
     psum,
     record_spec,
@@ -325,15 +328,18 @@ def _flash_decode_sharded(qg, cache_k, cache_v, valid, cfg, dtype, mesh, layout)
     v_spec = _valid_spec(mesh, P(q_spec[0], kv_spec[1]), (B, T))
     ax = kv_spec[1]
 
-    def block(qg_l, k_l, v_l, ok_l):
-        # every rank at once: [*mesh dims, *local]
+    def local(qg_l, k_l, v_l, ok_l):
         s = einsum32("...kgd,...tkd->...kgt", qg_l, k_l, dtype=dtype) * scale
         s = softcap(s, cfg.attn_softcap)
         s = torch.where(ok_l[..., :, None, None, :], s, NEG_INF)
         m = s.amax(-1)
         p = torch.exp(s - m[..., None])
-        l = p.sum(-1)
-        acc = einsum32("...kgt,...tkd->...kgd", p, v_l, dtype=dtype)
+        return m, p.sum(-1), einsum32("...kgt,...tkd->...kgd", p, v_l, dtype=dtype)
+
+    def block(qg_l, k_l, v_l, ok_l):
+        # [*mesh dims, *local]: one rank's block at a time, then every rank
+        # at once
+        m, l, acc = per_rank(local, qg_l, k_l, v_l, ok_l, mesh=mesh)
         # LSE combine across the sequence shards
         if ax is not None:
             g = pmax(m, ax, mesh)

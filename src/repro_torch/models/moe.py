@@ -24,7 +24,12 @@ The aux losses that come back are data shard 0's (the reference's
 reference's too, each rank's share divided by the number of ranks
 (``dist.sharding.unstack``).  The blocks run every rank at once, the
 ranks' tensors stacked in front (``shard_map(stacked_ranks=True)``), so the
-helpers below take any leading dims.
+helpers below take any leading dims; the router, the experts and the
+combine (products and float sums) run one rank at a time
+(``dist.sharding.per_rank``), so that a rank computes its tokens as a
+process that holds only them does, and the router's product runs in
+blocks of a fixed number of tokens (:func:`router_logits`), so that a
+token is routed alike on one rank and under expert parallelism.
 """
 from __future__ import annotations
 
@@ -40,12 +45,13 @@ from repro_torch.dist.sharding import (
     active_rules,
     all_to_all,
     own_chunk,
+    per_rank,
     place_chunk,
     pmean,
     psum,
     shard_map,
 )
-from repro_torch.models.layers import dense_init, einsum32, einsum_lp, normal
+from repro_torch.models.layers import dense_init, einsum32, einsum_lp, normal, operand
 
 
 def moe_init(gen, device, cfg, lead: tuple = ()) -> dict:
@@ -67,13 +73,36 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+#: Tokens per router product (see :func:`router_logits`).
+ROUTER_BLOCK = 256
+
+
+def router_logits(xt, router, dtype):
+    """``einsum32("nd,de->ne", xt, router)`` in blocks of ``ROUTER_BLOCK``
+    tokens, each one product of one shape (the last block padded with
+    zero rows): a token's logits, and so its top-k, do not depend on how
+    many tokens share the call.  cuBLAS picks its kernel, and with it the
+    order of the sums, by the shape, so one product over all the tokens
+    routes a near-tied token otherwise than a product over one rank's
+    share of them.  Stacked ranks on meta tensors (the dry run) take one
+    product."""
+    if xt.is_meta or xt.ndim != 2:
+        return einsum32("...nd,...de->...ne", xt, router, dtype=dtype)
+    n, d = xt.shape
+    x, w = operand(xt, dtype), operand(router, dtype)
+    pad = -n % ROUTER_BLOCK
+    if pad:
+        x = torch.cat([x, x.new_zeros(pad, d)])
+    return torch.cat([x[i:i + ROUTER_BLOCK] @ w for i in range(0, n + pad, ROUTER_BLOCK)])[:n]
+
+
 def _route(p, xt, cfg, dtype):
     """xt: [*lead, n, D] → (gate_vals [*lead,n,K], gate_idx [*lead,n,K],
     aux {name: [*lead]}); ``lead`` is empty on one rank and the stacked
     ranks' dims under expert parallelism (the router then carries them
     too)."""
     mcfg = cfg.moe
-    logits = einsum32("...nd,...de->...ne", xt, p["router"], dtype=dtype)
+    logits = router_logits(xt, p["router"], dtype)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, mcfg.top_k)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
@@ -197,18 +226,28 @@ def _ep_apply(p, x, cfg, dtype, mesh, ep_axis: str):
     small = tokens_per_shard % n_ep != 0
     L = len(mesh.axis_names)
 
+    # one rank at a time (per_rank): the products and float sums
+    def route(xt, router):
+        return _route({"router": router}, xt, cfg, dtype)
+
+    def ffn(h_in, wi, wu, wo):
+        return _expert_ffn({"wi": wi, "wu": wu, "wo": wo}, h_in, dtype)
+
+    def combine(out, dest, kept, gate_vals):
+        n, d = gate_vals.shape[-2], out.shape[-1]
+        return _combine(out, dest, kept, gate_vals, n, K, d, dtype)
+
     def ep_block_small(router, wi, wu, wo, xl):
         """Decode: routing replicated over the axis; each rank runs only
         its resident experts and the combined outputs are summed."""
         b, s, d = xl.shape[L:]
         xt = xl.reshape(*xl.shape[:L], b * s, d)
-        gate_vals, gate_idx, aux = _route({"router": router}, xt, cfg, dtype)
+        gate_vals, gate_idx, aux = per_rank(route, xt, router, mesh=mesh)
         C = max(1, -(-(b * s * K) // E))  # ceil; no drops at decode
         buf, dest, kept = _dispatch_scatter(xt.to(dtype), gate_idx, E, C)
-        out_loc = _expert_ffn({"wi": wi, "wu": wu, "wo": wo},
-                              own_chunk(buf, ep_axis, mesh, 0), dtype)
+        out_loc = per_rank(ffn, own_chunk(buf, ep_axis, mesh, 0), wi, wu, wo, mesh=mesh)
         out = place_chunk(out_loc, ep_axis, mesh, 0)
-        yt = psum(_combine(out, dest, kept, gate_vals, b * s, K, d, dtype), ep_axis, mesh)
+        yt = psum(per_rank(combine, out, dest, kept, gate_vals, mesh=mesh), ep_axis, mesh)
         return yt.reshape(xl.shape), aux["moe_lb_loss"], aux["moe_z_loss"]
 
     def ep_block(router, wi, wu, wo, xl):
@@ -218,15 +257,15 @@ def _ep_apply(p, x, cfg, dtype, mesh, ep_axis: str):
         n_total = b * s
         n_loc = n_total // n_ep
         xt = own_chunk(xl.reshape(*xl.shape[:L], n_total, d), ep_axis, mesh, 0)
-        gate_vals, gate_idx, aux = _route({"router": router}, xt, cfg, dtype)
+        gate_vals, gate_idx, aux = per_rank(route, xt, router, mesh=mesh)
         C = max(1, int(n_loc * K * cf) // E)
         buf, dest, kept = _dispatch_scatter(xt.to(dtype), gate_idx, E, C)
         # expert dim split across ranks, contributions concatenated:
         # [E/n_ep, n_ep*C, D], and back
         buf = all_to_all(buf, ep_axis, mesh, split_axis=0, concat_axis=1, tiled=True)
-        out = _expert_ffn({"wi": wi, "wu": wu, "wo": wo}, buf, dtype)
+        out = per_rank(ffn, buf, wi, wu, wo, mesh=mesh)
         out = all_to_all(out, ep_axis, mesh, split_axis=1, concat_axis=0, tiled=True)
-        yt = _combine(out, dest, kept, gate_vals, n_loc, K, d, dtype)
+        yt = per_rank(combine, out, dest, kept, gate_vals, mesh=mesh)
         # reassemble the full token set over the axis
         full = psum(place_chunk(yt, ep_axis, mesh, 0), ep_axis, mesh)
         lb = pmean(aux["moe_lb_loss"], ep_axis, mesh)

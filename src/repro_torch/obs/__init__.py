@@ -31,6 +31,7 @@ from repro_torch.obs.export import (
     to_chrome,
     write_chrome,
     write_jsonl,
+    write_process_trace,
     write_rank_traces,
 )
 from repro_torch.obs.registry import NAMESPACES, snapshot
@@ -61,6 +62,7 @@ __all__ = [
     "to_chrome",
     "write_chrome",
     "write_jsonl",
+    "write_process_trace",
     "write_rank_traces",
     "NAMESPACES",
     "snapshot",

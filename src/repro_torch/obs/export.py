@@ -1,4 +1,4 @@
-# Copied from src/repro/obs/export.py with repro. renamed to repro_torch.; keep its logic in step with that file.
+# Copied from src/repro/obs/export.py with repro. renamed to repro_torch. and write_process_trace added; keep its logic in step with that file.
 """Trace export: Chrome trace-event JSON (Perfetto) and structured JSONL.
 
 Chrome format (the ``{"traceEvents": [...]}`` container):
@@ -130,6 +130,26 @@ def write_rank_traces(directory: str,
                        "displayTimeUnit": "ms"}, f)
         paths.append(path)
     return paths
+
+
+def write_process_trace(directory: str) -> str:
+    """This process's trace file, ``trace_rank<rank>.json``, in a run of one
+    process a rank (``repro_torch.dist.processes``, which pins the
+    tracer's rank): every span lands on this process's rank track, an
+    SPMD span too (it ran here for this rank alone).  Each process writes
+    its own; ``merge_traces`` puts them on one timeline, one lane set per
+    process.  Nothing is collected across processes at run time."""
+    r = tracer().rank
+    if r is None:
+        raise ValueError("write_process_trace: no process rank (repro_torch.dist.processes.init "
+                         "or obs.set_rank pins it)")
+    spans = list(tracer().spans())
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"trace_rank{r}.json")
+    with open(path, "w") as f:
+        json.dump({"traceEvents": _metadata([r]) + [_event(s, r, spmd=False) for s in spans],
+                   "displayTimeUnit": "ms"}, f)
+    return path
 
 
 def merge_traces(source: Union[str, Sequence[str]],

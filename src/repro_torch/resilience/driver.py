@@ -201,7 +201,7 @@ class ResilientLoop:
         self.events.append(
             ("checkpoint", self.step_count, time.perf_counter() - t0)
         )
-        if self.fault_plan is not None:
+        if self.fault_plan is not None and self.checkpointer.writer:
             self.fault_plan.after_checkpoint(self.checkpointer, self.step_count)
 
     def run(self, max_epochs: Optional[int] = None) -> tuple:
@@ -215,7 +215,7 @@ class ResilientLoop:
             self.advance_epoch()
             advanced += 1
         if self.checkpointer is not None:
-            self.checkpointer.wait()
+            self.checkpointer.sync()
         return self.state
 
 
@@ -246,7 +246,9 @@ def resume(
     (fingerprint), and sit on an epoch boundary of the *new* target's
     ``exchange_every``.
     """
-    ckpt = Checkpointer(directory, keep_last=keep_last)  # startup GC runs
+    # startup GC runs (inside a world every process reads the manifest;
+    # process 0 alone reads the arrays)
+    ckpt = Checkpointer(directory, keep_last=keep_last)
     manifest = ckpt.manifest(step)
     meta = manifest.get("extra")
     if not meta or "program_fingerprint" not in meta:

@@ -99,9 +99,12 @@ def hardware_signature(devices: Optional[Sequence] = None) -> str:
         from repro_torch.tune.space import default_devices
 
         devices = default_devices()
+    from repro_torch.dist import processes
+
     d = torch.device(devices[0])
     kind = torch.cuda.get_device_name(d) if d.type == "cuda" else d.type
-    return f"{d.type}:{kind}:n{len(devices)}"
+    # one process a rank is another machine than one controller over them
+    return f"{d.type}:{kind}:n{len(devices)}" + (":processes" if processes.initialized() else "")
 
 
 def options_digest(**options) -> str:
@@ -165,6 +168,7 @@ def target_to_dict(target) -> dict:
         d["mesh"] = {
             "axes": list(target.mesh.axis_names),
             "shape": [int(target.mesh.shape[a]) for a in target.mesh.axis_names],
+            "processes": target.mesh.processes,
         }
     if target.strategy is not None:
         s = target.strategy
@@ -204,7 +208,14 @@ def target_from_dict(d: dict, devices: Optional[Sequence] = None):
         except TargetError as e:
             raise TuneCacheError(str(e)) from e
     where: dict = {}
-    if d.get("mesh"):
+    if d.get("mesh") and d["mesh"].get("processes"):
+        from repro_torch.dist import processes
+
+        if not processes.initialized():
+            raise TuneCacheError("the entry's mesh is one process a rank: it needs a world")
+        where["mesh"] = processes.process_mesh(
+            tuple(int(x) for x in d["mesh"]["shape"]), tuple(d["mesh"]["axes"]))
+    elif d.get("mesh"):
         shape = tuple(int(x) for x in d["mesh"]["shape"])
         n = int(np.prod(shape))
         devs = devs if devs is not None else [torch.device("cpu")] * n

@@ -14,8 +14,9 @@ events after ``torch.cuda.synchronize()``; over several cards by
 by ``time.perf_counter``.
 
 Distributed-awareness: under an initialized ``torch.distributed`` with
-more than one process the clocks of different processes disagree, so
-``agree_on_times`` broadcasts process 0's timing vector to every
+more than one process each process times its own rank (CUDA events on
+its card), and ``agree_on_times`` takes, candidate by candidate, the
+slowest process's time (a step ends when its last rank ends) onto every
 process before the argmin — all ranks then select the identical winner.
 In a single process (one controller over every rank, the test harness)
 the vector is already shared.
@@ -97,24 +98,29 @@ def measure_compiled(
 
 
 def _cards(target) -> list:
-    """The distinct CUDA devices the target's ranks run on."""
-    devices = target.mesh.devices.flat if target.mesh is not None else [target.device]
+    """The distinct CUDA devices the target's ranks run on (in this
+    process: over a process mesh, its own card)."""
+    if target.mesh is not None and target.mesh.processes:
+        devices = [target.mesh.device(target.mesh.process_rank)]
+    else:
+        devices = target.mesh.devices.flat if target.mesh is not None else [target.device]
     found = dict.fromkeys(str(torch.device(d)) for d in devices)
     return [torch.device(d) for d in found if torch.device(d).type == "cuda"]
 
 
 def agree_on_times(times: Sequence[Optional[float]]) -> list:
-    """One timing vector every process agrees on: process 0's
-    measurements, broadcast.  ``None`` slots (unmeasured candidates) are
-    carried through.  A single-process run returns the input."""
+    """One timing vector every process agrees on: per candidate the
+    slowest process's time.  ``None`` slots (a candidate no process
+    measured) are carried through.  A single-process run returns the
+    input."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() <= 1:
         return list(times)
     device = "cuda" if dist.get_backend() == "nccl" else "cpu"
     vec = torch.tensor(
-        [float("nan") if t is None else float(t) for t in times],
+        [-1.0 if t is None else float(t) for t in times],
         dtype=torch.float64, device=device,
     )
-    dist.broadcast(vec, src=0)
-    return [None if np.isnan(t) else float(t) for t in vec.tolist()]
+    dist.all_reduce(vec, op=dist.ReduceOp.MAX)
+    return [None if t < 0 else float(t) for t in vec.tolist()]

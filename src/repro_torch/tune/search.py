@@ -213,7 +213,15 @@ def tune(
     validates here.  It counts as a ``transfer_hit`` (never a ``hit``),
     the winner's ``origin`` is ``"transfer"``, and nothing is stored
     under this machine's key — run a measured search to earn that entry.
+
+    Inside a world (``dist.processes.init``) every process calls ``tune``
+    with the same arguments: the ranks are the world's processes, every
+    candidate runs on all of them in step (``jit=True``), each candidate's
+    time is the slowest process's, process 0 picks the winner and hands
+    it to the others, and process 0 alone writes the cache.
     """
+    from repro_torch.dist import processes
+
     devices = [torch.device(d) for d in devices] if devices is not None else default_devices()
     n_ranks = len(devices) if ranks is None else int(ranks)
     hardware = tune_cache.hardware_signature(devices[:n_ranks] or devices)
@@ -283,6 +291,13 @@ def tune(
         )
     else:
         winner = min(survivors, key=lambda c: c.modeled_s)
+    world = processes.initialized()
+    if world:
+        import torch.distributed as dist
+
+        pick = [survivors.index(winner)]
+        dist.broadcast_object_list(pick, src=0)
+        winner = survivors[pick[0]]
 
     candidates.sort(key=_rank_key)
     result = TuneResult(
@@ -295,7 +310,7 @@ def tune(
         hardware=hardware,
         n_ranks=n_ranks,
     )
-    if cache:
+    if cache and (not world or processes.world().rank == 0):
         result.cache_path = tune_cache.store(
             key,
             {

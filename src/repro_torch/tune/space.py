@@ -18,10 +18,13 @@ exposes, filtered down to configurations that can actually compile:
   tile on an unfused candidate would only duplicate it).
 
 ``jit`` is not an axis (the reference does not vary it): every candidate
-keeps the compiled step, ``jit=True``, except over several cards, where
-ranks run op by op (``jit=False``, as ``Target.auto`` decomposes them).
-The devices may repeat (ranks sharing one card, or virtual ranks on the
-CPU).
+keeps the compiled step, ``jit=True``, except over several cards of one
+controller, where ranks run op by op (``jit=False``, as ``Target.auto``
+decomposes them).  The devices may repeat (ranks sharing one card, or
+virtual ranks on the CPU).  Inside a world (``dist.processes.init``) the
+ranks are the world's processes, one each: every candidate's mesh is a
+process mesh and keeps ``jit=True``, and every process enumerates the
+same candidates in the same order.
 
 Every candidate is validated through ``api._validate_for_program`` —
 what comes out of ``enumerate_candidates`` either compiles or was never
@@ -91,8 +94,13 @@ class Candidate:
 
 def default_devices() -> list:
     """Every CUDA device, one rank each; raises ``TargetError`` without a
-    card (pass ``devices=`` for ranks on the CPU or repeated on a card)."""
+    card (pass ``devices=`` for ranks on the CPU or repeated on a card).
+    Inside a world: each process's device, in rank order."""
     from repro_torch import api
+    from repro_torch.dist import processes
+
+    if processes.initialized():
+        return list(processes.process_mesh((processes.world().size,), ("x",)).devices.flat)
 
     if not torch.cuda.is_available():
         raise api.TargetError(
@@ -171,11 +179,14 @@ def strategy_candidates(program, n_ranks: int) -> list:
 
 def mesh_for_strategy(strategy, devices):
     """A ``repro_torch.dist.Mesh`` matching ``strategy``'s grid over the
-    first ranks of ``devices`` (which may repeat a device)."""
-    from repro_torch.dist import Mesh
+    first ranks of ``devices`` (which may repeat a device); inside a world,
+    a process mesh over its processes."""
+    from repro_torch.dist import Mesh, processes
 
     if strategy is None:
         return None
+    if processes.initialized():
+        return processes.process_mesh(strategy.grid_shape, strategy.axis_names)
     n = int(np.prod(strategy.grid_shape))
     return Mesh(
         np.array(list(devices)[:n], dtype=object).reshape(strategy.grid_shape),
@@ -365,6 +376,7 @@ def enumerate_candidates(
     least exotic winner.  cuda candidates additionally vary
     ``fused_epoch`` (one K2 launch per epoch), and fused ones K2's tile."""
     from repro_torch import api
+    from repro_torch.dist import processes
 
     devices = [torch.device(d) for d in devices] if devices is not None else default_devices()
     n_ranks = len(devices) if ranks is None else int(ranks)
@@ -372,11 +384,17 @@ def enumerate_candidates(
         raise api.TargetError(
             f"requested {n_ranks} ranks, have {len(devices)} devices"
         )
+    world = processes.initialized()
+    if world and n_ranks != processes.world().size:
+        raise api.TargetError(
+            f"requested {n_ranks} ranks in a world of {processes.world().size} processes"
+        )
     devices = devices[:n_ranks]
-    one = str(devices[0])
+    one = str(processes.world().device) if world else str(devices[0])
 
     try:
-        baseline = Candidate(target=api.auto_target(devices, n_ranks), origin="baseline")
+        auto = api.Target.auto() if world else api.auto_target(devices, n_ranks)
+        baseline = Candidate(target=auto, origin="baseline")
         api._validate_for_program(program, baseline.target)
     except api.TargetError as e:
         # e.g. extents not divisible by the device count 1-D: fall back
@@ -387,7 +405,7 @@ def enumerate_candidates(
 
     seen = {baseline.fingerprint}
     out = [baseline]
-    jit = not api.several_cards(devices)
+    jit = world or not api.several_cards(devices)
     for strategy in strategy_candidates(program, n_ranks):
         mesh = mesh_for_strategy(strategy, devices)
         where = {"mesh": mesh, "strategy": strategy} if mesh is not None else {"device": one}

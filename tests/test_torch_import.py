@@ -10,7 +10,8 @@ pipeline (``repro_torch.data``) and gradient compression
 (``repro_torch.dist.compression``); the language models' distribution
 (``repro_torch.dist.param_specs``, ``repro_torch.dist.context_parallel``,
 ``repro_torch.models.flags``) and launch layer (``repro_torch.launch.mesh``,
-``.steps``, ``.dryrun``)."""
+``.steps``, ``.dryrun``); one process per rank
+(``repro_torch.dist.processes``)."""
 import os
 import re
 import subprocess
@@ -42,7 +43,7 @@ for n in ("repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.frontend
           "repro_torch.data.pipeline", "repro_torch.dist.compression",
           "repro_torch.dist.param_specs", "repro_torch.dist.context_parallel",
           "repro_torch.models.flags", "repro_torch.launch.mesh", "repro_torch.launch.steps",
-          "repro_torch.launch.dryrun"):
+          "repro_torch.launch.dryrun", "repro_torch.dist.processes"):
     assert n in names, n
 for n in names:
     importlib.import_module(n)

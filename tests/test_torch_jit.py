@@ -85,15 +85,20 @@ def test_donate_argnums(donate, jit, want):
 
 
 def test_jit_over_several_cards_is_refused():
-    """One captured graph runs on one device: a mesh over several cards
-    needs the multi-process transport, so jit=True refuses it at
-    construction (jit=False keeps running it from one thread)."""
-    two = Mesh(np.array([torch.device("cuda", 0), torch.device("cuda", 1)] * 2,
-                        dtype=object).reshape(2, 2), ("x", "y"))
-    with pytest.raises(TargetError, match="Queue 1 item 2"):
+    """One captured graph runs on one device: a single-controller mesh
+    over several cards refuses jit=True at construction and names the
+    process mesh instead (jit=False keeps running it from one thread);
+    a process mesh of the same shape, one process a card, takes it."""
+    cards = np.array([torch.device("cuda", 0), torch.device("cuda", 1)] * 2,
+                     dtype=object).reshape(2, 2)
+    two = Mesh(cards, ("x", "y"))
+    with pytest.raises(TargetError, match="use a process mesh"):
         Target(mesh=two, strategy=make_strategy_2d((2, 2)))
     assert Target(mesh=two, strategy=make_strategy_2d((2, 2)), jit=False).jit is False
     assert Target(**_on_2x2(torch.device("cuda", 0))).jit  # one card: fine
+    per_process = Mesh(cards, ("x", "y"), process_rank=1)
+    t = Target(mesh=per_process, strategy=make_strategy_2d((2, 2)))
+    assert t.jit and t.device == "cuda" and t.distributed
 
 
 # -------------------------------------------------------------------------

@@ -153,3 +153,51 @@ def test_chip_smoke_phase_16_on_the_cpu(capsys):
     assert "phase 16:" in out and "layout seq (" in out and "layout seq_all (" in out
     assert "ep_block;" in out and "ep_block_small;" in out
     assert out.count("case 4 ") == 2 and "ValueError" in out
+
+
+def test_per_rank_calls_each_rank_on_its_own_block():
+    """``per_rank`` runs its function once per rank on that rank's
+    contiguous local tensors (a process's block, mesh dims of size 1,
+    takes one call with the same shapes) and stacks what it returns;
+    meta tensors take one call for all."""
+    from repro_torch.dist.sharding import per_rank
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4, 5, 3, generator=g)  # [data, model, n, d]
+    w = torch.randn(1, 4, 3, 6, generator=g)  # the same on every data rank
+    calls = []
+
+    def f(a, b):
+        calls.append((tuple(a.shape), tuple(b.shape), a.is_contiguous()))
+        y = a @ b
+        return y, {"sum": y.sum(-1)}
+
+    y, aux = per_rank(f, x, w, mesh=MESH)
+    assert calls == [((5, 3), (3, 6), True)] * 8
+    assert y.shape == (2, 4, 5, 6) and aux["sum"].shape == (2, 4, 5)
+    for i in range(2):
+        for j in range(4):
+            assert torch.equal(y[i, j], x[i, j] @ w[0, j])
+            assert torch.equal(aux["sum"][i, j], (x[i, j] @ w[0, j]).sum(-1))
+    calls.clear()
+    y1, _ = per_rank(f, x[1:2, 2:3], w[:, 2:3], mesh=MESH)
+    assert calls == [((5, 3), (3, 6), True)] and torch.equal(y1[0, 0], y[1, 2])
+    calls.clear()
+    ym, aux_m = per_rank(f, x.to("meta"), w.to("meta"), mesh=MESH)
+    assert len(calls) == 1 and ym.shape == (2, 4, 5, 6) and aux_m["sum"].shape == (2, 4, 5)
+
+
+@pytest.mark.parametrize("n", [1, 300, 1000])
+def test_router_logits_do_not_depend_on_the_tokens_sharing_the_call(n):
+    """``moe.router_logits``: a token's logits are the same bits whatever
+    tokens share its call (fixed blocks of ``ROUTER_BLOCK`` rows, the last
+    padded), and within float32 rounding of one plain product."""
+    from repro_torch.models import moe
+
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n, 64, generator=g)
+    w = torch.randn(64, 8, generator=g)
+    full = moe.router_logits(x, w, torch.float32)
+    torch.testing.assert_close(full, x @ w, rtol=1e-5, atol=1e-5)
+    for lo, hi in ((0, n), (n // 3, n), (n - 1, n)):
+        assert torch.equal(moe.router_logits(x[lo:hi], w, torch.float32), full[lo:hi])
