@@ -186,7 +186,29 @@ check raises and the script exits non-zero:
    the world is one process (``phase 17: world=1, no message crosses
    processes``).  A failed process, or a wait over 150 s, fails it.
    ``python3 chip_smoke.py --phase 17`` runs phase 0 and phase 17 alone,
-   against one card's times of its cases taken in that run.
+   against one card's times of its cases taken in that run.  Each
+   process's timed steps start from a barrier; the pace is the slowest
+   process's.
+18. tensor and data parallelism of the language models (``tp_phase``,
+   ``train_step.ShardedTrainStep``, ``Trainer(state_shardings=...)``):
+   ranks stacked on the card, (a) qwen2-7b at published width, 4 of 28
+   layers, float32, 2 x 2048 tokens on (data=1, model=4) and (2, 2), (b)
+   granite-moe-1b-a400m, 8 layers, capacity 4.0, on (2, 2), each one
+   step's loss within 1e-5 of the flat port and every gradient leaf within
+   1e-4 of its largest magnitude, one rank's state bytes against flat;
+   (c) a ``Trainer(state_shardings=...)`` of qwen2-7b (1 layer) on (1, 4),
+   its step-2 snapshot resumed on (2, 2) and on one device, each restored
+   state bitwise the saved one; under 150 s and 70 GiB.  ``python3
+   chip_smoke.py --phase 18`` runs phase 0 and phase 18 alone, and on four
+   cards adds one process per card over NCCL: (d) (a) and (b) bitwise the
+   stacked ranks (a checksum of each block), (e) (c) saved on (1, 4)
+   processes and resumed on (2, 2) processes and on one card, (f)
+   qwen2-7b at published width and full depth, bf16 compute, float32
+   state, remat, 4 x 4096 tokens on (1, 4), 3 ``Trainer`` steps timed from
+   a barrier (the slowest process), its step-1 loss within 2e-3 of the
+   flat forward on one card (measured 1.8e-04 apart on four H100 80GB
+   HBM3 at 700 W, where bf16's own spread against float32 was 3.1e-05);
+   under 300 s and 75 GiB a card.
 
 Phase 1 also runs K1 heat so4 at 1024² on a pool of 16 slots, and phase 6
 K2 heat so4 k=4 at 16384² on a pool of 2, each in one launch, bitwise
@@ -2477,6 +2499,11 @@ def _process_case(w, name, prog, kw, steps, note):
                   f"phase 17 {name}: a graph of rank {w.rank} holds no NCCL node")
             rec["census"].append([nodes.k1, nodes.k2, nodes.nccl, nodes.copies, nodes.fills])
         state = got
+        # every process starts its timed steps together: without the
+        # barrier a process's time holds its wait for the slowest peer's
+        # start, and only the fastest process reads the pace
+        sync()
+        processes.barrier()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         state = _advance(graphed, state, epochs)
@@ -3045,6 +3072,815 @@ def process_phase(dev, *, card="", world=None, n2=16384, weak=16384, steps=STEPS
     return summary
 
 
+# --------------------------------------------------------------------------
+# phase 18: tensor and data parallelism of the language models
+# --------------------------------------------------------------------------
+
+TP_DENSE, TP_MOE = "qwen2-7b", "granite-moe-1b-a400m"
+
+
+def tp_config(arch, n_layers, cut=None, dtype="float32", capacity=None):
+    """``arch`` at its published widths (``cut`` on the CPU), ``n_layers``
+    deep, in ``dtype``; ``capacity`` the MoE capacity factor."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace((cut or (lambda c: c))(get_config(arch)), dtype=dtype,
+                              n_layers=n_layers)
+    if capacity is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=capacity))
+    return cfg
+
+
+def tp_tokens(cfg, B, S, dev, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+
+
+def tp_meshes(dev, shape):
+    import numpy as np
+
+    from repro_torch.dist import Mesh
+
+    devs = np.empty(int(np.prod(shape)), dtype=object)
+    for i in range(devs.size):
+        devs[i] = dev
+    return Mesh(devs.reshape(shape), ("data", "model"))
+
+
+def tp_grads_case(dev, cfg, mesh, tokens, seed, *, flat=None, digests=False):
+    """One sharded train step's loss and gradients of ``cfg`` on ``mesh``
+    (stacked ranks on ``dev``, or this process's rank of a process mesh)
+    from the parameters drawn with ``seed``: against ``flat`` (the flat
+    port's ``(loss, metrics, grads)``) where it is given, and with
+    ``digests`` the loss and the checksum (:func:`words_checksum`) of every
+    rank's block of the gradients and of the state after the update (zero
+    moments in).  Returns a record."""
+    import gc
+
+    import torch
+
+    from repro_torch.dist.sharding import (
+        block_bytes, gather_placed, place_tree, rank_block,
+    )
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import ShardedTrainStep, TrainOptions, init_train_state
+
+    on_card = dev.type == "cuda"
+    B, S = tokens.shape
+    step = ShardedTrainStep(cfg, opt.OptimizerConfig(), TrainOptions(q_chunk=min(1024, S)),
+                            mesh, B)
+    pspecs = step.state_specs["params"]
+    params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                            device=dev)
+    placed = place_tree(params, pspecs, mesh)
+    del params
+    gc.collect()
+    batch = step.place_batch({"tokens": tokens})
+    if on_card:
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    (loss, metrics), grads = step.value_and_grad(placed, batch)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    rec = {"loss": float(loss), "ms": (time.perf_counter() - t0) * 1e3,
+           "metrics": {k: float(v) for k, v in metrics.items()}}
+    shapes = init_train_state(None, cfg, device="meta")
+    rec["state_bytes"] = block_bytes(shapes["params"], pspecs, mesh) * 3
+    rec["flat_state_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in lm.leaves(shapes["params"]).values()) * 3
+    if flat is not None:
+        f_loss, f_metrics, f_grads = flat
+        rec["loss_err"] = abs(rec["loss"] - f_loss)
+        worst, where = 0.0, ""
+        for path, g in lm.leaves(grads).items():
+            spec = lm.leaves(pspecs)[path]
+            want = lm.leaves(f_grads)[path]
+            got = gather_placed(g, mesh, spec)
+            e = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            if e > worst:
+                worst, where = e, path
+            del got
+        rec["grad_err"], rec["grad_worst"] = worst, where
+    if digests:
+        ranks = (mesh.process_rank,) if mesh.processes else range(mesh.size)
+        flat_g = lm.leaves(grads)
+        rec["digests"] = {r: {"loss": repr(rec["loss"])} for r in ranks}
+        for r in ranks:
+            rec["digests"][r].update({
+                f"grad {k}": words_checksum(
+                    g if mesh.processes else rank_block(g, mesh, lm.leaves(pspecs)[k], r))
+                for k, g in flat_g.items()})
+        moments = {"m": lm.tree_map(torch.zeros_like, placed),
+                   "v": lm.tree_map(torch.zeros_like, placed),
+                   "count": torch.zeros((), dtype=torch.int32, device=dev)}
+        new_p, new_o, _ = opt.adamw_update(step.opt_cfg, grads, moments, placed, specs=pspecs,
+                                           mesh=mesh)
+        del grads, moments
+        for part, tree in (("params", new_p), ("m", new_o["m"]), ("v", new_o["v"])):
+            for k, x in lm.leaves(tree).items():
+                spec = lm.leaves(pspecs)[k]
+                for r in ranks:
+                    rec["digests"][r][f"{part} {k}"] = words_checksum(
+                        x if mesh.processes else rank_block(x, mesh, spec, r))
+        del new_p, new_o
+    del placed, batch
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def tp_flat(dev, cfg, tokens, seed, mesh=None):
+    """The flat port's ``(loss, metrics, grads)`` of the parameters drawn
+    with ``seed`` (under ``use_mesh(mesh)`` for an MoE config: the
+    expert-parallel branch, whose aux losses are data shard 0's, as the
+    sharded step's are)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.dist import use_mesh
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import TrainOptions, make_loss_fn, value_and_grad
+
+    params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                            device=dev)
+    S = tokens.shape[1]
+    ctx = use_mesh(mesh) if (mesh is not None and cfg.moe is not None) else contextlib.nullcontext()
+    with ctx:
+        (loss, metrics), grads = value_and_grad(make_loss_fn(cfg, TrainOptions(
+            q_chunk=min(1024, S))))(params, {"tokens": tokens})
+    del params
+    return float(loss), {k: float(v) for k, v in metrics.items()}, grads
+
+
+def tp_trainer(dev, cfg, mesh, directory, total, B, S, seed, *, every=2, timed=None):
+    """A ``Trainer(state_shardings=...)`` of ``cfg`` on ``mesh`` with a
+    synthetic data stream of ``B`` x ``S`` tokens, its snapshots under
+    ``directory`` (none with ``directory=None``)."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (
+        ShardedTrainStep, TrainOptions, init_placed_train_state,
+    )
+    from repro_torch.train.trainer import Trainer, TrainerConfig, shardings_of
+
+    step = ShardedTrainStep(cfg, opt.OptimizerConfig(), TrainOptions(q_chunk=min(1024, S)),
+                            mesh, B)
+    data = DataConfig(seq_len=S, global_batch=B, vocab_size=cfg.vocab_size, seed=seed)
+    tcfg = TrainerConfig(total_steps=total, checkpoint_every=every if directory else 10**9,
+                         log_every=1, checkpoint_dir=directory)
+    fn = timed(step) if timed else step
+    fn.place_batch = step.place_batch
+    trainer = Trainer(fn, lambda: init_placed_train_state(
+        torch.Generator(device=dev).manual_seed(seed), cfg, mesh, step.state_specs, device=dev),
+        data, tcfg, state_shardings=shardings_of(step.state_specs, mesh))
+    return trainer, step
+
+
+def tp_flat_trainer(dev, cfg, directory, B, S):
+    """The flat port's ``Trainer`` on ``dev`` over ``directory``'s
+    snapshots (3 steps, no snapshot of its own)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainOptions, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    return Trainer(make_train_step(cfg, opt.OptimizerConfig(), TrainOptions(
+        q_chunk=min(1024, S))), None, DataConfig(seq_len=S, global_batch=B,
+                                                 vocab_size=cfg.vocab_size, seed=SEED + 182),
+        TrainerConfig(total_steps=3, checkpoint_every=10**9, log_every=1,
+                      checkpoint_dir=directory), device=dev)
+
+
+def words_checksum(t) -> str:
+    """A checksum of a float32 or int32 tensor's bits, computed where the
+    tensor lies: the plain int64 sum of its 32-bit words and their sum
+    weighted by a pseudo-random odd int64 a position (both wrapping), so
+    any one changed word changes it.  Phase 18 compares blocks of tens of
+    GB by it: a SHA-256 of them on the host took most of the phase."""
+    import torch
+
+    words = t.detach().contiguous().reshape(-1).view(torch.int32)
+    plain = weighted = 0
+    step = 1 << 26
+    for i in range(0, words.numel(), step):
+        w = words[i:i + step].long()
+        pos = torch.arange(i, i + w.numel(), device=w.device, dtype=torch.int64)
+        mult = (pos * -7046029254386353131 + 1442695040888963407) | 1
+        plain += int(w.sum())
+        weighted += int((w * mult).sum())
+    return f"{plain}:{weighted & (2**64 - 1)}"
+
+
+def tp_checksums(state, specs=None, mesh=None) -> dict:
+    """Per leaf of a train state (placed by ``specs`` on ``mesh``, or
+    whole), :func:`words_checksum` of its gathered global tensor, so that a
+    restored state is held bitwise against the saved one without a second
+    copy of either (a collective on a process mesh)."""
+    from repro_torch.dist.sharding import gather_placed
+    from repro_torch.train.optimizer import paths
+
+    out = {}
+    for path, x in paths(state):
+        if specs is not None:
+            spec = specs
+            for k in path:
+                spec = spec[k]
+            x = gather_placed(x, mesh, spec)
+        out[".".join(path)] = words_checksum(x)
+        del x
+    return out
+
+
+def tp_timed(dev, times, profile_step=None, profiles=None):
+    """A wrapper of a train step that starts every call from a barrier (on
+    a process mesh) and records its seconds on this process once the card
+    has finished it; the call ``profile_step`` (1-based) runs under the
+    profiler, whose device time by kernel goes to ``profiles``."""
+    import torch
+
+    def wrap(step):
+        def run(state, batch):
+            from repro_torch.dist import processes
+
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            if processes.initialized():
+                processes.barrier()
+            t0 = time.perf_counter()
+            if profile_step is not None and len(times) + 1 == profile_step:
+                from torch.autograd import DeviceType
+                from torch.profiler import ProfilerActivity, profile
+
+                acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                                 if dev.type == "cuda" else [])
+                with profile(activities=acts) as prof:
+                    out = step(state, batch)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+                us = [(e.key, getattr(e, "self_device_time_total", 0)
+                       or getattr(e, "self_cuda_time_total", 0)) for e in rows]
+                profiles.append({"busy_us": sum(u for _, u in us),
+                                 "nccl_us": sum(u for k, u in us if "nccl" in k.lower())})
+            else:
+                out = step(state, batch)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+            return out
+
+        return run
+
+    return wrap
+
+
+# Phase 18 (f)'s limit on step 1's bfloat16 loss against the flat bfloat16
+# forward at qwen2-7b's full depth.  On four H100s the sound sharded step
+# read 1.802e-04 from it (2.623e-04 with its bf16 partials summed in
+# float32: rounding noise of ~1e-4 either way), and the same forward with
+# one SwiGLU psum dropped 1.423e-03; 6e-4 lies between (about their
+# geometric mean), and the planted fault must read over it in every run.
+TP_BF16_LOSS_TOL = 6e-4
+
+
+def psum_variant(*, drop_layer=None, float32=False):
+    """Phase 18 (f)'s variants of the tensor-parallel forward's psums
+    (``models.tp.psum``), inside the ``with``: ``drop_layer`` plants a
+    fault (the SwiGLU of that layer, 0-based, returns its ranks' partial
+    sums unreduced; a forward runs one SwiGLU a layer, in order, so use a
+    fresh ``with`` for each forward); ``float32`` sums bfloat16 partials
+    in float32 and rounds the sum once, as a flat product does."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import tp
+
+    swiglu, psum, calls = tp.swiglu, tp.psum, [0]
+
+    def psum32(y, axes, mesh):
+        if y.dtype != torch.bfloat16:
+            return psum(y, axes, mesh)
+        return psum(y.float(), axes, mesh).to(y.dtype)
+
+    def faulty(*args):
+        calls[0] += 1
+        if calls[0] - 1 != drop_layer:
+            return swiglu(*args)
+        tp.psum = lambda y, axes, mesh: y
+        try:
+            return swiglu(*args)
+        finally:
+            tp.psum = psum
+
+    @contextlib.contextmanager
+    def patched():
+        tp.swiglu, tp.psum = (faulty if drop_layer is not None else swiglu,
+                              psum32 if float32 else psum)
+        try:
+            yield
+        finally:
+            tp.swiglu, tp.psum = swiglu, psum
+
+    return patched()
+
+
+def tp_child(rank, world, tmp, spec):
+    """One process of phase 18's four-card part (d)-(f), on ``cuda:rank``
+    over NCCL (gloo on the CPU for a rehearsal); it rewrites
+    ``<tmp>/rank<r>.json`` after every part and logs its progress to
+    ``<tmp>/rank<r>.log``."""
+    import faulthandler
+    import gc
+
+    sys.path.insert(0, spec["src"])
+    import torch
+
+    from repro_torch.configs.base import reduced_config
+    from repro_torch.dist import processes
+    from repro_torch.dist.sharding import block_bytes
+
+    progress = open(os.path.join(tmp, f"rank{rank}.log"), "w", buffering=1)
+    faulthandler.dump_traceback_later(spec["dump_s"], file=progress)
+    t0 = time.perf_counter()
+
+    def note(msg):
+        progress.write(f"{time.perf_counter() - t0:7.1f} s  {msg}\n")
+
+    if spec["device"] == "cpu":
+        torch.set_num_threads(1)
+    cut = reduced_config if spec["reduced"] else None
+    w = processes.init(device=spec["device"], rank=rank, world_size=world, local_rank=rank,
+                       init_method=f"file://{os.path.abspath(os.path.join(tmp, 'store'))}",
+                       timeout_s=180)
+    dev = w.device
+    on_card = dev.type == "cuda"
+    out = {"rank": rank}
+
+    def save():
+        path = os.path.join(tmp, f"rank{rank}.json")
+        with open(path + ".part", "w") as f:
+            json.dump(out, f)
+        os.replace(path + ".part", path)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+
+    try:
+        # (d) the grads cases on process meshes
+        out["d"] = {}
+        for name, arch, layers, shape, capacity in spec["cases"]:
+            cfg = tp_config(arch, layers, cut, capacity=capacity)
+            mesh = processes.process_mesh(shape, ("data", "model"))
+            B, S = spec["tokens"]
+            rec = tp_grads_case(dev, cfg, mesh, tp_tokens(cfg, B, S, dev, SEED + 181), SEED + 180,
+                                digests=True)
+            rec["digests"] = rec["digests"][rank]
+            out["d"][name] = rec
+            save()
+            note(f"(d) {name}")
+            free()
+        # (e) saved on (1, 4) processes, resumed on (2, 2) processes
+        cfg = tp_config(TP_DENSE, spec["trainer_layers"], cut)
+        B, S = spec["tokens"]
+        ck = os.path.join(tmp, "ckpt")
+        m14 = processes.process_mesh((1, world), ("data", "model"))
+        trainer, step = tp_trainer(dev, cfg, m14, ck, 2, B, S, SEED + 182)
+        trainer.run()
+        out["e"] = {"saved": tp_checksums(trainer.state, step.state_specs, m14)}
+        del trainer, step
+        free()
+        note("(e) written")
+        m22 = processes.process_mesh((2, world // 2), ("data", "model"))
+        trainer, step = tp_trainer(dev, cfg, m22, ck, 3, B, S, SEED + 182)
+        out["e"]["start"] = trainer.start_step
+        out["e"]["restored"] = tp_checksums(trainer.state, step.state_specs, m22)
+        out["e"]["loss3"] = trainer.run()["metrics"][-1]["loss"]
+        del trainer, step
+        free()
+        save()
+        note("(e) resumed")
+        # (f) qwen2-7b at full depth, bf16 compute, float32 state, on (1, 4)
+        cfg = tp_config(TP_DENSE, spec["full_layers"], cut, dtype="bfloat16")
+        B, S = spec["full_tokens"]
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        times, profiles = [], []
+        trainer, step = tp_trainer(dev, cfg, m14, None, 3, B, S, SEED + 183,
+                                   timed=tp_timed(dev, times, profile_step=3,
+                                                  profiles=profiles))
+        import dataclasses
+
+        from repro_torch.data.pipeline import make_source
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train.train_step import ShardedTrainStep, TrainOptions, init_train_state
+
+        # the forward alone of the initial parameters on step 1's batch: in
+        # float32, and in float32 and bfloat16 with one psum dropped
+        params = trainer.state["params"]
+        batch = step.place_batch(make_source(trainer.data_cfg).batch_at(0))
+        s32 = ShardedTrainStep(dataclasses.replace(cfg, dtype="float32"), opt.OptimizerConfig(),
+                               TrainOptions(q_chunk=min(1024, S)), m14, B)
+        forward = {"float32": float(s32.loss(params, batch)[0])}
+        for name, st in (("float32", s32), ("bfloat16", step)):
+            with psum_variant(drop_layer=spec["full_layers"] // 2):
+                forward[name + " fault"] = float(st.loss(params, batch)[0])
+        with psum_variant(float32=True):
+            forward["bfloat16 float32-psums"] = float(step.loss(params, batch)[0])
+        del params, batch, s32
+        free()
+        note("(f) forwards")
+        shapes = init_train_state(None, cfg, device="meta")
+        run = trainer.run()
+        out["f"] = {
+            "forward": forward,
+            "losses": [m["loss"] for m in run["metrics"] if "loss" in m],
+            "s": times, "profile": profiles,
+            "state_bytes": block_bytes(shapes["params"], step.state_specs["params"], m14) * 4,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0,
+        }
+        del trainer, step
+        free()
+        save()
+        note("(f)")
+        out["done"] = True
+        save()
+        processes.barrier()
+    except BaseException:
+        import traceback
+
+        note("failed:\n" + traceback.format_exc())
+        progress.close()
+        os._exit(1)
+    faulthandler.cancel_dump_traceback_later()
+    processes.shutdown()
+    progress.close()
+
+
+def tp_phase(dev, *, card="", cut=None, dense_layers=4, moe_layers=8, trainer_layers=1,
+             tokens=(2, 2048), full_layers=28, full_tokens=(4, 4096), processes=None) -> None:
+    """Phase 18: tensor and data parallelism of the language models
+    (``train_step.ShardedTrainStep``, ``Trainer(state_shardings=...)``).
+
+    On this card, the ranks stacked: (a) qwen2-7b at published width,
+    ``dense_layers`` of its 28 layers, float32, ``tokens`` (B, S), on
+    (data=1, model=4) and (2, 2): the loss within 1e-5 of the flat port,
+    every gradient leaf within 1e-4 of its largest magnitude, one rank's
+    state bytes against flat; (b) granite-moe-1b-a400m, ``moe_layers``
+    layers, capacity factor 4.0, on (2, 2) (tensor-parallel attention,
+    expert-parallel experts, data parallelism), the same checks against
+    the flat port under the same mesh (its expert-parallel branch); (c) a
+    ``Trainer(state_shardings=...)`` of (a)'s config (``trainer_layers``
+    deep) on (1, 4), 3 steps with a snapshot at step 2, resumed on (2, 2)
+    and on one device (the flat trainer): each restored state bitwise the
+    snapshot, step 3's loss within 1e-5 of the uninterrupted run's.
+
+    With ``processes`` (four cards: ``python3 chip_smoke.py --phase 18``;
+    or gloo processes on the CPU for a rehearsal) four processes then run
+    (d) (a) and (b) on process meshes, the loss and every block of the
+    gradients and the updated state bitwise the stacked ranks (a checksum
+    of each block's words, computed on its card: :func:`words_checksum`);
+    (e) (c) saved on (1, 4) processes and resumed on (2, 2) processes; (f)
+    qwen2-7b at published width and ``full_layers`` depth, bfloat16
+    compute, float32 state, ``TrainOptions(remat=True, q_chunk=1024)``,
+    ``full_tokens`` synthetic tokens on (1, 4), 3 ``Trainer`` steps: ms a
+    step and tokens/s from a barrier (the slowest process), peak memory,
+    state bytes and the share of device time in NCCL (step 3, profiled);
+    its losses finite; the sharded forward of the initial parameters on
+    step 1's batch in float32 within 1e-5 of the flat port's float32
+    forward on one card (``no_grad``), where the same forward with one
+    row-parallel psum dropped (:func:`psum_variant`) must read more than
+    1e-5 from it; step 1's bfloat16 loss within ``TP_BF16_LOSS_TOL`` of the
+    flat bfloat16 forward, where the bfloat16 forward with that psum
+    dropped must read more than it.
+
+    The phase must take under 150 s and 70 GiB on one card, 300 s and 75
+    GiB a card with its processes."""
+    import gc
+
+    import torch
+
+    on_card = dev.type == "cuda"
+    gib = 2**30
+    max_s = 300.0 if processes else 150.0
+    max_gib = 75.0 if processes else 70.0
+    t18 = time.perf_counter()
+    seed = SEED + 180
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+
+    def peak() -> float:
+        return torch.cuda.max_memory_allocated(dev) / gib if on_card else 0.0
+
+    free()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    log(f"phase 18: language models tensor- and data-parallel (ShardedTrainStep, "
+        f"Trainer(state_shardings=...)), the ranks stacked on this card; {card}")
+    B, S = tokens
+    cases = [("(a) qwen2-7b (1, 4)", TP_DENSE, dense_layers, (1, 4), None),
+             ("(a) qwen2-7b (2, 2)", TP_DENSE, dense_layers, (2, 2), None),
+             ("(b) granite-moe-1b-a400m (2, 2)", TP_MOE, moe_layers, (2, 2), 4.0)]
+    stacked = {}
+    reports = {}
+    flat_cache = {}
+    for name, arch, layers, shape, capacity in cases:
+        t0 = time.perf_counter()
+        cfg = tp_config(arch, layers, cut, capacity=capacity)
+        mesh = tp_meshes(dev, shape)
+        toks = tp_tokens(cfg, B, S, dev, SEED + 181)
+        key = (arch, capacity if cfg.moe is None else shape)
+        if key not in flat_cache:
+            flat_cache.clear()
+            free()
+            tf = time.perf_counter()
+            flat_cache[key] = tp_flat(dev, cfg, toks, seed, mesh) + (time.perf_counter() - tf,)
+        f_loss, f_metrics, f_grads, f_s = flat_cache[key]
+        rec = tp_grads_case(dev, cfg, mesh, toks, seed, flat=(f_loss, f_metrics, f_grads),
+                            digests=bool(processes))
+        stacked[name] = rec
+        check(rec["loss_err"] <= 1e-5,
+              f"phase 18 {name}: loss {rec['loss']:.7f} is {rec['loss_err']:.3e} from the flat "
+              f"port's {f_loss:.7f}")
+        check(rec["grad_err"] <= 1e-4,
+              f"phase 18 {name}: gradient {rec['grad_worst']} is {rec['grad_err']:.3e} of its "
+              "largest magnitude from the flat port's")
+        log(f"  {name}: {layers} layers, {B}x{S} tokens, float32: loss {rec['loss']:.6f} "
+            f"({rec['loss_err']:.2e} from flat), every gradient leaf within {rec['grad_err']:.2e} "
+            f"of its max (worst {rec['grad_worst']}); one rank's state (params, m, v) "
+            f"{rec['state_bytes'] / 1e9:.3f} GB against {rec['flat_state_bytes'] / 1e9:.3f} GB "
+            f"flat ({rec['state_bytes'] / rec['flat_state_bytes']:.3f}); loss and gradients "
+            f"{rec['ms']:.0f} ms stacked, {f_s * 1e3:.0f} ms flat; "
+            f"{time.perf_counter() - t0:.1f} s, peak {peak():.2f} GiB")
+    flat_cache.clear()
+    free()
+
+    # (c) a Trainer on (1, 4), its snapshot resumed on (2, 2) and on one device
+    t0 = time.perf_counter()
+    cfg = tp_config(TP_DENSE, trainer_layers, cut)
+    tmp = tempfile.mkdtemp(prefix="phase18-")
+    try:
+        ck = os.path.join(tmp, "ckpt")
+        trainer, step = tp_trainer(dev, cfg, tp_meshes(dev, (1, 4)), ck, 2, B, S, SEED + 182)
+        trainer.run()
+        save_s = dict(trainer.ckpt.last_save)
+        saved = tp_checksums(trainer.state, step.state_specs, step.mesh)
+        del trainer, step
+        free()
+        trainer, step = tp_trainer(dev, cfg, tp_meshes(dev, (2, 2)), ck, 3, B, S, SEED + 182)
+        check(trainer.start_step == 2, f"phase 18 (c): resumed at step {trainer.start_step}")
+        check(tp_checksums(trainer.state, step.state_specs, step.mesh) == saved,
+              "phase 18 (c): the state restored on (2, 2) differs from the saved state")
+        l22 = trainer.run()["metrics"][-1]["loss"]
+        del trainer, step
+        free()
+        flat = tp_flat_trainer(dev, cfg, ck, B, S)
+        check(flat.start_step == 2, f"phase 18 (c): one device resumed at step {flat.start_step}")
+        check(tp_checksums(flat.state) == saved,
+              "phase 18 (c): the state restored on one device differs from the saved state")
+        l1 = flat.run()["metrics"][-1]["loss"]
+        del flat
+        free()
+        check(abs(l22 - l1) <= 1e-5, f"phase 18 (c): step 3 resumed on (2, 2), loss {l22:.7f}, "
+                                     f"is {abs(l22 - l1):.3e} from one device's {l1:.7f}")
+        log(f"  (c) Trainer(state_shardings) of qwen2-7b, {trainer_layers} layer(s), on (1, 4): "
+            f"2 steps and the step-2 snapshot (to host {save_s.get('to_host_s', 0):.1f} s, write "
+            f"{save_s.get('write_s', 0):.1f} s), resumed on (2, 2) and on one device, each "
+            f"restored state bitwise the saved one (checksums of every gathered leaf); step 3 "
+            f"loss {l22:.6f} on (2, 2), {l1:.6f} on one device; "
+            f"{time.perf_counter() - t0:.1f} s, peak {peak():.2f} GiB")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    reports["c"] = saved
+    check(peak() < max_gib, f"phase 18: peaked at {peak():.2f} GiB, over {max_gib}")
+    if processes:
+        tp_processes_part(dev, processes, stacked, cases, cut=cut, card=card, tokens=tokens,
+                          trainer_layers=trainer_layers, full_layers=full_layers,
+                          full_tokens=full_tokens, max_s=max_s - (time.perf_counter() - t18))
+    sec = time.perf_counter() - t18
+    log(f"phase 18: {sec:.1f} s; {card}")
+    check(sec < max_s, f"phase 18 took {sec:.1f} s, more than {max_s} s")
+
+
+def tp_processes_part(dev, world, stacked, cases, *, cut, card, tokens, trainer_layers,
+                      full_layers, full_tokens, max_s) -> None:
+    """Phase 18 (d)-(f) over ``world`` processes (see :func:`tp_phase`),
+    in the ``max_s`` seconds left of the phase."""
+    import dataclasses
+    import gc
+    import math
+    import multiprocessing
+
+    import torch
+
+    on_card = dev.type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="phase18p-")
+    spec = {"src": str(Path(__file__).resolve().parent / "src"),
+            "device": "cuda" if on_card else "cpu", "reduced": cut is not None,
+            "cases": [list(c) for c in cases], "tokens": list(tokens),
+            "trainer_layers": trainer_layers, "full_layers": full_layers,
+            "full_tokens": list(full_tokens), "dump_s": max(max_s - 20, 30.0)}
+    gc.collect()
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+    log(f"phase 18 (d)-(f): {world} processes over {'NCCL' if on_card else 'gloo'}; {card}")
+    try:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=tp_child, args=(r, world, tmp, spec)) for r in range(world)]
+        t_spawn = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            while (any(p.is_alive() for p in procs)
+                   and not any(p.exitcode not in (None, 0) for p in procs)
+                   and time.perf_counter() - t_spawn < max_s):
+                time.sleep(0.2)
+        finally:
+            hung = [p for p in procs if p.is_alive()]
+            for p in hung:
+                p.terminate()
+            for p in procs:
+                p.join(10)
+        wait_s = time.perf_counter() - t_spawn
+        codes = [p.exitcode for p in procs]
+        if hung or codes != [0] * world:
+            for r in range(world):
+                path = os.path.join(tmp, f"rank{r}.log")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        log(f"  rank {r}'s progress:\n" + f.read()[-6000:])
+        results = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.json")
+            results.append(json.load(open(path)) if os.path.exists(path) else {})
+        log(f"  {world} process(es) ran in {wait_s:.1f} s, exit codes {codes}")
+        failed = []
+
+        def verify(ok, msg):
+            if not ok:
+                failed.append(msg)
+                log(f"  FAILED: {msg}")
+
+        # (d) every block bitwise the stacked ranks
+        for name, *_ in cases:
+            if not all(name in res.get("d", {}) for res in results):
+                verify(False, f"phase 18 (d) {name}: did not end on every process")
+                continue
+            want = stacked[name]["digests"]
+            bad = [(r, k) for r, res in enumerate(results)
+                   for k, v in res["d"][name]["digests"].items()
+                   if want[r].get(k) != v]
+            verify(not bad, f"phase 18 (d) {name}: {len(bad)} block(s) differ from the stacked "
+                            f"ranks, first {bad[:3]}")
+            ms = [res["d"][name]["ms"] for res in results]
+            log(f"  (d) {name} over {world} processes: loss "
+                f"{results[0]['d'][name]['loss']:.6f}, the loss, {len(want[0]) - 1} gradient and "
+                f"updated-state blocks a rank bitwise the stacked ranks' (checksums); loss and "
+                f"gradients {max(ms):.0f} ms (slowest process) against {stacked[name]['ms']:.0f} "
+                "ms stacked on one card")
+        # (e) saved on (1, 4) processes, resumed on (2, 2) processes and on one card
+        if all("e" in res and "loss3" in res["e"] for res in results):
+            e = results[0]["e"]
+            verify(all(res["e"]["start"] == 2 for res in results),
+                   "phase 18 (e): a process did not resume at step 2")
+            verify(all(res["e"]["restored"] == e["saved"] and res["e"]["saved"] == e["saved"]
+                       for res in results),
+                   "phase 18 (e): a process's restored state differs from the saved one")
+            cfg = tp_config(TP_DENSE, trainer_layers, cut)
+            flat = tp_flat_trainer(dev, cfg, os.path.join(tmp, "ckpt"), *tokens)
+            verify(flat.start_step == 2 and tp_checksums(flat.state) == e["saved"],
+                   "phase 18 (e): the processes' snapshot restored on one card differs from the "
+                   "saved state")
+            l1 = flat.run()["metrics"][-1]["loss"]
+            del flat
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            verify(abs(e["loss3"] - l1) <= 1e-5,
+                   f"phase 18 (e): step 3 resumed on (2, 2) processes, {e['loss3']:.7f}, against "
+                   f"{l1:.7f} on one card")
+            log(f"  (e) Trainer(state_shardings) on (1, 4) processes, its step-2 snapshot resumed "
+                f"on (2, 2) processes and on one card, each restored state bitwise the saved one; "
+                f"step 3 loss {e['loss3']:.6f} on (2, 2) processes, {l1:.6f} on one card")
+        else:
+            verify(False, "phase 18 (e): did not end on every process")
+        # (f) full depth: the pace, the memory, the share in NCCL; the loss
+        # against the flat forward on one card
+        if all("f" in res for res in results):
+            fs = [res["f"] for res in results]
+            B, S = full_tokens
+            pace = max(f["s"][1] for f in fs)
+            prof = [f["profile"][0] for f in fs if f["profile"]]
+            share = [p["nccl_us"] / p["busy_us"] for p in prof if p["busy_us"]]
+            loss1 = fs[0]["losses"][0]
+            verify(all(math.isfinite(l) for f in fs for l in f["losses"]),
+                   "phase 18 (f): a loss is not finite")
+            cfg = tp_config(TP_DENSE, full_layers, cut, dtype="bfloat16")
+            from repro_torch.data.pipeline import DataConfig, make_source
+            from repro_torch.models import lm
+            from repro_torch.train.train_step import cross_entropy_loss
+
+            src = make_source(DataConfig(seq_len=S, global_batch=B, vocab_size=cfg.vocab_size,
+                                         seed=SEED + 183))
+            batch = src.batch_at(0)
+            toks = torch.from_numpy(batch["tokens"]).to(dev, dtype=torch.int64)
+            params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(
+                SEED + 183), device=dev)
+            losses = {}
+            for c in (cfg, dataclasses.replace(cfg, dtype="float32")):
+                with torch.no_grad():
+                    logits, _ = lm.forward_train(params, c, toks, remat=False,
+                                                 q_chunk=min(1024, S))
+                    ce, zl = cross_entropy_loss(c, logits, toks)
+                    losses[c.dtype] = float(ce + zl)
+                del logits
+            # the spread of bf16's rounding: the flat forward in bf16 against float32
+            flat_loss, spread = losses["bfloat16"], abs(losses["bfloat16"] - losses["float32"])
+            del params
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            # every process computes the global loss: process 0's stands for all
+            fwd = fs[0]["forward"]
+            gap = {k: abs(v - losses[k.split()[0]]) for k, v in fwd.items()}
+            verify(gap["float32"] <= 1e-5,
+                   f"phase 18 (f): the sharded float32 forward's loss {fwd['float32']:.7f} is "
+                   f"{gap['float32']:.3e} from the flat float32 forward's "
+                   f"{losses['float32']:.7f}, over 1e-5")
+            verify(gap["float32 fault"] > 1e-5,
+                   f"phase 18 (f): with a psum dropped the float32 forward reads only "
+                   f"{gap['float32 fault']:.3e} from flat, so 1e-5 would not see the fault")
+            verify(abs(loss1 - flat_loss) <= TP_BF16_LOSS_TOL,
+                   f"phase 18 (f): step 1's loss {loss1:.6f} is {abs(loss1 - flat_loss):.3e} "
+                   f"from the flat bfloat16 forward's {flat_loss:.6f}, over {TP_BF16_LOSS_TOL}")
+            verify(gap["bfloat16 fault"] > TP_BF16_LOSS_TOL,
+                   f"phase 18 (f): with a psum dropped the bfloat16 forward reads only "
+                   f"{gap['bfloat16 fault']:.3e} from flat, so {TP_BF16_LOSS_TOL} would not see "
+                   "the fault")
+            gb = [f["state_bytes"] / 1e9 for f in fs]
+            log(f"  (f) qwen2-7b at published width, {full_layers} layers, bfloat16 compute, "
+                f"float32 state, remat, {B}x{S} tokens on (1, {world}) processes, 3 Trainer steps: "
+                f"losses {[round(l, 6) for l in fs[0]['losses']]}; step 2 {pace * 1e3:.1f} ms "
+                f"(the slowest process, from a barrier; per process "
+                f"{', '.join('%.1f' % (f['s'][1] * 1e3) for f in fs)}), "
+                f"{B * S / pace:.0f} tokens/s; step 1 {max(f['s'][0] for f in fs) * 1e3:.1f} ms; "
+                f"step 1's loss {loss1:.6f} against the flat bf16 forward's {flat_loss:.6f} on one "
+                f"card (|diff| {abs(loss1 - flat_loss):.3e}, limit {TP_BF16_LOSS_TOL}; with "
+                f"layer {full_layers // 2}'s SwiGLU psum dropped {gap['bfloat16 fault']:.3e}; with every psum of bf16 partials "
+                f"summed in float32 {gap['bfloat16 float32-psums']:.3e}; bf16's spread against "
+                f"float32 {spread:.3e}); the sharded float32 forward {fwd['float32']:.7f} against flat "
+                f"{losses['float32']:.7f} (|diff| {gap['float32']:.3e}, limit 1e-5; with the psum "
+                f"dropped {gap['float32 fault']:.3e}); state + gradients "
+                f"{max(gb):.2f} GB a process; peak "
+                f"{', '.join('%.2f' % f['peak_gib'] for f in fs)} GiB; NCCL "
+                f"{', '.join('%.3f' % x for x in share)} of device time in step 3 (profiled)")
+            if on_card:
+                verify(max(f["peak_gib"] for f in fs) < 75.0,
+                       "phase 18 (f): a process peaked over 75 GiB")
+        else:
+            verify(False, "phase 18 (f): did not end on every process")
+        check(codes == [0] * world, f"phase 18: the processes exited with {codes} "
+                                    f"({len(hung)} still running after {wait_s:.1f} s were stopped)")
+        check(not failed, f"phase 18: {len(failed)} check(s) failed: {failed}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase18_alone() -> int:
+    """``python3 chip_smoke.py --phase 18``: the card and phase 18 alone, on
+    four cards with its process part (d)-(f)."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    log(card)
+    n = torch.cuda.device_count()
+    log(f"phase 18 alone on {n} card(s)")
+    tp_phase(dev, card=card, processes=4 if n >= 4 else None)
+    log(card_line())
+    return 0
+
+
 def one_card_ms(dev, n2, steps=STEPS) -> dict:
     """Phase 17's cases at ``n2``² on one card under ``jit`` (ms/step by
     CUDA events after a warm-up run, the best of 3): the baseline of the
@@ -3107,6 +3943,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--phase", "17"]:
         return phase17_alone()
+    if sys.argv[1:] == ["--phase", "18"]:
+        return phase18_alone()
     t_start = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
@@ -4387,6 +5225,9 @@ def main() -> int:
         })
         log(f"  K2 {label}: bitwise at each rank's box, {ms:.4f} ms/launch, bound {b_ms:.4f} "
             f"ms ({b_by}), plain {plain_ms:.3f} ms")
+
+    # -- phase 18: tensor and data parallelism (no kernel of its own) ----------
+    tp_phase(dev, card=card)
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())

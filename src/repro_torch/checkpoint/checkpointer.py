@@ -24,7 +24,9 @@ first), so the snapshot holds no reference to the caller's tensors and a
 later epoch may overwrite them while an async write runs.  Restore
 returns host (numpy) arrays: placing them on a device, on any mesh, is
 the caller's job (``CompiledStencil.shard_state``), so a run
-checkpointed over four ranks restores onto one device unchanged.  Async
+checkpointed over four ranks restores onto one device unchanged; or,
+given ``shardings`` (the reference's argument), each process's blocks of
+every leaf placed by them, read from the files block by block.  Async
 saves run on a daemon thread; ``wait`` joins before the next save or
 shutdown, and raises what the write raised.
 
@@ -322,32 +324,53 @@ class Checkpointer:
             return json.load(f)
 
     def restore(self, tree_like, step: Optional[int] = None, shardings=None) -> Any:
-        """Restore into the structure of ``tree_like`` as host (numpy)
-        arrays.
+        """Restore into the structure of ``tree_like``.
 
-        ``shardings`` is accepted for the reference's signature and must
-        be ``None``: placement onto a device or a mesh is the caller's
-        (``CompiledStencil.shard_state``).
+        Without ``shardings``: host (numpy) arrays; placing them on a
+        device or a mesh is the caller's (``CompiledStencil.shard_state``),
+        and inside a world process 0 reads and broadcasts every leaf.
+
+        With ``shardings`` (a tree like ``tree_like`` of
+        ``dist.sharding.NamedSharding``, the reference's argument): each
+        leaf placed by its sharding (``dist.sharding.place``), on a process
+        mesh this process's block alone, on a single controller the
+        stacked blocks.  Every process reads its blocks from the files
+        itself, leaf by leaf and block by block (memory-mapped), so no
+        process ever holds a whole state, and a snapshot saved on any
+        layout restores onto any other (the reference's elastic restart).
         """
-        if shardings is not None:
-            raise ValueError(
-                "Checkpointer.restore returns host arrays; place them with "
-                "CompiledStencil.shard_state (shardings must be None)"
-            )
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        loaded = {}
         keys = list(_flatten(tree_like))
         for key in keys:
-            meta = manifest["leaves"].get(key)
-            if meta is None:
+            if key not in manifest["leaves"]:
                 raise KeyError(f"checkpoint missing leaf {key}")
+        if shardings is not None:
+            from repro_torch.dist.sharding import NamedSharding, place
+
+            where = _flatten(shardings)
+            bad = [k for k in keys if not isinstance(where.get(k), NamedSharding)]
+            if bad:
+                raise ValueError(
+                    "Checkpointer.restore: shardings must give every leaf a NamedSharding "
+                    f"(none for {bad[:3]}); for host arrays pass shardings=None and place them "
+                    "with CompiledStencil.shard_state"
+                )
+            loaded = {}
+            for key in keys:
+                s = where[key]
+                arr = np.load(os.path.join(path, manifest["leaves"][key]["file"]), mmap_mode="r")
+                loaded[key] = place(arr, s.mesh, s.spec)
+            self._bump("restores")
+            return _unflatten(tree_like, loaded)
+        loaded = {}
+        for key in keys:
             if self.writer:
-                loaded[key] = np.load(os.path.join(path, meta["file"]))
+                loaded[key] = np.load(os.path.join(path, manifest["leaves"][key]["file"]))
         if self.world is not None:
             loaded = self._broadcast(keys, loaded, manifest)
         self._bump("restores")

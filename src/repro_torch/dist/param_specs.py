@@ -12,6 +12,8 @@ layers (``layers``) get a leading ``None``.
 All specs pass through ``_valid_spec``: an axis that does not divide a
 dimension is dropped, never an error.  The trees may hold meta tensors
 (``lm.init_params(cfg, device="meta")``): only shapes are read.
+:func:`place_params` and :func:`place_state` lay a tree out as each
+process's blocks of its specs (``dist.sharding.place``).
 """
 from __future__ import annotations
 
@@ -157,3 +159,22 @@ def state_pspecs(state_shapes, rules: ShardingRules, mesh):
         return _leaf_spec(names, tuple(leaf.shape), rules, mesh)
 
     return _map_with_path(one, state_shapes)
+
+
+def place_params(params, rules: ShardingRules, mesh):
+    """``params`` (global tensors or numpy arrays) as this process's blocks
+    of their :func:`param_pspecs` (``dist.sharding.place``); returns
+    ``(placed, specs)``."""
+    from repro_torch.dist.sharding import place_tree
+
+    specs = param_pspecs(params, rules, mesh)
+    return place_tree(params, specs, mesh), specs
+
+
+def place_state(state, rules: ShardingRules, mesh):
+    """A train state as this process's blocks of its :func:`state_pspecs`;
+    returns ``(placed, specs)``."""
+    from repro_torch.dist.sharding import place_tree
+
+    specs = state_pspecs(state, rules, mesh)
+    return place_tree(state, specs, mesh), specs

@@ -56,12 +56,24 @@ supports and :func:`kv_cache_layout` picks the decode cache's layout.
 
 :func:`shard` differs from the reference on purpose.  The reference's
 ``jax.lax.with_sharding_constraint`` is a layout hint for GSPMD and never
-changes a value; eager PyTorch on one controller has no sharding
-propagation, so the port's ``shard`` resolves the rules, clamps the spec,
-records it (see :func:`recording`; the dry run reads the records) and
-returns its input unchanged.  The computation that a mesh really splits
-(flash-decode over a sequence-sharded cache, expert parallelism, context
-parallelism) runs per rank through :func:`shard_map` and the collectives.
+changes a value; eager PyTorch has no sharding propagation, so under
+:func:`use_mesh` (the weights whole) the port's ``shard`` resolves the
+rules, clamps the spec, records it (see :func:`recording`; the dry run
+reads the records) and returns its input unchanged, and the computation
+that a mesh splits there (flash-decode over a sequence-sharded cache,
+expert parallelism, context parallelism) runs per rank through
+:func:`shard_map` and the collectives.
+
+Tensor parallelism (the reference's GSPMD over ``param_pspecs``): a tree
+is placed as each process's blocks of its specs (:func:`place`,
+:func:`place_tree`; :func:`gather_tree` is the inverse; on a single
+controller the distinct blocks are stacked, ``[*lead, *block]``), and a
+step's body (:func:`tensor_parallel`) takes them as stacked ranks
+(:func:`enter`), computes each rank's part one call a rank
+(:func:`per_rank` with ``coords``) and runs the collectives GSPMD would
+insert explicitly (:func:`psum`, :func:`all_gather`, :func:`relayout`;
+``models.tp``); :func:`reduce_placed` completes a replicated block's
+gradient on a process mesh.
 """
 from __future__ import annotations
 
@@ -778,20 +790,44 @@ def _rank_block(x: torch.Tensor) -> torch.Tensor:
     return x.clone() if x.is_cuda and x.data_ptr() % 256 else x
 
 
-def per_rank(f: Callable, *xs: torch.Tensor, mesh: Mesh):
+def _split_ranks(x: torch.Tensor, lead: tuple) -> list:
+    """The entries of ``x`` along its ``len(lead)`` leading dims (expanded
+    to ``lead``), in row-major order: views, whose backward stacks the
+    entries' cotangents once (an index per entry would scatter each into a
+    zero tensor of the whole)."""
+    blocks = [x.expand(*lead, *x.shape[len(lead):])]
+    for _ in lead:
+        blocks = [b for y in blocks for b in y.unbind(0)]
+    return blocks
+
+
+def per_rank(f: Callable, *xs: torch.Tensor, mesh: Mesh, coords: bool = False):
     """``f`` on each rank's entry of stacked ranks ``xs`` (``[*mesh dims,
     *local]``), one call per rank on its local tensors, and its results
     (tensors, or tuples and dicts of them) stacked again.  A rank's numbers
     are then those of the same call in a process that holds only its
     block: one batched call over the stacked ranks may take another cuBLAS
     kernel, or sum a reduction in another order, than a call on one rank's
-    block.  Meta tensors (the dry run) take one call for all."""
-    if any(x.is_meta for x in xs):
-        return f(*xs)
+    block.  With ``coords`` the call is ``f(coords, *blocks)``, ``coords``
+    the rank's coordinate along each mesh axis (``Mesh.coords``), and every
+    mesh dim runs in full.  Meta tensors (the dry run) take one call, on
+    the first rank's block, for all."""
     L = len(mesh.axis_names)
     lead = torch.broadcast_shapes(*(x.shape[:L] for x in xs))
-    outs = [f(*(_rank_block(x.expand(*lead, *x.shape[L:])[idx]) for x in xs))
-            for idx in np.ndindex(*lead)]
+    if coords and not mesh.processes:
+        lead = tuple(mesh.shape.values())
+    if any(x.is_meta for x in xs):
+        first = tuple(x.expand(*lead, *x.shape[L:])[(0,) * L] for x in xs)
+        out = f(mesh.coords(0), *first) if coords else f(*first)
+        return pytree.tree_map(lambda t: t.expand(*lead, *t.shape), out)
+    blocks = [_split_ranks(x, lead) for x in xs]
+    outs = []
+    for i, idx in enumerate(np.ndindex(*lead)):
+        args = [_rank_block(b[i]) for b in blocks]
+        if coords:
+            rank = mesh.process_rank if mesh.processes else int(np.ravel_multi_index(idx, lead))
+            args.insert(0, mesh.coords(rank))
+        outs.append(f(*args))
     leaves, tree = pytree.tree_flatten(outs[0])
     cols = [pytree.tree_flatten(o)[0] for o in outs]
     return pytree.tree_unflatten(
@@ -799,22 +835,71 @@ def per_rank(f: Callable, *xs: torch.Tensor, mesh: Mesh):
          .reshape(*lead, *leaf.shape) for i, leaf in enumerate(leaves)], tree)
 
 
+class _Spread(torch.autograd.Function):
+    """``y`` (size 1 along the mesh dims ``dims``) expanded to ``shape``;
+    the backward sums the copies' cotangents by :func:`_chain`, in rank
+    order, as a process mesh sums them (autograd's own expand backward
+    sums in an order of its choosing)."""
+
+    @staticmethod
+    def forward(ctx, y, shape, dims):
+        ctx.dims = dims
+        return y.expand(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _chain(g, list(ctx.dims), torch.add), None, None
+
+
+def _spread(y: torch.Tensor, shape, dims) -> torch.Tensor:
+    dims = tuple(d for d in dims if y.shape[d] != shape[d])
+    if not dims or y.is_meta or not (torch.is_grad_enabled() and y.requires_grad):
+        return y.expand(shape)
+    return _Spread.apply(y, tuple(shape), dims)
+
+
 def psum(x: torch.Tensor, axis, mesh: Mesh) -> torch.Tensor:
-    """``jax.lax.psum`` over ``axis`` (a name or a tuple of names) of
-    stacked ranks: every rank of a group gets the group's sum (on a
-    process mesh over the processes of the group)."""
+    """``jax.lax.psum`` over ``axis`` (a name or a tuple of names; an empty
+    tuple is no axis) of stacked ranks: every rank of a group gets the
+    group's sum (on a process mesh over the processes of the group)."""
+    if not _axis_names(axis):
+        return x
     _count("all-reduce", x, mesh)
     if mesh.processes:
         return _chain(_gather(x, mesh, axis), _axis_dims(mesh, axis), torch.add)
-    return _chain(x, _axis_dims(mesh, axis), torch.add).expand(x.shape)
+    dims = _axis_dims(mesh, axis)
+    return _spread(_chain(x, dims, torch.add), x.shape, dims)
 
 
 def pmax(x: torch.Tensor, axis, mesh: Mesh) -> torch.Tensor:
     """``jax.lax.pmax`` over ``axis`` of stacked ranks."""
+    if not _axis_names(axis):
+        return x
     _count("all-reduce", x, mesh)
     if mesh.processes:
         return _gather(x, mesh, axis).amax(dim=_axis_dims(mesh, axis), keepdim=True)
     return x.amax(dim=_axis_dims(mesh, axis), keepdim=True).expand(x.shape)
+
+
+def all_gather(x: torch.Tensor, axis, mesh: Mesh, dim: int) -> torch.Tensor:
+    """``jax.lax.all_gather(..., tiled=True)`` over ``axis`` (a name or a
+    tuple of names, the first major) of stacked ranks: every rank of a
+    group gets the group's local tensors concatenated along the local dim
+    ``dim`` in rank order (on a process mesh, gathered from the group's
+    processes).  The backward hands each rank its slice of the group's
+    summed cotangents, summed in rank order on both paths."""
+    axes = tuple(a for a in mesh.axis_names if a in _axis_names(axis))
+    if not axes:
+        return x
+    _count("all-gather", x, mesh)
+    L = len(mesh.axis_names)
+    y = _gather(x, mesh, axes) if mesh.processes else x
+    for a in reversed(axes):
+        k = mesh.axis_names.index(a)
+        y = y.movedim(k, L - 1 + dim).flatten(L - 1 + dim, L + dim).unsqueeze(k)
+    if mesh.processes:
+        return y
+    return _spread(y, (*x.shape[:L], *y.shape[L:]), [mesh.axis_names.index(a) for a in axes])
 
 
 def pmean(x: torch.Tensor, axis, mesh: Mesh) -> torch.Tensor:
@@ -985,13 +1070,34 @@ def _stack() -> list:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, rules: Optional[ShardingRules] = None):
+def use_mesh(mesh, rules: Optional[ShardingRules] = None, *, body: bool = False):
     """Activate ``mesh``/``rules`` for every ``shard`` call and mesh
-    branch in scope (this thread)."""
+    branch in scope (this thread).  ``body=True`` is the body of a
+    tensor-parallel step (:func:`tensor_parallel`)."""
     rules = rules or default_rules(multi_pod="pod" in mesh.axis_names)
-    _stack().append((mesh, rules))
+    _stack().append((mesh, rules, body))
     try:
         yield mesh
+    finally:
+        _stack().pop()
+
+
+def active_context() -> Optional[tuple]:
+    """``(mesh, rules, body)`` in scope, or ``None``: what a remat'd cell
+    re-enters in the backward (:func:`use_context`)."""
+    s = _stack()
+    return s[-1] if s else None
+
+
+@contextlib.contextmanager
+def use_context(ctx: Optional[tuple]):
+    """Re-enter a context that :func:`active_context` returned."""
+    if ctx is None or active_context() is ctx:
+        yield
+        return
+    _stack().append(ctx)
+    try:
+        yield
     finally:
         _stack().pop()
 
@@ -1065,17 +1171,22 @@ def record_spec(shape: tuple, spec: PartitionSpec) -> None:
 
 
 def shard(x, *logical: Optional[str]):
-    """The reference's layout constraint for ``logical`` axes, recorded and
-    not applied: returns ``x`` unchanged.
+    """The reference's layout constraint for ``logical`` axes.
 
-    Without an active mesh it returns at once.  With one, it resolves the
-    rules, clamps the spec with :func:`_valid_spec` and records it (see
-    :func:`recording`).  The reference's ``with_sharding_constraint`` only
-    steers GSPMD's layout and never changes a value; the port has no
-    sharding propagation (DTensor needs a process per rank), so the
-    layout is recorded for the dry run and the value passes through."""
+    Without an active mesh it returns at once.  With one (``use_mesh``,
+    the weights whole), it resolves the rules, clamps the spec with
+    :func:`_valid_spec`, records it (see :func:`recording`; the dry run
+    reads the records) and returns ``x``: the reference's
+    ``with_sharding_constraint`` only steers GSPMD's layout and never
+    changes a value.  Inside a tensor-parallel body
+    (:func:`tensor_parallel`) the layout is applied, by the blocks'
+    explicit collectives at the reference's constraint points: the psum of
+    a row-parallel product's partial sums, the all-gather where a spec
+    asks for a dim whole, the slice where it asks for a block
+    (:func:`relayout`); there ``shard`` sees one rank's local tensor
+    inside :func:`per_rank` and returns it unrecorded."""
     mesh = active_mesh()
-    if mesh is None:
+    if mesh is None or _stack()[-1][2]:
         return x
     rules = active_rules() or default_rules(multi_pod="pod" in mesh.axis_names)
     entries = tuple(rules.physical(a) if isinstance(a, str) else a for a in logical)
@@ -1116,3 +1227,243 @@ def kv_cache_layout(B: int, T: int, Kh: int, mesh, rules: Optional[ShardingRules
     if n_b > 1 and B % n_b == 0:
         return "batch"
     return "flat"
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism: placed trees and the body of a step
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """The reference's ``jax.sharding.NamedSharding``: a leaf laid out over
+    ``mesh`` by ``spec`` (a ``Trainer``'s ``state_shardings`` is a tree of
+    them)."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+
+def _lead(mesh: Mesh, spec: Sequence) -> tuple:
+    """Per mesh axis, its size where ``spec`` names it, else 1: the leading
+    dims of a placed leaf on a single controller."""
+    named = set(_spec_axes(spec))
+    return tuple(n if a in named else 1 for a, n in mesh.shape.items())
+
+
+def block_shape(shape: Sequence[int], mesh: Mesh, spec: Sequence) -> tuple:
+    """One rank's block of a global ``shape`` laid out by ``spec``."""
+    return tuple(
+        n // _axes_size(mesh, _entry_axes(spec[d] if d < len(spec) else None))
+        for d, n in enumerate(shape)
+    )
+
+
+def placed_shape(shape: Sequence[int], mesh: Mesh, spec: Sequence) -> tuple:
+    """The shape :func:`place` gives a global ``shape``: the block on a
+    process mesh, ``[*_lead, *block]`` on a single controller."""
+    local = block_shape(shape, mesh, spec)
+    return local if mesh.processes or not local else (*_lead(mesh, spec), *local)
+
+
+def place(x, mesh: Mesh, spec: Sequence) -> torch.Tensor:
+    """The global ``x`` (a tensor or a numpy array of any dtype) as this
+    process's part of it laid out by ``spec``: on a process mesh the
+    rank's block, on a single controller every distinct block stacked
+    (``[*_lead, *block]``: one entry per coordinate of the axes the spec
+    names, none repeated for the others).  A fresh contiguous tensor on
+    this process's device (rank 0's on a single controller); only the
+    block crosses to the device."""
+    spec = PartitionSpec(*spec)
+    if isinstance(x, (np.ndarray, np.generic)):
+        x = np.asarray(x)
+        if mesh.processes and x.ndim:  # the block alone leaves the file (a memmap)
+            _check_spec(x.shape, mesh, spec)
+            block = np.array(x[_local_slices(x.shape, mesh, spec, mesh.process_rank)])
+            return _fresh(torch.from_numpy(block), mesh.device(mesh.process_rank))
+        x = torch.from_numpy(np.array(x))
+    shape = tuple(x.shape)
+    _check_spec(shape, mesh, spec)
+    device = mesh.device(mesh.process_rank if mesh.processes else 0)
+    if not shape:  # a scalar (a step count): the same on every rank
+        return x if x.is_meta else _fresh(x, device)
+    if x.is_meta:
+        return torch.empty(placed_shape(shape, mesh, spec), dtype=x.dtype, device="meta")
+    if mesh.processes:
+        return _fresh(x[_local_slices(shape, mesh, spec, mesh.process_rank)], device)
+    if not all(_same_device(d, x.device) for d in mesh.devices.flat):
+        # the blocks are cut where x lies, and only they cross to the device
+        mesh = Mesh(np.full(mesh.devices.shape, x.device, dtype=object), mesh.axis_names)
+    y = stacked(x, mesh, spec)
+    lead = _lead(mesh, spec)
+    return _fresh(y[tuple(slice(0, n) for n in lead)], device)
+
+
+def gather_placed(x: torch.Tensor, mesh: Mesh, spec: Sequence) -> torch.Tensor:
+    """The inverse of :func:`place`: the global tensor (on a process mesh
+    gathered from every process)."""
+    spec = PartitionSpec(*spec)
+    if x.ndim == 0:
+        return x
+    if mesh.processes:
+        shape = _global_shape(tuple(x.shape), mesh, spec)
+        return gather(ShardedTensor(mesh, spec, (x,), shape))
+    L = len(mesh.axis_names)
+    full = x.expand(*mesh.shape.values(), *x.shape[L:])
+    with torch.no_grad():
+        return unstack(full, mesh, spec)
+
+
+def as_sharded(x: torch.Tensor, mesh: Mesh, spec: Sequence) -> ShardedTensor:
+    """A placed leaf as a :class:`ShardedTensor` (views, no copy): what the
+    ``Checkpointer`` saves, gathering the blocks to one writer."""
+    spec = PartitionSpec(*spec)
+    L = len(mesh.axis_names)
+    if x.ndim == 0:
+        return x
+    if mesh.processes:
+        shards = (x,)
+        local = tuple(x.shape)
+    else:
+        full = x.expand(*mesh.shape.values(), *x.shape[L:])
+        shards = tuple(full[idx] for idx in np.ndindex(*full.shape[:L]))
+        local = tuple(x.shape[L:])
+    return ShardedTensor(mesh, spec, shards, _global_shape(local, mesh, spec))
+
+
+def rank_block(x: torch.Tensor, mesh: Mesh, spec: Sequence, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s block of a leaf placed on the single controller
+    ``mesh`` (a view): what the process of that rank holds on a process
+    mesh of the same shape."""
+    if x.ndim == 0:
+        return x
+    named = set(_spec_axes(spec))
+    return x[tuple(c if a in named else 0 for a, c in mesh.coords(rank).items())]
+
+
+def block_bytes(shapes, specs, mesh: Mesh) -> int:
+    """One rank's bytes of a tree of global-shaped leaves (tensors or meta
+    tensors) laid out by a tree of specs."""
+    if isinstance(shapes, dict):
+        return sum(block_bytes(v, specs[k], mesh) for k, v in shapes.items())
+    return math.prod(block_shape(shapes.shape, mesh, specs)) * shapes.element_size()
+
+
+def _map_specs(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def place_tree(tree, specs, mesh: Mesh):
+    """:func:`place` over a nested dict of leaves and the matching tree of
+    specs."""
+    return _map_specs(lambda x, s: place(x, mesh, s), tree, specs)
+
+
+def gather_tree(tree, specs, mesh: Mesh):
+    """:func:`gather_placed` over a tree: the global tensors of a placed
+    tree (a collective on a process mesh: every process calls it)."""
+    return _map_specs(lambda x, s: gather_placed(x, mesh, s), tree, specs)
+
+
+def enter(x: torch.Tensor, mesh: Mesh, spec: Sequence) -> torch.Tensor:
+    """A placed leaf as the body of a step holds it: ``[*mesh dims,
+    *local]`` (on a single controller the distinct blocks spread over the
+    axes the spec does not name, whose copies' gradients sum in rank
+    order; on a process mesh this rank's block with size-1 mesh dims in
+    front, whose gradient :func:`reduce_placed` completes)."""
+    L = len(mesh.axis_names)
+    if mesh.processes:
+        return x.reshape((1,) * L + tuple(x.shape))
+    return _spread(x, (*mesh.shape.values(), *x.shape[L:]), range(L))
+
+
+def reduce_placed(g: torch.Tensor, mesh: Mesh, spec: Sequence) -> torch.Tensor:
+    """On a process mesh, the gradient of a placed leaf summed over the
+    ranks that hold copies of its block (the axes its spec does not name),
+    in rank order, as :func:`enter`'s backward sums them on a single
+    controller; on a single controller ``g`` as it is."""
+    named = set(_spec_axes(spec))
+    axes = tuple(a for a in mesh.axis_names if a not in named and mesh.shape[a] > 1)
+    if not mesh.processes or not axes:
+        return g
+    L = len(mesh.axis_names)
+    y = _gather_axes(g.reshape((1,) * L + tuple(g.shape)), mesh, axes)
+    return _chain(y, _axis_dims(mesh, axes), torch.add).reshape(g.shape)
+
+
+def leave(y: torch.Tensor, mesh: Mesh, spec: Sequence) -> torch.Tensor:
+    """A body's stacked ``y`` as the global tensor laid out by ``spec``
+    (one copy of each block; differentiable as :func:`unstack` and
+    ``shard_map``'s outputs are)."""
+    return _leave(y, mesh, spec) if mesh.processes else unstack(y, mesh, spec)
+
+
+def to_placed(y: torch.Tensor, mesh: Mesh, spec: Sequence) -> torch.Tensor:
+    """A body's stacked ``y`` laid out by ``spec`` as a placed leaf: its
+    distinct blocks (the first copy along the axes the spec does not
+    name), contiguous; no collective."""
+    L = len(mesh.axis_names)
+    if mesh.processes:
+        return y.reshape(y.shape[L:]).contiguous()
+    lead = _lead(mesh, spec)
+    return y[tuple(slice(0, n) for n in lead)].contiguous()
+
+
+@contextlib.contextmanager
+def tensor_parallel(mesh: Mesh, rules: Optional[ShardingRules] = None):
+    """The body of a tensor- and data-parallel step over ``mesh``: the
+    models' blocks take stacked ranks (``[*mesh dims, *local]``, each
+    weight its block of ``param_pspecs``), compute each rank's part with
+    :func:`per_rank` and run the collectives GSPMD would insert."""
+    with use_mesh(mesh, rules, body=True):
+        yield mesh
+
+
+def body_mesh() -> Optional[Mesh]:
+    """The mesh of the tensor-parallel body in scope, or ``None``."""
+    s = _stack()
+    return s[-1][0] if s and s[-1][2] else None
+
+
+def clamp_axes(logical: str, extent: int) -> tuple:
+    """The mesh axes the active rules give ``logical`` for a dim of
+    ``extent``, clamped as :func:`_valid_spec` clamps them (``()``:
+    replicated)."""
+    mesh, rules = active_mesh(), active_rules()
+    entry = _valid_spec(mesh, PartitionSpec(rules.physical(logical)), (extent,))[0]
+    return _entry_axes(entry)
+
+
+def axes_size(mesh: Mesh, axes: tuple) -> int:
+    return _axes_size(mesh, tuple(axes))
+
+
+def axes_index(mesh: Mesh, axes: tuple, coords: Mapping[str, int]) -> int:
+    """A rank's index over ``axes`` (the first major), from its ``coords``."""
+    return _axes_index(mesh, tuple(axes), coords)
+
+
+def own(x: torch.Tensor, axes: tuple, mesh: Mesh, dim: int) -> torch.Tensor:
+    """:func:`own_chunk` over several axes (the first major): each rank's
+    block of its whole local dim ``dim``."""
+    for a in axes:
+        x = own_chunk(x, a, mesh, dim)
+    return x
+
+
+def relayout(x: torch.Tensor, have: Sequence, want: Sequence, mesh: Mesh) -> torch.Tensor:
+    """Stacked ``x`` laid out by ``have`` (one entry of axes per local dim)
+    into the layout ``want``: an all-gather where ``want`` keeps a dim
+    whole that ``have`` splits, a slice where ``want`` splits a whole dim;
+    the layout conversions of the reference's constraints."""
+    for d in range(len(have)):
+        h, w = _entry_axes(have[d]), _entry_axes(want[d] if d < len(want) else None)
+        if h == w:
+            continue
+        if h:
+            x = all_gather(x, h, mesh, d)
+        if w:
+            x = own(x, w, mesh, d)
+    return x

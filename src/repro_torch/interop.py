@@ -51,10 +51,14 @@ def state_from_numpy(program: Program, arrays: Sequence, device="cuda") -> tuple
     return tuple(out)
 
 
-def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
+def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda", mesh=None,
+                      specs=None) -> dict:
     """The port's parameters of ``cfg`` (``repro_torch.models.lm``'s nested
     dict) as float32 tensors on ``device``, copied from ``tree``, the
-    reference's parameter pytree as nested dicts of numpy arrays.
+    reference's parameter pytree as nested dicts of numpy arrays.  With
+    ``mesh`` and ``specs`` (a spec tree, ``param_pspecs``) each leaf is
+    placed instead (``dist.sharding.place``: this process's blocks, on the
+    mesh's device).
 
     Leaves are matched by path (``cells.slot0.attn.wq``).  This raises on a
     missing or extra leaf, a shape that is not the leaf's, or a dtype that
@@ -80,11 +84,20 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
         *parents, name = path.split(".")
         for k in parents:
             node = node.setdefault(k, {})
-        node[name] = torch.tensor(a, dtype=torch.float32, device=device)
+        if mesh is None:
+            node[name] = torch.tensor(a, dtype=torch.float32, device=device)
+        else:
+            from repro_torch.dist.sharding import place
+
+            spec = specs
+            for k in path.split("."):
+                spec = spec[k]
+            node[name] = place(a, mesh, spec)
     return out
 
 
-def train_state_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
+def train_state_from_numpy(cfg: ModelConfig, tree: dict, device="cuda", mesh=None,
+                           specs=None) -> dict:
     """The port's train state of ``cfg`` (``repro_torch.train.train_step``:
     ``{"params", "opt_state": {"m", "v", "count"}, "step"}``) on
     ``device``, copied from ``tree``, the reference's train state as nested
@@ -92,7 +105,9 @@ def train_state_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     port's ``Checkpointer.restore`` returns).
 
     ``params``, ``m`` and ``v`` go through :func:`params_from_numpy` (float32,
-    every leaf by path); ``count`` and ``step`` must be int32 scalars."""
+    every leaf by path; placed by ``specs``, a ``state_pspecs`` tree, on
+    ``mesh`` where they are given); ``count`` and ``step`` must be int32
+    scalars."""
     missing = sorted({"params", "opt_state", "step"} - set(tree))
     if missing:
         raise KeyError(f"{cfg.name}: train state without {missing}")
@@ -104,11 +119,14 @@ def train_state_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
             raise TypeError(f"{name!r}: expected an int32 scalar array, got {a!r}")
         return torch.tensor(a, dtype=torch.int32, device=device)
 
+    if mesh is not None:
+        device = mesh.device(mesh.process_rank if mesh.processes else 0)
+    sp = specs or {"params": None, "opt_state": {"m": None, "v": None}}
     return {
-        "params": params_from_numpy(cfg, tree["params"], device),
+        "params": params_from_numpy(cfg, tree["params"], device, mesh, sp["params"]),
         "opt_state": {
-            "m": params_from_numpy(cfg, opt_state["m"], device),
-            "v": params_from_numpy(cfg, opt_state["v"], device),
+            "m": params_from_numpy(cfg, opt_state["m"], device, mesh, sp["opt_state"]["m"]),
+            "v": params_from_numpy(cfg, opt_state["v"], device, mesh, sp["opt_state"]["v"]),
             "count": scalar("opt_state.count", opt_state["count"]),
         },
         "step": scalar("step", tree["step"]),

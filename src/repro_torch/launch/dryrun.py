@@ -15,14 +15,17 @@ reference's keys and says in ``notes`` what stands in for XLA's numbers:
   ``param_pspecs``, ``cache_pspecs``, the input specs);
 - ``memory.output_bytes``, ``temp_bytes`` and ``peak_bytes`` are
   ``null``: there is no compiled executable to ask;
-- ``cost.flops`` is ``torch.utils.flop_counter.FlopCounterMode`` over the
-  global step on meta tensors, divided by the mesh size (matmul-class
-  ops only; replicated work is counted once per rank that runs it);
+- ``cost.flops`` is ``torch.utils.flop_counter.FlopCounterMode`` over one
+  rank's products in a second meta run, of the step on placed blocks
+  (``step.placed``; matmul-class ops only; replicated work counted on
+  every rank that runs it);
   ``bytes_accessed`` and ``transcendentals`` are ``null`` (no HLO);
 - ``collective_bytes`` is the operand bytes of one rank in the port's
-  collectives during that run (flash-decode, expert parallelism); GSPMD's
-  tensor-parallel collectives have no counterpart in the port, whose
-  ``shard`` only records layouts (``n_layout_constraints`` counts them).
+  collectives during a second meta run, of the step on placed blocks
+  (``step.placed``, tensor- and data-parallel): the psums and all-gathers
+  GSPMD would insert for the reference's specs, flash-decode's combine,
+  expert parallelism's all-to-alls; ``n_layout_constraints`` counts the
+  ``shard`` constraints of the first run.
 
 The reference's ``run_cell_delta`` and ``collective_bytes_from_hlo`` have
 no port: there is no scan to extrapolate and no HLO to read.
@@ -55,12 +58,13 @@ NOTES = {
     "output_bytes": "null: no compiled executable (the port runs eagerly)",
     "temp_bytes": "null: no compiled executable (the port runs eagerly)",
     "peak_bytes": "null: no compiled executable (the port runs eagerly)",
-    "flops": "FlopCounterMode over the global step on meta tensors at published width, "
-             "divided by the mesh size",
+    "flops": "FlopCounterMode over one rank's products in a meta run of the step on placed "
+             "blocks (step.placed) at published width",
     "bytes_accessed": "null: no HLO",
-    "collective_bytes": "operand bytes of one rank in the port's collectives (flash-decode, "
-                        "expert parallelism) during the meta run; GSPMD's tensor-parallel "
-                        "collectives have no counterpart: the port's shard() records layouts",
+    "collective_bytes": "operand bytes of one rank in the port's collectives during a meta run "
+                        "of the step on placed blocks (step.placed): the tensor-parallel psums "
+                        "and all-gathers, flash-decode's combine, expert parallelism's "
+                        "all-to-alls, the loss's and the gradients' reductions",
 }
 
 
@@ -116,11 +120,16 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, outdir: str,
 
     t1 = time.time()
     flops = FlopCounterMode(display=False)
-    with recording() as layouts, counting_collectives() as coll, flops:
+    with recording() as layouts:
         fn(*args)
+    # the same step tensor- and data-parallel on each rank's blocks: the
+    # collectives GSPMD would insert, run explicitly; the products one
+    # rank's (per_rank runs the first rank's block on meta tensors)
+    with counting_collectives() as coll, flops:
+        fn.placed(*fn.place(*args))
     record["meta_run_s"] = round(time.time() - t1, 1)
     record["cost"] = {
-        "flops": flops.get_total_flops() / mesh.size,
+        "flops": flops.get_total_flops(),
         "bytes_accessed": None,
         "transcendentals": None,
     }

@@ -314,8 +314,6 @@ def _flash_decode_sharded(qg, cache_k, cache_v, valid, cfg, dtype, mesh, layout)
     rules = active_rules() or default_rules("pod" in mesh.axis_names)
     batch_ax = rules.physical("batch")
     B, T = valid.shape
-    hd = qg.shape[-1]
-    scale = 1.0 / math.sqrt(hd)
 
     if layout == "seq":
         kv_spec = _valid_spec(mesh, P(batch_ax, "model", None, None), tuple(cache_k.shape))
@@ -328,6 +326,25 @@ def _flash_decode_sharded(qg, cache_k, cache_v, valid, cfg, dtype, mesh, layout)
     v_spec = _valid_spec(mesh, P(q_spec[0], kv_spec[1]), (B, T))
     ax = kv_spec[1]
 
+    def block(qg_l, k_l, v_l, ok_l):
+        # [*mesh dims, *local]: one rank's block at a time, then every rank
+        # at once
+        return (flash_decode_block(qg_l, k_l, v_l, ok_l, cfg, dtype, mesh, ax),)
+
+    (o,) = shard_map(block, mesh=mesh, in_specs=(q_spec, kv_spec, kv_spec, v_spec),
+                     out_specs=(q_spec,), stacked_ranks=True)(qg, cache_k, cache_v, valid)
+    return o
+
+
+def flash_decode_block(qg, k, v, ok, cfg, dtype, mesh, ax):
+    """Stacked ranks' flash-decode over their slices of T: per rank (one
+    call a rank, ``per_rank``) an online-softmax block (``m``, ``l``,
+    ``acc``) of ``qg`` [B,Kh,G,hd] against ``k``/``v`` [B,T_loc,Kh,hd] and
+    ``ok`` [B,T_loc]; then the LSE combine over the sequence axes ``ax``
+    (``None``: none), ``pmax`` of m and ``psum`` of ``l·r`` and ``acc·r``
+    with ``r = exp(m - max)``.  Returns o [*mesh dims, B,Kh,G,hd]."""
+    scale = 1.0 / math.sqrt(qg.shape[-1])
+
     def local(qg_l, k_l, v_l, ok_l):
         s = einsum32("...kgd,...tkd->...kgt", qg_l, k_l, dtype=dtype) * scale
         s = softcap(s, cfg.attn_softcap)
@@ -336,21 +353,13 @@ def _flash_decode_sharded(qg, cache_k, cache_v, valid, cfg, dtype, mesh, layout)
         p = torch.exp(s - m[..., None])
         return m, p.sum(-1), einsum32("...kgt,...tkd->...kgd", p, v_l, dtype=dtype)
 
-    def block(qg_l, k_l, v_l, ok_l):
-        # [*mesh dims, *local]: one rank's block at a time, then every rank
-        # at once
-        m, l, acc = per_rank(local, qg_l, k_l, v_l, ok_l, mesh=mesh)
-        # LSE combine across the sequence shards
-        if ax is not None:
-            g = pmax(m, ax, mesh)
-            r = torch.exp(m - g)
-            l = psum(l * r, ax, mesh)
-            acc = psum(acc * r[..., None], ax, mesh)
-        return (acc / torch.maximum(l, l.new_full((), 1e-30))[..., None],)
-
-    (o,) = shard_map(block, mesh=mesh, in_specs=(q_spec, kv_spec, kv_spec, v_spec),
-                     out_specs=(q_spec,), stacked_ranks=True)(qg, cache_k, cache_v, valid)
-    return o
+    m, l, acc = per_rank(local, qg, k, v, ok, mesh=mesh)
+    if ax:
+        g = pmax(m, ax, mesh)
+        r = torch.exp(m - g)
+        l = psum(l * r, ax, mesh)
+        acc = psum(acc * r[..., None], ax, mesh)
+    return acc / torch.maximum(l, l.new_full((), 1e-30))[..., None]
 
 
 def _online_softmax_decode(qg, cache_k, cache_v, valid, cfg, dtype):

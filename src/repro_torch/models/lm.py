@@ -27,7 +27,10 @@ branches: the sequence-sharded flash-decode (``attention``) and expert
 parallelism (``moe``) compute per rank; every ``shard`` annotation (the
 reference's ``with_sharding_constraint``) records its layout and returns
 its input unchanged, so the rest computes as without a mesh.  A remat'd
-supercell runs again in the backward under the forward's mesh.
+supercell runs again in the backward under the forward's mesh.  Inside a
+tensor-parallel body (``dist.sharding.tensor_parallel``) the weights are
+each rank's blocks and ``models.tp`` computes the entry points
+(``ShardedTrainStep``, ``launch.steps.ShardedPrefill``/``ShardedDecode``).
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA, MLSTM, ModelConfig, SLSTM
-from repro_torch.dist.sharding import active_mesh, active_rules, shard, use_mesh
+from repro_torch.dist.sharding import active_context, body_mesh, shard, use_context
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -220,13 +223,19 @@ def _run_slot_train(slot_p, x, cfg, slot, dtype, memory, aux, q_chunk):
 # --------------------------------------------------------------------------
 
 
+def project_vision(modality, w1, w2, dtype):
+    """The vision projector: modality features [B,M,F] to [B,M,D]."""
+    h = einsum32("bmd,de->bme", modality, w1, dtype=dtype)
+    h = F.gelu(h, approximate="tanh").to(dtype)  # jax.nn.gelu's default
+    return einsum_lp("bme,ef->bmf", h, w2, dtype)
+
+
 def embed_inputs(params, cfg: ModelConfig, tokens, modality=None, dtype=None):
     dtype = dtype or _dtype(cfg)
     x = embed_lookup(params["embed"], tokens, dtype)
     if cfg.modality == "vision" and modality is not None:
-        h = einsum32("bmd,de->bme", modality, params["projector"]["w1"], dtype=dtype)
-        h = F.gelu(h, approximate="tanh").to(dtype)  # jax.nn.gelu's default
-        vis = einsum_lp("bme,ef->bmf", h, params["projector"]["w2"], dtype)
+        vis = project_vision(modality, params["projector"]["w1"], params["projector"]["w2"],
+                             dtype)
         x = torch.cat([vis, x], dim=1)
     return shard(x, "batch", "seq", "embed_act")
 
@@ -262,7 +271,15 @@ def forward_train(params, cfg: ModelConfig, tokens, modality=None, remat: bool =
     """tokens: [B, S_text] → (logits [B,S,Vpad], aux dict).
 
     Differentiable: under grad mode with ``remat``, each supercell keeps
-    only its input for the backward and runs again there."""
+    only its input for the backward and runs again there.  Inside a
+    tensor-parallel body (``dist.sharding.tensor_parallel``) the arguments
+    are stacked ranks and the logits come back vocab-sharded
+    (``models.tp``)."""
+    mesh = body_mesh()
+    if mesh is not None:
+        from repro_torch.models import tp
+
+        return tp.forward_train(params, cfg, tokens, modality, remat, q_chunk, mesh)
     dtype = _dtype(cfg)
     memory = None
     if cfg.is_encoder_decoder:
@@ -280,15 +297,14 @@ def forward_train(params, cfg: ModelConfig, tokens, modality=None, remat: bool =
 
     # the backward recomputes a remat'd cell after this function returns:
     # it runs under the mesh (and rules) of the forward
-    mesh, rules = active_mesh(), active_rules()
+    ctx = active_context()
 
     def cell(x, aux, cell_p):
-        if mesh is not None and active_mesh() is not mesh:
-            with use_mesh(mesh, rules):
-                return cell(x, aux, cell_p)
-        for s in range(len(cfg.block_pattern)):
-            x, aux = _run_slot_train(cell_p[f"slot{s}"], x, cfg, s, dtype, memory, aux, q_chunk)
-            x = shard(x, "batch", "seq", "embed_act")
+        with use_context(ctx):
+            for s in range(len(cfg.block_pattern)):
+                x, aux = _run_slot_train(cell_p[f"slot{s}"], x, cfg, s, dtype, memory, aux,
+                                         q_chunk)
+                x = shard(x, "batch", "seq", "embed_act")
         return x, aux
 
     remat = remat and torch.is_grad_enabled()

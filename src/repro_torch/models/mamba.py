@@ -111,31 +111,41 @@ def mamba_ssd_scan(x, dt, B, C, A, chunk: int, h0=None):
     return torch.cat(ys, dim=1), h
 
 
+def mamba_channels(p, x, xr, z, dtype, chunk: int = 256, conv_state=None, h0=None,
+                   h_first: int = 0, n_h: Optional[int] = None):
+    """The conv, the scan, the gate and ``out_proj`` over channels xr / z
+    [B,S,n_ch] of the heads ``h_first`` .. ``h_first + n_h`` (all by
+    default), ``n_ch // n_h`` channels a head; ``p``'s ``conv_w``,
+    ``conv_b`` and ``out_proj`` hold those channels, its per-head leaves
+    every head.  Returns ``(y [B,S,D], new conv state, h [B,n_h,N,P])``."""
+    B_, S, n_ch = xr.shape
+    n_h = p["A_log"].shape[0] if n_h is None else n_h
+    xr, new_conv_state = _causal_conv(xr, p["conv_w"], p["conv_b"], conv_state)
+    xr = F.silu(xr)
+    # jax.nn.softplus is logaddexp(x, 0), with no threshold
+    dt_in = einsum32("bsd,dh->bsh", x, p["dt_proj"], dtype=dtype) + p["dt_bias"]
+    dt = torch.logaddexp(dt_in, torch.zeros_like(dt_in))[..., h_first:h_first + n_h]
+    Bm = einsum32("bsd,dn->bsn", x, p["B_proj"], dtype=dtype)
+    Cm = einsum32("bsd,dn->bsn", x, p["C_proj"], dtype=dtype)
+    A = -torch.exp(p["A_log"][h_first:h_first + n_h])
+    xh = xr.reshape(B_, S, n_h, n_ch // n_h)
+    y, h = mamba_ssd_scan(xh, dt, Bm, Cm, A, chunk=chunk, h0=h0)
+    y = y + xh * p["D"][h_first:h_first + n_h][None, None, :, None]
+    y = y.reshape(B_, S, n_ch) * F.silu(z)
+    out = einsum_lp("bse,ed->bsd", y, shard(p["out_proj"], "mlp", "embed"), dtype)
+    return out, new_conv_state.to(dtype), h
+
+
 def mamba_apply(p, x, cfg, dtype, chunk: int = 256, state=None):
     """x: [B,S,D] → (y [B,S,D], new_state) — train/prefill path.
 
     ``state``: optional (conv_state [B,K-1,d_inner], h [B,nh,N,P]).
     """
-    B_, S, D = x.shape
-    d_inner, nh = mamba_dims(cfg)
     xz = einsum32("bsd,de->bse", x, shard(p["in_proj"], "embed", "mlp"), dtype=dtype)
     xr, z = xz.chunk(2, dim=-1)
-    conv_state = state[0] if state is not None else None
-    xr, new_conv_state = _causal_conv(xr, p["conv_w"], p["conv_b"], conv_state)
-    xr = F.silu(xr)
-    # jax.nn.softplus is logaddexp(x, 0), with no threshold
-    dt_in = einsum32("bsd,dh->bsh", x, p["dt_proj"], dtype=dtype) + p["dt_bias"]
-    dt = torch.logaddexp(dt_in, torch.zeros_like(dt_in))
-    Bm = einsum32("bsd,dn->bsn", x, p["B_proj"], dtype=dtype)
-    Cm = einsum32("bsd,dn->bsn", x, p["C_proj"], dtype=dtype)
-    A = -torch.exp(p["A_log"])
-    xh = xr.reshape(B_, S, nh, HEAD_P)
-    h0 = state[1] if state is not None else None
-    y, h = mamba_ssd_scan(xh, dt, Bm, Cm, A, chunk=chunk, h0=h0)
-    y = y + xh * p["D"][None, None, :, None]
-    y = y.reshape(B_, S, d_inner) * F.silu(z)
-    out = einsum_lp("bse,ed->bsd", y, shard(p["out_proj"], "mlp", "embed"), dtype)
-    return out, (new_conv_state.to(dtype), h)
+    conv_state, h0 = state if state is not None else (None, None)
+    out, conv, h = mamba_channels(p, x, xr, z, dtype, chunk, conv_state, h0)
+    return out, (conv, h)
 
 
 def mamba_decode_step(p, x, cfg, dtype, state):

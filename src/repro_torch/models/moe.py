@@ -205,25 +205,14 @@ def _combine(buf_out, dest, kept, gate_vals, n: int, K: int, D: int, dtype):
     return (per_assignment * w[..., None]).reshape(*lead, n, K, D).sum(dim=-2)
 
 
-def _ep_apply(p, x, cfg, dtype, mesh, ep_axis: str):
-    """Expert parallelism over ``ep_axis`` of ``mesh`` (see the module's
-    docstring): ``([B,S,D], aux)``.  The blocks compute every rank at once,
-    the ranks' tensors stacked in front (``shard_map(stacked_ranks=True)``)."""
-    B, S, D = x.shape
+def ep_blocks(cfg, dtype, mesh, ep_axis: str) -> tuple:
+    """``(ep_block, ep_block_small)``: the expert-parallel bodies over
+    ``ep_axis`` of ``mesh`` on stacked ranks (see the module's docstring),
+    each ``(router, wi, wu, wo, x) → (y, lb, z)``, the experts' weights the
+    ranks' resident ones and ``x`` ``[*mesh dims, b, s, D]``."""
     E, K = cfg.moe.num_experts, cfg.moe.top_k
     cf = cfg.moe.capacity_factor
-    rules = active_rules()
-    batch_spec = rules.physical("batch") if rules else ("data",)
     n_ep = mesh.shape[ep_axis]
-    # batch too small for the batch axes (decode / long-context)?
-    # replicate it instead of sharding
-    x_spec = _valid_spec(mesh, P(batch_spec, None, None), tuple(x.shape))
-    b_axes = x_spec[0]
-    n_b = 1
-    for a in (b_axes if isinstance(b_axes, tuple) else (b_axes,)) or ():
-        n_b *= mesh.shape.get(a, 1) if a else 1
-    tokens_per_shard = (B // max(n_b, 1)) * S
-    small = tokens_per_shard % n_ep != 0
     L = len(mesh.axis_names)
 
     # one rank at a time (per_rank): the products and float sums
@@ -272,12 +261,33 @@ def _ep_apply(p, x, cfg, dtype, mesh, ep_axis: str):
         z = pmean(aux["moe_z_loss"], ep_axis, mesh)
         return full.reshape(xl.shape), lb, z
 
+    return ep_block, ep_block_small
+
+
+def _ep_apply(p, x, cfg, dtype, mesh, ep_axis: str):
+    """Expert parallelism over ``ep_axis`` of ``mesh`` (see the module's
+    docstring): ``([B,S,D], aux)``.  The blocks compute every rank at once,
+    the ranks' tensors stacked in front (``shard_map(stacked_ranks=True)``)."""
+    B, S, D = x.shape
+    rules = active_rules()
+    batch_spec = rules.physical("batch") if rules else ("data",)
+    n_ep = mesh.shape[ep_axis]
+    # batch too small for the batch axes (decode / long-context)?
+    # replicate it instead of sharding
+    x_spec = _valid_spec(mesh, P(batch_spec, None, None), tuple(x.shape))
+    b_axes = x_spec[0]
+    n_b = 1
+    for a in (b_axes if isinstance(b_axes, tuple) else (b_axes,)) or ():
+        n_b *= mesh.shape.get(a, 1) if a else 1
+    tokens_per_shard = (B // max(n_b, 1)) * S
+    small = tokens_per_shard % n_ep != 0
+
     # expert weights enter split over their expert dim (EP-resident); the
     # router is replicated
     w_spec = P(ep_axis, None, None)
     in_specs = (P(None, None), w_spec, w_spec, w_spec, x_spec)
-    y, lb, z = shard_map(ep_block_small if small else ep_block, mesh=mesh, in_specs=in_specs,
-                         out_specs=(x_spec, P(), P()), stacked_ranks=True)(
+    y, lb, z = shard_map(ep_blocks(cfg, dtype, mesh, ep_axis)[small], mesh=mesh,
+                         in_specs=in_specs, out_specs=(x_spec, P(), P()), stacked_ranks=True)(
         p["router"], p["wi"], p["wu"], p["wo"], x)
     return y.to(dtype), {"moe_lb_loss": lb, "moe_z_loss": z}
 

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.sharding import shard
-from repro_torch.models.layers import dense_init, einsum32, einsum_lp, normal, rms_norm, zeros
+from repro_torch.models.layers import dense_init, einsum32, einsum_lp, normal, zeros
 
 
 # --------------------------------------------------------------------------
@@ -63,7 +63,7 @@ def mlstm_chunk_scan(q, k, v, logf, logi, chunk: int, state=None):
     scale = hd ** -0.5
     dev = q.device
     if state is None:
-        C = torch.zeros((B, nh, hd, hd), dtype=torch.float32, device=dev)
+        C = torch.zeros((B, nh, hd, v.shape[-1]), dtype=torch.float32, device=dev)
         n = torch.zeros((B, nh, hd), dtype=torch.float32, device=dev)
     else:
         C, n = state
@@ -100,7 +100,9 @@ def mlstm_chunk_scan(q, k, v, logf, logi, chunk: int, state=None):
     return torch.cat(hs, dim=1), (C, n)
 
 
-def mlstm_apply(p, x, cfg, dtype, chunk: int = 256, state=None):
+def mlstm_inputs(p, x, dtype):
+    """The mLSTM's projections of x [B,S,D]: ``(z, q, k, v, log i, log f)``
+    (z and v [B,S,nh,hd_v] on the columns of ``up_z`` / ``wv`` given)."""
     xi = einsum_lp("bsd,de->bse", x, shard(p["up_x"], "embed", None), dtype)
     z = einsum_lp("bsd,dhk->bshk", x, shard(p["up_z"], "embed", None, "mlp"), dtype)
     q = einsum32("bse,ehd->bshd", xi, p["wq"], dtype=dtype)
@@ -108,11 +110,21 @@ def mlstm_apply(p, x, cfg, dtype, chunk: int = 256, state=None):
     v = shard(einsum32("bse,ehd->bshd", xi, p["wv"], dtype=dtype), "batch", "seq", None, "mlp_act")
     logi = einsum32("bse,eh->bsh", xi, p["wi"], dtype=dtype)
     logf = F.logsigmoid(einsum32("bse,eh->bsh", xi, p["wf"], dtype=dtype) + p["bf"])
+    return z, q, k, v, logi, logf
+
+
+def mlstm_output(p, h, z, var, dtype):
+    """The per-head norm (xLSTM's MultiHeadLayerNorm) of h [B,S,nh,hd] by
+    its mean square ``var`` [B,S,nh], gated by z, down-projected."""
+    hn = (h.float() * torch.rsqrt(var[..., None] + 1e-6) * (1.0 + p["out_norm"])).to(h.dtype)
+    hn = hn * F.silu(z.float()).to(dtype)
+    return einsum_lp("bshk,hkd->bsd", hn, shard(p["down_proj"], None, "mlp", "embed"), dtype)
+
+
+def mlstm_apply(p, x, cfg, dtype, chunk: int = 256, state=None):
+    z, q, k, v, logi, logf = mlstm_inputs(p, x, dtype)
     h, new_state = mlstm_chunk_scan(q, k, v, logf, logi, chunk, state)
-    # per-head norm (xLSTM's MultiHeadLayerNorm) over [B,S,nh,hd]
-    h = rms_norm(h, p["out_norm"]) * F.silu(z.float()).to(dtype)
-    out = einsum_lp("bshk,hkd->bsd", h, shard(p["down_proj"], None, "mlp", "embed"), dtype)
-    return out, new_state
+    return mlstm_output(p, h, z, torch.square(h.float()).mean(-1), dtype), new_state
 
 
 def mlstm_init_state(cfg, batch: int, device):
@@ -143,22 +155,21 @@ def slstm_init(gen, device, cfg, lead: tuple = ()) -> dict:
     }
 
 
-def slstm_apply(p, x, cfg, dtype, state=None):
-    """x: [B,S,D] → (y, state).  state = (c, n, h, m) each [B,nh,hd]."""
-    B, S, D = x.shape
-    nh = cfg.n_heads
-    hd = D // nh
-    gates_x = einsum32("bsd,dghe->bsghe", x, p["w_gates"], dtype=dtype)  # [B,S,4,nh,hd]
+def slstm_cells(gates_x, R, b, state, out_dtype):
+    """The sLSTM recurrence over the gates' input part gates_x
+    [B,S,4,nh,hd] with block-diagonal recurrent weights R [4,nh,hd,hd] and
+    biases b [4,nh,hd]: ``(y [B,S,nh*hd], (c, n, h, m))``, each state
+    [B,nh,hd] (``state`` None: the initial one)."""
+    B, S, _, nh, hd = gates_x.shape
     if state is None:
-        zero = torch.zeros((B, nh, hd), dtype=torch.float32, device=x.device)
+        zero = torch.zeros((B, nh, hd), dtype=torch.float32, device=gates_x.device)
         state = (zero, zero, zero, zero - 10.0)
     c, n, h, m = state
-    R = p["r_gates"]
     hs = []
     for t in range(S):
         gx = gates_x[:, t]
         rec = torch.einsum("bhe,ghef->bghf", h, R)            # [B,4,nh,hd]
-        it, ft, zt, ot = [gx[:, g] + rec[:, g] + p["b_gates"][g] for g in range(4)]
+        it, ft, zt, ot = [gx[:, g] + rec[:, g] + b[g] for g in range(4)]
         # exponential-gate stabilization (xLSTM eq. 15-17)
         log_f = F.logsigmoid(ft)
         m_new = torch.maximum(log_f + m, it)
@@ -168,13 +179,24 @@ def slstm_apply(p, x, cfg, dtype, state=None):
         n = f_s * n + i_s
         h = torch.sigmoid(ot) * c / torch.maximum(n, n.new_ones(()))  # n is 1.0 at t=0: a tie
         m = m_new
-        hs.append(h.to(x.dtype))
-    y = torch.stack(hs, dim=1).reshape(B, S, D)
-    # post-up gated MLP (4/3 factor); jax.nn.gelu is the tanh approximation
+        hs.append(h.to(out_dtype))
+    return torch.stack(hs, dim=1).reshape(B, S, nh * hd), (c, n, h, m)
+
+
+def slstm_mlp(p, y, dtype):
+    """The sLSTM block's post-up gated MLP (4/3 factor); jax.nn.gelu is the
+    tanh approximation."""
     g = einsum32("bsd,de->bse", y, p["up1"], dtype=dtype)
     u = einsum32("bsd,de->bse", y, p["up2"], dtype=dtype)
     hm = (F.gelu(g, approximate="tanh") * u).to(dtype)
-    return einsum_lp("bse,ed->bsd", hm, p["down"], dtype), (c, n, h, m)
+    return einsum_lp("bse,ed->bsd", hm, p["down"], dtype)
+
+
+def slstm_apply(p, x, cfg, dtype, state=None):
+    """x: [B,S,D] → (y, state).  state = (c, n, h, m) each [B,nh,hd]."""
+    gates_x = einsum32("bsd,dghe->bsghe", x, p["w_gates"], dtype=dtype)  # [B,S,4,nh,hd]
+    y, state = slstm_cells(gates_x, p["r_gates"], p["b_gates"], state, x.dtype)
+    return slstm_mlp(p, y, dtype), state
 
 
 def slstm_init_state(cfg, batch: int, device):

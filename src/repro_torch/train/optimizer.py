@@ -70,8 +70,31 @@ def init_opt_state(params) -> dict:
     }
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for _, l in paths(tree)))
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """The global norm of ``tree``'s leaves, summed in the reference's
+    order.  With ``specs`` and ``mesh`` the leaves are placed blocks
+    (``dist.sharding.place``): each leaf's squares are summed on its blocks
+    and psummed over the axes its spec names (a replicated leaf counts
+    once), so every process gets the global norm."""
+    if specs is None:
+        return torch.sqrt(sum(torch.sum(torch.square(l.float())) for _, l in paths(tree)))
+    from repro_torch.dist.sharding import _spec_axes, per_rank, psum
+
+    L = len(mesh.axis_names)
+    total = None
+    for path, leaf in paths(tree):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+
+        def sq(b):
+            return torch.sum(torch.square(b.float()))
+
+        s = sq(leaf).reshape((1,) * L) if mesh.processes else per_rank(sq, leaf, mesh=mesh)
+        s = psum(s, tuple(a for a in mesh.axis_names if a in _spec_axes(spec)), mesh)
+        s = s.reshape(-1)[0]
+        total = s if total is None else total + s
+    return torch.sqrt(total)
 
 
 def _decay_mask(path: tuple) -> bool:
@@ -81,9 +104,12 @@ def _decay_mask(path: tuple) -> bool:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, grads, opt_state, params):
-    """Returns (new_params, new_opt_state, metrics)."""
-    gnorm = global_norm(grads)
+def adamw_update(cfg: OptimizerConfig, grads, opt_state, params, specs=None, mesh=None):
+    """Returns (new_params, new_opt_state, metrics).  With ``specs`` and
+    ``mesh`` the trees are placed blocks: the clip scale is the global
+    norm's (:func:`global_norm`) and the rest is elementwise on the
+    blocks."""
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
 
     count = opt_state["count"] + 1

@@ -148,3 +148,144 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig, dev
         "opt_state": opt.init_opt_state(params),
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
+
+
+class ShardedTrainStep:
+    """``make_train_step`` tensor- and data-parallel over ``mesh``: the
+    state and the batch are placed blocks (``dist.sharding.place``) of the
+    reference's ``state_pspecs`` and of the batch spec (rows over the
+    ``"batch"`` axes), and so is the new state.  The forward and the loss
+    run in a tensor-parallel body (``models.tp``); the loss and the metrics
+    are the global ones, the gradients psummed over the ranks that hold a
+    block's copies, the clip norm the global norm; AdamW is elementwise on
+    the blocks.  ``global_batch`` is the batch's global number of rows.
+
+    On a single controller every rank is stacked on one device; on a
+    process mesh each process holds its rank's blocks and every process
+    calls the step, in the same order."""
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: opt.OptimizerConfig,
+                 options: Optional[TrainOptions], mesh, global_batch: int, rules=None):
+        from repro_torch.dist import param_specs as pspecs
+        from repro_torch.dist.sharding import PartitionSpec as P
+        from repro_torch.dist.sharding import _valid_spec, default_rules
+
+        options = options or TrainOptions()
+        if options.microbatches > 1 or options.grad_compression:
+            raise NotImplementedError(
+                "the sharded train step takes one microbatch and no gradient compression"
+            )
+        self.cfg, self.opt_cfg, self.options, self.mesh = cfg, opt_cfg, options, mesh
+        self.rules = rules or default_rules(multi_pod="pod" in mesh.axis_names)
+        self.global_batch = global_batch
+        shapes = init_train_state(None, cfg, device="meta")
+        self.state_specs = pspecs.state_pspecs(shapes, self.rules, mesh)
+        bax = self.rules.physical("batch")
+        row = _valid_spec(mesh, P(bax), (global_batch,))[0]
+        self.batch_specs = {"tokens": P(row, None)}
+        if cfg.modality in ("vision", "audio"):
+            self.batch_specs["modality"] = P(row, None, None)
+
+    def place_batch(self, batch: dict) -> dict:
+        """A global batch (tensors or numpy arrays) as this process's rows."""
+        from repro_torch.dist.sharding import place
+
+        return {k: place(v, self.mesh, self.batch_specs[k]) for k, v in batch.items()}
+
+    def _loss(self, params, batch):
+        """The global ``(loss, metrics)`` of placed ``params`` on a placed
+        batch; the caller enters the tensor-parallel body."""
+        from repro_torch.dist.sharding import P, _map_specs, enter, leave
+        from repro_torch.models import tp
+
+        mesh, cfg = self.mesh, self.cfg
+        body = _map_specs(lambda x, s: enter(x, mesh, s), params, self.state_specs["params"])
+        tokens = enter(batch["tokens"], mesh, self.batch_specs["tokens"])
+        modality = None
+        if "modality" in batch:
+            modality = enter(batch["modality"], mesh, self.batch_specs["modality"])
+        logits, aux = tp.forward_train(body, cfg, tokens, modality, self.options.remat,
+                                       self.options.q_chunk, mesh)
+        ce, zloss = tp.cross_entropy(cfg, logits, tokens, self.global_batch, mesh, Z_LOSS)
+        del logits, body
+        ce, zloss = leave(ce, mesh, P()), leave(zloss, mesh, P())
+        loss = ce + zloss
+        metrics = {"ce": ce, "z_loss": zloss}
+        if aux:
+            aux = {k: leave(v, mesh, P()) for k, v in aux.items()}
+            loss = loss + MOE_LB_WEIGHT * aux["moe_lb_loss"] + aux["moe_z_loss"]
+            metrics.update(aux)
+        return loss, metrics
+
+    @torch.no_grad()
+    def loss(self, params, batch):
+        """``(loss, metrics)`` of placed ``params`` on a placed batch, the
+        forward alone (no gradients)."""
+        from repro_torch.dist.sharding import tensor_parallel
+
+        with tensor_parallel(self.mesh, self.rules):
+            return self._loss(params, batch)
+
+    def value_and_grad(self, params, batch):
+        """``((loss, metrics), grads)`` of placed ``params`` on a placed
+        batch: the global loss and metrics on every process, the gradients
+        placed as the parameters are."""
+        from repro_torch.dist.sharding import reduce_placed, tensor_parallel
+
+        live = lm.tree_map(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad(), tensor_parallel(self.mesh, self.rules):
+            loss, metrics = self._loss(live, batch)
+            flat = lm.leaves(live)
+            grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+        spec_leaves = lm.leaves(self.state_specs["params"])
+        grads = {k: reduce_placed(g, self.mesh, spec_leaves[k]) for k, g in grads.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return (loss.detach(), metrics), _unflatten(grads)
+
+    def __call__(self, state, batch):
+        params, opt_state = state["params"], state["opt_state"]
+        (loss, metrics), grads = self.value_and_grad(params, batch)
+        new_params, new_opt_state, om = opt.adamw_update(
+            self.opt_cfg, grads, opt_state, params, specs=self.state_specs["params"],
+            mesh=self.mesh)
+        metrics = dict(metrics, loss=loss, **om)
+        return {"params": new_params, "opt_state": new_opt_state,
+                "step": state["step"] + 1}, metrics
+
+
+def _unflatten(flat: dict) -> dict:
+    """``{"a.b.c": leaf}`` (``lm.leaves``) as nested dicts."""
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        *parents, name = path.split(".")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[name] = v
+    return out
+
+
+def init_placed_train_state(generator: Optional[torch.Generator], cfg: ModelConfig, mesh,
+                            specs, device=None) -> dict:
+    """``init_train_state`` as this process's blocks of ``specs``: the
+    parameters drawn whole on ``device`` (the same draws as
+    ``init_train_state``) and placed leaf by leaf, the moments zeros of
+    the blocks' shapes; no whole moment is ever made."""
+    from repro_torch.dist.sharding import place
+
+    params = lm.init_params(cfg, generator=generator, device=device)
+    flat = lm.leaves(params)
+    del params
+    pspecs = lm.leaves(specs["params"])
+    placed = {k: place(flat.pop(k), mesh, pspecs[k]) for k in list(flat)}
+    dev = lm.default_device(device)
+
+    def zeros():
+        return _unflatten({k: torch.zeros_like(t) for k, t in placed.items()})
+
+    return {
+        "params": _unflatten(placed),
+        "opt_state": {"m": zeros(), "v": zeros(),
+                      "count": torch.zeros((), dtype=torch.int32, device=dev)},
+        "step": torch.zeros((), dtype=torch.int32, device=dev),
+    }

@@ -16,7 +16,15 @@ Production behaviors implemented (and exercised by tests):
   host arrays, which the trainer places on its own device; the restore
   template comes from the checkpoint's manifest, so resuming builds no
   state of its own (a checkpoint the reference's trainer wrote resumes
-  here too).
+  here too);
+- **sharded state** (``state_shardings``, the reference's argument: a tree
+  of ``NamedSharding`` s, e.g. ``shardings_of(step.state_specs, mesh)``):
+  ``init_state()`` returns the state placed by them
+  (``train_step.init_placed_train_state``), a restore places every leaf's
+  blocks as it reads them, a save gathers the blocks to one writer in the
+  reference's format, and each batch is placed by ``put_batch`` (a
+  ``ShardedTrainStep``'s ``place_batch`` by default): a snapshot written
+  on one layout resumes on another, or on one device.
 """
 from __future__ import annotations
 
@@ -72,6 +80,22 @@ def _template(manifest: dict) -> dict:
     return tree
 
 
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def shardings_of(specs, mesh) -> dict:
+    """A spec tree (``state_pspecs``) as the tree of ``NamedSharding`` s that
+    ``Trainer(state_shardings=...)`` and ``Checkpointer.restore`` take."""
+    from repro_torch.dist.sharding import NamedSharding
+
+    if isinstance(specs, dict):
+        return {k: shardings_of(v, mesh) for k, v in specs.items()}
+    return NamedSharding(mesh, specs)
+
+
 def _place(tree, device):
     if isinstance(tree, dict):
         return {k: _place(v, device) for k, v in tree.items()}
@@ -87,11 +111,28 @@ class Trainer:
         cfg: TrainerConfig,
         put_batch: Optional[Callable] = None,
         device=None,
+        state_shardings=None,
     ):
         self.train_step = train_step
         self.cfg = cfg
         self.data_cfg = data_cfg
-        self.device = default_device(device)
+        self.state_shardings = state_shardings
+        if state_shardings is not None:
+            if device is not None:
+                raise ValueError(
+                    "Trainer takes a device or state_shardings, not both: the state's mesh "
+                    "names the devices"
+                )
+            mesh = _first_leaf(state_shardings).mesh
+            self.device = mesh.device(mesh.process_rank if mesh.processes else 0)
+            put_batch = put_batch or getattr(train_step, "place_batch", None)
+            if put_batch is None:
+                raise ValueError(
+                    "Trainer(state_shardings=...) needs a put_batch that places a batch's "
+                    "rows (a ShardedTrainStep's place_batch is the default)"
+                )
+        else:
+            self.device = default_device(device)
         self.put_batch = put_batch or put_batch_on(self.device)
         self.ckpt = (
             Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
@@ -105,7 +146,10 @@ class Trainer:
         start = self.ckpt.latest_step() if self.ckpt else None
         if start is not None:
             template = _template(self.ckpt.manifest(start))
-            self.state = _place(self.ckpt.restore(template, step=start), self.device)
+            if state_shardings is not None:
+                self.state = self.ckpt.restore(template, step=start, shardings=state_shardings)
+            else:
+                self.state = _place(self.ckpt.restore(template, step=start), self.device)
             self.start_step = start
         else:
             self.state = init_state()
@@ -162,20 +206,34 @@ class Trainer:
                     )
                 saved = False
                 if self.ckpt and step % self.cfg.checkpoint_every == 0:
-                    self.ckpt.save(step, self.state)
+                    self.ckpt.save(step, self._saveable())
                     saved = True
                 if self._preempted:
                     if self.ckpt:
                         if saved:
                             self.ckpt.wait()  # this step's snapshot: commit it
                         else:
-                            self.ckpt.save(step, self.state, blocking=True)
+                            self.ckpt.save(step, self._saveable(), blocking=True)
                     break
         finally:
             loader.stop()
             if self.ckpt:
                 self.ckpt.wait()
         return {"final_step": step, "metrics": self.metrics_log}
+
+    def _saveable(self):
+        """The state as the ``Checkpointer`` saves it: placed blocks as
+        sharded tensors (views), which it gathers to the one writer."""
+        if self.state_shardings is None:
+            return self.state
+        from repro_torch.dist.sharding import as_sharded
+
+        def one(x, s):
+            if isinstance(x, dict):
+                return {k: one(v, s[k]) for k, v in x.items()}
+            return as_sharded(x, s.mesh, s.spec)
+
+        return one(self.state, self.state_shardings)
 
     def _watch_stragglers(self, step: int, dt: float) -> None:
         if len(self._step_times) >= 8:

@@ -11,7 +11,8 @@ pipeline (``repro_torch.data``) and gradient compression
 (``repro_torch.dist.param_specs``, ``repro_torch.dist.context_parallel``,
 ``repro_torch.models.flags``) and launch layer (``repro_torch.launch.mesh``,
 ``.steps``, ``.dryrun``); one process per rank
-(``repro_torch.dist.processes``)."""
+(``repro_torch.dist.processes``); the tensor-parallel blocks
+(``repro_torch.models.tp``)."""
 import os
 import re
 import subprocess
@@ -43,7 +44,7 @@ for n in ("repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.frontend
           "repro_torch.data.pipeline", "repro_torch.dist.compression",
           "repro_torch.dist.param_specs", "repro_torch.dist.context_parallel",
           "repro_torch.models.flags", "repro_torch.launch.mesh", "repro_torch.launch.steps",
-          "repro_torch.launch.dryrun", "repro_torch.dist.processes"):
+          "repro_torch.launch.dryrun", "repro_torch.dist.processes", "repro_torch.models.tp"):
     assert n in names, n
 for n in names:
     importlib.import_module(n)

@@ -149,9 +149,9 @@ def test_dry_run_records_name_every_stand_in(dry_records):
         assert rec["n_layout_constraints"] > 0
     assert granite["n_devices"] == 256 and yi["n_devices"] == 512
     # expert parallelism moves tokens by all-to-all; the seq-sharded decode
-    # combines by all-reduce
+    # combines by all-reduce, after an all-gather of its sharded query heads
     assert granite["collective_bytes"]["all-to-all"] > 0
-    assert set(yi["collective_bytes"]) == {"all-reduce"}
+    assert set(yi["collective_bytes"]) == {"all-reduce", "all-gather"}
     # a train step does at least the forward's 2·N·D of its active params
     tokens = 256 * 4096
     assert granite["cost"]["flops"] * 256 > 6 * granite["active_params"] * tokens
