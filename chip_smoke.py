@@ -210,6 +210,29 @@ check raises and the script exits non-zero:
    HBM3 at 700 W, where bf16's own spread against float32 was 3.1e-05);
    under 300 s and 75 GiB a card.
 
+19. the serving engine's slot axis, context parallelism and the sharded
+   train step's microbatches and int8 compression over one process a card
+   (``p19_phase``): (a) a world of one process, a ``StencilEngine`` whose
+   buckets H (heat 16384² so4 fused k=4, K2, a pool of 4, 6 requests) and
+   K (heat so2 k=1, K1, a pool of 4, 4 requests) run over a process mesh,
+   the slot axis factored out of the world: every result and frame
+   bitwise its solo ``time_loop``, and the single-controller slot-axis
+   sibling bitwise the solo runs; K1 and K2 of its path join the kernels
+   line; (b) ``causal_conv_cp`` (d_inner 8192, S 32768) and
+   ``sliding_window_attention_cp`` (window 4096, head_dim 128, S 4096)
+   over that world, bitwise the stacked ranks and the flat call; (c)
+   ``ShardedTrainStep`` with 2 microbatches and int8 on stacked (2, 2)
+   ranks, qwen2-7b (4 layers, 4 x 2048 tokens) and granite (8 layers),
+   against the flat port: loss 1e-5, gradients 1e-4 of a leaf's max, the
+   int8 gradients within one quantization step; under 90 s and 70 GiB.
+   ``python3 chip_smoke.py --phase 19`` runs phase 0 and phase 19 alone,
+   and on four cards adds (d) (a) over (slot=2, x=2) and (slot=1, 2x2)
+   processes with a resize and an evacuation onto one card, (e) (b) over
+   4 processes at S 32768 and F2 raised on every process, (f) (c) over
+   (2, 2) processes bitwise the stacked ranks and qwen2-7b at full depth
+   with 2 microbatches and int8 on (1, 4), 3 ``Trainer`` steps; under 300
+   s and 75 GiB a card.
+
 Phase 1 also runs K1 heat so4 at 1024² on a pool of 16 slots, and phase 6
 K2 heat so4 k=4 at 16384² on a pool of 2, each in one launch, bitwise
 against its plain version and against a launch on each slot alone, timed
@@ -3111,14 +3134,17 @@ def tp_meshes(dev, shape):
     return Mesh(devs.reshape(shape), ("data", "model"))
 
 
-def tp_grads_case(dev, cfg, mesh, tokens, seed, *, flat=None, digests=False):
+def tp_grads_case(dev, cfg, mesh, tokens, seed, *, flat=None, digests=False, options=None):
     """One sharded train step's loss and gradients of ``cfg`` on ``mesh``
     (stacked ranks on ``dev``, or this process's rank of a process mesh)
     from the parameters drawn with ``seed``: against ``flat`` (the flat
     port's ``(loss, metrics, grads)``) where it is given, and with
     ``digests`` the loss and the checksum (:func:`words_checksum`) of every
     rank's block of the gradients and of the state after the update (zero
-    moments in).  Returns a record."""
+    moments in).  ``options`` (default ``TrainOptions(q_chunk=...)``) may
+    ask for microbatches and int8 compression: the compressed gradients
+    are then held against the flat ones' compression (:func:`int8_check`)
+    and digested too, and the update takes them.  Returns a record."""
     import gc
 
     import torch
@@ -3132,8 +3158,8 @@ def tp_grads_case(dev, cfg, mesh, tokens, seed, *, flat=None, digests=False):
 
     on_card = dev.type == "cuda"
     B, S = tokens.shape
-    step = ShardedTrainStep(cfg, opt.OptimizerConfig(), TrainOptions(q_chunk=min(1024, S)),
-                            mesh, B)
+    step = ShardedTrainStep(cfg, opt.OptimizerConfig(),
+                            options or TrainOptions(q_chunk=min(1024, S)), mesh, B)
     pspecs = step.state_specs["params"]
     params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
                             device=dev)
@@ -3166,6 +3192,12 @@ def tp_grads_case(dev, cfg, mesh, tokens, seed, *, flat=None, digests=False):
                 worst, where = e, path
             del got
         rec["grad_err"], rec["grad_worst"] = worst, where
+    compressed = step.compress(grads)
+    if flat is not None and compressed is not grads:
+        rec["int8"] = int8_check(compressed, grads, f_grads, pspecs, mesh)
+    if compressed is not grads:
+        grads = compressed
+    del compressed
     if digests:
         ranks = (mesh.process_rank,) if mesh.processes else range(mesh.size)
         flat_g = lm.leaves(grads)
@@ -3195,11 +3227,14 @@ def tp_grads_case(dev, cfg, mesh, tokens, seed, *, flat=None, digests=False):
     return rec
 
 
-def tp_flat(dev, cfg, tokens, seed, mesh=None):
+def tp_flat(dev, cfg, tokens, seed, mesh=None, options=None):
     """The flat port's ``(loss, metrics, grads)`` of the parameters drawn
     with ``seed`` (under ``use_mesh(mesh)`` for an MoE config: the
     expert-parallel branch, whose aux losses are data shard 0's, as the
-    sharded step's are)."""
+    sharded step's are); with ``options.microbatches = n``, the flat train
+    step's loop over ``n`` microbatches of global rows (the loss and the
+    metrics their means, ``g / n`` accumulated in order), before any
+    compression."""
     import contextlib
 
     import torch
@@ -3212,14 +3247,30 @@ def tp_flat(dev, cfg, tokens, seed, mesh=None):
                             device=dev)
     S = tokens.shape[1]
     ctx = use_mesh(mesh) if (mesh is not None and cfg.moe is not None) else contextlib.nullcontext()
+    options = options or TrainOptions(q_chunk=min(1024, S))
+    grad_fn = value_and_grad(make_loss_fn(cfg, options))
+    n = max(1, options.microbatches)
+    grads, losses, metricses = None, [], []
     with ctx:
-        (loss, metrics), grads = value_and_grad(make_loss_fn(cfg, TrainOptions(
-            q_chunk=min(1024, S))))(params, {"tokens": tokens})
+        for i in range(n):
+            mb = {"tokens": tokens.reshape((n, tokens.shape[0] // n) + tuple(tokens.shape[1:]))[i]}
+            (loss, metrics), g = grad_fn(params, mb)
+            if n == 1:
+                grads = g
+            else:
+                grads = lm.tree_map(torch.zeros_like, g) if grads is None else grads
+                grads = lm.tree_map(lambda a, x: a.add_(x / n), grads, g)
+            del g
+            losses.append(float(loss))
+            metricses.append({k: float(v) for k, v in metrics.items()})
     del params
-    return float(loss), {k: float(v) for k, v in metrics.items()}, grads
+    # the means as the reference takes them: of the float32 values
+    mean = lambda xs: float(torch.tensor(xs, dtype=torch.float32).mean())  # noqa: E731
+    return (mean(losses), {k: mean([m[k] for m in metricses]) for k in metricses[0]}, grads)
 
 
-def tp_trainer(dev, cfg, mesh, directory, total, B, S, seed, *, every=2, timed=None):
+def tp_trainer(dev, cfg, mesh, directory, total, B, S, seed, *, every=2, timed=None,
+               options=None):
     """A ``Trainer(state_shardings=...)`` of ``cfg`` on ``mesh`` with a
     synthetic data stream of ``B`` x ``S`` tokens, its snapshots under
     ``directory`` (none with ``directory=None``)."""
@@ -3232,8 +3283,8 @@ def tp_trainer(dev, cfg, mesh, directory, total, B, S, seed, *, every=2, timed=N
     )
     from repro_torch.train.trainer import Trainer, TrainerConfig, shardings_of
 
-    step = ShardedTrainStep(cfg, opt.OptimizerConfig(), TrainOptions(q_chunk=min(1024, S)),
-                            mesh, B)
+    step = ShardedTrainStep(cfg, opt.OptimizerConfig(),
+                            options or TrainOptions(q_chunk=min(1024, S)), mesh, B)
     data = DataConfig(seq_len=S, global_batch=B, vocab_size=cfg.vocab_size, seed=seed)
     tcfg = TrainerConfig(total_steps=total, checkpoint_every=every if directory else 10**9,
                          log_every=1, checkpoint_dir=directory)
@@ -3278,6 +3329,38 @@ def words_checksum(t) -> str:
         plain += int(w.sum())
         weighted += int((w * mult).sum())
     return f"{plain}:{weighted & (2**64 - 1)}"
+
+
+def int8_check(compressed, grads, flat_grads, specs, mesh) -> dict:
+    """The sharded step's int8-compressed gradients against the flat
+    gradients' compression (``dist.compression.int8_roundtrip``), leaf by
+    leaf: every element within one quantization step of the flat leaf
+    (``max |g| / 127``) plus the difference of the two leaves' maxima (a
+    value of ``q`` steps moves by ``q / 127`` of it with the scale) and
+    the float32 rounding of the two dequantized values (``max * 2**-23``),
+    and equal where the gradients before compression are equal and so are
+    the maxima.  Returns the worst share of that bound, where, and the
+    elements that differ where they had to be equal (must be 0)."""
+    from repro_torch.dist.compression import int8_roundtrip
+    from repro_torch.dist.sharding import gather_placed
+    from repro_torch.models import lm
+
+    worst, where, unequal = 0.0, "", 0
+    cl, gl, sl = lm.leaves(compressed), lm.leaves(grads), lm.leaves(specs)
+    for path, want in lm.leaves(flat_grads).items():
+        got_c = gather_placed(cl[path], mesh, sl[path])
+        got = gather_placed(gl[path], mesh, sl[path])
+        want_c = int8_roundtrip({"x": want})["x"]
+        m_got, m_want = float(got.abs().max()), float(want.abs().max())
+        bound = m_want / 127.0 + abs(m_got - m_want) + m_want * 2.0**-23
+        share = float((got_c - want_c).abs().max()) / max(bound, 1e-30)
+        if share > worst:
+            worst, where = share, path
+        if m_got == m_want:
+            same = got == want
+            unequal += int((got_c[same] != want_c[same]).sum())
+        del got_c, got, want_c
+    return {"worst": worst, "where": where, "unequal": unequal}
 
 
 def tp_checksums(state, specs=None, mesh=None) -> dict:
@@ -3863,6 +3946,868 @@ def tp_processes_part(dev, world, stacked, cases, *, cut, card, tokens, trainer_
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 19: slot axis, context parallelism and microbatches over processes
+# --------------------------------------------------------------------------
+
+# per bucket, (n_steps, frame_every) of each request: H is heat so4 fused
+# k=4 (K2), K heat so2 k=1 (K1), a program of its own so that it migrates
+# alone
+P19_REQUESTS = {"H": [(16, 0), (32, 16), (48, 0), (16, 0), (32, 0), (48, 0)],
+                "K": [(16, 0), (16, 0), (16, 0), (16, 0)]}
+P19_OPTIONS = {"microbatches": 2, "grad_compression": "int8"}
+
+
+def p19_programs(n2):
+    return {"H": oec_heat((n2, n2)), "K": oec_heat((n2, n2), so=2)}
+
+
+def p19_kw(label):
+    return ({"backend": "cuda", "exchange_every": 4, "fused_epoch": True} if label == "H"
+            else {"backend": "cuda"})
+
+
+def p19_layouts(world):
+    """``(name, spatial mesh shape, its axes)``: the bucket's spatial mesh,
+    a block of the world; the engine factors the slot axis out of the
+    rest of it."""
+    if world == 1:
+        return [("slot=1 x=1", (1,), ("x",))]
+    return [("slot=2 x=2", (world // 2,), ("x",)), ("slot=1 2x2", (2, world // 2), ("x", "y"))]
+
+
+def p19_strategy(shape):
+    from repro_torch.core.passes.decompose import make_strategy_1d, make_strategy_2d
+
+    return make_strategy_1d(shape[0]) if len(shape) == 1 else make_strategy_2d(tuple(shape))
+
+
+def p19_state(prog, dev, seed):
+    """Request ``seed``'s initial state, drawn on ``dev`` (the same draws on
+    every card)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1900 + seed)
+    return tuple(torch.randn(f.type.bounds.shape, device=dev, generator=g)
+                 for f in prog.input_fields)
+
+
+def p19_engine(w, layout, shape, names, spec, note, *, migrate):
+    """Phase 19 (a)/(d) on this process: one ``StencilEngine`` with the
+    buckets H (pool of 4, 6 requests, one with frames) and K (pool of 4,
+    4 requests) whose targets run over the spatial process mesh ``shape``
+    (``jit=True``); the engine factors the slot axis out of the world.
+    With ``migrate``, H is resized to 8 slots after the first engine step
+    (the ``PoolSizer``'s path) and K is evacuated after the second and
+    admitted onto this card alone by a second engine.  Every final state
+    and frame must equal its solo ``time_loop`` on this card (raises
+    otherwise).  Returns what was measured."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.dist import processes
+    from repro_torch.kernels import dispatch_stats, reset_dispatch_stats
+    from repro_torch.serve.stencil import StencilEngine, StencilEngineConfig
+
+    dev = w.device
+    on_card = dev.type == "cuda"
+    progs = p19_programs(spec["n2"])
+    mesh = processes.process_mesh(shape, names)
+    targets = {k: api.Target(mesh=mesh, strategy=p19_strategy(shape), jit=True, **p19_kw(k))
+               for k in progs}
+    engine = StencilEngine(StencilEngineConfig(slots_per_group=4, bucket_idle_steps=0))
+    frames: dict = {}
+    handles = {}
+    for label, reqs in P19_REQUESTS.items():
+        for i, (n, every) in enumerate(reqs):
+            key = f"{label}{i}"
+            handles[key] = engine.submit(
+                progs[label], p19_state(progs[label], dev, len(handles)), n, targets[label],
+                frame_every=every, on_frame=lambda f, k=key: frames.setdefault(k, []).append(f))
+    rec = {"layout": layout, "world": w.size}
+    # every timed dispatch with its bucket's live rows and whether it
+    # captured a graph (a capture runs the phase eagerly first)
+    dispatches: dict = {}
+    plain_record = engine.metrics.record_dispatch
+
+    def record(key, seconds):
+        g = next(g for g in engine.scheduler.groups.values() if f"{g.key[0]}/{g.key[1]}" == key)
+        captures = api.graph_stats().captures
+        seen = dispatches.setdefault(key, {"captures": captures, "runs": []})
+        seen["runs"].append((seconds, len(g.active), captures > seen["captures"]))
+        seen["captures"] = captures
+        plain_record(key, seconds)
+
+    engine.metrics.record_dispatch = record
+    if on_card:
+        torch.cuda.synchronize(dev)
+    processes.barrier()
+    reset_dispatch_stats()
+    t0 = time.perf_counter()
+    engine.step()
+    groups = {label: next(g for g in engine.scheduler.groups.values()
+                          if g.key[0] == progs[label].fingerprint) for label in progs}
+    for label, g in groups.items():
+        exe = g.executable
+        check(exe is not None and exe.target.slot_axis == "slot" and exe.target.mesh.processes,
+              f"phase 19 {layout} {label}: the bucket did not dispatch over its slot-axis sibling")
+        local = sum(t.numel() * 4 for x in g.state for t in x.shards)
+        whole = sum(int(np.prod(x.shape)) * 4 for x in g.state)
+        rec[f"{label} pool"] = {"local": local, "whole": whole,
+                                "slots": int(exe.target.mesh.shape["slot"])}
+    migrated = {}
+    second = None
+    if migrate:
+        engine.resize_bucket(groups["H"], 8)
+        engine.step()
+        evac = processes.broadcast_object(tempfile.mkdtemp(prefix="phase19-evac-"))
+        moved = engine.evacuate(progs["K"].fingerprint, evac)
+        second = StencilEngine(StencilEngineConfig(slots_per_group=4, bucket_idle_steps=0))
+        one = api.Target(device=w.device.type, jit=True, **p19_kw("K"))
+        for req, h in zip(moved, second.admit_evacuated(evac, progs["K"], target=one)):
+            migrated[f"K{req.rid - len(P19_REQUESTS['H'])}"] = h
+        check(len(migrated) == len(P19_REQUESTS["K"]),
+              f"phase 19 {layout}: {len(migrated)} requests of K evacuated")
+    engine.run()
+    if second is not None:
+        second.run()
+        processes.barrier()  # every process has read its requests back
+        if w.rank == 0:
+            shutil.rmtree(evac, ignore_errors=True)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    processes.barrier()
+    rec["engine_s"] = time.perf_counter() - t0
+    st = dispatch_stats()
+    rec["launches"] = {"K1": st.apply_launches, "K2": st.fused_epoch_launches}
+    for label, g in groups.items():
+        runs = dispatches[f"{g.key[0]}/{g.key[1]}"]["runs"]
+        # the replays (no capture in them): their seconds and points a second
+        k = g.exchange_every
+        replays = sorted(t for t, _, cap in runs if not cap)
+        rates = sorted(live * spec["n2"] ** 2 * k / t for t, live, cap in runs if not cap)
+        rec[f"{label} dispatch"] = {
+            "count": len(runs), "replays": len(replays),
+            "p50_s": replays[len(replays) // 2] if replays else None,
+            "p99_s": replays[min(len(replays) - 1, int(0.99 * len(replays)))] if replays else None,
+            "gpts": rates[len(rates) // 2] / 1e9 if rates else None}
+        ring = g.executable._ring if g.executable is not None else None
+        if ring is not None and ring.graphs:
+            nodes = [n for _, n, _ in ring.graphs.values()]
+            rec[f"{label} graph"] = {"K1": nodes[0].k1, "K2": nodes[0].k2,
+                                     "nccl": nodes[0].nccl}
+    note(f"{layout}: the engine ran in {rec['engine_s']:.1f} s")
+    # every result and frame against its solo run on this card
+    solo_t = {k: api.Target(device=w.device.type, jit=True, **p19_kw(k)) for k in progs}
+    seed = 0
+    for label, reqs in P19_REQUESTS.items():
+        solo = api.compile(progs[label], solo_t[label])
+        for i, (n, every) in enumerate(reqs):
+            key = f"{label}{i}"
+            h = migrated.get(key, handles[key])
+            state, done = p19_state(progs[label], dev, seed), 0
+            seed += 1
+            for f in frames.get(key, []):
+                state = solo.time_loop(state, f.step - done)
+                done = f.step
+                check(all(np.array_equal(a, x.cpu().numpy()) for a, x in zip(f.arrays, state)),
+                      f"phase 19 {layout} {key}: the frame at step {f.step} differs from solo")
+            want = solo.time_loop(state, n - done)
+            got = h.result()
+            diff = max(float((g_.to(dev) - w_).abs().max()) for g_, w_ in zip(got, want))
+            check(all(torch.equal(g_.to(dev), w_) for g_, w_ in zip(got, want)),
+                  f"phase 19 {layout} {key}: differs from its solo time_loop (max |diff| {diff})")
+            h._req.result = None
+            del got, want, state
+        solo.release_graphs()
+        api.forget(progs[label], solo_t[label])
+    rec["frames"] = sum(len(v) for v in frames.values())
+    for g in groups.values():
+        g.release()
+    del engine, second
+    return rec
+
+
+def p19_sibling_check(dev, spec):
+    """Phase 19 (a): the single-controller slot-axis sibling on this card
+    (``pooled_target`` of a one-rank mesh, ``jit=True``) on a pool of the
+    first 4 requests of each bucket, 16 steps: each row bitwise the
+    request's solo run."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.dist import Mesh
+
+    progs = p19_programs(spec["n2"])
+    seed = 0
+    for label, reqs in P19_REQUESTS.items():
+        spatial = api.Target(mesh=Mesh([dev], ("x",)), strategy=p19_strategy((1,)), jit=True,
+                             **p19_kw(label))
+        sib = api.pooled_target(spatial, slots=1, devices=[dev])
+        states = [p19_state(progs[label], dev, seed + i) for i in range(4)]
+        pool = [torch.stack([s[j] for s in states]) for j in range(len(states[0]))]
+        got = api.compile(progs[label], sib).time_loop(pool, 16)
+        solo = api.compile(progs[label], api.Target(device=dev.type, jit=True, **p19_kw(label)))
+        for i, s in enumerate(states):
+            want = solo.time_loop(s, 16)
+            check(all(torch.equal(g[i], w_) for g, w_ in zip(got, want)),
+                  f"phase 19 (a) {label}: row {i} of the single-controller slot-axis sibling "
+                  "differs from its solo run")
+        for t in (sib, solo.target):
+            api.forget(progs[label], t)
+        seed += len(reqs)
+        del got, pool, states
+
+
+def p19_cp(w, spec, note):
+    """Phase 19 (b)/(e): ``causal_conv_cp`` (d_inner ``spec["conv"]``,
+    width 4) and ``sliding_window_attention_cp`` (window ``spec["window"]``,
+    4096 on the card, head_dim 128, one head) over this world's processes on (seq=world): bitwise the
+    stacked ranks on this card (the single controller's 4 ranks) and, in a
+    world of one, the flat call; ms per call of each (CUDA events, best of
+    3).  Over more than one process, a window deeper than a shard must
+    raise ``ValueError`` on every process before any message."""
+    import torch
+
+    from repro_torch.dist import Mesh, processes
+    from repro_torch.dist.context_parallel import causal_conv_cp, sliding_window_attention_cp
+    from repro_torch.models.mamba import _causal_conv
+
+    dev = w.device
+    n = w.size
+    pmesh = processes.process_mesh((n,), ("seq",))
+    stacked = Mesh([dev] * max(n, 1), ("seq",))
+    g = torch.Generator(device=dev).manual_seed(SEED + 1950)
+    rec = {}
+
+    def timed(fn):
+        best = float("inf")
+        out = fn()
+        for _ in range(3):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            processes.barrier()
+            t0 = time.perf_counter()
+            out = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            best = min(best, time.perf_counter() - t0)
+        return out, best * 1e3
+
+    C, S = spec["conv"], spec["conv_S"]
+    x = torch.randn(1, S, C, device=dev, generator=g)
+    wt, b = torch.randn(4, C, device=dev, generator=g), torch.randn(C, device=dev, generator=g)
+    got, rec["conv ms"] = timed(lambda: causal_conv_cp(x, wt, b, pmesh, "seq"))
+    want, rec["conv stacked ms"] = timed(lambda: causal_conv_cp(x, wt, b, stacked, "seq"))
+    flat, rec["conv flat ms"] = timed(lambda: _causal_conv(x, wt, b)[0])
+    check(torch.equal(got, want), "phase 19 causal_conv_cp: the processes differ from the "
+                                  "stacked ranks")
+    if n == 1:
+        check(torch.equal(got, flat), "phase 19 causal_conv_cp: differs from the flat call")
+    del x, got, want, flat
+    W, Sa = spec["window"], spec["attn_S"]
+    q, k, v = (torch.randn(1, Sa, 1, 128, device=dev, generator=g) for _ in range(3))
+    got, rec["attn ms"] = timed(lambda: sliding_window_attention_cp(q, k, v, W, pmesh, "seq"))
+    want, rec["attn stacked ms"] = timed(
+        lambda: sliding_window_attention_cp(q, k, v, W, stacked, "seq"))
+    check(torch.equal(got, want), "phase 19 sliding_window_attention_cp: the processes differ "
+                                  "from the stacked ranks")
+    if n == 1:
+        one = Mesh([dev], ("x",))
+        flat = sliding_window_attention_cp(q, k, v, W, one, "x")
+        check(torch.equal(got, flat), "phase 19 sliding_window_attention_cp: differs from the "
+                                      "flat call")
+        del flat
+    del q, k, v, got, want
+    rec["conv"], rec["attn"] = [1, S, C], [1, Sa, 1, 128]
+    if n > 1:
+        # F2: S 8192 at window 4096 over n processes: a shard of 8192 / n
+        # is shallower than the halo, on every process, before any message
+        q = torch.zeros(1, 2 * W, 1, 128, device=dev)
+        processes.barrier()
+        t0 = time.perf_counter()
+        try:
+            sliding_window_attention_cp(q, q, q, W, pmesh, "seq")
+        except ValueError as e:
+            rec["F2"] = str(e)
+        processes.barrier()
+        rec["F2 s"] = time.perf_counter() - t0
+        check("F2" in rec and rec["F2 s"] < 10, f"phase 19 (e): F2 did not raise on every "
+                                                f"process within 10 s: {rec}")
+    note("context parallelism")
+    return rec
+
+
+def p19_child(rank, world, tmp, spec):
+    """One process of phase 19, on ``cuda:rank`` over NCCL (gloo on the CPU
+    for a rehearsal): (a)/(d) the engine over each layout, (b)/(e) context
+    parallelism, and over more than one process (f) the sharded train step
+    with microbatches and int8 on (2, 2) (checksums of its blocks) and
+    qwen2-7b at full depth with them on (1, 4), 3 ``Trainer`` steps.
+    Rewrites ``<tmp>/rank<r>.json`` after every part; logs to
+    ``<tmp>/rank<r>.log``."""
+    import faulthandler
+    import gc
+
+    sys.path.insert(0, spec["src"])
+    import torch
+
+    from repro_torch.dist import processes
+
+    progress = open(os.path.join(tmp, f"rank{rank}.log"), "w", buffering=1)
+    faulthandler.dump_traceback_later(spec["dump_s"], file=progress)
+    t0 = time.perf_counter()
+
+    def note(msg):
+        progress.write(f"{time.perf_counter() - t0:7.1f} s  {msg}\n")
+
+    if spec["device"] == "cpu":
+        torch.set_num_threads(1)
+    w = processes.init(device=spec["device"], rank=rank, world_size=world, local_rank=rank,
+                       init_method=f"file://{os.path.abspath(os.path.join(tmp, 'store'))}",
+                       timeout_s=180)
+    dev = w.device
+    on_card = dev.type == "cuda"
+    out = {"rank": rank, "engine": {}}
+
+    def save():
+        path = os.path.join(tmp, f"rank{rank}.json")
+        with open(path + ".part", "w") as f:
+            json.dump(out, f)
+        os.replace(path + ".part", path)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+
+    try:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        for layout, shape, names in p19_layouts(world):
+            out["engine"][layout] = p19_engine(w, layout, shape, names, spec, note,
+                                               migrate=world > 1)
+            free()
+            save()
+        if world == 1:
+            p19_sibling_check(dev, spec)
+            out["sibling"] = True
+            free()
+            save()
+        out["cp"] = p19_cp(w, spec, note)
+        free()
+        save()
+        if spec.get("train"):
+            from repro_torch.train.train_step import TrainOptions
+
+            opts = dict(P19_OPTIONS, q_chunk=min(1024, spec["tokens"][1]))
+            out["f"] = {}
+            for name, arch, layers, shape, capacity in spec["cases"]:
+                cfg = tp_config(arch, layers, _p19_cut(spec), capacity=capacity)
+                mesh = processes.process_mesh(shape, ("data", "model"))
+                B, S = spec["tokens"]
+                rec = tp_grads_case(dev, cfg, mesh, tp_tokens(cfg, B, S, dev, SEED + 191),
+                                    SEED + 190, digests=True, options=TrainOptions(**opts))
+                rec["digests"] = rec["digests"][rank]
+                out["f"][name] = rec
+                free()
+                save()
+                note(f"(f) {name}")
+            cfg = tp_config(TP_DENSE, spec["full_layers"], _p19_cut(spec), dtype="bfloat16")
+            B, S = spec["full_tokens"]
+            m14 = processes.process_mesh((1, world), ("data", "model"))
+            times = []
+            trainer, step = tp_trainer(dev, cfg, m14, None, 3, B, S, SEED + 193,
+                                       timed=tp_timed(dev, times),
+                                       options=TrainOptions(**dict(P19_OPTIONS,
+                                                                   q_chunk=min(1024, S))))
+            run = trainer.run()
+            out["full"] = {"losses": [m["loss"] for m in run["metrics"] if "loss" in m],
+                           "s": times,
+                           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30
+                           if on_card else 0.0}
+            del trainer, step
+            free()
+            save()
+            note("(f) full depth")
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0
+        out["done"] = True
+        save()
+        processes.barrier()
+    except BaseException:
+        import traceback
+
+        note("failed:\n" + traceback.format_exc())
+        progress.close()
+        os._exit(1)
+    faulthandler.cancel_dump_traceback_later()
+    processes.shutdown()
+    progress.close()
+
+
+def _p19_cut(spec):
+    if not spec["reduced"]:
+        return None
+    from repro_torch.configs.base import reduced_config
+
+    return reduced_config
+
+
+def p19_spawn(world, tmp, spec, max_s):
+    """Start ``world`` processes of :func:`p19_child` (spawn) and wait until
+    every one has ended, one has failed or ``max_s`` seconds are up (the
+    rest are then stopped); returns ``(exit codes, each process's record,
+    seconds)``, printing the progress of any that failed."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=p19_child, args=(r, world, tmp, spec)) for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while (any(p.is_alive() for p in procs)
+               and not any(p.exitcode not in (None, 0) for p in procs)
+               and time.perf_counter() - t0 < max_s):
+            time.sleep(0.2)
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.terminate()
+        for p in procs:
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if hung or codes != [0] * world:
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    log(f"  rank {r}'s progress:\n" + f.read()[-6000:])
+    results = []
+    for r in range(world):
+        path = os.path.join(tmp, f"rank{r}.json")
+        results.append(json.load(open(path)) if os.path.exists(path) else {})
+    return codes, results, time.perf_counter() - t0
+
+
+def p19_engine_log(layout, recs, baseline=None):
+    """Log one layout's engine records (one a process); returns its
+    summary: the K1/K2 launches of every process summed and, per bucket,
+    the slowest process's p50/p99 over the dispatches that replayed a
+    captured graph (the first dispatch of each rotation phase and pool
+    width captures it) and its median GPts/s over them (live rows x
+    points x epoch depth / seconds)."""
+    out = {"K1": sum(r["launches"]["K1"] for r in recs),
+           "K2": sum(r["launches"]["K2"] for r in recs)}
+    for label in P19_REQUESTS:
+        pool = recs[0][f"{label} pool"]
+        d = [r[f"{label} dispatch"] for r in recs]
+        graph = recs[0].get(f"{label} graph", {})
+        if d[0]["replays"]:
+            p50 = max(x["p50_s"] for x in d)
+            p99 = max(x["p99_s"] for x in d)
+            gpts = min(x["gpts"] for x in d)
+            out[label] = {"p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3, "gpts": gpts}
+            timing = (f"over its {d[0]['replays']} replays of {d[0]['count']} dispatches: p50 "
+                      f"{p50 * 1e3:.4f} ms, p99 {p99 * 1e3:.4f} ms, {gpts:.2f} GPts/s "
+                      "(the slowest process)")
+            if baseline is not None and label in baseline:
+                b = baseline[label]
+                timing += (f" (one card: p50 {b['p50_ms']:.4f} ms, {b['gpts']:.2f} GPts/s; "
+                           f"{gpts / b['gpts']:.2f}x)")
+        else:
+            timing = f"its {d[0]['count']} dispatches each captured a graph"
+        log(f"  {layout} {label}: slot axis of {pool['slots']}, a process's pool "
+            f"{pool['local'] / 2**30:.3f} GiB of {pool['whole'] / 2**30:.3f} "
+            f"({pool['local'] / pool['whole']:.3f}); {timing}; a replayed graph holds K1 "
+            f"{graph.get('K1')}, K2 {graph.get('K2')}, NCCL {graph.get('nccl')} kernel nodes")
+    log(f"  {layout}: K1 {out['K1']}, K2 {out['K2']} launches over every process; engine "
+        f"{max(r['engine_s'] for r in recs):.1f} s; frames {recs[0]['frames']}")
+    return out
+
+
+class moe_routing:
+    """Inside the ``with``, every MoE routing call (``models.moe._route``),
+    in call order: with ``pin=None`` each call's expert choices are
+    recorded (``.calls``); with ``pin`` (another run's ``.calls``, call for
+    call) the choices are that run's wherever they differ (the gates, the
+    density and the aux losses follow them), and ``.pinned`` counts the
+    tokens so routed and ``.gap`` the largest margin, in this run's own
+    router probabilities, by which a pinned expert lost to the one it
+    replaced: a near-tie if it is a rounding's size.
+
+    Phase 19 (c) holds granite's sharded step against the flat port so: at
+    4 x 2048 tokens a top-k near-tie (a margin of ~1e-8) routes a token to
+    another expert in the two runs (the tensor-parallel partial sums round
+    the router's inputs otherwise), which moves the gradient rows that
+    token touches by percents; with the flat run pinned to the sharded
+    run's choices at such ties every leaf agrees within 1e-4."""
+
+    def __init__(self, pin=None):
+        self.pin, self.calls, self.pinned, self.gap = pin, [], 0, 0.0
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.plain = plain = moe._route
+
+        def route(p, xt, cfg, dtype):
+            gate_vals, gate_idx, aux = plain(p, xt, cfg, dtype)
+            if self.pin is None:
+                self.calls.append(gate_idx.detach().clone())
+                return gate_vals, gate_idx, aux
+            # every call takes the pinned route (the same ops whether or not
+            # a choice moves: a remat's recomputation saves what its forward
+            # saved); where nothing moves its values are the plain route's
+            want = self.pin[len(self.calls)]
+            self.calls.append(want)
+            differ = (gate_idx.sort(-1).values != want.sort(-1).values).any(-1)
+            self.pinned += int(differ.sum())
+            mcfg = cfg.moe
+            logits = moe.router_logits(xt, p["router"], dtype)
+            probs = torch.softmax(logits, dim=-1)
+            own = probs.gather(-1, gate_idx).detach()
+            theirs = probs.gather(-1, want).detach()
+            if differ.any():
+                self.gap = max(self.gap, float((own.sum(-1) - theirs.sum(-1))[differ].max()))
+            gate_vals = probs.gather(-1, want)
+            gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+            experts = torch.arange(mcfg.num_experts, device=xt.device)[:, None]
+            assigned = want.flatten(-2)
+            density = (assigned[..., None, :] == experts).sum(-1).to(torch.float32)
+            density = density / assigned.shape[-1]
+            lb = mcfg.num_experts * torch.sum(density * probs.mean(-2), dim=-1)
+            return gate_vals, want, {"moe_lb_loss": lb, "moe_z_loss": aux["moe_z_loss"]}
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._route = self.plain
+        return False
+
+
+def p19_phase(dev, *, card="", cut=None, n2=16384, conv=(8192, 32768), attn_S=4096, window=4096,
+              dense_layers=4, moe_layers=8, tokens=(4, 2048), full_layers=28,
+              full_tokens=(4, 4096), processes=None, max_s=90.0) -> dict:
+    """Phase 19: the serving engine's slot axis, context parallelism and
+    the sharded train step's microbatches and int8 compression over one
+    process a card.
+
+    One card: (a) a world of one process (NCCL), a ``StencilEngine`` whose
+    buckets run over a process mesh of it: H (heat ``n2``² so4 fused k=4,
+    K2; a pool of 4, 6 requests of 16-48 steps, one with frames) and K
+    (heat so2 k=1, K1; a pool of 4, 4 x 16 steps), the slot axis factored
+    out of the world (``(slot=1, x=1)``): every result and frame bitwise
+    its solo ``time_loop``, and the single-controller slot-axis sibling
+    on this card bitwise the solo runs; (b) ``causal_conv_cp`` (d_inner
+    ``conv[0]``, width 4, S ``conv[1]``) and ``sliding_window_attention_cp``
+    (window 4096, head_dim 128, S ``attn_S``: the one rank's windows of
+    S 32768 would be 137 GB) over that world, bitwise the stacked ranks and
+    the flat call; (c) ``ShardedTrainStep`` with 2 microbatches and int8
+    on stacked (2, 2) ranks: qwen2-7b at published width, ``dense_layers``
+    of 28 layers, float32, ``tokens``, and granite-moe-1b-a400m,
+    ``moe_layers`` of 24, capacity 4.0, each against the flat port's step
+    with the same options: the loss within 1e-5, every gradient leaf
+    before compression within 1e-4 of its largest magnitude, the
+    compressed gradients within one quantization step (:func:`int8_check`).
+
+    With ``processes`` (four cards: ``python3 chip_smoke.py --phase 19``;
+    gloo processes on the CPU for a rehearsal) four processes then run
+    (d) (a) over ``(slot=2, x=2)`` and ``(slot=1, 2x2)`` process meshes,
+    with a resize of H to 8 slots and K evacuated and admitted onto one
+    card, every result and frame bitwise its solo run on each process's
+    card; a process's pool bytes, dispatch p50/p99 and GPts/s against
+    (a)'s, the K1/K2/NCCL nodes of a replayed graph; (e) (b) over 4
+    processes (the window at S 32768), bitwise the stacked ranks, ms
+    against stacked and flat, F2 (S 8192, window 4096) raised on every
+    process within 10 s; (f) (c) over (2, 2) processes, every block
+    bitwise the stacked ranks (checksums), and qwen2-7b at full depth,
+    bf16 compute, float32 state, remat, 2 microbatches, int8, ``full_tokens``
+    on (1, 4), 3 ``Trainer`` steps from a barrier (the slowest process),
+    finite losses, step 1's within ``TP_BF16_LOSS_TOL`` of the flat bf16
+    forward on one card.
+
+    Under ``max_s`` (90 s) and 70 GiB on one card; 300 s and 75 GiB a card
+    with the processes.  Returns ``{"a": launches, ...}`` for the kernels
+    line."""
+    import gc
+    import math
+
+    import torch
+
+    on_card = dev.type == "cuda"
+    t19 = time.perf_counter()
+    if processes:
+        max_s = 300.0
+    max_gib = 75.0 if processes else 70.0
+    gib = 2**30
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+
+    def peak() -> float:
+        return torch.cuda.max_memory_allocated(dev) / gib if on_card else 0.0
+
+    log(f"phase 19: the serving engine's slot axis, context parallelism and the sharded train "
+        f"step's microbatches and int8 compression over processes; {card}")
+    free()
+    if on_card:
+        import numpy as np
+
+        from repro_torch import api
+        from repro_torch.dist import Mesh
+        from repro_torch.kernels import stencil_apply as k1
+
+        # every K1/K2 source the processes launch (a rank's program of each
+        # layout's spatial mesh: the slot count is a launch argument), built
+        # here in parallel
+        progs = p19_programs(n2)
+        sources = []
+        for _, shape, names in p19_layouts(1) + (p19_layouts(processes) if processes else []):
+            cpus = np.empty(int(np.prod(shape)), dtype=object)
+            cpus[:] = [torch.device("cpu")] * cpus.size
+            for label, prog in progs.items():
+                t = api.Target(mesh=Mesh(cpus.reshape(shape), names),
+                               strategy=p19_strategy(shape), jit=False, **p19_kw(label))
+                sources += api.compile(prog, t).kernel_sources()
+                api.forget(prog, t)
+        k1.build(list(dict.fromkeys(sources)))
+        free()
+    spec = {"src": str(Path(__file__).resolve().parent / "src"),
+            "device": "cuda" if on_card else "cpu", "n2": n2, "conv": conv[0],
+            "conv_S": conv[1], "attn_S": attn_S, "window": window, "reduced": cut is not None,
+            "dump_s": max(max_s - 15, 20.0)}
+    out = {}
+    failed = []
+
+    def verify(ok, msg):
+        if not ok:
+            failed.append(msg)
+            log(f"  FAILED: {msg}")
+
+    # (a) and (b): a world of one
+    tmp = tempfile.mkdtemp(prefix="phase19-")
+    try:
+        codes, results, s = p19_spawn(1, tmp, spec, max_s)
+        res = results[0]
+        log(f"  (a)-(b): a world of one process ran in {s:.1f} s, exit code {codes[0]}")
+        if res.get("engine"):
+            (layout, rec), = res["engine"].items()
+            out["a"] = p19_engine_log(f"(a) {layout}", [rec])
+            log(f"  (a): every result and frame bitwise its solo time_loop"
+                + ("; the single-controller slot-axis sibling bitwise the solo runs"
+                   if res.get("sibling") else ""))
+        verify(bool(res.get("sibling")), "phase 19 (a): did not end")
+        if "cp" in res:
+            cp = res["cp"]
+            log(f"  (b) over a world of one: causal_conv_cp {cp['conv']} {cp['conv ms']:.3f} ms "
+                f"(stacked {cp['conv stacked ms']:.3f}, flat {cp['conv flat ms']:.3f}), "
+                f"sliding_window_attention_cp {cp['attn']} {cp['attn ms']:.3f} ms (stacked "
+                f"{cp['attn stacked ms']:.3f}): bitwise the stacked ranks and the flat call")
+        verify("cp" in res, "phase 19 (b): did not end")
+        verify(codes == [0], f"phase 19 (a)-(b): the process exited with {codes}")
+        if on_card:
+            log(f"  (a)-(b): the process peaked at {res.get('peak_gib', 0):.2f} GiB")
+            verify(res.get("peak_gib", 0) < max_gib, "phase 19 (a)-(b): over the memory limit")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free()
+    check(not failed, f"phase 19: {len(failed)} check(s) failed: {failed}")
+
+    # (c) the sharded step with microbatches and int8, ranks stacked
+    from repro_torch.train.train_step import TrainOptions
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    B, S = tokens
+    opts = TrainOptions(**dict(P19_OPTIONS, q_chunk=min(1024, S)))
+    cases = [("qwen2-7b (2, 2)", TP_DENSE, dense_layers, (2, 2), None),
+             ("granite-moe-1b-a400m (2, 2)", TP_MOE, moe_layers, (2, 2), 4.0)]
+    stacked = {}
+    for name, arch, layers, shape, capacity in cases:
+        t0 = time.perf_counter()
+        cfg = tp_config(arch, layers, cut, capacity=capacity)
+        mesh = tp_meshes(dev, shape)
+        toks = tp_tokens(cfg, B, S, dev, SEED + 191)
+        tf = time.perf_counter()
+        with moe_routing() as f_route:
+            flat = tp_flat(dev, cfg, toks, SEED + 190, mesh, options=opts)
+        f_s = time.perf_counter() - tf
+        with moe_routing() as s_route:
+            rec = tp_grads_case(dev, cfg, mesh, toks, SEED + 190, flat=flat,
+                                digests=bool(processes), options=opts)
+        del flat
+        free()
+        ties = ""
+        routed = f_route.calls
+        if len(routed) != len(s_route.calls) or any(
+                not torch.equal(a, b) for a, b in zip(routed, s_route.calls)):
+            # a top-k near-tie routed otherwise: the flat run again with the
+            # sharded run's choices there (see moe_routing)
+            check(len(routed) == len(s_route.calls),
+                  f"phase 19 (c) {name}: {len(routed)} routing calls flat, "
+                  f"{len(s_route.calls)} sharded")
+            unpinned = (rec["loss_err"], rec["grad_err"], rec["grad_worst"])
+            with moe_routing(pin=s_route.calls) as pinned:
+                flat = tp_flat(dev, cfg, toks, SEED + 190, mesh, options=opts)
+            rec = tp_grads_case(dev, cfg, mesh, toks, SEED + 190, flat=flat,
+                                digests=bool(processes), options=opts)
+            del flat
+            free()
+            check(pinned.pinned > 0 and pinned.gap < 1e-5,
+                  f"phase 19 (c) {name}: {pinned.pinned} token(s) pinned, the largest margin "
+                  f"{pinned.gap:.3e} (a routing difference that is no near-tie)")
+            ties = (f"; {pinned.pinned} token routing(s) differed from flat at top-k near-ties "
+                    f"(margin <= {pinned.gap:.2e}; unpinned: loss {unpinned[0]:.2e}, gradient "
+                    f"{unpinned[2]} {unpinned[1]:.2e}), so the flat run took the sharded run's "
+                    "choices there")
+        del routed, f_route, s_route
+        stacked[name] = rec
+        q = rec["int8"]
+        check(rec["loss_err"] <= 1e-5, f"phase 19 (c) {name}: loss {rec['loss']:.7f} is "
+                                       f"{rec['loss_err']:.3e} from the flat port's")
+        check(rec["grad_err"] <= 1e-4, f"phase 19 (c) {name}: gradient {rec['grad_worst']} is "
+                                       f"{rec['grad_err']:.3e} of its largest magnitude from flat")
+        check(q["worst"] <= 1 and q["unequal"] == 0,
+              f"phase 19 (c) {name}: the int8 gradients against flat: {q}")
+        log(f"  (c) {name}: {layers} layers, {B}x{S} tokens in 2 microbatches, int8, float32: "
+            f"loss {rec['loss']:.6f} ({rec['loss_err']:.2e} from flat), every gradient leaf "
+            f"within {rec['grad_err']:.2e} of its max (worst {rec['grad_worst']}); int8 within "
+            f"{q['worst']:.3f} of a quantization step (worst {q['where']}), none apart where "
+            f"the gradients agree; loss and gradients {rec['ms']:.0f} ms stacked, "
+            f"{f_s * 1e3:.0f} ms flat{ties}; {time.perf_counter() - t0:.1f} s, peak "
+            f"{peak():.2f} GiB")
+    check(peak() < max_gib, f"phase 19 (c): peaked at {peak():.2f} GiB, over {max_gib}")
+
+    if processes:
+        free()
+        world = processes
+        spec.update({"conv_S": conv[1], "attn_S": 32768 if on_card else attn_S * world,
+                     "train": True, "cases": [list(c) for c in cases], "tokens": list(tokens),
+                     "full_layers": full_layers, "full_tokens": list(full_tokens)})
+        tmp = tempfile.mkdtemp(prefix="phase19p-")
+        log(f"phase 19 (d)-(f): {world} processes over {'NCCL' if on_card else 'gloo'}; {card}")
+        try:
+            codes, results, s = p19_spawn(world, tmp, spec,
+                                          max_s - (time.perf_counter() - t19))
+            log(f"  {world} processes ran in {s:.1f} s, exit codes {codes}")
+            for layout, _, _ in p19_layouts(world):
+                recs = [r.get("engine", {}).get(layout) for r in results]
+                if all(recs):
+                    p19_engine_log(f"(d) {layout}", recs, baseline=out.get("a"))
+                    verify(all(r["H pool"]["local"] * world == r["H pool"]["whole"]
+                               for r in recs[:1]),
+                           f"phase 19 (d) {layout}: a process holds more than its share of H")
+                    log(f"  (d) {layout}: every result and frame bitwise its solo run on each "
+                        "process's card, through a resize of H to 8 slots and K's evacuation "
+                        "onto one card")
+                else:
+                    verify(False, f"phase 19 (d) {layout}: did not end on every process")
+            if all("cp" in r for r in results):
+                cps = [r["cp"] for r in results]
+                log(f"  (e) over {world} processes: causal_conv_cp {cps[0]['conv']} "
+                    f"{max(c['conv ms'] for c in cps):.3f} ms (stacked "
+                    f"{cps[0]['conv stacked ms']:.3f}, flat {cps[0]['conv flat ms']:.3f}); "
+                    f"sliding_window_attention_cp {cps[0]['attn']} "
+                    f"{max(c['attn ms'] for c in cps):.3f} ms (stacked "
+                    f"{cps[0]['attn stacked ms']:.3f}); bitwise the stacked ranks; F2 raised on "
+                    f"every process in {max(c['F2 s'] for c in cps):.2f} s")
+            else:
+                verify(False, "phase 19 (e): did not end on every process")
+            for name, *_ in cases:
+                if not all(name in r.get("f", {}) for r in results):
+                    verify(False, f"phase 19 (f) {name}: did not end on every process")
+                    continue
+                want = stacked[name]["digests"]
+                bad = [(r, k) for r, res in enumerate(results)
+                       for k, v in res["f"][name]["digests"].items() if want[r].get(k) != v]
+                verify(not bad, f"phase 19 (f) {name}: {len(bad)} block(s) differ from the "
+                                f"stacked ranks, first {bad[:3]}")
+                log(f"  (f) {name} over {world} processes, 2 microbatches, int8: the loss, every "
+                    f"block of the int8 gradients and of the updated state bitwise the stacked "
+                    f"ranks' (checksums); {max(r['f'][name]['ms'] for r in results):.0f} ms "
+                    f"(slowest) against {stacked[name]['ms']:.0f} ms stacked")
+            if all("full" in r for r in results):
+                fs = [r["full"] for r in results]
+                Bf, Sf = full_tokens
+                pace = max(f["s"][1] for f in fs)
+                loss1 = fs[0]["losses"][0]
+                verify(all(math.isfinite(x) for f in fs for x in f["losses"]),
+                       "phase 19 (f): a loss is not finite")
+                from repro_torch.data.pipeline import DataConfig, make_source
+                from repro_torch.models import lm
+                from repro_torch.train.train_step import cross_entropy_loss
+
+                cfg = tp_config(TP_DENSE, full_layers, cut, dtype="bfloat16")
+                batch = make_source(DataConfig(seq_len=Sf, global_batch=Bf,
+                                               vocab_size=cfg.vocab_size,
+                                               seed=SEED + 193)).batch_at(0)
+                toks = torch.from_numpy(batch["tokens"]).to(dev, dtype=torch.int64)
+                params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(
+                    SEED + 193), device=dev)
+                with torch.no_grad():
+                    logits, _ = lm.forward_train(params, cfg, toks, remat=False,
+                                                 q_chunk=min(1024, Sf))
+                    ce, zl = cross_entropy_loss(cfg, logits, toks)
+                flat_loss = float(ce + zl)
+                del params, logits
+                free()
+                verify(abs(loss1 - flat_loss) <= TP_BF16_LOSS_TOL,
+                       f"phase 19 (f): step 1's loss {loss1:.6f} is {abs(loss1 - flat_loss):.3e} "
+                       f"from the flat bf16 forward's {flat_loss:.6f}, over {TP_BF16_LOSS_TOL}")
+                log(f"  (f) qwen2-7b, {full_layers} layers, bf16 compute, float32 state, remat, "
+                    f"2 microbatches, int8, {Bf}x{Sf} tokens on (1, {world}) processes, 3 Trainer "
+                    f"steps: losses {[round(x, 6) for x in fs[0]['losses']]}; step 2 "
+                    f"{pace * 1e3:.1f} ms (the slowest process, from a barrier; per process "
+                    f"{', '.join('%.1f' % (f['s'][1] * 1e3) for f in fs)}), "
+                    f"{Bf * Sf / pace:.0f} tokens/s; step 1's loss {loss1:.6f} against the flat "
+                    f"bf16 forward's {flat_loss:.6f} on one card (|diff| "
+                    f"{abs(loss1 - flat_loss):.3e}, limit {TP_BF16_LOSS_TOL}); peak "
+                    f"{', '.join('%.2f' % f['peak_gib'] for f in fs)} GiB")
+            else:
+                verify(False, "phase 19 (f) full depth: did not end on every process")
+            if on_card:
+                peaks = [r.get("peak_gib", 0.0) for r in results]
+                log(f"  (d)-(f): the processes peaked at {', '.join('%.2f' % p for p in peaks)} GiB")
+                verify(max(peaks) < max_gib, f"phase 19 (d)-(f): a process peaked over {max_gib} GiB")
+            verify(codes == [0] * world, f"phase 19 (d)-(f): the processes exited with {codes}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        check(not failed, f"phase 19: {len(failed)} check(s) failed: {failed}")
+    sec = time.perf_counter() - t19
+    log(f"phase 19: {sec:.1f} s; {card}")
+    check(sec < max_s, f"phase 19 took {sec:.1f} s, more than {max_s} s")
+    return out
+
+
+def phase19_alone() -> int:
+    """``python3 chip_smoke.py --phase 19``: the card and phase 19 alone, on
+    four cards with its process part (d)-(f)."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    log(card)
+    n = torch.cuda.device_count()
+    log(f"phase 19 alone on {n} card(s)")
+    p19_phase(dev, card=card, processes=4 if n >= 4 else None)
+    log(card_line())
+    return 0
+
+
 def phase18_alone() -> int:
     """``python3 chip_smoke.py --phase 18``: the card and phase 18 alone, on
     four cards with its process part (d)-(f)."""
@@ -3945,6 +4890,8 @@ def main() -> int:
         return phase17_alone()
     if sys.argv[1:] == ["--phase", "18"]:
         return phase18_alone()
+    if sys.argv[1:] == ["--phase", "19"]:
+        return phase19_alone()
     t_start = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
@@ -5228,6 +6175,19 @@ def main() -> int:
 
     # -- phase 18: tensor and data parallelism (no kernel of its own) ----------
     tp_phase(dev, card=card)
+
+    # -- phase 19: slot axis, context parallelism and microbatches over processes
+    p19 = p19_phase(dev, card=card, n2=n2)
+    # each kernel of (a)'s buckets at a rank's pooled shapes on this card (a
+    # world of one: the rank is the whole grid); the launches are the
+    # process's, counted from its replayed graphs
+    for label, prog in p19_programs(n2).items():
+        kernel = "K2" if label == "H" else "K1"
+        launches = p19.get("a", {}).get(kernel, 0)
+        check(launches > 0, f"phase 19 (a): bucket {label} launched {kernel} {launches} times")
+        step = api.compile(prog, Target(device=str(dev), jit=False, **p19_kw(label)))
+        kernels.append(pool_record(f"phase 19 {label} {n2}x{n2}, slot axis over a process",
+                                   step, launches, 4))
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())

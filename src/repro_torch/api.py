@@ -66,8 +66,11 @@ advances ``B`` independent simulations at once, each bitwise as a call of
 its own (the port's counterpart of the reference's ``jax.vmap`` over the
 step: K1 and K2 take the slot count as a launch argument).  Over a mesh,
 ``Target(slot_axis=...)`` names a mesh axis that carries that dim
-(``pooled_target`` factors one out of the device inventory), so one call
-runs every slot block of ``(slot, *spatial)`` ranks.
+(``pooled_target`` factors one out of the device inventory, or out of
+the world's processes), so one call runs every slot block of ``(slot,
+*spatial)`` ranks.  Over a process mesh each process holds ``[B / slots,
+*its spatial block]`` of every field and exchanges with the processes of
+its own slot block.
 """
 from __future__ import annotations
 
@@ -242,7 +245,9 @@ class Target:
     # only ever run over the spatial axes).  ``B`` must divide by the
     # slot axis's size.  Factored out of the device inventory with
     # ``pooled_target`` / ``dist.sharding.factor_slot_mesh``: how the serve
-    # engine dispatches a whole distributed slot pool as one call.
+    # engine dispatches a whole distributed slot pool as one call.  Over a
+    # process mesh every process holds its slot block's rows of its
+    # spatial block and exchanges with its own slot block's processes.
     slot_axis: Optional[str] = None
     # K2's tile over the epoch's core (None: kernels/epoch_kernel.py
     # choose_tile).  K1 picks its own tile (stencil_apply.SLICE_TILE) and ignores it.
@@ -381,19 +386,18 @@ class Target:
                 )
         s = self.strategy
         if processes:
-            if self.slot_axis is not None:
-                raise TargetError(
-                    f"Target(slot_axis={self.slot_axis!r}) over a process mesh: the slot "
-                    "axis runs on a single-controller mesh only"
-                )
+            # one rank a process: the strategy decomposes every axis but the
+            # slot axis (which splits the pool's rows over slot blocks)
             grid = {} if s is None else {
                 ax: g for g, ax in zip(s.grid_shape, s.axis_names) if g > 1
             }
-            if s is None or grid != {a: n for a, n in self.mesh.shape.items() if n > 1}:
+            want = {a: n for a, n in self.mesh.shape.items() if n > 1 and a != self.slot_axis}
+            if s is None or grid != want:
                 raise TargetError(
                     f"a process mesh of {dict(self.mesh.shape)} needs a strategy that "
-                    "decomposes over every axis of it, with the mesh's sizes (one rank a "
-                    f"process); got {None if s is None else dict(zip(s.axis_names, s.grid_shape))}"
+                    "decomposes over every axis of it but the slot axis, with the mesh's "
+                    "sizes (one rank a process); got "
+                    f"{None if s is None else dict(zip(s.axis_names, s.grid_shape))}"
                 )
         if s is not None:
             decomposed = [
@@ -1768,8 +1772,10 @@ def pooled_target(
     (``B % slots == 0``) and advances every row in one call over
     ``(slot, *spatial)`` ranks: the serve engine's pooled distributed
     dispatch, and an ensemble axis (one compiled stencil over ``B``
-    perturbed initial conditions).  An inventory that cannot hold the slot
-    axis raises ``TargetError``."""
+    perturbed initial conditions).  Over a process mesh the slot axis is
+    factored out of the world's processes, whose number ``slots ×
+    spatial`` must divide.  An inventory that cannot hold the slot axis
+    raises ``TargetError``."""
     from repro_torch.dist.sharding import factor_slot_mesh
 
     if target.mesh is None:

@@ -686,18 +686,19 @@ class StencilInterpreter:
                     ranks=self.n_ranks, size=list(op.size),
                 )
 
-    @staticmethod
-    def _send_receive(sends: list, receives: list) -> list:
+    def _send_receive(self, sends: list, receives: list) -> list:
         """Start every ``(tensor, peer rank)`` send and receive of one
         exchange together (``torch.distributed.batch_isend_irecv``: the
         same batch on every process, so none waits on another's order);
-        the requests, to be awaited where the patches are consumed."""
+        the requests, to be awaited where the patches are consumed.  A
+        peer's process is its rank in this process's block of the world."""
         if not sends and not receives:
             return []
         import torch.distributed as dist
 
-        ops = [dist.P2POp(dist.isend, t, peer) for t, peer in sends]
-        ops += [dist.P2POp(dist.irecv, t, peer) for t, peer in receives]
+        base = self.mesh.process_base
+        ops = [dist.P2POp(dist.isend, t, base + peer) for t, peer in sends]
+        ops += [dist.P2POp(dist.irecv, t, base + peer) for t, peer in receives]
         return dist.batch_isend_irecv(ops)
 
     def _exec_allreduce(self, op: comm.AllReduceOp, views: list) -> None:
@@ -889,15 +890,25 @@ def run_func_dataflow(
     inputs: Sequence[Any],
     axis_sizes: dict[str, int],
     distributed: bool = False,
+    mesh=None,
 ) -> tuple:
     """Execute a *value-returning* comm-level function (temp args in,
-    ``func.return`` values out) on one rank."""
-    interp = StencilInterpreter(
-        func, axis_sizes=axis_sizes, distributed=distributed
-    )
-    if interp.n_ranks > 1:
-        raise ValueError("run_func_dataflow runs one rank; its axes must have size 1")
-    view = RankView(0, {}, _common_device(inputs), env=dict(zip(func.body.args, inputs)))
+    ``func.return`` values out) on one rank: without ``mesh`` the only
+    rank (its axes of size 1); with a process mesh this process's rank of
+    it, its exchanges messages to the processes of its neighbours
+    (``axis_sizes`` then are the mesh's)."""
+    if mesh is not None and mesh.processes:
+        interp = StencilInterpreter(func, axis_sizes=dict(mesh.shape), distributed=True,
+                                    mesh=mesh)
+        rank = mesh.process_rank
+        view = RankView(rank, mesh.coords(rank), _common_device(inputs),
+                        env=dict(zip(func.body.args, inputs)))
+    else:
+        interp = StencilInterpreter(func, axis_sizes=axis_sizes, distributed=distributed)
+        if interp.n_ranks > 1:
+            raise ValueError("run_func_dataflow runs one rank; its axes must have size 1, or "
+                             "pass the process mesh it runs this process's rank of")
+        view = RankView(0, {}, _common_device(inputs), env=dict(zip(func.body.args, inputs)))
     for i, op in enumerate(func.body.ops):
         if isinstance(op, ir.ReturnOp):
             return tuple(view.env[o] for o in op.operands)

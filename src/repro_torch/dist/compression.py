@@ -23,20 +23,44 @@ import torch
 from repro_torch.models.lm import tree_map
 
 
-def _int8_leaf(x):
+def _int8_leaf(x, whole_max=None):
     if not isinstance(x, torch.Tensor) or not x.is_floating_point() or x.ndim == 0:
         return x
-    scale = x.abs().max() / 127.0
+    scale = (x.abs().max() if whole_max is None else whole_max) / 127.0
     # all-zero leaf: keep scale finite so dequantization returns zeros
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(x / safe), -127, 127).to(torch.int8)
     return (q.to(x.dtype) * safe).to(x.dtype)
 
 
-def int8_roundtrip(tree):
+def _whole_max(x, spec, mesh):
+    """``max |x|`` over the whole leaf of which ``x`` is placed blocks
+    (``dist.sharding.place``): the blocks' maxima, then a pmax over the
+    mesh axes ``spec`` shards the leaf on (exact: a max rounds nothing)."""
+    from repro_torch.dist.sharding import _spec_axes, pmax
+
+    L = len(mesh.axis_names)
+    axes = tuple(a for a in mesh.axis_names if a in _spec_axes(spec) and mesh.shape[a] > 1)
+    if mesh.processes:
+        m = x.abs().amax().reshape((1,) * L)
+    else:  # [*lead, *block]: one max a distinct block, spread over the mesh dims
+        m = x.abs().amax(dim=tuple(range(L, x.ndim))).expand(tuple(mesh.shape.values()))
+    return pmax(m, axes, mesh).reshape(-1)[0]
+
+
+def int8_roundtrip(tree, specs=None, mesh=None):
     """Quantize every floating leaf to int8 and back (symmetric, per-leaf
-    scale).  |out - in| ≤ max|in| / 127 · (1/2 rounding + clip slack)."""
-    return tree_map(_int8_leaf, tree)
+    scale).  |out - in| ≤ max|in| / 127 · (1/2 rounding + clip slack).
+    With ``specs`` and ``mesh`` the leaves are placed blocks, and each
+    block is quantized with its whole leaf's scale (:func:`_whole_max`):
+    the blocks of the flat leaf's quantization."""
+    if mesh is None:
+        return tree_map(_int8_leaf, tree)
+    if isinstance(tree, dict):
+        return {k: int8_roundtrip(v, specs[k], mesh) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor) or not tree.is_floating_point() or tree.ndim == 0:
+        return tree
+    return _int8_leaf(tree, _whole_max(tree, specs, mesh))
 
 
 def _topk_leaf(x, keep_fraction: float):

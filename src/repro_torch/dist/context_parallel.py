@@ -16,14 +16,23 @@ this module expresses them through the machinery the stencil programs use:
    ``run_func_dataflow``, every rank of a mesh at once with
    ``run_func_dataflow_ranks`` (the interpreter's exchange, whose pairs come
    from ``comm.permute_pairs``), inside the single-controller
-   ``shard_map``.
+   ``shard_map``; over a process mesh (one process a rank,
+   ``dist.processes``) this process's rank with ``run_func_dataflow``,
+   its exchanges messages to its neighbours' processes.
+
+Over a process mesh every process calls with the same arguments and
+computes its own shard, whose first position is ``axis_index * S_loc``:
+global tensors come in and global tensors go out (all-gathered), or with
+``placed=True`` this process's blocks come in (``dist.sharding.place`` of
+the sequence-sharded spec) and its blocks go out.
 
 The port refuses a halo deeper than a shard.  The exchange reaches only
 the immediate neighbour, so a window or conv whose halo (W-1 or K-1) is
 longer than the shard length ``S // n_shards`` would read zeros where it
 should read the shard before the neighbour; the reference computes that
 silently wrong, the port raises ``ValueError`` (single-shard runs are not
-checked).
+checked).  The check reads only the shapes and the mesh, so over a
+process mesh every process raises before any message is sent.
 """
 from __future__ import annotations
 
@@ -39,7 +48,14 @@ from repro_torch.core.dialects import dmp, stencil
 from repro_torch.core.lowering import run_func_dataflow, run_func_dataflow_ranks
 from repro_torch.core.passes.decompose import make_strategy_1d
 from repro_torch.dist.sharding import PartitionSpec as P
-from repro_torch.dist.sharding import as_views, assemble, axis_index, shard_map
+from repro_torch.dist.sharding import (
+    as_views,
+    assemble,
+    axis_index,
+    gather_placed,
+    place,
+    shard_map,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,13 +123,19 @@ def seq_halo_exchange(x, spec: SeqHaloSpec, *, distributed: bool = True, mesh=No
     of ``spec.axis`` alone, the list in its order); each rank exchanges
     with its neighbours along ``spec.axis`` at the same coordinate of every
     other axis, the boundary condition fills the physical edges, and the
-    list of grown shards is returned."""
+    list of grown shards is returned.  Over a process mesh the list holds
+    this process's shard alone, and the exchange goes between processes."""
     if not distributed:
         func = _comm_func(tuple(x.shape), spec)
         (out,) = run_func_dataflow(func, [x], axis_sizes={spec.axis: spec.n_shards},
                                    distributed=False)
         return out
     xs = list(x)
+    if mesh is not None and mesh.processes:
+        (mine,) = xs
+        func = _comm_func(tuple(mine.shape), spec)
+        (out,) = run_func_dataflow(func, [mine], axis_sizes=dict(mesh.shape), mesh=mesh)
+        return [out]
     func = _comm_func(tuple(xs[0].shape), spec)
     if mesh is None:
         coords, sizes = [{spec.axis: r} for r in range(len(xs))], {spec.axis: spec.n_shards}
@@ -155,12 +177,15 @@ def context_parallel(
     shard plus the global sequence offset of its core's first element,
     and returns the core-shaped local output (a tensor or a tuple of
     them).  The wrapper runs it on every rank of ``spec.axis`` with the
-    halo exchange prepended; ``rest`` operands are replicated (weights)."""
+    halo exchange prepended; ``rest`` operands are replicated (weights).
+    Over a process mesh, ``placed=True`` takes this process's block of
+    ``x`` and returns its blocks of the outputs."""
     out_dim = spec.seq_dim if out_seq_dim is None else out_seq_dim
 
-    def global_fn(x, *rest):
+    def global_fn(x, *rest, placed: bool = False):
         n = spec.n_shards
-        S = x.shape[spec.seq_dim]
+        processes = mesh is not None and mesh.processes
+        S = x.shape[spec.seq_dim] * (n if placed and processes else 1)
         if n <= 1:
             # single-rank path: the same code, the exchange emulated locally
             return fn(seq_halo_exchange(x, spec, distributed=False), 0, *rest)
@@ -168,6 +193,20 @@ def context_parallel(
         x_entries = [None] * x.ndim
         x_entries[spec.seq_dim] = spec.axis
         in_specs = (P(*x_entries),) + tuple(P() for _ in rest)
+        if processes:
+            mine = x if placed else place(x, mesh, in_specs[0])
+            i = axis_index(mesh, spec.axis, mesh.process_rank)
+            (xh,) = seq_halo_exchange([mine], spec, distributed=True, mesh=mesh)
+            out = fn(xh, i * (S // n), *rest)
+            if placed:
+                return out
+            outs = out if isinstance(out, tuple) else (out,)
+            full = tuple(
+                gather_placed(t, mesh, P(*(spec.axis if d == out_dim else None
+                                           for d in range(t.ndim))))
+                for t in outs
+            )
+            return full if isinstance(out, tuple) else full[0]
 
         # the outputs' ranks (jax.eval_shape): the window function on meta
         grown = [s // n if d == spec.seq_dim else s for d, s in enumerate(x.shape)]
@@ -201,14 +240,16 @@ def context_parallel(
 # --------------------------------------------------------------------------
 
 
-def causal_conv_cp(x, w, b, mesh, axis: str):
+def causal_conv_cp(x, w, b, mesh, axis: str, *, placed: bool = False):
     """Sequence-parallel Mamba causal conv (``models.mamba._causal_conv``
     distributed over ``axis``).
 
     The conv reads ``[t-(K-1), t]`` — halo K-1, one-sided — so the left
     halo is the conv's stitching state: the local kernel is the
     single-device ``_causal_conv`` with the exchanged halo passed as its
-    ``state``.  x: [B, S, C] (global), w: [K, C], b: [C]."""
+    ``state``.  x: [B, S, C] (global; over a process mesh with
+    ``placed=True`` this process's [B, S / n, C] block, and the result is
+    its block), w: [K, C], b: [C]."""
     from repro_torch.models.mamba import _causal_conv
 
     K = w.shape[0]
@@ -222,7 +263,7 @@ def causal_conv_cp(x, w, b, mesh, axis: str):
         y, _ = _causal_conv(core, w_l, b_l, state)
         return y
 
-    return context_parallel(local, mesh, spec)(x, w, b)
+    return context_parallel(local, mesh, spec)(x, w, b, placed=placed)
 
 
 def window_attention_local(kv_h, start: int, q_l, window: int):
@@ -249,27 +290,40 @@ def window_attention_local(kv_h, start: int, q_l, window: int):
     return torch.einsum("bthw,btwhd->bthd", p, vw)
 
 
-def sliding_window_attention_cp(q, k, v, window: int, mesh, axis: str):
+def sliding_window_attention_cp(q, k, v, window: int, mesh, axis: str, *,
+                                placed: bool = False):
     """Sequence-parallel sliding-window self-attention.
 
-    q/k/v: [B, S, H, D] (MHA; global tensors).  Each query attends the
-    causal window ``[t-W+1, t]`` — a radius-(W-1) one-sided sequence
-    stencil — so K/V need a left halo of W-1, exchanged once for both
-    (stacked on a leading dim), and the local function is
-    :func:`window_attention_local`.  Over ``n`` shards the halo W-1 must
-    not exceed the shard length ``S // n`` (else ``ValueError``)."""
+    q/k/v: [B, S, H, D] (MHA; global tensors; over a process mesh with
+    ``placed=True`` this process's [B, S / n, H, D] blocks, and the result
+    is its block).  Each query attends the causal window ``[t-W+1, t]`` —
+    a radius-(W-1) one-sided sequence stencil — so K/V need a left halo of
+    W-1, exchanged once for both (stacked on a leading dim), and the local
+    function is :func:`window_attention_local`.  Over ``n`` shards the
+    halo W-1 must not exceed the shard length ``S // n`` (else
+    ``ValueError``)."""
     W = int(window)
     n = int(mesh.shape.get(axis, 1))
-    kv = torch.stack([k, v], dim=0)
     kv_spec = SeqHaloSpec(axis=axis, n_shards=n, halo_lo=W - 1, halo_hi=0,
                           seq_dim=2, boundary="zero")
     if n <= 1:
+        kv = torch.stack([k, v], dim=0)
         kv_h = seq_halo_exchange(kv, kv_spec, distributed=False)
         return window_attention_local(kv_h, 0, q, W)
 
-    S = q.shape[1]
+    processes = mesh.processes
+    S = q.shape[1] * (n if placed and processes else 1)
     _check_halo(kv_spec, S)
     in_specs = (P(None, None, axis), P(None, axis))
+    if processes:
+        if not placed:
+            q, k, v = (place(t, mesh, in_specs[1]) for t in (q, k, v))
+        i = axis_index(mesh, axis, mesh.process_rank)
+        (kv_h,) = seq_halo_exchange([torch.stack([k, v], dim=0)], kv_spec, distributed=True,
+                                    mesh=mesh)
+        out = window_attention_local(kv_h, i * (S // n), q, W)
+        return out if placed else gather_placed(out, mesh, in_specs[1])
+    kv = torch.stack([k, v], dim=0)
 
     def shard_local(ranks):
         idx = [axis_index(mesh, axis, r) for r in range(len(ranks))]

@@ -19,11 +19,14 @@ coordinates are ``np.unravel_index(r, shape)`` as on a single-controller
   explicit arguments, and run one collective so that the communicator
   exists before anything is captured into a CUDA graph;
 - :func:`process_mesh` — a :class:`Mesh` over the world's processes that
-  knows which rank is this process;
+  knows which rank is this process (or over one block of them, where the
+  mesh is smaller than the world);
 - :func:`axis_group` — the process group of the ranks that differ only
   along some mesh axes (one per mesh and axes, created on every process
   in the same order);
 - :func:`all_gather` — every process's tensor of a group, in rank order;
+- :func:`broadcast_object` — process 0's value (a path, a decision) on
+  every process;
 - :func:`barrier`, :func:`shutdown`.
 """
 from __future__ import annotations
@@ -132,27 +135,49 @@ def world() -> World:
 def process_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
     """A :class:`Mesh` of ``shape`` over the world's processes: rank ``r``
     is process ``r`` on that process's device; this process is
-    ``mesh.process_rank``.  The mesh must hold every process."""
+    ``mesh.process_rank``.
+
+    A mesh smaller than the world (its size dividing the world's) is a
+    *block* of it: the world splits into blocks of consecutive processes,
+    this process holds rank ``world.rank % size`` of block ``world.rank //
+    size`` (``mesh.process_base`` is the block's first process), and every
+    block runs the same ranks on the same inputs, each on its own
+    processes.  A slot axis factored out of the world
+    (``dist.sharding.factor_slot_mesh``) lays the blocks side by side."""
     w = world()
     shape = tuple(int(n) for n in shape)
-    if int(np.prod(shape)) != w.size:
-        raise ValueError(f"a process mesh of {shape} needs {int(np.prod(shape))} processes, "
-                         f"the world has {w.size}")
+    n = int(np.prod(shape))
+    if n < 1 or w.size % n:
+        raise ValueError(f"a process mesh of {shape} needs {n} processes, or a number that "
+                         f"divides the world's; the world has {w.size}")
     names: list = [None] * w.size
     dist.all_gather_object(names, str(w.device))
-    devices = np.empty(w.size, dtype=object)
-    for r, d in enumerate(names):
+    base = w.rank - w.rank % n
+    devices = np.empty(n, dtype=object)
+    for r, d in enumerate(names[base:base + n]):
         devices[r] = torch.device(d)
-    return Mesh(devices.reshape(shape), axis_names, process_rank=w.rank)
+    return Mesh(devices.reshape(shape), axis_names, process_rank=w.rank - base,
+                process_base=base)
+
+
+def broadcast_object(obj):
+    """Process 0's ``obj`` (any picklable value) on every process; the
+    value itself outside a world."""
+    if _WORLD is None:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def axis_group(mesh: Mesh, axes) -> tuple:
     """``(group, ranks)`` of this process along ``axes`` (a name or a
     tuple of names) of process mesh ``mesh``: the processes whose
     coordinates differ only along those axes, in rank order (which is
-    row-major order over ``axes`` in the mesh's axis order).  Every
-    process creates every group of the partition, in the same order, the
-    first time any of them asks; meshes of one shape and axes share them."""
+    row-major order over ``axes`` in the mesh's axis order), ``ranks``
+    their mesh ranks.  Every process creates every group of the
+    partition, of every block of the world, in the same order, the first
+    time any of them asks; meshes of one shape and axes share them."""
     if not mesh.processes:
         raise ValueError("axis_group takes a process mesh")
     axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
@@ -166,9 +191,21 @@ def axis_group(mesh: Mesh, axes) -> tuple:
             c = mesh.coords(r)
             parts.setdefault(tuple(c[a] for a in mesh.axis_names if a not in key), []).append(r)
         ranks = sorted(parts.values())
-        mine, _ = dist.new_subgroups_by_enumeration(ranks)
+        blocks = world().size // mesh.size
+        mine, _ = dist.new_subgroups_by_enumeration(
+            [[b * mesh.size + r for r in g] for b in range(blocks) for g in ranks])
         _GROUPS[cache_key] = (mine, next(g for g in ranks if mesh.process_rank in g))
     return _GROUPS[cache_key]
+
+
+def _block(mesh: Mesh, axes):
+    """``(group, mesh ranks)`` of ``axes`` (``None``: every axis): the
+    default group where that is the whole world."""
+    if axes is None:
+        if mesh.size == world().size:
+            return None, list(range(mesh.size))
+        axes = mesh.axis_names
+    return axis_group(mesh, axes)
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axes=None) -> list:
@@ -176,10 +213,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axes=None) -> list:
     process's group along ``axes`` (``None``: the whole world), in rank
     order; this process's own entry is ``x`` itself."""
     x = x.contiguous()
-    if axes is None:
-        group, ranks = None, list(range(mesh.size))
-    else:
-        group, ranks = axis_group(mesh, axes)
+    group, ranks = _block(mesh, axes)
     out = [torch.empty_like(x) for _ in ranks]
     dist.all_gather(out, x, group=group)
     out[ranks.index(mesh.process_rank)] = x
@@ -187,12 +221,13 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axes=None) -> list:
 
 
 def gather_to(x: torch.Tensor, mesh: Mesh, dst: int = 0) -> Optional[list]:
-    """Every process's ``x`` (one shape and dtype on all) on process
-    ``dst``, in rank order (its own entry is ``x`` itself); ``None`` on the
-    other processes, which only send."""
+    """Every process's ``x`` (one shape and dtype on all) on the process
+    of rank ``dst`` (of each block), in rank order (its own entry is ``x``
+    itself); ``None`` on the other processes, which only send."""
     x = x.contiguous()
     out = [torch.empty_like(x) for _ in range(mesh.size)] if mesh.process_rank == dst else None
-    dist.gather(x, out, dst=dst)
+    group, _ = _block(mesh, None)
+    dist.gather(x, out, dst=mesh.process_base + dst, group=group)
     if out is not None:
         out[dst] = x
     return out

@@ -101,11 +101,13 @@ class Mesh:
     :func:`repro_torch.dist.processes.process_mesh`) has one process per
     rank: rank ``r`` is process ``r`` of the ``torch.distributed`` world,
     and this process holds rank ``process_rank`` only.  Without it one
-    process (a single controller) holds every rank.
+    process (a single controller) holds every rank.  A process mesh
+    smaller than the world is one block of it: rank ``r`` is process
+    ``process_base + r`` (:func:`repro_torch.dist.processes.process_mesh`).
     """
 
     def __init__(self, devices, axis_names: Sequence[str],
-                 process_rank: Optional[int] = None) -> None:
+                 process_rank: Optional[int] = None, process_base: int = 0) -> None:
         arr = np.asarray(devices, dtype=object)
         names = tuple(axis_names)
         if arr.ndim != len(names):
@@ -132,6 +134,7 @@ class Mesh:
         if process_rank is not None and not 0 <= process_rank < self.size:
             raise ValueError(f"process rank {process_rank} outside a mesh of {self.size}")
         self.process_rank = process_rank
+        self.process_base = int(process_base)  # the world rank of this block's rank 0
 
     @property
     def processes(self) -> bool:
@@ -159,6 +162,7 @@ class Mesh:
             f"axes={self.axis_names}shape={tuple(self.shape.values())}"
             f"devices={tuple(str(d) for d in self.devices.flat)}"
             + (f"processes={self.size}" if self.processes else "")
+            + (f"base={self.process_base}" if self.process_base else "")
         )
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
@@ -419,7 +423,13 @@ def factor_slot_mesh(mesh: Mesh, slots: int = 1, axis: str = "slot", devices=Non
     ``slots > 1`` takes the first ``slots * spatial`` devices of
     ``devices`` (default: ``tune.space.default_devices()``, every card),
     slot-major, so slot block 0 is the original mesh's device prefix.
-    Devices may repeat, as in any :class:`Mesh`."""
+    Devices may repeat, as in any :class:`Mesh`.
+
+    A process mesh (one process a rank) grows over the world's processes
+    instead, slot-major, into a process mesh ``(slot, *spatial)`` (``devices``
+    is not read): ``slots × spatial`` must divide the world's processes,
+    and a mesh smaller than the world is a block of it, each block running
+    the same slots (``dist.processes.process_mesh``)."""
     if int(slots) != slots or slots < 1:
         raise ValueError(f"slots must be a positive integer, got {slots!r}")
     slots = int(slots)
@@ -427,6 +437,17 @@ def factor_slot_mesh(mesh: Mesh, slots: int = 1, axis: str = "slot", devices=Non
         raise ValueError(f"slot axis {axis!r} collides with mesh axes {tuple(mesh.axis_names)}")
     spatial_shape = tuple(mesh.shape[a] for a in mesh.axis_names)
     names = (axis,) + tuple(mesh.axis_names)
+    if mesh.processes:
+        from repro_torch.dist import processes
+
+        world = processes.world().size
+        if world % (slots * mesh.size):
+            raise ValueError(
+                f"slot axis of {slots} over a {mesh.size}-process spatial mesh needs "
+                f"{slots * mesh.size} processes, or a number that divides the world's; the "
+                f"world has {world}"
+            )
+        return processes.process_mesh((slots,) + spatial_shape, names)
     if slots == 1:
         return Mesh(mesh.devices.reshape((1,) + spatial_shape), names)
     n_spatial = int(np.prod(spatial_shape))
@@ -450,46 +471,67 @@ def factor_slot_mesh(mesh: Mesh, slots: int = 1, axis: str = "slot", devices=Non
 def _row_blocks(x: ShardedTensor, i: int):
     """``(rank, local row, index of the rank's block after dim 0)`` for
     every rank whose block of the sharded ``[B, *shape]`` tensor ``x``
-    holds row ``i``."""
+    holds row ``i`` (each rank's shards entry, on a process mesh this
+    process's alone, is ``x.shards[mesh.local_ranks.index(rank)]``)."""
     if not 0 <= i < x.shape[0]:
         raise IndexError(f"row {i} of a pool of {x.shape[0]}")
+    rows = block_shape(x.shape, x.mesh, x.spec)[0]
     for r in range(x.mesh.size):
         idx = _local_slices(x.shape, x.mesh, x.spec, r)
         start = idx[0].start or 0
-        n = x.shards[r].shape[0]
-        if start <= i < start + n:
+        if start <= i < start + rows:
             yield r, i - start, idx[1:]
 
 
 def read_row(x, i: int) -> torch.Tensor:
     """Row ``i`` of a ``[B, *shape]`` pool as a new global tensor (on rank
-    0's device for a :class:`ShardedTensor`; a clone for a plain tensor):
-    it shares nothing with ``x``, so later writes to ``x`` leave it as it
-    is."""
+    0's device for a :class:`ShardedTensor`, this process's on a process
+    mesh; a clone for a plain tensor): it shares nothing with ``x``, so
+    later writes to ``x`` leave it as it is.  On a process mesh every
+    process calls it and gets the whole row: each block of it is
+    broadcast from the process that owns it, in rank order."""
     if not isinstance(x, ShardedTensor):
         return x[i].clone()
-    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.mesh.device(0))
+    mesh = x.mesh
+    named = _spec_axes(x.spec)
+    device = mesh.device(mesh.process_rank if mesh.processes else 0)
+    out = torch.empty(x.shape[1:], dtype=x.dtype, device=device)
+    if mesh.processes:
+        import torch.distributed as dist
+
+        from repro_torch.dist import processes
+
+        group, _ = processes._block(mesh, None)
     for r, local, rest in _row_blocks(x, i):
         # one copy per block, as gather takes it
-        if any(c for a, c in x.mesh.coords(r).items() if a not in _spec_axes(x.spec)):
+        if any(c for a, c in mesh.coords(r).items() if a not in named):
             continue
-        out[rest].copy_(x.shards[r][local])
+        if not mesh.processes:
+            out[rest].copy_(x.shards[r][local])
+            continue
+        block = (x.shards[0][local].contiguous() if r == mesh.process_rank
+                 else torch.empty(out[rest].shape, dtype=x.dtype, device=device))
+        dist.broadcast(block, src=mesh.process_base + r, group=group)
+        out[rest].copy_(block)
     return out
 
 
 def write_row(x, i: int, value) -> None:
     """Write ``value`` (a global ``shape`` tensor or float32 array) into row
-    ``i`` of a ``[B, *shape]`` pool in place: every rank's copy of that
-    row's block, so the tensors (and the ring slots they may be) stay the
-    same objects."""
+    ``i`` of a ``[B, *shape]`` pool in place: every local rank's copy of
+    that row's block (on a process mesh only the processes that hold the
+    row write, and no message moves), so the tensors (and the ring slots
+    they may be) stay the same objects."""
     v = _as_tensor(value)
     if not isinstance(x, ShardedTensor):
         x[i].copy_(v)
         return
     if tuple(v.shape) != tuple(x.shape[1:]):
         raise ValueError(f"a row of shape {tuple(v.shape)} for a pool of rows {tuple(x.shape[1:])}")
-    for r, local, rest in _row_blocks(x, i):
-        x.shards[r][local].copy_(v[rest])
+    local = x.mesh.local_ranks
+    for r, row, rest in _row_blocks(x, i):
+        if r in local:
+            x.shards[local.index(r)][row].copy_(v[rest])
 
 
 # --------------------------------------------------------------------------

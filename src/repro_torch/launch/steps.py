@@ -183,14 +183,21 @@ class Step:
     :class:`ShardedPrefill`, :class:`ShardedDecode`), ``place`` lays the
     global arguments out for it by the input specs."""
 
-    def __init__(self, fn, placed, in_specs, mesh):
+    def __init__(self, fn, placed, in_specs, mesh, place=None):
         self.fn, self.placed, self.in_specs, self.mesh = fn, placed, in_specs, mesh
+        self._place = place
 
     def __call__(self, *args):
         return self.fn(*args)
 
     def place(self, *args):
+        """The global arguments as ``placed`` takes them: the placement the
+        step was built with (a train step's: with microbatches its batch is
+        ``[n, B/n, ...]``), else each leaf placed by its input spec."""
         from repro_torch.dist.sharding import place
+
+        if self._place is not None:
+            return self._place(*args)
 
         def one(x, s):
             if isinstance(x, dict):
@@ -227,8 +234,8 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
         state_in = tree_map(Arg, state_shapes, st_specs)
         sharded = ShardedTrainStep(cfg, opt_cfg, options, mesh, B, rules)
         in_sp = (st_specs, specs_of(specs))
-        return (Step(wrapped, sharded, in_sp, mesh), (args_of(state_in), args_of(specs)), in_sp,
-                (st_specs, None))
+        return (Step(wrapped, sharded, in_sp, mesh, place=sharded.place),
+                (args_of(state_in), args_of(specs)), in_sp, (st_specs, None))
 
     params_in = _params_args(cfg, mesh, rules)
     p_specs = specs_of(params_in)

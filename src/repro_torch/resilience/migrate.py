@@ -1,4 +1,4 @@
-# Copied from src/repro/resilience/migrate.py with repro. renamed to repro_torch. (one comment reworded); keep its logic in step with that file.
+# Copied from src/repro/resilience/migrate.py with repro. renamed to repro_torch. (one comment reworded; a barrier after each request's save inside a world of processes); keep its logic in step with that file.
 """Request migration for the stencil-serving engine.
 
 The serve layer's first evacuation primitive: a ``StencilEngine`` under
@@ -91,6 +91,8 @@ def _save_request(directory: str, req, state, target_to_dict) -> None:
             "rid": req.rid,
         },
     )
+    # inside a world process 0 wrote it: every process may read it now
+    ckpt.sync()
 
 
 def admit(engine, directory: str, programs, target=None) -> list:

@@ -45,6 +45,22 @@ falls back to the solo loop, with a single batched row-commit per step.
 Nothing else falls back: a K1 or K2 build or launch error of a pooled
 dispatch propagates out of ``step()``.
 
+One process per card (``dist.processes``): a bucket whose target runs
+over a process mesh factors its slot axis out of the world's processes
+(slot-major, the widest slot axis whose ``slots × spatial`` processes
+divide the world and whose slots divide the pool; a narrower one runs on
+blocks of the world that repeat its slots), each process holds only its
+block of the pool (``[capacity / slots, *its spatial block]``), and a
+dispatch is one call on every process, its exchanges messages between
+the processes of one slot block.  The contract: every process constructs
+the engine and calls ``submit``, ``step``, ``run``, ``resize_bucket``,
+``evacuate`` and ``admit_evacuated`` in the same order with the same
+arguments.  The scheduler is deterministic (the ``PoolSizer`` reads queue
+EWMAs, not clocks), so every process takes the same decisions; what one
+process must choose for all (a resize's staging directory) is chosen by
+process 0 and broadcast.  A row read (frames, results, migration) is a
+collective: each block of it is broadcast by the process that holds it.
+
 Buckets are *elastic*: an optional ``PoolSizer`` (``config.autoscale``)
 resizes capacities between steps from queue-depth/utilization EWMAs —
 the resize drains the bucket to epoch-aligned checkpoints and readmits
@@ -63,6 +79,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Any, Callable, Optional, Sequence
 
 from repro_torch import api
@@ -122,6 +139,10 @@ class StencilEngine:
     def __init__(self, config: Optional[StencilEngineConfig] = None) -> None:
         self.config = config or StencilEngineConfig()
         self.scheduler = Scheduler(self.config.slots_per_group)
+        if self.config.pooled_distributed:
+            # weakly: the engine's metrics count it live until it is garbage
+            sibling = weakref.WeakMethod(self._sibling)
+            self.scheduler.sibling = lambda bucket, capacity: sibling()(bucket, capacity)
         self.metrics = EngineMetrics(self.config.history_limit)
         self.sizer = (
             PoolSizer(self.config.autoscale)
@@ -370,16 +391,25 @@ class StencilEngine:
         import shutil
         import tempfile
 
+        from repro_torch.dist import processes
         from repro_torch.resilience.migrate import drain_group, readmit_group
 
-        tmp = directory or tempfile.mkdtemp(prefix="repro-pool-resize-")
+        world = processes.initialized()
+        tmp = directory
+        if tmp is None:  # process 0 stages it, every process reads it
+            first = not world or processes.world().rank == 0
+            tmp = processes.broadcast_object(
+                tempfile.mkdtemp(prefix="repro-pool-resize-") if first else None)
         try:
             drained = drain_group(self, group, tmp)
             group.rebuild(int(new_capacity))
             readmit_group(self, group, tmp, drained)
         finally:
             if directory is None:
-                shutil.rmtree(tmp, ignore_errors=True)
+                if world:
+                    processes.barrier()
+                if not world or processes.world().rank == 0:
+                    shutil.rmtree(tmp, ignore_errors=True)
 
     def _autoscale(self) -> None:
         for group in list(self.scheduler.groups.values()):
@@ -411,36 +441,45 @@ class StencilEngine:
     def _pooled_fn(self, group: SlotPool) -> Optional[api.CompiledStencil]:
         """The distributed bucket's ONE-dispatch executable: the compiled
         step of the target's slot-axis sibling (``api.pooled_target``),
-        taking the whole ``[capacity, *shape]`` pool per buffer.  The
-        slot width is the widest feasible for the inventory
-        (``tune.space.slot_width_candidates``; width 1 still pools — each
-        spatial rank carries every slot in its leading dim).  Memoized on
-        the group per pool width; ``None`` when the inventory cannot hold
-        the slot axis (``TargetError``), which routes the bucket to the
-        solo fallback loop."""
+        taking the whole ``[capacity, *shape]`` pool per buffer.  Memoized
+        on the group per pool width (a bucket over a process mesh builds
+        it with its pool); ``None`` when the inventory cannot hold the
+        slot axis, which routes the bucket to the solo fallback loop."""
         if group.pooled is not None and group.pooled[0] == group.capacity:
             return group.executable
-        from repro_torch.tune.space import slot_width_candidates
-
-        target = group.compiled.target
-        compiled = None
-        try:
-            devices = self._inventory(target)
-            width = slot_width_candidates(
-                len(devices), target.spatial_ranks, group.capacity
-            )[0]
-            pooled = api.pooled_target(target, slots=width, devices=devices)
-            compiled = api.compile(group.compiled.program, pooled).for_pool()
-        except api.TargetError:
-            compiled = None
+        compiled = self._sibling(group.compiled, group.capacity)
         group.pooled = (group.capacity, compiled)
         return compiled
 
+    def _sibling(self, bucket: api.CompiledStencil, capacity: int):
+        """The pool executable (``for_pool``) of ``bucket``'s slot-axis
+        sibling for a pool of ``capacity``, or ``None`` where the inventory
+        cannot hold it (``TargetError``).  The slot width is the widest
+        feasible for the inventory (``tune.space.slot_width_candidates``;
+        width 1 still pools — each spatial rank carries every slot in its
+        leading dim; over processes the widest whose slot mesh divides the
+        world, so a capacity the world's width does not divide runs on
+        blocks of the world that repeat its slots)."""
+        from repro_torch.tune.space import slot_width_candidates
+
+        target = bucket.target
+        try:
+            devices = self._inventory(target)
+            widths = slot_width_candidates(len(devices), target.spatial_ranks, capacity)
+            if target.mesh.processes:
+                widths = [s for s in widths if len(devices) % (s * target.spatial_ranks) == 0]
+            pooled = api.pooled_target(target, slots=widths[0], devices=devices)
+            return api.compile(bucket.program, pooled).for_pool()
+        except api.TargetError:
+            return None
+
     def _inventory(self, target) -> list:
         """The devices a slot axis is factored out of: every card
-        (``tune.space.default_devices``) for a target on the card, else the
-        CPU target mesh's own devices."""
-        if target.mesh.device_type == "cuda":
+        (``tune.space.default_devices``) for a target on the card or over a
+        process mesh (inside a world: each process's device, so the slot
+        axis is factored out of the world's processes), else the CPU
+        target mesh's own devices."""
+        if target.mesh.device_type == "cuda" or target.mesh.processes:
             from repro_torch.tune.space import default_devices
 
             return default_devices()

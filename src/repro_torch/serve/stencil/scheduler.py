@@ -35,19 +35,29 @@ looking held, so the next dispatch would build a new ring and capture
 every graph anew), and ``write_slot``/``commit_rows`` write rows in place,
 so the pool keeps its ring phase.  Over a mesh the pool may be sharded
 (:class:`~repro_torch.dist.ShardedTensor`); the row helpers of
-``dist.sharding`` read and write one slot's row across its ranks.
+``dist.sharding`` read and write one slot's row across its ranks.  Over
+a process mesh the pool is laid out from the start as its executable
+lays it out (the slot-axis sibling's specs), so each process holds only
+its block: a row is written by the processes that hold it and read by
+every process (each block broadcast by its owner).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import deque
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch import api
-from repro_torch.dist.sharding import read_row, write_row
+from repro_torch.dist.sharding import ShardedTensor, block_shape, read_row, write_row
 from repro_torch.serve.stencil.request import QUEUED, RUNNING, StencilRequest, now
+
+
+# the state ``SlotPool.over`` builds a pool with: its zeros come once its
+# sibling is set
+_LATER = (None,)
 
 
 @dataclasses.dataclass
@@ -66,21 +76,53 @@ class SlotPool:
     # pool width — the compiled step over [capacity, *shape] tensors, or a
     # distributed target's slot-axis sibling (None = not factorable)
     pooled: Optional[tuple] = None
+    # capacity -> this bucket's pool executable over its slot-axis sibling,
+    # or None (the engine's, set by the scheduler; not a constructor
+    # argument, so the signature stays the reference's): a bucket over a
+    # process mesh builds it with its pool, whose blocks it lays out
+    sibling: Optional[Callable] = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self) -> None:
         self.free = list(range(self.capacity))
         if not self.state:
-            prog = self.compiled.program
-            target = self.compiled.target
-            device = target.mesh.device(0) if target.mesh is not None else target.device
-            self.state = tuple(
-                torch.zeros(
-                    (self.capacity,) + tuple(prog.field_args[i].type.bounds.shape),
-                    dtype=torch.float32,
-                    device=device,
+            self.state = self._zeros()
+
+    @classmethod
+    def over(cls, key: tuple, compiled, capacity: int, sibling: Callable) -> "SlotPool":
+        """A pool whose zeros are laid out by ``sibling`` (see ``sibling``)."""
+        pool = cls(key=key, compiled=compiled, capacity=capacity, state=_LATER)
+        pool.sibling = sibling
+        pool.state = pool._zeros()
+        return pool
+
+    def _zeros(self) -> tuple:
+        """The pool's zero state: over a process mesh with a sibling, this
+        process's block of each buffer as the sibling's executable lays it
+        out (nothing whole is ever made); else whole, on the target's
+        device (this process's on a process mesh)."""
+        prog = self.compiled.program
+        target = self.compiled.target
+        shapes = [(self.capacity,) + tuple(prog.field_args[i].type.bounds.shape)
+                  for i in self.compiled.input_indices]
+        mesh = target.mesh
+        if self.sibling is not None and mesh is not None and mesh.processes:
+            exe = self.sibling(self.capacity)
+            self.pooled = (self.capacity, exe)
+            if exe is not None:
+                m = exe._mesh
+                dev = m.device(m.process_rank)
+                specs = [exe.partition_specs[i] for i in exe.input_indices]
+                return tuple(
+                    ShardedTensor(m, spec, (torch.zeros(block_shape(shape, m, spec),
+                                                        dtype=torch.float32, device=dev),),
+                                  shape)
+                    for shape, spec in zip(shapes, specs)
                 )
-                for i in self.compiled.input_indices
-            )
+        if mesh is None:
+            device = target.device
+        else:
+            device = mesh.device(mesh.process_rank if mesh.processes else 0)
+        return tuple(torch.zeros(shape, dtype=torch.float32, device=device) for shape in shapes)
 
     @property
     def live(self) -> int:
@@ -112,7 +154,8 @@ class SlotPool:
     def commit_rows(self, rows: dict) -> None:
         """Batched commit of per-slot rows: one ``index_copy_`` per input
         buffer instead of a write per slot — the solo dispatch loop
-        buffers each slot's rotated row here and commits once."""
+        buffers each slot's rotated row here and commits once (a sharded
+        pool row by row, each into its holders' blocks)."""
         if not rows:
             return
         slots = sorted(rows)
@@ -166,16 +209,21 @@ class Scheduler:
     def __init__(self, slots_per_group: int) -> None:
         self.slots_per_group = int(slots_per_group)
         self.groups: dict[tuple, SlotPool] = {}
+        # (compiled, capacity) -> a distributed bucket's pool executable or
+        # None: the engine's slot-axis sibling (set by the engine; not a
+        # constructor argument, so the signature stays the reference's)
+        self.sibling: Optional[Callable] = None
 
     def group_for(self, compiled, capacity: Optional[int] = None) -> SlotPool:
         key = (compiled.program.fingerprint, compiled.target.fingerprint)
         group = self.groups.get(key)
         if group is None:
-            group = SlotPool(
-                key=key,
-                compiled=compiled,
-                capacity=int(capacity or self.slots_per_group),
-            )
+            capacity = int(capacity or self.slots_per_group)
+            if self.sibling is not None and compiled.target.distributed:
+                group = SlotPool.over(key, compiled, capacity,
+                                      functools.partial(self.sibling, compiled))
+            else:
+                group = SlotPool(key=key, compiled=compiled, capacity=capacity)
             self.groups[key] = group
         return group
 

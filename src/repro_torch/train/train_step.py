@@ -160,21 +160,34 @@ class ShardedTrainStep:
     block's copies, the clip norm the global norm; AdamW is elementwise on
     the blocks.  ``global_batch`` is the batch's global number of rows.
 
+    ``options.microbatches = n`` accumulates the gradients of ``n``
+    microbatches as the reference's scan does: microbatch ``i`` is the
+    global rows ``[i·B/n, (i+1)·B/n)`` (not each data rank's rows split
+    ``n`` ways: the MoE aux losses are not linear in the rows that share a
+    microbatch), so :meth:`place_batch` lays a batch out as ``[n, B/n,
+    ...]`` with ``B/n`` over the data axes, and each data rank holds its
+    part of every microbatch; ``B/n`` must divide over the data ranks.
+    The gradients accumulate ``g / n`` in microbatch order; the loss and
+    the metrics are the means of the microbatches' global values.
+    ``options.grad_compression = "int8"`` quantizes each gradient leaf with
+    the scale of the whole leaf (a pmax of its blocks' maxima over the
+    axes that shard it), so the result is the flat quantization's.
+
     On a single controller every rank is stacked on one device; on a
     process mesh each process holds its rank's blocks and every process
     calls the step, in the same order."""
 
     def __init__(self, cfg: ModelConfig, opt_cfg: opt.OptimizerConfig,
                  options: Optional[TrainOptions], mesh, global_batch: int, rules=None):
+        import math
+
         from repro_torch.dist import param_specs as pspecs
         from repro_torch.dist.sharding import PartitionSpec as P
-        from repro_torch.dist.sharding import _valid_spec, default_rules
+        from repro_torch.dist.sharding import _entry_axes, _valid_spec, default_rules
 
         options = options or TrainOptions()
-        if options.microbatches > 1 or options.grad_compression:
-            raise NotImplementedError(
-                "the sharded train step takes one microbatch and no gradient compression"
-            )
+        if options.grad_compression not in (None, "int8"):
+            raise ValueError(f"unknown grad_compression {options.grad_compression!r}")
         self.cfg, self.opt_cfg, self.options, self.mesh = cfg, opt_cfg, options, mesh
         self.rules = rules or default_rules(multi_pod="pod" in mesh.axis_names)
         self.global_batch = global_batch
@@ -182,31 +195,64 @@ class ShardedTrainStep:
         self.state_specs = pspecs.state_pspecs(shapes, self.rules, mesh)
         bax = self.rules.physical("batch")
         row = _valid_spec(mesh, P(bax), (global_batch,))[0]
-        self.batch_specs = {"tokens": P(row, None)}
+        n = self.microbatches = max(1, int(options.microbatches))
+        self.rows = global_batch // n  # one microbatch's global rows
+        if n > 1:
+            data = math.prod(mesh.shape[a] for a in _entry_axes(row))
+            if global_batch % n or self.rows % data:
+                raise ValueError(
+                    f"{global_batch} rows in {n} microbatches of {global_batch / n:g} rows: a "
+                    f"microbatch must split evenly over the {data} data ranks"
+                )
+        # one microbatch's tensors, and the placed batch ([n, B/n, ...] with
+        # microbatches)
+        self.mb_specs = {"tokens": P(row, None)}
         if cfg.modality in ("vision", "audio"):
-            self.batch_specs["modality"] = P(row, None, None)
+            self.mb_specs["modality"] = P(row, None, None)
+        self.batch_specs = self.mb_specs if n == 1 else {
+            k: P(None, *tuple(s)) for k, s in self.mb_specs.items()}
 
     def place_batch(self, batch: dict) -> dict:
-        """A global batch (tensors or numpy arrays) as this process's rows."""
+        """A global batch (tensors or numpy arrays) as this process's rows
+        (with microbatches, its rows of every microbatch: ``[n, B/n, ...]``
+        placed)."""
         from repro_torch.dist.sharding import place
 
+        n = self.microbatches
+        if n > 1:
+            batch = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
+                     for k, v in batch.items()}
         return {k: place(v, self.mesh, self.batch_specs[k]) for k, v in batch.items()}
 
+    def place(self, state: dict, batch: dict) -> tuple:
+        """A global train state and batch as the step takes them."""
+        from repro_torch.dist.sharding import place_tree
+
+        return place_tree(state, self.state_specs, self.mesh), self.place_batch(batch)
+
+    def _microbatch(self, batch: dict, i: int) -> dict:
+        """Microbatch ``i`` of a placed batch, placed as a batch of
+        ``B/n`` rows is."""
+        if self.microbatches == 1:
+            return batch
+        lead = 0 if self.mesh.processes else len(self.mesh.axis_names)
+        return {k: v.select(lead, i).contiguous() for k, v in batch.items()}
+
     def _loss(self, params, batch):
-        """The global ``(loss, metrics)`` of placed ``params`` on a placed
-        batch; the caller enters the tensor-parallel body."""
+        """The global ``(loss, metrics)`` of placed ``params`` on one placed
+        microbatch; the caller enters the tensor-parallel body."""
         from repro_torch.dist.sharding import P, _map_specs, enter, leave
         from repro_torch.models import tp
 
         mesh, cfg = self.mesh, self.cfg
         body = _map_specs(lambda x, s: enter(x, mesh, s), params, self.state_specs["params"])
-        tokens = enter(batch["tokens"], mesh, self.batch_specs["tokens"])
+        tokens = enter(batch["tokens"], mesh, self.mb_specs["tokens"])
         modality = None
         if "modality" in batch:
-            modality = enter(batch["modality"], mesh, self.batch_specs["modality"])
+            modality = enter(batch["modality"], mesh, self.mb_specs["modality"])
         logits, aux = tp.forward_train(body, cfg, tokens, modality, self.options.remat,
                                        self.options.q_chunk, mesh)
-        ce, zloss = tp.cross_entropy(cfg, logits, tokens, self.global_batch, mesh, Z_LOSS)
+        ce, zloss = tp.cross_entropy(cfg, logits, tokens, self.rows, mesh, Z_LOSS)
         del logits, body
         ce, zloss = leave(ce, mesh, P()), leave(zloss, mesh, P())
         loss = ce + zloss
@@ -220,16 +266,16 @@ class ShardedTrainStep:
     @torch.no_grad()
     def loss(self, params, batch):
         """``(loss, metrics)`` of placed ``params`` on a placed batch, the
-        forward alone (no gradients)."""
+        forward alone (no gradients; with microbatches, the means over
+        them)."""
         from repro_torch.dist.sharding import tensor_parallel
 
         with tensor_parallel(self.mesh, self.rules):
-            return self._loss(params, batch)
+            outs = [self._loss(params, self._microbatch(batch, i))
+                    for i in range(self.microbatches)]
+        return _mean_of(outs)
 
-    def value_and_grad(self, params, batch):
-        """``((loss, metrics), grads)`` of placed ``params`` on a placed
-        batch: the global loss and metrics on every process, the gradients
-        placed as the parameters are."""
+    def _value_and_grad_one(self, params, batch):
         from repro_torch.dist.sharding import reduce_placed, tensor_parallel
 
         live = lm.tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -240,17 +286,57 @@ class ShardedTrainStep:
         spec_leaves = lm.leaves(self.state_specs["params"])
         grads = {k: reduce_placed(g, self.mesh, spec_leaves[k]) for k, g in grads.items()}
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return (loss.detach(), metrics), _unflatten(grads)
+        return (loss.detach(), metrics), grads
+
+    def value_and_grad(self, params, batch):
+        """``((loss, metrics), grads)`` of placed ``params`` on a placed
+        batch: the global loss and metrics on every process, the gradients
+        placed as the parameters are (with microbatches, accumulated as
+        ``g / n`` in microbatch order, the loss and metrics their means)."""
+        n = self.microbatches
+        if n == 1:
+            (loss, metrics), grads = self._value_and_grad_one(params, batch)
+            return (loss, metrics), _unflatten(grads)
+        acc, outs = None, []
+        for i in range(n):
+            out, grads = self._value_and_grad_one(params, self._microbatch(batch, i))
+            if acc is None:
+                acc = {k: torch.zeros_like(g) for k, g in grads.items()}
+            for k, g in grads.items():
+                acc[k].add_(g / n)
+            del grads
+            outs.append(out)
+        return _mean_of(outs), _unflatten(acc)
+
+    def compress(self, grads):
+        """``options.grad_compression`` of placed gradients (the identity
+        without it)."""
+        if self.options.grad_compression != "int8":
+            return grads
+        from repro_torch.dist.compression import int8_roundtrip
+
+        return int8_roundtrip(grads, self.state_specs["params"], self.mesh)
 
     def __call__(self, state, batch):
         params, opt_state = state["params"], state["opt_state"]
         (loss, metrics), grads = self.value_and_grad(params, batch)
+        grads = self.compress(grads)
         new_params, new_opt_state, om = opt.adamw_update(
             self.opt_cfg, grads, opt_state, params, specs=self.state_specs["params"],
             mesh=self.mesh)
         metrics = dict(metrics, loss=loss, **om)
         return {"params": new_params, "opt_state": new_opt_state,
                 "step": state["step"] + 1}, metrics
+
+
+def _mean_of(outs: list) -> tuple:
+    """``(loss, metrics)`` of one microbatch, or the means of several's
+    (the reference's mean over its scan's stacked values)."""
+    if len(outs) == 1:
+        return outs[0]
+    losses, metricses = zip(*outs)
+    metrics = {k: torch.stack([m[k] for m in metricses]).mean() for k in metricses[0]}
+    return torch.stack(list(losses)).mean(), metrics
 
 
 def _unflatten(flat: dict) -> dict:

@@ -71,10 +71,12 @@ def test_target_over_processes_validates_its_mesh():
         Target(mesh=mesh, strategy=make_strategy_1d(2))
     with pytest.raises(TargetError, match="decomposes over every axis"):
         Target(mesh=mesh)
-    with pytest.raises(TargetError, match="slot axis runs on a single-controller mesh"):
-        Target(mesh=Mesh(np.array([[[torch.device("cpu")] * 2] * 2]), ("slot", "x", "y"),
-                         process_rank=0),
-               strategy=make_strategy_2d((2, 2)), slot_axis="slot")
+    # a slot axis over processes: every axis but the slot axis decomposed
+    slotted = Mesh(np.array([[[torch.device("cpu")] * 2] * 2] * 2), ("slot", "x", "y"),
+                   process_rank=0)
+    assert Target(mesh=slotted, strategy=make_strategy_2d((2, 2)), slot_axis="slot").distributed
+    with pytest.raises(TargetError, match="decomposes over every axis of it but the slot axis"):
+        Target(mesh=slotted, strategy=make_strategy_1d(2), slot_axis="slot")
     cards = Mesh(np.array([torch.device("cuda", i) for i in range(4)], dtype=object).reshape(2, 2),
                  ("x", "y"), process_rank=3)
     assert Target(mesh=cards, strategy=make_strategy_2d((2, 2)), device="cuda:3").device == "cuda"
