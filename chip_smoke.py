@@ -233,6 +233,24 @@ check raises and the script exits non-zero:
    with 2 microbatches and int8 on (1, 4), 3 ``Trainer`` steps; under 300
    s and 75 GiB a card.
 
+20. deep 3-D fused epochs (``deep_phase``), which no tile of shared memory
+   holds, so K2 keeps buffers in device memory (its scratch plans, CTAs
+   looping over the tiles): (a) at 256³ heat so4 k=8, wave so8 k=4 and
+   heat so4 k=2 with every buffer forced off chip, K2 bitwise its plain
+   version (the forced case also K2 in shared memory at the same tile),
+   and a pool of 2 slots in one launch against solo launches; (b) the main
+   path at 1024³: fused heat so4 and so8 k=8, wave so4 k=8 and so8 k=4,
+   one K2 launch and no K1 launch an epoch, bitwise against the unfused
+   route and ``Target(backend="torch")``, then ``jit=True, donate=True``
+   bitwise ``jit=False`` with one K2 node and no K1 node in each captured
+   graph; K2 timed beside its bound, its plain version and the unfused
+   route's ms an epoch, with its scratch bytes, registers, shared memory,
+   CTAs an SM and peak memory; (c) heat so4 k=8 over a 2x2x1 mesh of this
+   card bitwise against one device, four K2 launches an epoch, its
+   rank-local K2 bitwise the plain version at each corner's box.  Each
+   1024³ case joins the kernels line.  ``python3 chip_smoke.py --phase 20``
+   runs phase 0 and phase 20 alone.
+
 Phase 1 also runs K1 heat so4 at 1024² on a pool of 16 slots, and phase 6
 K2 heat so4 k=4 at 16384² on a pool of 2, each in one launch, bitwise
 against its plain version and against a launch on each slot alone, timed
@@ -249,6 +267,7 @@ computes a K2 epoch).  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -4790,6 +4809,374 @@ def p19_phase(dev, *, card="", cut=None, n2=16384, conv=(8192, 32768), attn_S=40
     return out
 
 
+# -- phase 20: deep 3-D fused epochs (K2 with buffers in device memory) -------
+# (kind, space order, k): the fig-7 3-D epochs no tile of shared memory can
+# hold, which K2 runs as scratch plans
+DEEP_CASES = (("heat", 4, 8), ("heat", 8, 8), ("wave", 4, 8), ("wave", 8, 4))
+
+
+def fig7_op(kind, shape, so, boundary="zero"):
+    """Fig 7's heat (``Eq(u.dt, 0.5 u.laplace)``) or wave (``Eq(u.dt2,
+    u.laplace)``) through the devito-like frontend, spacing 1, dt 0.1: the
+    main path's programs."""
+    from repro_torch.frontends.devito_like import Eq, Grid, Operator, TimeFunction
+
+    g = Grid(shape=shape, extent=tuple(float(n) for n in shape))
+    if kind == "heat":
+        u = TimeFunction(name="u", grid=g, space_order=so)
+        return Operator(Eq(u.dt, 0.5 * u.laplace), dt=0.1, boundary=boundary)
+    u = TimeFunction(name="u", grid=g, space_order=so, time_order=2)
+    return Operator(Eq(u.dt2, 1.0 * u.laplace), dt=0.1, boundary=boundary)
+
+
+def deep_mesh(dev):
+    """Four ranks of a 2x2x1 mesh, all on ``dev``, and their strategy."""
+    from repro_torch.core.passes.decompose import make_strategy_3d
+    from repro_torch.dist import Mesh
+
+    return {"mesh": Mesh([[[dev], [dev]], [[dev], [dev]]], ("x", "y", "z")),
+            "strategy": make_strategy_3d((2, 2, 1))}
+
+
+def deep_targets(dev, n3=1024, small=256) -> list:
+    """Phase 20's kernels: ``(label, fused op, tile, scratch forced)`` of
+    the kernel-level cases at ``small``³, then ``(label, op, target
+    kwargs)`` of the main-path cases at ``n3``³ (heat so4 k=8 also over a
+    2x2x1 mesh of ``dev``)."""
+    from repro_torch import api
+    from repro_torch.api import Target
+
+    def epoch(op, k, **kw):
+        (e,) = api.compile(op.program, Target(device=str(dev), backend="cuda", jit=False,
+                                              exchange_every=k, fused_epoch=True,
+                                              **kw)).kernel_epochs()
+        return e
+
+    from repro_torch.kernels import epoch_kernel as k2
+
+    heat2 = epoch(fig7_op("heat", (small,) * 3, 4), 2)
+    kernel_cases = [
+        (f"heat3d_so4 {small}^3 k=8", epoch(fig7_op("heat", (small,) * 3, 4), 8), None, False),
+        (f"wave3d_so8 {small}^3 k=4", epoch(fig7_op("wave", (small,) * 3, 8), 4), None, False),
+        (f"heat3d_so4 {small}^3 k=2, scratch forced", heat2, k2.plan_epoch(heat2).tile, True),
+    ]
+    main_cases = [(f"{kind}3d_so{so} {n3}^3 k={k} fused", fig7_op(kind, (n3,) * 3, so),
+                   {"exchange_every": k, "fused_epoch": True}) for kind, so, k in DEEP_CASES]
+    # heat so4 k=8 over a 2x2x1 mesh, right after its single-device run
+    main_cases.insert(1, (f"{main_cases[0][0]}, 2x2x1 ranks", main_cases[0][1],
+                          {**main_cases[0][2], **deep_mesh(dev)}))
+    return kernel_cases, main_cases
+
+
+def deep_sources(dev, n3=1024, small=256) -> list:
+    """Every K1 and K2 source phase 20 launches (K2 at each case's plan and
+    at the forced case's tile in shared memory; the unfused route's K1)."""
+    from repro_torch import api
+    from repro_torch.api import Target
+    from repro_torch.kernels import epoch_kernel as k2
+    from repro_torch.kernels import stencil_apply as k1
+
+    kernel_cases, main_cases = deep_targets(dev, n3, small)
+    out = []
+    for _, op, tile, forced in kernel_cases:
+        out.append(k2.emit_epoch_cuda(op, tile, scratch=forced))
+        if forced:
+            out.append(k2.emit_epoch_cuda(op, tile))
+    for _, op, kw in main_cases:
+        unfused = {k: v for k, v in kw.items() if k != "fused_epoch"}
+        for k in (kw, unfused):
+            out += api.compile(op.program, Target(device=str(dev), backend="cuda", jit=False,
+                                                  **k)).kernel_sources()
+    return list(dict.fromkeys(out))
+
+
+def kernel_resources(source, symbol="k2_epoch_occupancy") -> str:
+    """Registers a thread (``ptxas -v``), shared memory a CTA and resident
+    CTAs an SM (through the source's occupancy query ``symbol``) of a
+    built K1 or K2 source."""
+    from repro_torch.kernels import stencil_apply as k1
+
+    log_path = k1.library_path(source).with_suffix(".log")
+    regs = [line.split("Used", 1)[1].split("registers")[0].strip()
+            for line in log_path.read_text().splitlines() if "Used" in line and "registers" in line]
+    smem = int(source.split(" bytes of shared memory")[0].rsplit(" ", 1)[1])
+    ctas = k1.ctas_per_sm(source, symbol)
+    return f"{regs[0]} registers/thread, {smem} B shared/CTA, {ctas} CTAs/SM"
+
+
+def deep_phase(dev, *, card="", n3=1024, small=256, steps=STEPS) -> list:
+    """Phase 20: deep 3-D fused epochs, which K2 runs with buffers in device
+    memory (scratch plans).  (a) at ``small``³: heat so4 k=8, wave so8 k=4
+    and heat so4 k=2 with every buffer forced off chip, each K2 launch
+    bitwise its plain version (the forced case also bitwise K2 in shared
+    memory at the same tile), and a pool of 2 slots in one launch against
+    solo launches; (b) the main path at ``n3``³ for each of
+    ``DEEP_CASES``: ``Operator.apply`` through ``Target(backend="cuda",
+    exchange_every=k, fused_epoch=True)``, one K2 launch and no K1 launch an
+    epoch, bitwise against the unfused route and the torch backend, then
+    ``jit=True, donate=True`` bitwise against ``jit=False`` with one K2
+    node and no K1 node in each captured graph; K2 timed beside its bound,
+    its plain version and the unfused route's ms an epoch, with its scratch
+    bytes, registers, shared memory, CTAs an SM and peak memory; (c) heat
+    so4 k=8 over a 2x2x1 mesh of this card bitwise against one device,
+    four K2 launches an epoch, its rank-local K2 at each corner's box
+    against the plain version.  Returns the kernels line's records.  On the
+    CPU (a rehearsal at small sizes) the wrappers run their plain versions,
+    which launch nothing."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.api import Target
+    from repro_torch.kernels import dispatch_stats, reset_dispatch_stats
+    from repro_torch.kernels import epoch_kernel as k2
+    from repro_torch.kernels import stencil_apply as k1
+    from repro_torch.launch import roofline
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    log(f"phase 20: deep 3-D fused epochs, K2 with buffers in device memory ({card})")
+    gen = torch.Generator(device=dev) if on_card else torch.Generator()
+    kernel_cases, main_cases = deep_targets(dev, n3, small)
+    if on_card:
+        t0 = time.perf_counter()
+        sources = deep_sources(dev, n3, small)
+        k1.build(sources)
+        log(f"  build: {len(sources)} sources ready in {time.perf_counter() - t0:.1f} s")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def ms_of(fn, reps):
+        """ms a call: CUDA events after one warm-up call on the card, the
+        host's clock elsewhere."""
+        fn()
+        sync()
+        if not on_card:
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return (time.perf_counter() - t) / reps * 1e3
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def randn(shape, seed=SEED):
+        gen.manual_seed(seed)
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def launches_of(what, want, counted=on_card):
+        """The launches counted since the counts were zeroed, which must be
+        ``want`` where they are counted: the card's wrappers, or the nodes
+        of the graphs a compiled step replays (a plain version on the CPU
+        launches nothing)."""
+        got = dispatch_stats().fused_epoch_launches if what == "K2" else dispatch_stats().apply_launches
+        want = want if counted else 0
+        check(got == want, f"{what} launches {got}, expected {want}")
+        return got
+
+    def plain(fused_op, arrays, coords=None):
+        return k2._emit_region(fused_op, arrays, k2.region_masks(fused_op, dev, coords),
+                               lambda v: v.type.bounds)
+
+    def equal(got, want, what):
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{what} (max |err| {err})")
+        return err
+
+    def scratch_line(fused_op, tile=None, forced=False, slots=1):
+        plan = k2.plan_epoch(fused_op, tile, forced)
+        st = k2._storage(fused_op, plan)
+        line = (f"tile {plan.tile}, {plan.n_tiles} tiles a slot, {st.smem_bytes} B shared, "
+                f"at most {plan.ctas} CTAs x {4 * st.scratch_floats} B of scratch "
+                f"({k2.scratch_bytes(fused_op, plan)} B planned)")
+        if on_card:
+            kernel = k2._kernel_for(fused_op, tile, 16, forced)
+            ctas = kernel.ctas(dev, slots * plan.n_tiles)
+            line += (f", launched on {ctas} CTAs: {4 * ctas * kernel.scratch_floats} B of "
+                     f"scratch; {kernel_resources(kernel.source)}")
+        return line
+
+    # -- (a) K2's scratch plans against the plain version ----------------------
+    for name, fused_op, tile, forced in kernel_cases:
+        arrays = [randn(a.type.bounds.shape) for a in fused_op.body.args]
+        reset_dispatch_stats()
+        got = k2.run_epoch_cuda(fused_op, arrays, None, tile=tile, scratch=forced)
+        launches_of("K2", 1)
+        err = equal(got, plain(fused_op, arrays), f"{name}: K2 differs from its plain version")
+        check(k2.plan_epoch(fused_op, tile, forced).ctas > 0, f"{name}: not a scratch plan")
+        extra = ""
+        if forced:
+            shared = k2.run_epoch_cuda(fused_op, arrays, None, tile=tile)
+            equal(got, shared, f"{name}: K2 in device memory differs from K2 in shared memory")
+            ms_shared = ms_of(lambda: k2.run_epoch_cuda(fused_op, arrays, None, tile=tile), 5)
+            extra = f"; bitwise K2 in shared memory at that tile ({ms_shared:.4f} ms)"
+        ms = ms_of(lambda: k2.run_epoch_cuda(fused_op, arrays, None, tile=tile, scratch=forced), 5)
+        log(f"  {name}: K2 bitwise its plain version (max |err| {err}), {ms:.4f} ms/launch, "
+            f"{scratch_line(fused_op, tile, forced)}{extra}")
+        del got, arrays
+    # a pool of 2 slots in one launch against each slot alone
+    name, fused_op, _, _ = kernel_cases[0]
+    pooled = [torch.stack([randn(a.type.bounds.shape, SEED + b) for b in range(2)])
+              for a in fused_op.body.args]
+    reset_dispatch_stats()
+    got = k2.run_epoch_cuda(fused_op, pooled, None)
+    launches_of("K2", 1)
+    equal(got, plain(fused_op, pooled), f"{name}, pool of 2: K2 differs from its plain version")
+    for b in range(2):
+        solo = k2.run_epoch_cuda(fused_op, [x[b].contiguous() for x in pooled], None)
+        equal([g[b] for g in got], solo, f"{name}, pool of 2: slot {b} differs from its solo launch")
+    ms_pool = ms_of(lambda: k2.run_epoch_cuda(fused_op, pooled, None), 5)
+    solos = [[x[b].contiguous() for x in pooled] for b in range(2)]
+    ms_solo = ms_of(lambda: [k2.run_epoch_cuda(fused_op, s, None) for s in solos], 5)
+    log(f"  {name}, pool of 2: one launch bitwise the plain version and each slot's solo "
+        f"launch, {ms_pool:.4f} ms (2 solo launches {ms_solo:.4f} ms), "
+        f"{scratch_line(fused_op, slots=2)}")
+    del got, pooled, solos
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- (b) and (c): the main path at n3^3 -------------------------------------
+    records = []
+    one_device = {}  # heat so4 k=8's fused result, for the 2x2x1 mesh
+    for name, op, kw in main_cases:
+        prog = op.program
+        fused = api.compile(prog, Target(device=str(dev), backend="cuda", jit=False, **kw))
+        ranks = fused.target.spatial_ranks if fused.target.distributed else 1
+        epochs = fused.epochs(steps)
+        (fused_op,) = fused.kernel_epochs()
+        check(k2.plan_epoch(fused_op).ctas > 0, f"{name}: K2's plan is not a scratch plan")
+        state = tuple(randn(f.type.bounds.shape, SEED + i) for i, f in enumerate(prog.input_fields))
+        fused.advance(fused.shard_state(state))  # warm-up: loads the built kernels
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_dispatch_stats()
+        t = time.perf_counter()
+        out = op.apply(state, timesteps=steps, target=fused.target)
+        sync()
+        sec = time.perf_counter() - t
+        k2_launches = launches_of("K2", ranks * epochs)
+        launches_of("K1", 0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else float("nan")
+        for x in out:
+            check(tuple(x.shape) == tuple(prog.field_args[0].type.bounds.shape)
+                  and bool(torch.isfinite(x).all()), f"{name}: shape or non-finite values")
+        log(f"  {name}: {steps} steps in {epochs} epochs, {sec / steps * 1e3:.3f} ms/step "
+            f"(host clock, jit=False), {k2_launches} K2 and 0 K1 launches, peak "
+            f"{peak:.2f} GiB")
+        unfused_kw = {k: v for k, v in kw.items() if k != "fused_epoch"}
+        unfused_target = Target(device=str(dev), backend="cuda", jit=False, **unfused_kw)
+        if ranks > 1:
+            equal(out, one_device.pop(name.split(",")[0]),
+                  f"{name}: differs from the single-device fused run")
+            log(f"  {name}: bitwise equal to one device")
+        else:
+            base = op.apply(state, timesteps=steps, target=unfused_target)
+            equal(out, base, f"{name}: differs from the unfused route (K1)")
+            del base
+            torch_target = Target(device=str(dev), backend="torch", jit=False)
+            other = api.compile(prog, torch_target).time_loop(state, steps)
+            equal(out, other, f"{name}: differs from Target(backend='torch')")
+            del other
+            api.forget(prog, torch_target)
+            log(f"  {name}: bitwise equal to the unfused exchange_every={kw['exchange_every']} "
+                "route (K1) and to Target(backend='torch')")
+        # the compiled step: one graph replay an epoch, one K2 node a rank
+        graphed = api.compile(prog, dataclasses.replace(fused.target, jit=True, donate=True))
+        graphed.time_loop(state, steps)  # captures every rotation phase
+        sync()
+        reset_dispatch_stats()
+        api.reset_graph_stats()
+        got = op.apply(state, timesteps=steps, target=graphed.target)
+        sync()
+        replays = api.graph_stats().replays
+        captured = graphed._graphed()
+        check(not captured or replays == epochs, f"{name}, jit: {replays} replays, expected {epochs}")
+        launches_of("K2", ranks * epochs, captured)
+        launches_of("K1", 0, captured)
+        equal(got, out, f"{name}, jit: differs from jit=False")
+        held = [nodes for _, nodes, _ in graphed._ring.graphs.values()] if graphed._ring else []
+        check(not captured or (held and all((n.k1, n.k2) == (0, ranks) for n in held)),
+              f"{name}, jit: graphs hold {[(n.k1, n.k2) for n in held]} (K1, K2) nodes, "
+              f"expected (0, {ranks})")
+        log(f"  {name}, jit=True, donate=True: bitwise jit=False, {replays} replays, each of "
+            f"its {len(held)} graphs holds {ranks} K2 and 0 K1 nodes")
+        del got
+        graphed.release_graphs()
+        if ranks == 1 and any(n.startswith(f"{name},") for n, _, _ in main_cases):
+            one_device[name] = out
+        del out
+        # the route's ms an epoch: fused and unfused, CUDA events, in turns
+        routes = {"fused": fused, "unfused": api.compile(prog, unfused_target)}
+        sharded = fused.shard_state(state)
+        per_epoch = {r: [] for r in routes}
+        for r in ("fused", "unfused", "unfused", "fused"):
+            per_epoch[r].append(ms_of(lambda r=r: routes[r].advance(sharded), 1))
+        f_ms, u_ms = min(per_epoch["fused"]), min(per_epoch["unfused"])
+        del sharded, state
+        # K2 alone at the path's shapes (a rank's on the mesh, at each
+        # corner's box), its plain version and its bound
+        coords = fused._coords if ranks > 1 else [None]
+        arrays = [randn(a.type.bounds.shape, SEED + 7) for a in fused_op.body.args]
+        err = 0.0
+        for at in coords:
+            got = k2.run_epoch_cuda(fused_op, arrays, None, coords=at)
+            want = plain(fused_op, arrays, at)
+            err = max(err, equal(got, want, f"{name}: K2 at {at} differs from its plain version"))
+            del got, want
+        ms = ms_of(lambda: k2.run_epoch_cuda(fused_op, arrays, None, coords=coords[-1]), 3)
+        plain_ms = ms_of(lambda: plain(fused_op, arrays, coords[-1]), 1)
+        b_ms, b_by = least_ms(*roofline.epoch_counts(fused_op))
+        log(f"  K2 {name}: {ms:.4f} ms/launch, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f} % of bound, plain {plain_ms:.3f} ms, max|err| {err}; "
+            f"ms/epoch of the route (jit=False, best of 2): fused {f_ms:.4f}, unfused "
+            f"(k={kw['exchange_every']} K1 launches) {u_ms:.4f}; {scratch_line(fused_op)}")
+        records.append({
+            "name": f"epoch_kernel[{name}, scratch]", "route": "cuda", "source": K2_SOURCE,
+            "replaces": K2_REPLACES, "launches": k2_launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+        del arrays, routes
+        for t in (fused.target, unfused_target, graphed.target):
+            api.forget(prog, t)
+        if on_card:
+            torch.cuda.empty_cache()
+    check(not one_device, "phase 20: the 2x2x1 case found no single-device run to hold it to")
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def least_ms(n_ops, n_bytes):
+    """The least time for ``n_bytes`` of device memory and ``n_ops`` float32
+    operations on an H100, and which of the two bounds it."""
+    from repro_torch.launch import roofline
+
+    t_bytes, t_ops = n_bytes / roofline.HBM_BW, n_ops / roofline.PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase20_alone() -> int:
+    """``python3 chip_smoke.py --phase 20``: the card and phase 20 alone."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    log(card)
+    records = deep_phase(dev, card=card)
+    log(f"phase 20 alone: {len(records)} kernel records")
+    log(card_line())
+    return 0
+
+
 def phase19_alone() -> int:
     """``python3 chip_smoke.py --phase 19``: the card and phase 19 alone, on
     four cards with its process part (d)-(f)."""
@@ -4892,6 +5279,8 @@ def main() -> int:
         return phase18_alone()
     if sys.argv[1:] == ["--phase", "19"]:
         return phase19_alone()
+    if sys.argv[1:] == ["--phase", "20"]:
+        return phase20_alone()
     t_start = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
@@ -4904,7 +5293,6 @@ def main() -> int:
     from repro_torch.core.lowering import eval_apply_body
     from repro_torch.core.passes.decompose import make_strategy_2d, make_strategy_3d
     from repro_torch.dist import Mesh
-    from repro_torch.frontends.devito_like import Eq, Grid, Operator, TimeFunction
     from repro_torch.frontends.psyclone_like import recognize
     from repro_torch.kernels import dispatch_stats, ops, ref, reset_dispatch_stats
     from repro_torch.kernels import epoch_kernel as k2
@@ -4926,19 +5314,13 @@ def main() -> int:
 
     # -- the programs and applies of every phase ------------------------------
     def heat_op(shape, so):
-        g = Grid(shape=shape, extent=tuple(float(n) for n in shape))  # spacing 1
-        u = TimeFunction(name="u", grid=g, space_order=so)
-        return Operator(Eq(u.dt, 0.5 * u.laplace), dt=0.1, boundary="zero")
+        return fig7_op("heat", shape, so)
 
     def wave_op(shape, so):
-        g = Grid(shape=shape, extent=tuple(float(n) for n in shape))
-        u = TimeFunction(name="u", grid=g, space_order=so, time_order=2)
-        return Operator(Eq(u.dt2, 1.0 * u.laplace), dt=0.1, boundary="zero")
+        return fig7_op("wave", shape, so)
 
     def heat_periodic_op(shape, so):
-        g = Grid(shape=shape, extent=tuple(float(n) for n in shape))
-        u = TimeFunction(name="u", grid=g, space_order=so)
-        return Operator(Eq(u.dt, 0.5 * u.laplace), dt=0.1, boundary="periodic")
+        return fig7_op("heat", shape, so, "periodic")
 
     def index_program(shape):
         """Two chained applies, the first reading stencil.index and
@@ -5094,19 +5476,14 @@ def main() -> int:
         sources += api.compile(prog, target).kernel_sources()
     pooled_k1 = (f"heat2d_so4 {n_pool}x{n_pool}", star_spec(heat_star(2, 4), (n_pool, n_pool), (2, 2)))
     sources.append(k1.emit_apply_cuda(*pooled_k1[1]))
+    sources += deep_sources(dev, n3)  # phase 20's
     sources = list(dict.fromkeys(sources))
     t0 = time.perf_counter()
     k1.build(sources)
     log(f"build: {n_k1} K1 and {len(sources) - n_k1} K2 sources with nvcc in "
         f"{time.perf_counter() - t0:.1f} s (flags {' '.join(k1.NVCC_FLAGS)})")
     def resource_line(label, source, symbol):
-        log_path = k1.library_path(source).with_suffix(".log")
-        regs = [line.split("Used", 1)[1].split("registers")[0].strip()
-                for line in log_path.read_text().splitlines()
-                if "Used" in line and "registers" in line]
-        smem = int(source.split(" bytes of shared memory")[0].rsplit(" ", 1)[1])
-        ctas = k1.ctas_per_sm(source, symbol)
-        log(f"  {label}: {regs[0]} registers/thread, {smem} B shared/CTA, {ctas} CTAs/SM")
+        log(f"  {label}: {kernel_resources(source, symbol)}")
 
     log("build: ptxas registers, shared memory per CTA and resident CTAs per SM "
         "(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
@@ -5168,12 +5545,6 @@ def main() -> int:
         storage (a contiguous view; offset 0 is a plain allocation)."""
         flat = torch.randn(_numel(shape) + offset, device=dev, generator=gen)
         return flat[offset:].view(shape)
-
-    def least_ms(n_ops, n_bytes):
-        """The least time for ``n_bytes`` of device memory and ``n_ops``
-        float32 operations on this card, and which of the two bounds it."""
-        t_bytes, t_ops = n_bytes / roofline.HBM_BW, n_ops / roofline.PEAK_FLOPS
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
     def bound(spec):
         """Bytes: the window of each operand the apply reads (its result
@@ -6188,6 +6559,9 @@ def main() -> int:
         step = api.compile(prog, Target(device=str(dev), jit=False, **p19_kw(label)))
         kernels.append(pool_record(f"phase 19 {label} {n2}x{n2}, slot axis over a process",
                                    step, launches, 4))
+
+    # -- phase 20: deep 3-D fused epochs, K2 with buffers in device memory ---
+    kernels += deep_phase(dev, card=card, n3=n3)
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -419,6 +419,12 @@ class StencilInterpreter:
         self._in_flight = {}
         for i, op in enumerate(self.func.body.ops):
             self._run_op(op, views, i)
+            # drop what no later op reads: an unfused deep epoch then holds
+            # a few of its frames at once, not all of them
+            for o in op.operands:
+                if self._last_use.get(o) == i:
+                    for view in views:
+                        view.env.pop(o, None)
         return [tuple(v.fields[f] for f in self.output_fields) for v in views]
 
     def kernel_applies(self) -> list:

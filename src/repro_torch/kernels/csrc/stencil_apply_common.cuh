@@ -5,7 +5,8 @@
 // kernels/epoch_kernel.py one per fused epoch and tile; each includes
 // this header.  A generated file holds one __global__ kernel on a 1-D grid
 // (K1: a CTA streams a tile of the minor dims along dim 0 through a
-// shared-memory ring; K2: one CTA per tile of the epoch's core), a
+// shared-memory ring; K2: one CTA per tile of the epoch's core, or a
+// CTA's loop over tiles with a device-memory scratch of its own), a
 // launcher and an occupancy query, both with a plain C ABI that the Python
 // wrapper calls through ctypes.  The launcher never synchronises: it
 // enqueues on the stream it is given and returns cudaGetLastError(), which
@@ -40,6 +41,13 @@
 #define K1_CP_ASYNC(dst, src, bytes) k1::cp_async<bytes>(dst, src)
 #define K1_CP_ASYNC_COMMIT() asm volatile("cp.async.commit_group;\n" ::: "memory")
 #define K1_CP_ASYNC_WAIT(n) asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory")
+
+// At the start of each tile a CTA of a K2 scratch plan takes (its CTAs
+// loop over the tiles; ``scratch`` is the CTA's device-memory scratch of
+// ``floats`` floats): nothing here.  A host stand-in poisons the CTA's
+// scratch and shared memory, so that a point a tile reads before writing
+// it cannot pass for the previous tile's value.
+#define K1_SCRATCH_TILE(scratch, floats) ((void)0)
 
 // Launch ``kernel`` on a 1-D grid; opt in to more than 48 KB of dynamic
 // shared memory; CTAs of ``kernel`` that fit on one SM at once.

@@ -36,13 +36,32 @@ frame would go to device memory and back (the k round trips of the
 unfused path), and a cooperative launch caps the grid at the CTAs that fit
 on the card at once.
 
+Scratch plans: a deep 3-D halo (heat so4 k=8: a 33³ window even for a
+tile of one point) leaves no tile whose buffers fit 227 KB, where the
+reference's whole-shard mode still runs.  Then, and only then, buffers
+move out of shared memory, the largest first, until the rest fits: an
+operand's window is read in place from the operand, a frame goes to a
+scratch area of device memory private to its CTA (64-bit offsets).  The
+scratch is sized for the CTAs the plan lets reside (``ctas``: one or two
+an SM, the whole capped at ``SCRATCH_CAP``), not for the tiles, so such a
+kernel's CTAs loop over their (slot, tile) pairs, and the wrapper
+allocates the scratch per launch (``torch.empty``; under a CUDA graph
+from the graph's pool).  ``__syncthreads`` between phases orders the
+block's own device-memory writes and reads as it does shared memory's;
+one more at the end of each tile keeps the next tile's writes behind the
+last reads.  The epoch stays one launch; a plan that cannot be built
+still raises.  Such a kernel re-reads every frame from device memory
+(through L1 and L2), so it is slower per point than a tile in shared
+memory; streaming planes through shared memory (2.5-D blocking) is the
+faster design, not built yet.
+
 Masks: the keep mask of a ``boundary_mask`` is a box, which depends on
 the rank's mesh coordinate (``core.lowering.keep_box``).  The kernel
 tests each point's coordinates against that box, whose ``lo``/``hi``
 along each masked dim are ``int`` arguments of the launch
 (:func:`box_args`), so one build serves every rank of a mesh; the plain
-version reads 0/1 arrays built outside the kernel (:func:`region_masks`),
-as the reference's kernel does.
+version reads keep arrays built outside the kernel (:func:`region_masks`),
+as the reference's kernel reads 0/1 arrays.
 
 Walking a frame: each thread computes ``R`` consecutive points along dim
 0 (8 in 2D, 4 in 3D, 1 in 1D), one column of a frame's minor dims; a
@@ -66,7 +85,9 @@ least two CTAs per SM of the card: 64×128 for heat so4 k=4 at 16384²
 (an 80×144 window, 1.41× the input), 32×128 for wave.  The kernel is
 built with ``__launch_bounds__`` for the CTAs its shared memory lets
 reside, which caps the registers ptxas may use.  If no tile fits, the
-wrapper raises; it never falls back to something else.
+plan keeps buffers in device memory (above); if even that needs more
+scratch than ``SCRATCH_CAP``, the wrapper raises; it never falls back to
+something else.
 
 What bounds it on an H100: device-memory bytes.  Per epoch the least work
 is to read each operand once and write each escape once (heat so4 k=4 at
@@ -111,7 +132,10 @@ SMEM_PER_BLOCK = 232448  # 227 KB: the most one CTA may opt in to on an H100
 SMEM_PER_SM = 233472     # 228 KB per SM, of which each resident CTA reserves 1 KB
 SMEM_TWO_BLOCKS = SMEM_PER_SM // 2 - 1024  # the budget for two CTAs on one SM
 TILE_LIMIT = {1: (8192,), 2: (256, 256), 3: (64, 64, 64)}  # choose_tile's largest sides
-MIN_CTAS = 2 * 132  # two CTAs on each of an H100's SMs
+SMS = 132  # an H100 SXM's SMs
+MIN_CTAS = 2 * SMS  # two CTAs on each of an H100's SMs
+SCRATCH_CAP = 1 << 30  # the most device memory a scratch plan's launch may take
+SCRATCH_ALIGN = 32  # floats: each buffer in scratch starts on a 128-byte line
 # points per thread along dim 0 in a frame walk (a warp spans columns of
 # the minor dims; rank 1 has none, so its threads take one point each)
 R_BY_RANK = {1: 1, 2: 8, 3: 4}
@@ -132,39 +156,45 @@ def _emit_region(fused_op, inputs, masks, bounds_of) -> list:
     """Evaluate the fused region over tensors: K2's plain version.
     ``bounds_of`` maps a region value to the logical bounds its tensor
     covers (the value's own bounds for a whole shard, a tile's window for
-    one tile); ``masks`` holds one 0/1 tensor per boundary_mask, in region
-    order, over the masked tensor."""
+    one tile); ``masks`` holds one keep tensor (boolean, or 0/1) per
+    boundary_mask, in region order, over the masked tensor.  A value is
+    dropped after its last reader, so a deep epoch holds a few frames at
+    once, not all of them."""
     from repro_torch.core.lowering import eval_apply_body
 
     env = dict(zip(fused_op.body.args, inputs))
     device = inputs[0].device if inputs else None
+    last = {o: i for i, op in enumerate(fused_op.body.ops) for o in op.operands}
     mask_idx = 0
-    for op in fused_op.body.ops:
+    for i, op in enumerate(fused_op.body.ops):
         if isinstance(op, stencil.ApplyOp):
-            arrays = [env[o] for o in op.operands]
             origins = [bounds_of(o).lb for o in op.operands]
-            outs = eval_apply_body(
-                op, arrays, origins, bounds_of(op.results[0]), device=device
-            )
-            for res, val in zip(op.results, outs):
-                env[res] = val
+            env.update(zip(op.results, eval_apply_body(
+                op, [env[o] for o in op.operands], origins, bounds_of(op.results[0]),
+                device=device)))
         elif isinstance(op, comm.BoundaryMaskOp):
             mask = masks[mask_idx]
             mask_idx += 1
-            x = env[op.temp]
-            zero = torch.zeros((), dtype=x.dtype, device=x.device)
-            env[op.results[0]] = torch.where(mask != 0, x, zero)
+            keep = mask if mask.dtype == torch.bool else mask != 0
+            zero = torch.zeros((), dtype=torch.float32, device=mask.device)
+            env[op.results[0]] = torch.where(keep, env[op.temp], zero)
+            del keep
         elif isinstance(op, stencil.FusedYieldOp):
             return [env[o] for o in op.operands]
         else:  # pragma: no cover - FusedEpochOp.verify_ rejects these
             raise NotImplementedError(f"fused region op {op.name}")
+        for o in op.operands:
+            if last[o] == i:
+                env.pop(o, None)
     raise AssertionError("fused_epoch region missing stencil.fused_yield")
 
 
 def region_masks(fused_op: stencil.FusedEpochOp, device, coords=None) -> list:
-    """One 0/1 float32 keep-mask per boundary_mask of the region, in region
+    """One boolean keep-mask per boundary_mask of the region, in region
     order, over the masked value's whole bounds, at mesh coordinate
-    ``coords`` (all zeros by default): the plain version's mask inputs."""
+    ``coords`` (all zeros by default): the plain version's mask inputs.
+    Boolean and broadcast where the box allows: at 1024³ a deep epoch's
+    masks in float32 would take tens of GB."""
     from repro_torch.core.lowering import boundary_keep
 
     out = []
@@ -172,9 +202,8 @@ def region_masks(fused_op: stencil.FusedEpochOp, device, coords=None) -> list:
         shape = tuple(op.temp.type.bounds.shape)
         keep = boundary_keep(op, shape, device, coords)
         if keep is None:
-            out.append(torch.ones(shape, dtype=torch.float32, device=device))
-        else:
-            out.append(torch.broadcast_to(keep, shape).to(torch.float32))
+            keep = torch.ones((1,) * len(shape), dtype=torch.bool, device=device)
+        out.append(torch.broadcast_to(keep, shape))
     return out
 
 
@@ -219,11 +248,18 @@ def box_args(fused_op: stencil.FusedEpochOp, coords=None) -> list:
 class TilePlan:
     """How K2 cuts one fused epoch into CTAs.  ``core`` is the intersection
     of the escapes' bounds, ``tile`` divides it, ``grid`` counts tiles per
-    dim (CTA ``blockIdx.x`` walks them row-major, the last dim fastest)."""
+    dim (CTA ``blockIdx.x`` walks them row-major, the last dim fastest).
+
+    A scratch plan (``ctas`` > 0) keeps buffers in device memory: at most
+    ``ctas`` CTAs (``ctas / SMS`` an SM) loop over the tiles, each with a
+    scratch of its own, and buffers leave shared memory, the largest
+    first, until the rest takes at most ``budget`` bytes (0: all leave)."""
 
     core: stencil.Bounds
     tile: tuple
     grid: tuple
+    ctas: int = 0
+    budget: int = 0
 
     @property
     def n_tiles(self) -> int:
@@ -316,70 +352,125 @@ def _lanes(shape: tuple) -> int:
     return rows * _padded_columns(shape)
 
 
+def _points(shape: tuple) -> int:
+    n = 1
+    for w in shape:
+        n *= w
+    return n
+
+
 def tile_cost(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> float:
     """The work of one tile per point it owns, in thread-points: every
     sub-step frame as the register-blocked walk covers it (ragged chunks
-    and idle lanes included) plus every operand window it loads."""
+    and idle lanes included) plus every operand window it loads; for a
+    scratch plan also every frame in device memory, written once and
+    read once by each op that reads it."""
     work = sum(_lanes(plan.window_shape(op.results[0].type.bounds))
                for op in fused_op.body.ops if isinstance(op, stencil.ApplyOp))
     for a in fused_op.body.args:
-        n = 1
-        for w in plan.window_shape(a.type.bounds):
-            n *= w
-        work += n
-    points = 1
-    for t in plan.tile:
-        points *= t
-    return work / points
+        work += _points(plan.window_shape(a.type.bounds))
+    if plan.ctas:
+        st = _storage(fused_op, plan)
+        for v in _temp_values(fused_op):
+            if st.slot_of.get(v) in st.device and v not in st.in_place:
+                readers = len({id(u.operation) for u in v.uses})
+                work += _points(plan.window_shape(v.type.bounds)) * (1 + readers)
+    return work / _points(plan.tile)
 
 
-def choose_tile(fused_op: stencil.FusedEpochOp) -> tuple:
-    """The tile K2 takes by default, from every tile whose sides divide the
-    core and stay within ``TILE_LIMIT``: those whose shared memory lets two
-    CTAs share an SM (else those one CTA can hold, 227 KB), of those the
-    ones giving at least ``MIN_CTAS`` CTAs where any do, and of those the
-    one of least :func:`tile_cost` (the larger tile on a tie).  A tile may
-    so grow as well as shrink with the epoch.  Registers
-    follow the choice: the kernel is built for the CTAs per SM that its
-    shared memory allows (``__launch_bounds__``), so ptxas keeps each
-    thread within 65,536 / (256 × CTAs) registers.  Raises if even one
-    point per tile needs more than 227 KB."""
-    core = _core(fused_op)
-    cands = [
+def _candidates(core: stencil.Bounds) -> list:
+    """Every tile whose sides divide the core and stay within ``TILE_LIMIT``."""
+    return [
         tuple(t) for t in itertools.product(*(
             _divisors_at_most(n, cap) for n, cap in zip(core.shape, TILE_LIMIT[core.rank])
         ))
     ]
+
+
+def _least_cost(fused_op: stencil.FusedEpochOp, plans: list) -> TilePlan:
+    """Of ``plans``, those giving at least ``MIN_CTAS`` tiles where any do,
+    and of those the one of least :func:`tile_cost` (the larger tile on a
+    tie)."""
+    pool = [p for p in plans if p.n_tiles >= MIN_CTAS] or plans
+    return min(pool, key=lambda p: (tile_cost(fused_op, p), -_points(p.tile), p.tile))
+
+
+def choose_tile(fused_op: stencil.FusedEpochOp) -> tuple:
+    """The tile of K2's default plan (:func:`plan_epoch`)."""
+    return plan_epoch(fused_op).tile
+
+
+def _choose_plan(fused_op: stencil.FusedEpochOp, core: stencil.Bounds) -> TilePlan:
+    """K2's default plan, from every tile of :func:`_candidates`: those
+    whose shared memory lets two CTAs share an SM (else those one CTA can
+    hold, 227 KB), of those the ones giving at least ``MIN_CTAS`` CTAs
+    where any do, and of those the one of least :func:`tile_cost` (the
+    larger tile on a tie).  A tile may so grow as well as shrink with the
+    epoch.  Registers follow the choice: the kernel is built for the CTAs
+    per SM that its shared memory allows (``__launch_bounds__``), so ptxas
+    keeps each thread within 65,536 / (256 × CTAs) registers.  Where even
+    one point per tile needs more than 227 KB, the same choice among the
+    scratch plans of every tile (:func:`_scratch_plan`)."""
+    cands = _candidates(core)
     smem = {t: _storage(fused_op, _plan(core, t)).smem_bytes for t in cands}
     pool = [t for t in cands if smem[t] <= SMEM_TWO_BLOCKS] or [
         t for t in cands if smem[t] <= SMEM_PER_BLOCK
     ]
-    if not pool:
+    if pool:
+        return _least_cost(fused_op, [_plan(core, t) for t in pool])
+    return _least_cost(fused_op, _scratch_plans(fused_op, core, cands, forced=False))
+
+
+def _scratch_plan(fused_op: stencil.FusedEpochOp, core: stencil.Bounds, tile: tuple,
+                  forced: bool) -> Optional[TilePlan]:
+    """The scratch plan of ``tile``: two CTAs an SM, each leaving the other
+    half of the SM's shared memory, where their scratch fits
+    ``SCRATCH_CAP``, else one CTA an SM with 227 KB; every buffer in device
+    memory when ``forced``; None where even one CTA an SM needs more
+    scratch than the cap."""
+    base = _plan(core, tile)
+    for per_sm, budget in ((2, SMEM_TWO_BLOCKS), (1, SMEM_PER_BLOCK)):
+        plan = dataclasses.replace(base, ctas=per_sm * SMS, budget=0 if forced else budget)
+        if scratch_bytes(fused_op, plan) <= SCRATCH_CAP:
+            return plan
+    return None
+
+
+def _scratch_plans(fused_op: stencil.FusedEpochOp, core: stencil.Bounds, tiles: list,
+                   forced: bool) -> list:
+    plans = [p for p in (_scratch_plan(fused_op, core, t, forced) for t in tiles) if p]
+    if not plans:
+        least = min(scratch_bytes(fused_op, dataclasses.replace(
+            _plan(core, t), ctas=SMS, budget=0 if forced else SMEM_PER_BLOCK)) for t in tiles)
         raise ValueError(
-            f"K2 needs {min(smem.values())} bytes of shared memory even for a tile "
-            f"of one point, more than the {SMEM_PER_BLOCK} a CTA may use"
+            f"K2 needs {least} bytes of device-memory scratch for {SMS} CTAs even at its "
+            f"least, more than the {SCRATCH_CAP} a launch may take"
         )
-    pool = [t for t in pool if _plan(core, t).n_tiles >= MIN_CTAS] or pool
+    return plans
 
-    def key(t):
-        points = 1
-        for x in t:
-            points *= x
-        return (tile_cost(fused_op, _plan(core, t)), -points, t)
 
-    return min(pool, key=key)
+def scratch_bytes(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> int:
+    """The device memory a launch of ``plan`` takes for scratch at most:
+    ``plan.ctas`` CTAs' worth (0 for a plan in shared memory only)."""
+    return 4 * _storage(fused_op, plan).scratch_floats * plan.ctas
 
 
 def _plan(core: stencil.Bounds, tile: tuple) -> TilePlan:
     return TilePlan(core, tile, tuple(n // t for n, t in zip(core.shape, tile)))
 
 
-def plan_epoch(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]] = None) -> TilePlan:
+def plan_epoch(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]] = None,
+               scratch: bool = False) -> TilePlan:
     """K2's tile plan for ``fused_op``: ``tile`` if given (it must divide
-    the core and fit in 227 KB of shared memory), else :func:`choose_tile`."""
+    the core and fit in 227 KB of shared memory), else the default plan
+    (:func:`_choose_plan`).  ``scratch`` forces a scratch plan with every
+    buffer in device memory, at ``tile`` or at the scratch plans' own
+    choice: a way to run that mode on an epoch that fits shared memory."""
     core = _core(fused_op)
     if tile is None:
-        return _plan(core, choose_tile(fused_op))
+        if scratch:
+            return _least_cost(fused_op, _scratch_plans(fused_op, core, _candidates(core), True))
+        return _choose_plan(fused_op, core)
     tile = tuple(int(t) for t in tile)
     if len(tile) != core.rank or any(
         t < 1 or n % t for n, t in zip(core.shape, tile)
@@ -387,6 +478,9 @@ def plan_epoch(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]] = N
         raise ValueError(
             f"tile {tile} does not divide the epoch's core {core.shape}"
         )
+    if scratch:
+        (plan,) = _scratch_plans(fused_op, core, [tile], True)
+        return plan
     plan = _plan(core, tile)
     need = _storage(fused_op, plan).smem_bytes
     if need > SMEM_PER_BLOCK:
@@ -400,31 +494,70 @@ def plan_epoch(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]] = N
 
 
 # --------------------------------------------------------------------------
-# Shared memory, by liveness
+# Shared memory, by liveness; device memory where it does not fit
 # --------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
 class _Storage:
-    slot_of: dict  # region value -> shared-memory buffer index
+    slot_of: dict  # region value -> buffer index
     direct: set    # escapes an apply writes straight to device memory
     slot_floats: list
+    # a scratch plan's buffers in device memory -> the floats of the CTA's
+    # scratch they take (0 where only operands, read in place, lived)
+    device: dict = dataclasses.field(default_factory=dict)
+    in_place: set = dataclasses.field(default_factory=set)  # operands read in place
 
     @property
     def smem_bytes(self) -> int:
-        return 4 * sum(-(-n // 4) * 4 for n in self.slot_floats)
+        return 4 * sum(-(-n // 4) * 4 for s, n in enumerate(self.slot_floats)
+                       if s not in self.device)
+
+    @property
+    def scratch_floats(self) -> int:
+        """The floats of one CTA's scratch."""
+        return sum(-(-n // SCRATCH_ALIGN) * SCRATCH_ALIGN for n in self.device.values())
 
     def offsets(self) -> list:
-        """Each buffer's first float; every buffer starts 16-byte aligned,
-        as 16-byte asynchronous copies into it need."""
-        out, acc = [], 0
-        for n in self.slot_floats:
-            out.append(acc)
-            acc += -(-n // 4) * 4
+        """Each buffer's first float, in shared memory or (a buffer of
+        ``device``) in the CTA's scratch; every buffer in shared memory
+        starts 16-byte aligned, as 16-byte asynchronous copies into it
+        need, and every one in scratch on a 128-byte line."""
+        out, acc, dacc = [], 0, 0
+        for s, n in enumerate(self.slot_floats):
+            if s in self.device:
+                out.append(dacc)
+                dacc += -(-self.device[s] // SCRATCH_ALIGN) * SCRATCH_ALIGN
+            else:
+                out.append(acc)
+                acc += -(-n // 4) * 4
         return out
 
 
 def _storage(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> _Storage:
+    """The buffers of ``plan``: shared memory by liveness
+    (:func:`_buffers`), and for a scratch plan the buffers moved to device
+    memory, the largest first, until the rest fits ``plan.budget``: an
+    operand that lived in a moved buffer is read in place, a frame goes
+    to the CTA's scratch."""
+    st = _buffers(fused_op, plan)
+    if not plan.ctas:
+        return st
+    args = set(fused_op.body.args)
+    for s in sorted(range(len(st.slot_floats)), key=lambda k: (-st.slot_floats[k], k)):
+        if st.smem_bytes <= plan.budget:
+            break
+        st.device[s] = 0
+    for v, s in st.slot_of.items():
+        if s in st.device:
+            if v in args:
+                st.in_place.add(v)
+            else:
+                st.device[s] = max(st.device[s], _points(plan.window_shape(v.type.bounds)))
+    return st
+
+
+def _buffers(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> _Storage:
     """Give every region value held on chip a shared-memory buffer, reusing
     a buffer once its value's last reader in the region has run."""
     ops = list(fused_op.body.ops[:-1])  # without the fused_yield
@@ -577,6 +710,7 @@ def emit_epoch_cuda(
     fused_op: stencil.FusedEpochOp,
     tile: Optional[Sequence[int]] = None,
     ptr_align: int = 16,
+    scratch: bool = False,
 ) -> str:
     """CUDA C++ source of K2 for one fused epoch at one tile: a
     ``__global__`` kernel with one CTA per tile, the C launcher
@@ -586,8 +720,14 @@ def emit_epoch_cuda(
     operand pointer has; it bounds the width of the window copies.  The
     launcher takes, after the output pointers, the ``int`` box bounds of
     :func:`box_args`, then the slot count (each slot's operands and
-    escapes one bounds' size past the last's)."""
-    plan = plan_epoch(fused_op, tile)
+    escapes one bounds' size past the last's).
+
+    A scratch plan's kernel (``plan_epoch(fused_op, tile, scratch).ctas``
+    > 0) has its CTAs loop over the (slot, tile) pairs, and its launcher
+    takes, after the slot count, the scratch (``ctas`` times
+    ``_storage(...).scratch_floats`` floats of device memory) and ``ctas``,
+    the CTAs to launch (1 to ``plan.ctas``)."""
+    plan = plan_epoch(fused_op, tile, scratch)
     st = _storage(fused_op, plan)
     offsets = st.offsets()
     rank = plan.core.rank
@@ -595,13 +735,24 @@ def emit_epoch_cuda(
     escapes = _escapes(fused_op)
     n_in, n_out = len(args), len(escapes)
     smem = st.smem_bytes
-    min_ctas = 2 if smem <= SMEM_TWO_BLOCKS else 1
+    looping = plan.ctas > 0
+    min_ctas = plan.ctas // SMS if looping else 2 if smem <= SMEM_TWO_BLOCKS else 1
 
     def wshape(v) -> tuple:
         return plan.window_shape(v.type.bounds)
 
     def buf(v) -> str:
         return f"s{st.slot_of[v]}"
+
+    def strides(v) -> tuple:
+        """A buffer's strides: its window's, or an operand's read in place."""
+        return _k1._strides(v.type.bounds.shape if v in st.in_place else wshape(v))
+
+    def read(v, index: str) -> str:
+        """Point ``index`` (flat, by :func:`strides`) of ``v``'s window."""
+        if v in st.in_place:
+            return f"win{args.index(v)}[{index}]"
+        return f"{buf(v)}[{index}]"
 
     src = [
         "// Generated by repro_torch/kernels/epoch_kernel.py (kernel K2).",
@@ -613,6 +764,13 @@ def emit_epoch_cuda(
         src.append(f"// in{k}: bounds {a.type.bounds.lb}..{a.type.bounds.ub}, window {wshape(a)}")
     for j, e in enumerate(escapes):
         src.append(f"// out{j}: bounds {e.type.bounds.lb}..{e.type.bounds.ub}")
+    if looping:
+        src.append(
+            f"// scratch plan: at most {plan.ctas} CTAs ({min_ctas} an SM) loop over the "
+            f"slots' tiles, {4 * st.scratch_floats} bytes of device-memory scratch each; "
+            f"read in place: {[f'in{args.index(a)}' for a in args if a in st.in_place]}; "
+            f"in scratch: {[f's{s}' for s, n in sorted(st.device.items()) if n]}"
+        )
     src += [f'#include "{_k1._HEADER}"', "", "constexpr int kThreads = "
             f"K1_BLOCK_THREADS({THREADS});", ""]
     boxes = _box_keys(fused_op)
@@ -620,25 +778,43 @@ def emit_epoch_cuda(
     box_params = [f"int box{j}_{end}" for j in range(n_box) for end in ("lo", "hi")]
     params = [f"const float* __restrict__ in{k}_slots" for k in range(n_in)] + [
         f"float* __restrict__ out{j}_slots" for j in range(n_out)
-    ] + box_params
+    ] + box_params + (["int slots", "float* const scratch"] if looping else [])
     src.append(
         f"__global__ void __launch_bounds__({THREADS}, {min_ctas}) k2_epoch("
         + ", ".join(params) + ") {"
     )
     src.append("  K1_DYNAMIC_SMEM(smem);")
     for s, off in enumerate(offsets):
-        src.append(f"  float* const s{s} = smem + {off};")
+        if s not in st.device:
+            src.append(f"  float* const s{s} = smem + {off};")
+    top = src
+    if looping:
+        # this CTA's scratch (64-bit offsets), then its (slot, tile) pairs
+        src.append(f"  float* const sc = scratch + static_cast<long long>(blockIdx.x) * "
+                   f"{st.scratch_floats}LL;")
+        for s, n in sorted(st.device.items()):
+            if n:
+                src.append(f"  float* const s{s} = sc + {offsets[s]};")
+        src.append(f"  for (long long item = blockIdx.x; item < static_cast<long long>(slots) * "
+                   f"{plan.n_tiles}LL; item += gridDim.x) {{")
+        src = ["  K1_SCRATCH_TILE(sc, " f"{st.scratch_floats}LL);"]
     # this CTA's slot (slowest), its tile's index along each dim and its
     # core-relative origin (32-bit: a core extent fits; device offsets are
     # 64-bit)
-    src.append(f"  const long long slot = blockIdx.x / {plan.n_tiles}u;")
+    if looping:
+        src.append(f"  const long long slot = item / {plan.n_tiles}LL;")
+    else:
+        src.append(f"  const long long slot = blockIdx.x / {plan.n_tiles}u;")
     for k, a in enumerate(args):
         src.append(f"  const float* __restrict__ const in{k} = in{k}_slots + slot * "
                    f"{_k1._numel(a.type.bounds.shape)}LL;")
     for j, e in enumerate(escapes):
         src.append(f"  float* __restrict__ const out{j} = out{j}_slots + slot * "
                    f"{_k1._numel(e.type.bounds.shape)}LL;")
-    src.append(f"  int blk = blockIdx.x % {plan.n_tiles}u;")
+    if looping:
+        src.append(f"  int blk = static_cast<int>(item % {plan.n_tiles}LL);")
+    else:
+        src.append(f"  int blk = blockIdx.x % {plan.n_tiles}u;")
     for d in reversed(range(rank)):
         src.append(f"  const int g{d} = blk % {plan.grid[d]};")
         if d:
@@ -648,10 +824,17 @@ def emit_epoch_cuda(
         src.append(f"  const bool first{d} = g{d} == 0;")
         src.append(f"  const bool last{d} = g{d} == {plan.grid[d] - 1};")
         src.append(f"  (void)first{d}; (void)last{d};")
+    for k, a in enumerate(args):
+        if a in st.in_place:
+            origin = " + ".join(f"t{d} * {x}LL" for d, x in enumerate(strides(a)))
+            src.append(f"  const float* __restrict__ const win{k} = in{k} + {origin};")
 
     # every operand's window, device memory -> shared memory, by
     # asynchronous copies; one wait and one barrier for all of them
+    loaded = [a for a in args if a not in st.in_place]
     for k, a in enumerate(args):
+        if a in st.in_place:
+            continue
         ow = wshape(a)
         # the array's rows, the window's rows, the tile's minor side (each
         # window starts at a multiple of it) and the buffer's offset
@@ -678,7 +861,8 @@ def emit_epoch_cuda(
             f"in{k} + {_global_index(a.type.bounds.shape)}, {4 * v});"
         )
         src.append("  }")
-    src += ["  K1_CP_ASYNC_COMMIT();", "  K1_CP_ASYNC_WAIT(0);", "  __syncthreads();"]
+    if loaded or not looping:
+        src += ["  K1_CP_ASYNC_COMMIT();", "  K1_CP_ASYNC_WAIT(0);", "  __syncthreads();"]
 
     def box_of(mask_op) -> dict:
         """``{dim: j}``: the dims a boundary_mask tests, each against the
@@ -757,21 +941,27 @@ def emit_epoch_cuda(
                 lines = mask_column(mask) if mask is not None else []
                 for k in sorted({k for k, _ in groups}):
                     o = op.operands[k]
-                    ostr = _k1._strides(wshape(o))
+                    ostr = strides(o)
                     shift = [r - l for r, l in zip(rb.lb, o.type.bounds.lb)]
                     terms = [f"(a + {shift[0]}) * {ostr[0]}"] + [
                         f"(i{d} + {shift[d]}) * {ostr[d]}" for d in range(1, rank)
                     ]
-                    lines.append(f"    const int b{k} = {' + '.join(terms)};")
+                    # an operand read in place may span more than an int
+                    span = sum((w - 1) * x for w, x in zip(wshape(o), ostr))
+                    ctype = "int" if span < 2**31 else "long long"
+                    if ctype != "int":
+                        terms = [f"static_cast<long long>{t}" if i == 0 else t
+                                 for i, t in enumerate(terms)]
+                    lines.append(f"    const {ctype} b{k} = {' + '.join(terms)};")
                 for g, ((k, rest), rows) in enumerate(groups.items()):
                     o = op.operands[k]
                     ow = wshape(o)
-                    ostr = _k1._strides(ow)
+                    ostr = strides(o)
                     shift0 = rb.lb[0] - o.type.bounds.lb[0]
                     flat_rest = sum(x * s for x, s in zip(rest, ostr[1:]))
                     for row in rows:
                         name = f"x{k}_{g}_{_tag(row)}"
-                        expr = f"{buf(o)}[b{k} + {row * ostr[0] + flat_rest}]"
+                        expr = read(o, f"b{k} + {row * ostr[0] + flat_rest}")
                         if a_last + shift0 + row >= ow[0]:  # past a ragged chunk's window
                             expr = f"(a < {ow[0] - shift0 - row}) ? {expr} : 0.0f"
                         lines.append(f"    const float {name} = {expr};")
@@ -813,25 +1003,35 @@ def emit_epoch_cuda(
             fused = any(m is op for m in mask_of.values())
             if not fused:
                 src.append(f"  // op {n}: comm.boundary_mask")
+                xp = read(x, " + ".join(f"i{d} * {n}" for d, n in enumerate(strides(x)))
+                           if x in st.in_place else "p")
                 if box_of(op):
-                    src += _walk(wshape(r), lambda a_last, op=op: mask_column(op), lambda j, op=op: [
-                        f"      {buf(r)}[p] = ({mask_point(op, j)}) ? {buf(x)}[p] : 0.0f;"])
-                elif st.slot_of[r] != st.slot_of[x]:
-                    line = f"      {buf(r)}[p] = {buf(x)}[p];"
+                    src += _walk(wshape(r), lambda a_last, op=op, xp=xp: mask_column(op),
+                                 lambda j, op=op, xp=xp: [
+                                     f"      {buf(r)}[p] = ({mask_point(op, j)}) ? {xp} : 0.0f;"])
+                elif st.slot_of[r] != st.slot_of[x] or x in st.in_place:
+                    line = f"      {buf(r)}[p] = {xp};"
                     src += _walk(wshape(r), no_column, lambda j, line=line: [line])
             if r in escapes:
                 src.append(f"  // escape of op {n}")
                 src += copy_out(r)
-    if src[-1] == "  __syncthreads();":
+    if looping:
+        # a barrier at the end keeps the next tile's writes behind this
+        # tile's reads
+        if src[-1] != "  __syncthreads();":
+            src.append("  __syncthreads();")
+        src = top + ["  " + line if line else line for line in src] + ["  }"]
+    elif src[-1] == "  __syncthreads();":
         src.pop()  # nothing follows the last phase
     src += ["}", ""]
 
     c_params = [f"const void* in{k}" for k in range(n_in)] + [
         f"void* out{j}" for j in range(n_out)
-    ] + box_params + ["int slots"]
+    ] + box_params + ["int slots"] + (["void* scratch", "int ctas"] if looping else [])
     call_args = [f"static_cast<const float*>(in{k})" for k in range(n_in)] + [
         f"static_cast<float*>(out{j})" for j in range(n_out)
-    ] + [p.split()[1] for p in box_params]
+    ] + [p.split()[1] for p in box_params] + (
+        ["slots", "static_cast<float*>(scratch)"] if looping else [])
     opt_in = []
     if smem > 48 * 1024:
         opt_in = [
@@ -839,11 +1039,18 @@ def emit_epoch_cuda(
             "  if (attr != 0) return attr;",
         ]
     src += [f"K1_EXPORT int {_LAUNCHER}(" + ", ".join(c_params + ["void* stream"]) + ") {"]
-    src += [f"  if (slots < 1 || slots > {_k1._MAX_GRID // plan.n_tiles}) "
-            f"return {_k1._INVALID_VALUE};"]
+    if looping:
+        # the grid is the CTAs the scratch was sized for, each looping over
+        # the slots' tiles with a 64-bit index: any slot count fits
+        src += [f"  if (slots < 1 || ctas < 1 || ctas > {plan.ctas}) return {_k1._INVALID_VALUE};"]
+        grid = "static_cast<unsigned int>(ctas)"
+    else:
+        src += [f"  if (slots < 1 || slots > {_k1._MAX_GRID // plan.n_tiles}) "
+                f"return {_k1._INVALID_VALUE};"]
+        grid = f"static_cast<unsigned int>(slots) * {plan.n_tiles}u"
     src += opt_in
     src += [
-        f"  K1_LAUNCH(k2_epoch, static_cast<unsigned int>(slots) * {plan.n_tiles}u, kThreads, "
+        f"  K1_LAUNCH(k2_epoch, {grid}, kThreads, "
         f"{smem}, stream,",
         "            " + ", ".join(call_args) + ");",
         "  return k1::launch_status();",
@@ -863,25 +1070,52 @@ def emit_epoch_cuda(
 # Entry point
 # --------------------------------------------------------------------------
 
-# fused op -> {(tile, pointer alignment): launcher}: a time loop launches
-# the same epoch at the same tile every call, so its source is emitted once
+# fused op -> {(tile, pointer alignment, scratch forced): _Kernel}: a time
+# loop launches the same epoch at the same tile every call, so its source
+# is emitted once
 _BOUND: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _kernel_for(fused_op: stencil.FusedEpochOp, tile: Optional[tuple], ptr_align: int = 16):
+@dataclasses.dataclass
+class _Kernel:
+    fn: Callable          # the launcher
+    plan: TilePlan
+    source: str
+    scratch_floats: int   # floats of one CTA's scratch (scratch plans)
+    per_sm: dict = dataclasses.field(default_factory=dict)  # device -> resident CTAs an SM
+
+    def ctas(self, dev: torch.device, work: int) -> int:
+        """A scratch plan's grid on ``dev``: the CTAs that can reside at
+        once (the occupancy query times the SMs), at most the plan's and
+        at most ``work``, the (slot, tile) pairs."""
+        per_sm = self.per_sm.get(dev)
+        if per_sm is None:
+            with torch.cuda.device(dev):
+                per_sm = self.per_sm[dev] = _k1.ctas_per_sm(self.source, _OCCUPANCY)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return max(1, min(self.plan.ctas, per_sm * sms, work))
+
+
+def _kernel_for(fused_op: stencil.FusedEpochOp, tile: Optional[tuple], ptr_align: int = 16,
+                scratch: bool = False) -> _Kernel:
+    key = (tile, ptr_align, scratch)
     with _k1._LIBS_LOCK:
         per_op = _BOUND.setdefault(fused_op, {})
-        fn = per_op.get((tile, ptr_align))
-    if fn is None:
-        source = emit_epoch_cuda(fused_op, tile, ptr_align)
+        kernel = per_op.get(key)
+    if kernel is None:
+        plan = plan_epoch(fused_op, tile, scratch)
+        source = emit_epoch_cuda(fused_op, tile, ptr_align, scratch)
         _graphs.register(source, fused_op)
         n_ptrs = len(fused_op.operands) + len(fused_op.results)
         n_ints = 2 * len(set(_box_keys(fused_op).values())) + 1  # the boxes, the slots
-        argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-        fn = _k1._launcher(source, argtypes, _LAUNCHER)
+        argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+        if plan.ctas:
+            argtypes += [ctypes.c_void_p, ctypes.c_int]  # the scratch, the CTAs
+        fn = _k1._launcher(source, argtypes + [ctypes.c_void_p], _LAUNCHER)
+        kernel = _Kernel(fn, plan, source, _storage(fused_op, plan).scratch_floats)
         with _k1._LIBS_LOCK:
-            per_op[(tile, ptr_align)] = fn
-    return fn
+            per_op[key] = kernel
+    return kernel
 
 
 def run_epoch_cuda(
@@ -891,6 +1125,7 @@ def run_epoch_cuda(
     tile: Optional[Sequence[int]] = None,
     coords=None,
     out: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    scratch: bool = False,
 ) -> list:
     """Entry point used by the lowering's ``cuda`` backend: one fused epoch
     on the rank at mesh coordinate ``coords`` (a mesh axis name → its
@@ -900,12 +1135,14 @@ def run_epoch_cuda(
     ``[B, *bounds]`` slot pools (one ``B`` for all): the escapes then are
     too, and one launch computes every slot.
 
-    CPU tensors go through the plain version, with ``masks`` (one 0/1
+    CPU tensors go through the plain version, with ``masks`` (one keep
     tensor per boundary_mask, built by :func:`region_masks` at ``coords``
     when None); CUDA tensors go through the kernel, or the call raises.
     The kernel takes each mask's box at ``coords`` as launch arguments
     (:func:`box_args`) and tests every point against it, so on the card
-    ``masks`` must be None.  ``tile`` overrides :func:`choose_tile`.  Each
+    ``masks`` must be None.  ``tile`` overrides the default plan;
+    ``scratch`` forces a scratch plan (:func:`plan_epoch`).  A scratch
+    plan's launch takes a scratch of device memory, allocated here.  Each
     call counts in ``dispatch_stats().fused_epoch_calls``, each launch in
     ``fused_epoch_launches``."""
     _DISPATCH.fused_epoch_calls += 1
@@ -942,8 +1179,8 @@ def run_epoch_cuda(
             )
     with _obs.span("cuda:fused_epoch", cat="kernel", rank=None, device=dev.type):
         if dev.type == "cpu":
-            if tile is not None:
-                plan_epoch(fused_op, tile)  # refuse what the kernel would refuse
+            if tile is not None or scratch:
+                plan_epoch(fused_op, tile, scratch)  # refuse what the kernel would refuse
             if masks is None:
                 masks = region_masks(fused_op, dev, coords)
             if len(masks) != len(_mask_ops(fused_op)):
@@ -969,12 +1206,19 @@ def run_epoch_cuda(
             if o is None else o
             for r, o in zip(fused_op.results, out)
         ]
-        fn = _kernel_for(fused_op, tile, _k1.ptr_alignment(arrays, len(shapes[0])))
+        kernel = _kernel_for(fused_op, tile, _k1.ptr_alignment(arrays, len(shapes[0])), scratch)
+        grid = []
+        if kernel.plan.ctas:
+            ctas = kernel.ctas(dev, (slots or 1) * kernel.plan.n_tiles)
+            # stream-ordered: the allocator reuses it only after this launch
+            buf = torch.empty(max(1, ctas * kernel.scratch_floats), dtype=torch.float32,
+                              device=dev)
+            grid = [buf.data_ptr(), ctas]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            status = fn(
+            status = kernel.fn(
                 *[a.data_ptr() for a in arrays], *[o.data_ptr() for o in outs],
-                *box_args(fused_op, coords), slots or 1, stream,
+                *box_args(fused_op, coords), slots or 1, *grid, stream,
             )
         if status != 0:
             raise RuntimeError(f"K2 launch failed with CUDA error {status}")

@@ -235,7 +235,9 @@ def tile_candidates(program, target) -> list:
     may use (``SMEM_PER_BLOCK``), the larger on a tie, as ``choose_tile``
     orders them.  The fused epochs are built on the host by running
     ``target``'s pipeline; a tile must suit every epoch of the program,
-    so a tile K2 cannot take is never offered."""
+    so a tile K2 cannot take is never offered.  Where an epoch's default
+    plan keeps buffers in device memory (no tile fits shared memory),
+    only ``None``: an explicit tile means shared memory alone."""
     from repro_torch import api
     from repro_torch.core.dialects import stencil
     from repro_torch.kernels import epoch_kernel as k2
@@ -243,6 +245,8 @@ def tile_candidates(program, target) -> list:
     local, _ = api.lower_local(program, dataclasses.replace(target, tile=None))
     epochs = [op for op in local.body.ops if isinstance(op, stencil.FusedEpochOp)]
     if not epochs:
+        return [None]
+    if any(k2.plan_epoch(e).ctas for e in epochs):
         return [None]
     first = epochs[0]
     core = k2._core(first)

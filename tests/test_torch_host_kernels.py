@@ -17,6 +17,12 @@ strided results, as the executor launches them into one result of the
 combine's shape: their sources run on the host too, writing into one
 NaN-filled buffer, and every point outside the part stays NaN.
 
+Scratch plans (K2's buffers in device memory where shared memory cannot
+hold them): the stand-in's per-tile hook fills the CTA's scratch and its
+shared memory with NaN before every tile a CTA takes, so a looping CTA
+that read a point this tile never wrote would come out NaN rather than
+pass with the previous tile's value.
+
 Slot pools: a launch with a slot count ``B`` (here 3) over ``[B, *shape]``
 operands runs ``B`` times the grid, each slot bitwise equal to the plain
 version of that slot and to a launch of its own; the sources are emitted
@@ -50,15 +56,17 @@ HOST_HEADER = r"""// Host stand-in for the kernels' header stencil_apply_common.
 // into a host library.  One thread per CTA (K1_BLOCK_THREADS is 1, so every
 // loop over a CTA's points runs them all); the launcher walks blockIdx.x
 // over the grid; shared memory is a host buffer filled with NaN before each
-// CTA (a point that reads shared memory nothing wrote comes out NaN);
-// cp.async is a copy that first checks the alignment its size needs;
-// __syncthreads does nothing.
+// CTA (a point that reads shared memory nothing wrote comes out NaN), and
+// before each tile of a K2 scratch plan its CTA's scratch and shared memory
+// are filled with NaN again; cp.async is a copy that first checks the
+// alignment its size needs; __syncthreads does nothing.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
 
+#include <algorithm>
 #include <limits>
 #include <vector>
 
@@ -69,6 +77,7 @@ HOST_HEADER = r"""// Host stand-in for the kernels' header stencil_apply_common.
 
 struct k1_host_index { unsigned int x; };
 static k1_host_index blockIdx = {0u};
+static k1_host_index gridDim = {1u};
 static const k1_host_index threadIdx = {0u};
 
 namespace k1_host {
@@ -80,6 +89,11 @@ inline void copy(float* dst, const float* src, int bytes) {
     status = 1;
   }
   memcpy(dst, src, bytes);
+}
+
+inline void scratch_tile(float* scratch, long long floats) {
+  std::fill(scratch, scratch + floats, std::numeric_limits<float>::quiet_NaN());
+  std::fill(smem.begin(), smem.end(), std::numeric_limits<float>::quiet_NaN());
 }
 }  // namespace k1_host
 
@@ -98,8 +112,10 @@ inline float __int_as_float(unsigned int bits) {
 #define K1_CP_ASYNC_WAIT(n) ((void)0)
 #define K1_OPT_IN_SMEM(kernel, bytes) 0
 #define K1_OCCUPANCY(blocks, kernel, threads, smem) (*(blocks) = 1, 0)
+#define K1_SCRATCH_TILE(scratch, floats) k1_host::scratch_tile((scratch), (floats))
 #define K1_LAUNCH(kernel, grid, block, smem_bytes, stream, ...)                      \
   do {                                                                               \
+    gridDim.x = static_cast<unsigned int>(grid);                                     \
     for (unsigned int b_ = 0; b_ < static_cast<unsigned int>(grid); ++b_) {          \
       k1_host::smem.assign((smem_bytes) / 4 + 4, std::numeric_limits<float>::quiet_NaN()); \
       blockIdx.x = b_;                                                               \
@@ -120,14 +136,17 @@ def _applies(prog, k=1):
 
 def _epoch(prog, k, mesh=None):
     """The fused epoch of ``prog`` at depth ``k``, on one device or (``mesh``
-    given) on each rank of a 2×2 mesh of CPU ranks."""
-    dist = {} if mesh is None else {"mesh": mesh, "strategy": make_strategy_2d((2, 2))}
+    given) on each rank of a 2×2 (or 2×2×1) mesh of CPU ranks."""
+    strategy = make_strategy_2d((2, 2)) if mesh is MESH_2X2 else make_strategy_3d((2, 2, 1))
+    dist = {} if mesh is None else {"mesh": mesh, "strategy": strategy}
     target = Target(backend="cuda", exchange_every=k, fused_epoch=True, device="cpu", **dist)
     (op,) = api.compile(prog, target).kernel_epochs()
     return op
 
 
 MESH_2X2 = Mesh(np.array([torch.device("cpu")] * 4, dtype=object).reshape(2, 2), ("x", "y"))
+MESH_2X2X1 = Mesh(np.array([torch.device("cpu")] * 4, dtype=object).reshape(2, 2, 1),
+                  ("x", "y", "z"))
 CORNERS = [{"x": x, "y": y} for x in (0, 1) for y in (0, 1)]
 
 
@@ -203,6 +222,21 @@ K2_CASES = {
 }
 
 
+# K2 scratch plans, whose CTAs loop over tiles with buffers in device
+# memory: name -> (program, k, tile, scratch forced, mesh coords).  No
+# tile of heat so4 k=8 or wave so8 k=4 fits shared memory (their default
+# plans keep some buffers on chip and some in scratch); the forced case
+# puts every buffer of an epoch that fits in device memory, at the tile of
+# "heat3d-so4-k2"; the corner is a rank's epoch of a 2×2×1 mesh
+K2_SCRATCH_CASES = {
+    "heat3d-so4-k8": (lambda: P.heat("repro_torch", (20, 16, 16), 4), 8, None, False, None),
+    "wave3d-so8-k4": (lambda: P.wave("repro_torch", (20, 16, 18), 8), 4, None, False, None),
+    "heat3d-so4-k2-forced": (lambda: P.heat("repro_torch", (12, 10, 16), 4), 2, (4, 5, 8), True,
+                             None),
+    "heat3d-so4-k8-2x2x1-corner": (lambda: P.heat("repro_torch", (40, 32, 16), 4), 8, None, False,
+                                   {"x": 1, "y": 0}),
+}
+
 # pooled launches (B = 3): K1 cases and K2 cases run with a slot count; the
 # combine's parts write into a [B, *combine] result
 POOL_SLOTS = 3
@@ -277,6 +311,12 @@ def built(tmp_path_factory):
         shapes = [a.type.bounds.shape for a in op.body.args]
         add(("k2-pool", name), (op, tile, coords),
             k2.emit_epoch_cuda(op, tile, ptr_align=_pool_align(shapes, len(shapes[0]))))
+    for name, (prog, k, tile, forced, coords) in K2_SCRATCH_CASES.items():
+        op = _epoch(prog(), k, None if coords is None else MESH_2X2X1)
+        shapes = [a.type.bounds.shape for a in op.body.args]
+        add(("k2-scratch", name), (op, tile, forced, coords),
+            k2.emit_epoch_cuda(op, tile, ptr_align=_pool_align(shapes, len(shapes[0])),
+                               scratch=forced))
     (heat,) = K1_CASES["heat2d-so4-zero"]()
     add(("k1", "unaligned"), heat, k1.emit_apply_cuda(*_spec(heat), ptr_align=4))
     op = _epoch(P.heat("repro_torch", (48, 40), 4), 4)
@@ -300,22 +340,30 @@ def _inputs(shapes, seed, offset=0):
     return out
 
 
-def _run(path, symbol, inputs, out_shapes, ints=(), slots=1):
+def _run(path, symbol, inputs, out_shapes, ints=(), slots=1, scratch=None, status=0):
     """Launch a built source's ``symbol`` on ``inputs``: pointers, then the
     ``int`` arguments ``ints`` (K2's box bounds), the slot count, for K1
     each result's slot stride (its size: the results are contiguous
-    ``[slots, *shape]`` pools when ``slots`` > 1), then the stream."""
+    ``[slots, *shape]`` pools when ``slots`` > 1), for a K2 scratch plan
+    (``scratch``: its floats a CTA and the CTAs to launch) a NaN-filled
+    scratch and the CTAs, then the stream; the launcher must return
+    ``status``."""
     fn = getattr(ctypes.CDLL(str(path)), symbol)
     k1_slot_strides = [int(np.prod(s)) for s in out_shapes] if symbol == "k1_apply_launch" else []
+    grid, grid_types = [], []
+    if scratch is not None:
+        floats, ctas = scratch
+        area = torch.full((max(1, floats * ctas),), float("nan"))
+        grid, grid_types = [area.data_ptr(), ctas], [ctypes.c_void_p, ctypes.c_int]
     fn.argtypes = ([ctypes.c_void_p] * (len(inputs) + len(out_shapes))
                    + [ctypes.c_int] * (len(ints) + 1) + [ctypes.c_longlong] * len(k1_slot_strides)
-                   + [ctypes.c_void_p])
+                   + grid_types + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lead = (slots,) if slots > 1 else ()
     outs = [torch.full(lead + tuple(s), float("nan")) for s in out_shapes]
-    status = fn(*[x.data_ptr() for x in inputs], *[o.data_ptr() for o in outs], *ints, slots,
-                *k1_slot_strides, None)
-    assert status == 0  # the stand-in reports a copy wider than its pointers' alignment
+    got = fn(*[x.data_ptr() for x in inputs], *[o.data_ptr() for o in outs], *ints, slots,
+             *k1_slot_strides, *grid, None)
+    assert got == status  # the stand-in reports a copy wider than its pointers' alignment
     return outs
 
 
@@ -504,5 +552,92 @@ def test_k2_pooled_source_on_host_matches_plain_and_solo_launches(built, name):
                            lambda v: v.type.bounds)
     for b in range(POOL_SLOTS):
         solo = _run(path, "k2_epoch_launch", [a[b].clone() for a in arrays], outs, boxes)
+        for g, w, o in zip(got, want, solo):
+            assert torch.equal(g[b], w[b]) and torch.equal(g[b], o)
+
+
+def _scratch_launch(op, tile, forced, path, arrays, coords=None, slots=1, ctas=None):
+    """One launch of a K2 scratch source, by default on as many CTAs as its
+    plan sizes its scratch for (at most one a (slot, tile) pair)."""
+    plan = k2.plan_epoch(op, tile, forced)
+    assert plan.ctas > 0
+    ctas = min(plan.ctas, slots * plan.n_tiles) if ctas is None else ctas
+    return _run(path, "k2_epoch_launch", arrays, [r.type.bounds.shape for r in op.results],
+                k2.box_args(op, coords), slots,
+                scratch=(k2._storage(op, plan).scratch_floats, ctas))
+
+
+def _plain(op, arrays, coords=None):
+    return k2._emit_region(op, arrays, k2.region_masks(op, "cpu", coords), lambda v: v.type.bounds)
+
+
+@pytest.mark.parametrize("name", sorted(K2_SCRATCH_CASES))
+def test_k2_scratch_source_on_host_matches_plain_version(built, name):
+    """K2 with buffers in device memory, its CTAs looping over the tiles,
+    bitwise equal to its plain version: heat so4 k=8 and wave so8 k=4 in
+    3-D (no shared-memory plan fits; wave's carried escape over [-r, n+r)
+    from frames in scratch), every buffer forced off chip, and a rank's
+    keep box on a 2×2×1 mesh.  Scratch and shared memory are NaN before
+    every tile."""
+    ((op, tile, forced, coords), path), = built["k2-scratch", name]
+    plan = k2.plan_epoch(op, tile, forced)
+    st = k2._storage(op, plan)
+    assert plan.ctas and st.scratch_floats and st.in_place
+    assert forced or plan.ctas < plan.n_tiles  # so a CTA takes several tiles
+    assert (st.smem_bytes == 0) == forced
+    if not forced:  # no plan of shared memory alone fits
+        with pytest.raises(ValueError, match="shared memory"):
+            k2.plan_epoch(op, plan.tile)
+    arrays = _inputs([a.type.bounds.shape for a in op.body.args], seed=3)
+    got = _scratch_launch(op, tile, forced, path, arrays, coords)
+    want = _plain(op, arrays, coords)
+    assert len(got) == len(want) == len(op.results)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k2_scratch_forced_equals_shared_memory_on_the_same_tile(built):
+    """3-D heat so4 k=2 with every buffer in device memory and the same
+    epoch at the same tile in shared memory only: bitwise equal."""
+    ((op, tile, _, _), path), = built["k2-scratch", "heat3d-so4-k2-forced"]
+    ((op_s, tile_s), path_s), = built["k2", "heat3d-so4-k2"]
+    assert tile == tile_s and k2.plan_epoch(op_s, tile_s).ctas == 0
+    arrays = _inputs([a.type.bounds.shape for a in op.body.args], seed=4)
+    (got,) = _scratch_launch(op, tile, True, path, arrays)
+    (shared,) = _run(path_s, "k2_epoch_launch", arrays, [op_s.results[0].type.bounds.shape],
+                     k2.box_args(op_s))
+    assert torch.equal(got, shared) and torch.equal(got, _plain(op, arrays)[0])
+
+
+@pytest.mark.parametrize("ctas", [1, 3])
+def test_k2_scratch_grid_smaller_than_the_tiles(built, ctas):
+    """A scratch launch on fewer CTAs than tiles (one CTA takes them all,
+    or three take about a third each): bitwise the plain version; the
+    launcher refuses no CTAs and more than its plan sized."""
+    ((op, tile, forced, coords), path), = built["k2-scratch", "wave3d-so8-k4"]
+    arrays = _inputs([a.type.bounds.shape for a in op.body.args], seed=5)
+    got = _scratch_launch(op, tile, forced, path, arrays, ctas=ctas)
+    for g, w in zip(got, _plain(op, arrays)):
+        assert torch.equal(g, w)
+    plan = k2.plan_epoch(op, tile, forced)
+    floats = k2._storage(op, plan).scratch_floats
+    outs = [r.type.bounds.shape for r in op.results]
+    for bad in (0, plan.ctas + 1):
+        _run(path, "k2_epoch_launch", arrays, outs, k2.box_args(op), scratch=(floats, bad),
+             status=1)
+
+
+def test_k2_scratch_pooled_source_matches_plain_and_solo_launches(built):
+    """A scratch source launched with a slot count of 3 over ``[3,
+    *bounds]`` operands on 5 CTAs, each looping over (slot, tile) pairs of
+    several slots: each slot bitwise equal to the plain version and to a
+    launch on that slot alone."""
+    ((op, tile, forced, _), path), = built["k2-scratch", "heat3d-so4-k2-forced"]
+    arrays = _pool_inputs([a.type.bounds.shape for a in op.body.args], seed=6)
+    assert k2.plan_epoch(op, tile, forced).n_tiles == 12
+    got = _scratch_launch(op, tile, forced, path, arrays, slots=POOL_SLOTS, ctas=5)
+    want = _plain(op, arrays)
+    for b in range(POOL_SLOTS):
+        solo = _scratch_launch(op, tile, forced, path, [a[b].clone() for a in arrays])
         for g, w, o in zip(got, want, solo):
             assert torch.equal(g[b], w[b]) and torch.equal(g[b], o)
