@@ -234,22 +234,25 @@ check raises and the script exits non-zero:
    s and 75 GiB a card.
 
 20. deep 3-D fused epochs (``deep_phase``), which no tile of shared memory
-   holds, so K2 keeps buffers in device memory (its scratch plans, CTAs
-   looping over the tiles): (a) at 256³ heat so4 k=8, wave so8 k=4 and
-   heat so4 k=2 with every buffer forced off chip, K2 bitwise its plain
-   version (the forced case also K2 in shared memory at the same tile),
-   and a pool of 2 slots in one launch against solo launches; (b) the main
-   path at 1024³: fused heat so4 and so8 k=8, wave so4 k=8 and so8 k=4,
+   holds (or, heat so8 k=4, only as 2x2x2 tiles), so K2 streams planes
+   through rings of shared memory (its streaming plans), or keeps buffers
+   in device memory (its scratch plans) where no stream fits: (a) at 256³
+   heat so4 k=8, heat so8 k=4, wave so4 k=8 and so8 k=4 streaming, the
+   scratch plans and 2x2x2 tiles they had before, and heat so4 k=2 forced
+   off chip and forced to stream, K2 bitwise its plain version (the
+   forced cases also K2 in shared memory at its tile), and a pool of 2
+   slots in one launch against solo launches; (b) the main path at 1024³:
+   fused heat so4 and so8 k=8, heat so8 k=4, wave so4 k=8 and so8 k=4,
    one K2 launch and no K1 launch an epoch, bitwise against the unfused
    route and ``Target(backend="torch")``, then ``jit=True, donate=True``
    bitwise ``jit=False`` with one K2 node and no K1 node in each captured
-   graph; K2 timed beside its bound, its plain version and the unfused
-   route's ms an epoch, with its scratch bytes, registers, shared memory,
-   CTAs an SM and peak memory; (c) heat so4 k=8 over a 2x2x1 mesh of this
-   card bitwise against one device, four K2 launches an epoch, its
-   rank-local K2 bitwise the plain version at each corner's box.  Each
-   1024³ case joins the kernels line.  ``python3 chip_smoke.py --phase 20``
-   runs phase 0 and phase 20 alone.
+   graph; K2 timed beside its bound, its plain version, its old plan
+   (bitwise) and the unfused route's ms an epoch, with its plan,
+   registers, spills, shared memory, CTAs an SM and peak memory; (c) heat
+   so4 k=8 over a 2x2x1 mesh of this card bitwise against one device,
+   four K2 launches an epoch, its rank-local K2 bitwise the plain version
+   at each corner's box.  Each 1024³ case joins the kernels line.
+   ``python3 chip_smoke.py --phase 20`` runs phase 0 and phase 20 alone.
 
 Phase 1 also runs K1 heat so4 at 1024² on a pool of 16 slots, and phase 6
 K2 heat so4 k=4 at 16384² on a pool of 2, each in one launch, bitwise
@@ -4809,10 +4812,22 @@ def p19_phase(dev, *, card="", cut=None, n2=16384, conv=(8192, 32768), attn_S=40
     return out
 
 
-# -- phase 20: deep 3-D fused epochs (K2 with buffers in device memory) -------
+# -- phase 20: deep 3-D fused epochs (K2's streaming and scratch plans) -------
 # (kind, space order, k): the fig-7 3-D epochs no tile of shared memory can
-# hold, which K2 runs as scratch plans
-DEEP_CASES = (("heat", 4, 8), ("heat", 8, 8), ("wave", 4, 8), ("wave", 8, 4))
+# hold, or (heat so8 k=4) only as 2x2x2 tiles
+DEEP_CASES = (("heat", 4, 8), ("heat", 8, 8), ("heat", 8, 4), ("wave", 4, 8), ("wave", 8, 4))
+# K2's plan of each at 1024^3: streaming, but for heat so8 k=8 (no stream
+# fits) and wave so8 k=4 (its stream ran slower than its scratch plan, so
+# the cost model weighs a one-CTA-an-SM stream against scratch)
+DEEP_PLAN = {("heat", 4, 8): "stream", ("heat", 8, 8): "scratch", ("heat", 8, 4): "stream",
+             ("wave", 4, 8): "stream", ("wave", 8, 4): "scratch"}
+# the other plan phase 20 times beside each, as run_epoch_cuda's keywords:
+# the scratch plan the streaming ones replaced, heat so8 k=4's 2x2x2 tile
+# (timed at the small size: at 1024^3 one epoch of it would take the
+# model's ~8465 thread-points an owned point), wave so8 k=4's stream
+DEEP_OTHER = {("heat", 4, 8): {"stream": False}, ("heat", 8, 8): None,
+              ("heat", 8, 4): {"tile": (2, 2, 2)}, ("wave", 4, 8): {"stream": False},
+              ("wave", 8, 4): {"stream": True}}
 
 
 def fig7_op(kind, shape, so, boundary="zero"):
@@ -4838,91 +4853,124 @@ def deep_mesh(dev):
             "strategy": make_strategy_3d((2, 2, 1))}
 
 
-def deep_targets(dev, n3=1024, small=256) -> list:
-    """Phase 20's kernels: ``(label, fused op, tile, scratch forced)`` of
-    the kernel-level cases at ``small``³, then ``(label, op, target
-    kwargs)`` of the main-path cases at ``n3``³ (heat so4 k=8 also over a
-    2x2x1 mesh of ``dev``)."""
+def deep_epoch(dev, op, k, **kw):
+    """The fused epoch of ``op`` at depth ``k`` on ``dev`` (one rank's on a
+    mesh given in ``kw``)."""
     from repro_torch import api
     from repro_torch.api import Target
 
-    def epoch(op, k, **kw):
-        (e,) = api.compile(op.program, Target(device=str(dev), backend="cuda", jit=False,
-                                              exchange_every=k, fused_epoch=True,
-                                              **kw)).kernel_epochs()
-        return e
+    (e,) = api.compile(op.program, Target(device=str(dev), backend="cuda", jit=False,
+                                          exchange_every=k, fused_epoch=True,
+                                          **kw)).kernel_epochs()
+    return e
 
+
+def deep_targets(dev, n3=1024, small=256) -> list:
+    """Phase 20's kernels: ``(label, fused op, run_epoch_cuda keywords,
+    kind, tiled)`` of the kernel-level cases at ``small``³ (``kind``: the
+    plan they must run, "stream", "scratch" or "tile"; ``tiled``: a plan
+    forced on an epoch that a tile of shared memory holds, run beside K2
+    on that tile), then ``(label, op,
+    target kwargs, the other plan's keywords, kind)`` of the main-path
+    cases at ``n3``³ (heat so4 k=8 also over a 2x2x1 mesh of ``dev``;
+    ``kind`` the plan of ``DEEP_PLAN``)."""
     from repro_torch.kernels import epoch_kernel as k2
 
-    heat2 = epoch(fig7_op("heat", (small,) * 3, 4), 2)
+    ops = {(kind, so, k): deep_epoch(dev, fig7_op(kind, (small,) * 3, so), k)
+           for kind, so, k in (("heat", 4, 8), ("heat", 8, 4), ("wave", 4, 8), ("wave", 8, 4),
+                               ("heat", 4, 2))}
+    heat2 = ops["heat", 4, 2]
     kernel_cases = [
-        (f"heat3d_so4 {small}^3 k=8", epoch(fig7_op("heat", (small,) * 3, 4), 8), None, False),
-        (f"wave3d_so8 {small}^3 k=4", epoch(fig7_op("wave", (small,) * 3, 8), 4), None, False),
-        (f"heat3d_so4 {small}^3 k=2, scratch forced", heat2, k2.plan_epoch(heat2).tile, True),
+        (f"{kind}3d_so{so} {small}^3 k={k}, streaming", ops[kind, so, k], {"stream": True},
+         "stream", False)
+        for kind, so, k in (("heat", 4, 8), ("heat", 8, 4), ("wave", 4, 8), ("wave", 8, 4))
+    ] + [
+        (f"heat3d_so4 {small}^3 k=8, scratch plan", ops["heat", 4, 8], {"stream": False},
+         "scratch", False),
+        (f"wave3d_so8 {small}^3 k=4, scratch plan", ops["wave", 8, 4], {"stream": False},
+         "scratch", False),
+        (f"heat3d_so8 {small}^3 k=4, 2x2x2 tiles", ops["heat", 8, 4], {"tile": (2, 2, 2)}, "tile",
+         False),
+        (f"heat3d_so4 {small}^3 k=2, scratch forced", heat2,
+         {"tile": k2.plan_epoch(heat2, stream=False).tile, "scratch": True}, "scratch", True),
+        (f"heat3d_so4 {small}^3 k=2, streaming forced", heat2, {"stream": True}, "stream", True),
     ]
     main_cases = [(f"{kind}3d_so{so} {n3}^3 k={k} fused", fig7_op(kind, (n3,) * 3, so),
-                   {"exchange_every": k, "fused_epoch": True}) for kind, so, k in DEEP_CASES]
+                   {"exchange_every": k, "fused_epoch": True}, DEEP_OTHER[kind, so, k],
+                   DEEP_PLAN[kind, so, k]) for kind, so, k in DEEP_CASES]
     # heat so4 k=8 over a 2x2x1 mesh, right after its single-device run
     main_cases.insert(1, (f"{main_cases[0][0]}, 2x2x1 ranks", main_cases[0][1],
-                          {**main_cases[0][2], **deep_mesh(dev)}))
+                          {**main_cases[0][2], **deep_mesh(dev)}, None, "stream"))
     return kernel_cases, main_cases
 
 
 def deep_sources(dev, n3=1024, small=256) -> list:
-    """Every K1 and K2 source phase 20 launches (K2 at each case's plan and
-    at the forced case's tile in shared memory; the unfused route's K1)."""
+    """Every K1 and K2 source phase 20 launches (K2 at each case's plan,
+    at the forced cases' tile in shared memory and at the main cases'
+    other plans; the unfused route's K1)."""
     from repro_torch import api
     from repro_torch.api import Target
     from repro_torch.kernels import epoch_kernel as k2
-    from repro_torch.kernels import stencil_apply as k1
 
     kernel_cases, main_cases = deep_targets(dev, n3, small)
     out = []
-    for _, op, tile, forced in kernel_cases:
-        out.append(k2.emit_epoch_cuda(op, tile, scratch=forced))
-        if forced:
-            out.append(k2.emit_epoch_cuda(op, tile))
-    for _, op, kw in main_cases:
+    for _, op, kw, _, tiled in kernel_cases:
+        out.append(k2.emit_epoch_cuda(op, **kw))
+        if tiled:  # beside K2 at its tile
+            out.append(k2.emit_epoch_cuda(op, k2.plan_epoch(op, stream=False).tile))
+    for _, op, kw, old, _ in main_cases:
         unfused = {k: v for k, v in kw.items() if k != "fused_epoch"}
         for k in (kw, unfused):
             out += api.compile(op.program, Target(device=str(dev), backend="cuda", jit=False,
                                                   **k)).kernel_sources()
+        if old and "tile" not in old:
+            out.append(k2.emit_epoch_cuda(deep_epoch(dev, op, kw["exchange_every"]), **old))
     return list(dict.fromkeys(out))
 
 
 def kernel_resources(source, symbol="k2_epoch_occupancy") -> str:
-    """Registers a thread (``ptxas -v``), shared memory a CTA and resident
-    CTAs an SM (through the source's occupancy query ``symbol``) of a
-    built K1 or K2 source."""
+    """Registers a thread and spill stores (``ptxas -v``), shared memory a
+    CTA and resident CTAs an SM (through the source's occupancy query
+    ``symbol``) of a built K1 or K2 source."""
     from repro_torch.kernels import stencil_apply as k1
 
     log_path = k1.library_path(source).with_suffix(".log")
+    lines = log_path.read_text().splitlines()
     regs = [line.split("Used", 1)[1].split("registers")[0].strip()
-            for line in log_path.read_text().splitlines() if "Used" in line and "registers" in line]
+            for line in lines if "Used" in line and "registers" in line]
+    spills = [line.split("bytes spill stores")[0].rsplit(",", 1)[-1].strip()
+              for line in lines if "bytes spill stores" in line]
     smem = int(source.split(" bytes of shared memory")[0].rsplit(" ", 1)[1])
     ctas = k1.ctas_per_sm(source, symbol)
-    return f"{regs[0]} registers/thread, {smem} B shared/CTA, {ctas} CTAs/SM"
+    spill = f", {spills[0]} B spill stores" if spills else ""
+    return f"{regs[0]} registers/thread{spill}, {smem} B shared/CTA, {ctas} CTAs/SM"
 
 
 def deep_phase(dev, *, card="", n3=1024, small=256, steps=STEPS) -> list:
-    """Phase 20: deep 3-D fused epochs, which K2 runs with buffers in device
-    memory (scratch plans).  (a) at ``small``³: heat so4 k=8, wave so8 k=4
-    and heat so4 k=2 with every buffer forced off chip, each K2 launch
-    bitwise its plain version (the forced case also bitwise K2 in shared
-    memory at the same tile), and a pool of 2 slots in one launch against
-    solo launches; (b) the main path at ``n3``³ for each of
-    ``DEEP_CASES``: ``Operator.apply`` through ``Target(backend="cuda",
-    exchange_every=k, fused_epoch=True)``, one K2 launch and no K1 launch an
-    epoch, bitwise against the unfused route and the torch backend, then
-    ``jit=True, donate=True`` bitwise against ``jit=False`` with one K2
-    node and no K1 node in each captured graph; K2 timed beside its bound,
-    its plain version and the unfused route's ms an epoch, with its scratch
-    bytes, registers, shared memory, CTAs an SM and peak memory; (c) heat
+    """Phase 20: deep 3-D fused epochs, which K2 runs as streaming plans
+    (a minor tile, the core walked plane by plane through rings of shared
+    memory) or, where no stream fits (heat so8 k=8), as a scratch plan
+    (buffers in device memory).  (a) at ``small``³: heat so4 k=8, heat so8
+    k=4, wave so4 k=8 and wave so8 k=4 streaming, heat so4 k=8 and wave so8
+    k=4 on their scratch plans, heat so8 k=4 on 2x2x2 tiles, heat so4 k=2
+    with every buffer forced off chip and forced to stream, each K2 launch
+    bitwise its plain version (the forced cases also K2 in shared memory
+    at the same tile), and a pool of 2 slots in one launch against solo
+    launches; (b) the main path at ``n3``³ for each of ``DEEP_CASES``:
+    ``Operator.apply`` through ``Target(backend="cuda", exchange_every=k,
+    fused_epoch=True)``, one K2 launch and no K1 launch an epoch, bitwise
+    against the unfused route and the torch backend, then ``jit=True,
+    donate=True`` bitwise against ``jit=False`` with one K2 node and no K1
+    node in each captured graph; K2 timed beside its bound, its plain
+    version, the other plan (``DEEP_OTHER``: the one it replaced, or for
+    wave so8 k=4 the slower stream; bitwise) and the unfused route's ms an
+    epoch, with its plan,
+    registers, spills, shared memory, CTAs an SM and peak memory; (c) heat
     so4 k=8 over a 2x2x1 mesh of this card bitwise against one device,
     four K2 launches an epoch, its rank-local K2 at each corner's box
-    against the plain version.  Returns the kernels line's records.  On the
-    CPU (a rehearsal at small sizes) the wrappers run their plain versions,
-    which launch nothing."""
+    against the plain version.  Returns the kernels line's records.  On
+    the CPU (a rehearsal at small sizes) the wrappers run their plain
+    versions, which launch nothing."""
     import torch
 
     from repro_torch import api
@@ -4934,7 +4982,7 @@ def deep_phase(dev, *, card="", n3=1024, small=256, steps=STEPS) -> list:
 
     on_card = dev.type == "cuda"
     t_phase = time.perf_counter()
-    log(f"phase 20: deep 3-D fused epochs, K2 with buffers in device memory ({card})")
+    log(f"phase 20: deep 3-D fused epochs, K2's streaming and scratch plans ({card})")
     gen = torch.Generator(device=dev) if on_card else torch.Generator()
     kernel_cases, main_cases = deep_targets(dev, n3, small)
     if on_card:
@@ -4989,39 +5037,52 @@ def deep_phase(dev, *, card="", n3=1024, small=256, steps=STEPS) -> list:
               f"{what} (max |err| {err})")
         return err
 
-    def scratch_line(fused_op, tile=None, forced=False, slots=1):
-        plan = k2.plan_epoch(fused_op, tile, forced)
+    def kind_of(plan):
+        return "stream" if plan.stream else "scratch" if plan.ctas else "tile"
+
+    def plan_line(fused_op, slots=1, **kw):
+        """The plan ``kw`` gives ``fused_op`` and, on the card, its kernel's
+        resources."""
+        plan = k2.plan_epoch(fused_op, **kw)
         st = k2._storage(fused_op, plan)
-        line = (f"tile {plan.tile}, {plan.n_tiles} tiles a slot, {st.smem_bytes} B shared, "
-                f"at most {plan.ctas} CTAs x {4 * st.scratch_floats} B of scratch "
-                f"({k2.scratch_bytes(fused_op, plan)} B planned)")
+        line = (f"{kind_of(plan)} plan, tile {plan.tile}, {plan.n_tiles} tiles a slot, "
+                f"{st.smem_bytes} B shared, tile_cost {k2.tile_cost(fused_op, plan):.2f}")
+        if plan.stream:
+            line += (", rings " + " ".join(f"{st.depth[s]}x{st.plane[s]}" for s in sorted(st.depth))
+                     + (", prefetch plane" if plan.prefetch else ""))
+        if plan.ctas:
+            line += (f", at most {plan.ctas} CTAs x {4 * st.scratch_floats} B of scratch "
+                     f"({k2.scratch_bytes(fused_op, plan)} B planned)")
         if on_card:
-            kernel = k2._kernel_for(fused_op, tile, 16, forced)
-            ctas = kernel.ctas(dev, slots * plan.n_tiles)
-            line += (f", launched on {ctas} CTAs: {4 * ctas * kernel.scratch_floats} B of "
-                     f"scratch; {kernel_resources(kernel.source)}")
+            kernel = k2._kernel_for(fused_op, kw.get("tile"), 16, kw.get("scratch", False),
+                                    kw.get("stream"))
+            if plan.ctas:
+                ctas = kernel.ctas(dev, slots * plan.n_tiles)
+                line += f", launched on {ctas} CTAs: {4 * ctas * kernel.scratch_floats} B of scratch"
+            line += f"; {kernel_resources(kernel.source)}"
         return line
 
-    # -- (a) K2's scratch plans against the plain version ----------------------
-    for name, fused_op, tile, forced in kernel_cases:
+    # -- (a) K2's plans at small^3 against the plain version ------------------
+    for name, fused_op, kw, kind, tiled in kernel_cases:
         arrays = [randn(a.type.bounds.shape) for a in fused_op.body.args]
         reset_dispatch_stats()
-        got = k2.run_epoch_cuda(fused_op, arrays, None, tile=tile, scratch=forced)
+        got = k2.run_epoch_cuda(fused_op, arrays, None, **kw)
         launches_of("K2", 1)
         err = equal(got, plain(fused_op, arrays), f"{name}: K2 differs from its plain version")
-        check(k2.plan_epoch(fused_op, tile, forced).ctas > 0, f"{name}: not a scratch plan")
+        check(kind_of(k2.plan_epoch(fused_op, **kw)) == kind, f"{name}: not a {kind} plan")
         extra = ""
-        if forced:
+        if tiled:
+            tile = k2.plan_epoch(fused_op, stream=False).tile
             shared = k2.run_epoch_cuda(fused_op, arrays, None, tile=tile)
-            equal(got, shared, f"{name}: K2 in device memory differs from K2 in shared memory")
-            ms_shared = ms_of(lambda: k2.run_epoch_cuda(fused_op, arrays, None, tile=tile), 5)
-            extra = f"; bitwise K2 in shared memory at that tile ({ms_shared:.4f} ms)"
-        ms = ms_of(lambda: k2.run_epoch_cuda(fused_op, arrays, None, tile=tile, scratch=forced), 5)
+            equal(got, shared, f"{name}: K2 differs from K2 in shared memory at {tile}")
+            ms_shared = ms_of(lambda: k2.run_epoch_cuda(fused_op, arrays, None, tile=tile), 3)
+            extra = f"; bitwise K2 on the tile {tile} of shared memory ({ms_shared:.4f} ms)"
+        ms = ms_of(lambda: k2.run_epoch_cuda(fused_op, arrays, None, **kw), 3)
         log(f"  {name}: K2 bitwise its plain version (max |err| {err}), {ms:.4f} ms/launch, "
-            f"{scratch_line(fused_op, tile, forced)}{extra}")
+            f"{plan_line(fused_op, **kw)}{extra}")
         del got, arrays
     # a pool of 2 slots in one launch against each slot alone
-    name, fused_op, _, _ = kernel_cases[0]
+    name, fused_op, _, _, _ = kernel_cases[0]
     pooled = [torch.stack([randn(a.type.bounds.shape, SEED + b) for b in range(2)])
               for a in fused_op.body.args]
     reset_dispatch_stats()
@@ -5036,7 +5097,7 @@ def deep_phase(dev, *, card="", n3=1024, small=256, steps=STEPS) -> list:
     ms_solo = ms_of(lambda: [k2.run_epoch_cuda(fused_op, s, None) for s in solos], 5)
     log(f"  {name}, pool of 2: one launch bitwise the plain version and each slot's solo "
         f"launch, {ms_pool:.4f} ms (2 solo launches {ms_solo:.4f} ms), "
-        f"{scratch_line(fused_op, slots=2)}")
+        f"{plan_line(fused_op, slots=2)}")
     del got, pooled, solos
     if on_card:
         torch.cuda.empty_cache()
@@ -5044,13 +5105,15 @@ def deep_phase(dev, *, card="", n3=1024, small=256, steps=STEPS) -> list:
     # -- (b) and (c): the main path at n3^3 -------------------------------------
     records = []
     one_device = {}  # heat so4 k=8's fused result, for the 2x2x1 mesh
-    for name, op, kw in main_cases:
+    for name, op, kw, old, want_kind in main_cases:
         prog = op.program
         fused = api.compile(prog, Target(device=str(dev), backend="cuda", jit=False, **kw))
         ranks = fused.target.spatial_ranks if fused.target.distributed else 1
         epochs = fused.epochs(steps)
         (fused_op,) = fused.kernel_epochs()
-        check(k2.plan_epoch(fused_op).ctas > 0, f"{name}: K2's plan is not a scratch plan")
+        plan = k2.plan_epoch(fused_op)
+        check(n3 != 1024 or kind_of(plan) == want_kind,
+              f"{name}: K2's plan is {kind_of(plan)}, not {want_kind}")
         state = tuple(randn(f.type.bounds.shape, SEED + i) for i, f in enumerate(prog.input_fields))
         fused.advance(fused.shard_state(state))  # warm-up: loads the built kernels
         sync()
@@ -5109,7 +5172,7 @@ def deep_phase(dev, *, card="", n3=1024, small=256, steps=STEPS) -> list:
             f"its {len(held)} graphs holds {ranks} K2 and 0 K1 nodes")
         del got
         graphed.release_graphs()
-        if ranks == 1 and any(n.startswith(f"{name},") for n, _, _ in main_cases):
+        if ranks == 1 and any(n.startswith(f"{name},") for n, _, _, _, _ in main_cases):
             one_device[name] = out
         del out
         # the route's ms an epoch: fused and unfused, CUDA events, in turns
@@ -5121,24 +5184,40 @@ def deep_phase(dev, *, card="", n3=1024, small=256, steps=STEPS) -> list:
         f_ms, u_ms = min(per_epoch["fused"]), min(per_epoch["unfused"])
         del sharded, state
         # K2 alone at the path's shapes (a rank's on the mesh, at each
-        # corner's box), its plain version and its bound
+        # corner's box), its plain version, its old plan and its bound
         coords = fused._coords if ranks > 1 else [None]
         arrays = [randn(a.type.bounds.shape, SEED + 7) for a in fused_op.body.args]
         err = 0.0
         for at in coords:
             got = k2.run_epoch_cuda(fused_op, arrays, None, coords=at)
+            sync()
+            t = time.perf_counter()
             want = plain(fused_op, arrays, at)
+            sync()
+            plain_ms = (time.perf_counter() - t) * 1e3  # the host's clock: the last box's
             err = max(err, equal(got, want, f"{name}: K2 at {at} differs from its plain version"))
-            del got, want
+            del want
+            if old and "tile" not in old:
+                before = k2.run_epoch_cuda(fused_op, arrays, None, coords=at, **old)
+                equal(got, before, f"{name}: K2's plan differs from its other plan")
+                del before
+            del got
         ms = ms_of(lambda: k2.run_epoch_cuda(fused_op, arrays, None, coords=coords[-1]), 3)
-        plain_ms = ms_of(lambda: plain(fused_op, arrays, coords[-1]), 1)
+        old_line = "no other plan (no streaming plan fits)" if ranks == 1 else "one device's plan"
+        if old and "tile" not in old:
+            old_ms = ms_of(lambda: k2.run_epoch_cuda(fused_op, arrays, None, coords=coords[-1],
+                                                     **old), 1)
+            old_line = f"other plan {old_ms:.4f} ms ({plan_line(fused_op, **old)})"
+        elif old:
+            old_line = f"other plan {old}: timed at {small}^3 in (a)"
         b_ms, b_by = least_ms(*roofline.epoch_counts(fused_op))
         log(f"  K2 {name}: {ms:.4f} ms/launch, bound {b_ms:.4f} ms ({b_by}), "
             f"{100 * b_ms / ms:.1f} % of bound, plain {plain_ms:.3f} ms, max|err| {err}; "
             f"ms/epoch of the route (jit=False, best of 2): fused {f_ms:.4f}, unfused "
-            f"(k={kw['exchange_every']} K1 launches) {u_ms:.4f}; {scratch_line(fused_op)}")
+            f"(k={kw['exchange_every']} K1 launches) {u_ms:.4f}; {plan_line(fused_op)}; "
+            f"{old_line}")
         records.append({
-            "name": f"epoch_kernel[{name}, scratch]", "route": "cuda", "source": K2_SOURCE,
+            "name": f"epoch_kernel[{name}, {kind_of(plan)}]", "route": "cuda", "source": K2_SOURCE,
             "replaces": K2_REPLACES, "launches": k2_launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
@@ -6560,7 +6639,7 @@ def main() -> int:
         kernels.append(pool_record(f"phase 19 {label} {n2}x{n2}, slot axis over a process",
                                    step, launches, 4))
 
-    # -- phase 20: deep 3-D fused epochs, K2 with buffers in device memory ---
+    # -- phase 20: deep 3-D fused epochs, K2's streaming and scratch plans ---
     kernels += deep_phase(dev, card=card, n3=n3)
 
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

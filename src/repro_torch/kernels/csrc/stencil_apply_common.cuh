@@ -5,7 +5,8 @@
 // kernels/epoch_kernel.py one per fused epoch and tile; each includes
 // this header.  A generated file holds one __global__ kernel on a 1-D grid
 // (K1: a CTA streams a tile of the minor dims along dim 0 through a
-// shared-memory ring; K2: one CTA per tile of the epoch's core, or a
+// shared-memory ring; K2: one CTA per tile of the epoch's core, one CTA
+// streaming a minor tile's planes through rings of shared memory, or a
 // CTA's loop over tiles with a device-memory scratch of its own), a
 // launcher and an occupancy query, both with a plain C ABI that the Python
 // wrapper calls through ctypes.  The launcher never synchronises: it
@@ -48,6 +49,13 @@
 // scratch and shared memory, so that a point a tile reads before writing
 // it cannot pass for the previous tile's value.
 #define K1_SCRATCH_TILE(scratch, floats) ((void)0)
+
+// A value each thread keeps from one iteration of a K2 streaming plan to
+// the next (a register queue along dim 0), and this thread's copy of it
+// (``item``: the thread's work item).  A host stand-in that runs one
+// thread for the whole CTA keeps one copy per work item.
+#define K1_PER_THREAD(name, items) float name = 0.0f
+#define K1_MINE(name, item) name
 
 // Launch ``kernel`` on a 1-D grid; opt in to more than 48 KB of dynamic
 // shared memory; CTAs of ``kernel`` that fit on one SM at once.

@@ -7,53 +7,64 @@ unrolled applies of a deep-halo epoch with ``comm.boundary_mask``
 re-zeroing between them, returning the region's escapes, while every
 intermediate frame stays on chip.
 
-Design: one mode, tiled (overlapped temporal blocking).
+Design: three kinds of plan (:class:`TilePlan`), one launch an epoch.
 
 - The *core* is the intersection of the escapes' bounds (the rank's core
-  on fig 7).  The grid runs over tiles of the core, one CTA per tile; the
-  tile divides the core.
-- Every region value has a *window* per tile: the tile grown by the
-  value's overhang beyond the core (the reference's ``_rel_bounds``).  The
-  CTA loads each operand's window from device memory into shared memory;
+  on fig 7).  Every region value has a *window* per tile: the tile grown
+  by the value's overhang beyond the core (the reference's
+  ``_rel_bounds``).  Only escapes reach device memory.  An escape larger
+  than the core, such as wave's carried state over [-r, n+r), is written
+  by the edge tiles: each writes the overhang on its own side from the
+  window it already holds, so every point is written by exactly one CTA.
+  An apply result that escapes and is read by nothing else in the region
+  is written to device memory straight from the apply.
+  ``stencil.index`` reads the tile's global origin.
+- Tiled (overlapped temporal blocking; every rank): one CTA per tile of
+  the core.  The CTA loads each operand's window into shared memory;
   each sub-step computes its shrinking frame from shared memory into
-  shared memory, then its mask zeroes the points outside the box.  Shared
-  memory is given out by liveness: a buffer is reused once its last
-  reader has run, and a mask works in place when its input dies with it.
-- Only escapes reach device memory.  An escape larger than the core, such
-  as wave's carried state over [-r, n+r), is written by the edge tiles:
-  each writes the overhang on its own side from the window it already
-  holds, so every point is written by exactly one CTA.  An apply result
-  that escapes and is read by nothing else in the region is written to
-  device memory straight from the apply.
-- ``stencil.index`` reads the tile's global origin.
+  shared memory, then its mask zeroes the points outside the box.
+  Shared memory is given out by liveness: a buffer is reused once its
+  last reader has run, and a mask works in place when its input dies
+  with it.
+- Streaming (2.5-D blocking; rank 3): the tile covers dims 1 and 2 and
+  takes the core along dim 0 whole (or in a few segments, where the
+  minor tiles alone give too few CTAs).  Each CTA walks its planes along
+  dim 0: every value keeps a ring of planes in shared memory, each
+  sub-step computes its plane at its lag behind the operands' front
+  (:func:`_lags`), and no frame leaves the chip or is computed twice
+  along dim 0; the recompute is only the minor dims' halo.  A ring is as
+  deep as its readers' dim-0 taps need at their lags (:func:`_rings`;
+  wave's older field, read at the centre a sub-step later, deeper than
+  its taps).  Each thread keeps its column of a star stencil's dim-0
+  taps in registers (:func:`_queues`), so a star operand's ring holds
+  ``hi + 1`` planes, not ``hi - lo + 1``.  The operands' next planes load
+  by ``cp.async`` while the CTA computes (a prefetch plane, where it
+  fits); one ``__syncthreads`` follows each sub-step's plane.
+- Scratch (rank 3, where neither fits: heat and wave so8 k=8 at 1024³):
+  buffers move out of shared memory, the largest first, until the rest
+  fits: an operand's window is read in place from the operand, a frame
+  goes to a scratch area of device memory private to its CTA (64-bit
+  offsets).  The scratch is sized for the CTAs the plan lets reside
+  (``ctas``: one or two an SM, the whole capped at ``SCRATCH_CAP``), not
+  for the tiles, so such a kernel's CTAs loop over their (slot, tile)
+  pairs, and the wrapper allocates the scratch per launch
+  (``torch.empty``; under a CUDA graph from the graph's pool).
+  ``__syncthreads`` between phases orders the block's own device-memory
+  writes and reads as it does shared memory's; one more at the end of
+  each tile keeps the next tile's writes behind the last reads.  Such a
+  kernel re-reads every frame through L1 and L2, so it is the slowest
+  per point.
 
-This one mode replaces the reference's whole-shard mode, which the
-reference took whenever the escapes differ in bounds (wave) or a sub-step
-uses ``stencil.index`` (a Pallas block has no logical coordinates); a
-whole shard has no one-block analogue at 16384².  Rejected: a cooperative
-kernel with a grid-wide sync between sub-steps.  Each sub-step's whole
-frame would go to device memory and back (the k round trips of the
-unfused path), and a cooperative launch caps the grid at the CTAs that fit
-on the card at once.
-
-Scratch plans: a deep 3-D halo (heat so4 k=8: a 33³ window even for a
-tile of one point) leaves no tile whose buffers fit 227 KB, where the
-reference's whole-shard mode still runs.  Then, and only then, buffers
-move out of shared memory, the largest first, until the rest fits: an
-operand's window is read in place from the operand, a frame goes to a
-scratch area of device memory private to its CTA (64-bit offsets).  The
-scratch is sized for the CTAs the plan lets reside (``ctas``: one or two
-an SM, the whole capped at ``SCRATCH_CAP``), not for the tiles, so such a
-kernel's CTAs loop over their (slot, tile) pairs, and the wrapper
-allocates the scratch per launch (``torch.empty``; under a CUDA graph
-from the graph's pool).  ``__syncthreads`` between phases orders the
-block's own device-memory writes and reads as it does shared memory's;
-one more at the end of each tile keeps the next tile's writes behind the
-last reads.  The epoch stays one launch; a plan that cannot be built
-still raises.  Such a kernel re-reads every frame from device memory
-(through L1 and L2), so it is slower per point than a tile in shared
-memory; streaming planes through shared memory (2.5-D blocking) is the
-faster design, not built yet.
+Rejected: the reference's whole-shard mode (which the reference took
+whenever the escapes differ in bounds, as wave's do, or a sub-step uses
+``stencil.index``: a Pallas block has no logical coordinates); a whole
+shard has no one-block analogue at 16384².  A cooperative kernel with a
+grid-wide sync between sub-steps: each sub-step's whole frame would go
+to device memory and back (the k round trips of the unfused path), and a
+cooperative launch caps the grid at the CTAs that fit on the card at
+once.  For streaming plans, a skew of one more plane a sub-step (one
+barrier a plane): its deeper rings forced smaller tiles and measured
+slower (PERF.md).
 
 Masks: the keep mask of a ``boundary_mask`` is a box, which depends on
 the rank's mesh coordinate (``core.lowering.keep_box``).  The kernel
@@ -70,35 +81,42 @@ shared-memory accesses fall on consecutive banks.  For every operand the
 taps that differ only along dim 0 are read once per column into
 registers (the union of the column's rows), so heat so4 reads about 5.5
 floats of shared memory a point instead of 9.  Column coordinates are
-computed once per column; a ragged last chunk is predicated.
+computed once per column; a ragged last chunk is predicated.  A
+streaming plan walks each plane the same way with dim 1 as the rows, as
+many rows a thread as let one round of the CTA's threads cover the plane
+(:func:`_plane_r`), its columns not padded.
 
 Window loads: ``cp.async`` copies (16 bytes where the array's rows, the
 window's rows, the tile and the operand pointers allow it, else 8 or 4),
-one wait and one barrier for all operands.
+one wait and one barrier for all operands (a streaming plan: for each
+plane).
 
-Tile size: :func:`choose_tile` replaces the reference's 4 MiB VMEM budget.
-It takes, of the tiles that divide the core, those whose shared memory
-lets two CTAs share one SM (else one, 227 KB at most), and of those the
-one that spends least work per owned point (:func:`tile_cost`: frame
-walks including idle lanes, plus window loads) among those giving at
-least two CTAs per SM of the card: 64×128 for heat so4 k=4 at 16384²
-(an 80×144 window, 1.41× the input), 32×128 for wave.  The kernel is
-built with ``__launch_bounds__`` for the CTAs its shared memory lets
-reside, which caps the registers ptxas may use.  If no tile fits, the
-plan keeps buffers in device memory (above); if even that needs more
-scratch than ``SCRATCH_CAP``, the wrapper raises; it never falls back to
-something else.
+Choosing a plan: :func:`plan_epoch` replaces the reference's 4 MiB VMEM
+budget.  Of the tiles that divide the core, it takes those whose shared
+memory lets two CTAs share one SM (else one, 227 KB at most), for a
+rank-3 epoch also every streaming plan whose rings fit 227 KB, and of
+those the one that spends least work per owned point (:func:`tile_cost`:
+frame walks including idle lanes, plus window loads) among those giving
+at least two CTAs per SM of the card: 64×128 for heat so4 k=4 at 16384²
+(an 80×144 window, 1.41× the input), 32×128 for wave, a 32×16 stream for
+heat so4 k=8 at 1024³.  The kernel is built with ``__launch_bounds__``
+for the CTAs its shared memory lets reside, which caps the registers
+ptxas may use.  If nothing fits, the plan keeps buffers in device memory
+(above); if even that needs more scratch than ``SCRATCH_CAP``, the
+wrapper raises; it never falls back to something else.
 
-What bounds it on an H100: device-memory bytes.  Per epoch the least work
-is to read each operand once and write each escape once (heat so4 k=4 at
-16384²: 2.15 GB, 0.64 ms at 3.35 TB/s).  Here a tile re-reads its
-neighbours' halo and recomputes their frame overlap, and the loads and
-the sub-steps are phases separated by ``__syncthreads`` (the second CTA
-on an SM overlaps one's loads with the other's compute; no TMA yet).  A
-persistent variant that loads the next tile's windows while computing
-one was slower on the card (PERF.md) and is not kept.  What
-bounds the kernel now is shared-memory traffic: the walk's loads, with
-the idle lanes of padded columns, take most of an epoch.
+What bounds it on an H100: device-memory bytes, for the least work (read
+each operand once, write each escape once: heat so4 k=4 at 16384² 2.15
+GB, 0.64 ms at 3.35 TB/s), or float32 operations for deep 3-D epochs.
+Here a tile re-reads its neighbours' halo and recomputes their frame
+overlap, and the loads and the sub-steps are phases separated by
+``__syncthreads`` (the second CTA on an SM overlaps one's loads with the
+other's compute; no TMA yet).  A persistent variant that loads the next
+tile's windows while computing one was slower on the card (PERF.md) and
+is not kept.  What bounds the kernel now is instruction issue and
+shared-memory traffic: the walk's loads and the point function's
+operations (one instruction each under ``-fmad=false``), with the idle
+lanes of padded columns and, in 3-D, the recomputed halo.
 
 Slot pools: as K1 does, the launch takes a slot count ``B``; the grid is
 ``B`` times the tiles, the slot is ``blockIdx.x``'s slowest index, and
@@ -115,6 +133,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import itertools
 import weakref
 from typing import Callable, Optional, Sequence
@@ -136,6 +155,14 @@ SMS = 132  # an H100 SXM's SMs
 MIN_CTAS = 2 * SMS  # two CTAs on each of an H100's SMs
 SCRATCH_CAP = 1 << 30  # the most device memory a scratch plan's launch may take
 SCRATCH_ALIGN = 32  # floats: each buffer in scratch starts on a 128-byte line
+STREAM_LIMIT = (64, 128)  # a streaming plan's largest minor sides (dims 1 and 2)
+STREAM_SEGMENTS = (1, 2, 4, 8)  # the dim-0 segments a streaming plan may cut the core into
+STREAM_ROWS = 16  # the most rows along dim 1 a thread computes in a plane walk
+STREAM_REGS = 280  # registers a thread's queues and one column's loads may take (_queues)
+# a thread-point of a streaming plan at one CTA an SM against one of a
+# scratch plan: the card's ms per tile_cost unit of the two (PERF.md,
+# phase 20 at 1024^3) were 1.59-1.71 times apart
+STREAM_WEIGHT = 1.6
 # points per thread along dim 0 in a frame walk (a warp spans columns of
 # the minor dims; rank 1 has none, so its threads take one point each)
 R_BY_RANK = {1: 1, 2: 8, 3: 4}
@@ -253,13 +280,22 @@ class TilePlan:
     A scratch plan (``ctas`` > 0) keeps buffers in device memory: at most
     ``ctas`` CTAs (``ctas / SMS`` an SM) loop over the tiles, each with a
     scratch of its own, and buffers leave shared memory, the largest
-    first, until the rest takes at most ``budget`` bytes (0: all leave)."""
+    first, until the rest takes at most ``budget`` bytes (0: all leave).
+
+    A streaming plan (``stream``, rank 3) walks its tile plane by plane
+    along dim 0: the tile's dim-0 side is a segment of the core (all of
+    it, or a few segments where the minor tiles alone give too few CTAs),
+    and each value keeps a ring of planes in shared memory
+    (:func:`_rings`); with ``prefetch`` the operands' rings hold one more
+    plane, loaded while the CTA computes the current one."""
 
     core: stencil.Bounds
     tile: tuple
     grid: tuple
     ctas: int = 0
     budget: int = 0
+    stream: bool = False
+    prefetch: bool = False
 
     @property
     def n_tiles(self) -> int:
@@ -359,12 +395,43 @@ def _points(shape: tuple) -> int:
     return n
 
 
+def _plane_r(shape: tuple) -> int:
+    """Rows along dim 1 one thread computes in a streaming plan's walk of
+    a plane of ``shape``: as few as let one round of the CTA's threads
+    cover the plane (a plane holds a few hundred columns' worth of work,
+    so a fixed ``R`` would leave most of a last round idle), at most
+    ``STREAM_ROWS``."""
+    groups = max(1, THREADS // shape[1])
+    return max(1, min(STREAM_ROWS, -(-shape[0] // groups)))
+
+
+def _plane_lanes(shape: tuple) -> int:
+    """Thread-points a streaming plan's walk of one plane of ``shape``
+    spends: its chunks of :func:`_plane_r` rows times its columns (not
+    padded to whole warps), in whole rounds of the CTA's threads."""
+    r = _plane_r(shape)
+    items = -(-shape[0] // r) * shape[1]
+    return -(-items // THREADS) * THREADS * r
+
+
 def tile_cost(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> float:
     """The work of one tile per point it owns, in thread-points: every
     sub-step frame as the register-blocked walk covers it (ragged chunks
     and idle lanes included) plus every operand window it loads; for a
     scratch plan also every frame in device memory, written once and
-    read once by each op that reads it."""
+    read once by each op that reads it; for a streaming plan every
+    sub-step's plane walked once per plane of its window (the segment
+    and its warm-up planes, :func:`_plane_lanes`) plus every operand plane
+    loaded once."""
+    if plan.stream:
+        work = 0
+        for op in fused_op.body.ops:
+            if isinstance(op, stencil.ApplyOp):
+                shape = plan.window_shape(op.results[0].type.bounds)
+                work += _plane_lanes(shape[1:]) * shape[0]
+        for a in fused_op.body.args:
+            work += _points(plan.window_shape(a.type.bounds))
+        return work / _points(plan.tile)
     work = sum(_lanes(plan.window_shape(op.results[0].type.bounds))
                for op in fused_op.body.ops if isinstance(op, stencil.ApplyOp))
     for a in fused_op.body.args:
@@ -400,7 +467,8 @@ def choose_tile(fused_op: stencil.FusedEpochOp) -> tuple:
     return plan_epoch(fused_op).tile
 
 
-def _choose_plan(fused_op: stencil.FusedEpochOp, core: stencil.Bounds) -> TilePlan:
+def _choose_plan(fused_op: stencil.FusedEpochOp, core: stencil.Bounds,
+                 streams: bool = True) -> TilePlan:
     """K2's default plan, from every tile of :func:`_candidates`: those
     whose shared memory lets two CTAs share an SM (else those one CTA can
     hold, 227 KB), of those the ones giving at least ``MIN_CTAS`` CTAs
@@ -410,15 +478,56 @@ def _choose_plan(fused_op: stencil.FusedEpochOp, core: stencil.Bounds) -> TilePl
     per SM that its shared memory allows (``__launch_bounds__``), so ptxas
     keeps each thread within 65,536 / (256 × CTAs) registers.  Where even
     one point per tile needs more than 227 KB, the same choice among the
-    scratch plans of every tile (:func:`_scratch_plan`)."""
+    scratch plans of every tile (:func:`_scratch_plan`).
+
+    A rank-3 epoch (with ``streams``) also has the streaming plans that
+    fit 227 KB (:func:`_stream_plans`) in that choice, beside the tiles
+    of shared memory.  Scratch plans are left for epochs where no tile
+    fits: there the least costly scratch plan wins over a streaming plan
+    that runs one CTA an SM unless the stream's cost, weighed by
+    ``STREAM_WEIGHT``, is lower."""
     cands = _candidates(core)
     smem = {t: _storage(fused_op, _plan(core, t)).smem_bytes for t in cands}
     pool = [t for t in cands if smem[t] <= SMEM_TWO_BLOCKS] or [
         t for t in cands if smem[t] <= SMEM_PER_BLOCK
     ]
-    if pool:
-        return _least_cost(fused_op, [_plan(core, t) for t in pool])
-    return _least_cost(fused_op, _scratch_plans(fused_op, core, cands, forced=False))
+    plans = [_plan(core, t) for t in pool]
+    if streams:
+        plans += _stream_plans(fused_op, core)
+    best = _least_cost(fused_op, plans) if plans else None
+    if pool or (best and _storage(fused_op, best).smem_bytes <= SMEM_TWO_BLOCKS):
+        return best
+    scratch = _least_cost(fused_op, _scratch_plans(fused_op, core, cands, forced=False))
+    if best and STREAM_WEIGHT * tile_cost(fused_op, best) < tile_cost(fused_op, scratch):
+        return best
+    return scratch
+
+
+def _stream_plan(fused_op: stencil.FusedEpochOp, core: stencil.Bounds,
+                 tile: tuple) -> Optional[TilePlan]:
+    """The streaming plan of ``tile`` (its dim-0 side a segment of the
+    core): with a prefetch plane where its rings then fit 227 KB, else
+    without; None where neither fits."""
+    plan = dataclasses.replace(_plan(core, tile), stream=True)
+    need = _storage(fused_op, plan).smem_bytes
+    if need > SMEM_PER_BLOCK:
+        return None
+    ahead = sum(4 * -(-_points(plan.window_shape(a.type.bounds)[1:]) // 4) * 4
+                for a in fused_op.body.args)  # one more plane of each operand
+    return dataclasses.replace(plan, prefetch=need + ahead <= SMEM_PER_BLOCK)
+
+
+def _stream_plans(fused_op: stencil.FusedEpochOp, core: stencil.Bounds) -> list:
+    """Every streaming plan of a rank-3 epoch that fits 227 KB: minor
+    tiles whose sides divide the core within ``STREAM_LIMIT``, the core
+    along dim 0 whole or cut into ``STREAM_SEGMENTS`` segments."""
+    if core.rank != 3:
+        return []
+    tiles = [(core.shape[0] // n, t1, t2)
+             for n in STREAM_SEGMENTS if core.shape[0] % n == 0
+             for t1 in _divisors_at_most(core.shape[1], STREAM_LIMIT[0])
+             for t2 in _divisors_at_most(core.shape[2], STREAM_LIMIT[1])]
+    return [p for p in (_stream_plan(fused_op, core, t) for t in tiles) if p]
 
 
 def _scratch_plan(fused_op: stencil.FusedEpochOp, core: stencil.Bounds, tile: tuple,
@@ -459,18 +568,68 @@ def _plan(core: stencil.Bounds, tile: tuple) -> TilePlan:
     return TilePlan(core, tile, tuple(n // t for n, t in zip(core.shape, tile)))
 
 
+# fused op -> its lags (_lags), and {(tile, scratch, stream): TilePlan}: a
+# plan search asks for the same ones many times
+_LAGS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_PLANS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
 def plan_epoch(fused_op: stencil.FusedEpochOp, tile: Optional[Sequence[int]] = None,
-               scratch: bool = False) -> TilePlan:
+               scratch: bool = False, stream=None) -> TilePlan:
     """K2's tile plan for ``fused_op``: ``tile`` if given (it must divide
     the core and fit in 227 KB of shared memory), else the default plan
     (:func:`_choose_plan`).  ``scratch`` forces a scratch plan with every
     buffer in device memory, at ``tile`` or at the scratch plans' own
-    choice: a way to run that mode on an epoch that fits shared memory."""
+    choice: a way to run that mode on an epoch that fits shared memory.
+
+    ``stream`` (rank 3 only) forces a streaming plan: ``True`` the least
+    costly one, a minor tile ``(t1, t2)`` that tile over the whole core
+    along dim 0, ``(segment, t1, t2)`` that tile with the core cut into
+    segments along dim 0; ``False`` leaves streaming plans out of the
+    default choice.  Plans are kept per op."""
+    if tile is not None:
+        tile = tuple(int(t) for t in tile)
+    if stream is not None and not isinstance(stream, bool):
+        stream = tuple(int(t) for t in stream)
+    key = (tile, bool(scratch), stream)
+    with _k1._LIBS_LOCK:
+        plan = _PLANS.get(fused_op, {}).get(key)
+    if plan is None:
+        plan = _plan_epoch(fused_op, tile, scratch, stream)
+        with _k1._LIBS_LOCK:
+            _PLANS.setdefault(fused_op, {})[key] = plan
+    return plan
+
+
+def _plan_epoch(fused_op: stencil.FusedEpochOp, tile: Optional[tuple], scratch: bool,
+                stream) -> TilePlan:
     core = _core(fused_op)
+    if stream is not None and stream is not False:
+        if tile is not None or scratch:
+            raise ValueError("a streaming plan takes neither a tile nor scratch")
+        if core.rank != 3:
+            raise ValueError(f"streaming plans are for rank-3 epochs, not rank {core.rank}")
+        if stream is True:
+            plans = _stream_plans(fused_op, core)
+            if not plans:
+                raise ValueError("no streaming plan of this epoch fits shared memory")
+            return _least_cost(fused_op, plans)
+        side = tuple(int(t) for t in stream)
+        side = (core.shape[0],) + side if len(side) == 2 else side
+        if len(side) != 3 or any(t < 1 or n % t for n, t in zip(core.shape, side)):
+            raise ValueError(f"streaming tile {side} does not divide the epoch's core {core.shape}")
+        plan = _stream_plan(fused_op, core, side)
+        if plan is None:
+            need = _storage(fused_op, dataclasses.replace(_plan(core, side), stream=True)).smem_bytes
+            raise ValueError(
+                f"streaming tile {side} needs {need} bytes of shared memory, more than the "
+                f"{SMEM_PER_BLOCK} a CTA may use"
+            )
+        return plan
     if tile is None:
         if scratch:
             return _least_cost(fused_op, _scratch_plans(fused_op, core, _candidates(core), True))
-        return _choose_plan(fused_op, core)
+        return _choose_plan(fused_op, core, stream is None)
     tile = tuple(int(t) for t in tile)
     if len(tile) != core.rank or any(
         t < 1 or n % t for n, t in zip(core.shape, tile)
@@ -507,6 +666,10 @@ class _Storage:
     # scratch they take (0 where only operands, read in place, lived)
     device: dict = dataclasses.field(default_factory=dict)
     in_place: set = dataclasses.field(default_factory=set)  # operands read in place
+    # a streaming plan's rings: buffer -> planes it holds, and the floats
+    # of one plane (a multiple of 4, so each plane starts 16-byte aligned)
+    depth: dict = dataclasses.field(default_factory=dict)
+    plane: dict = dataclasses.field(default_factory=dict)
 
     @property
     def smem_bytes(self) -> int:
@@ -540,6 +703,8 @@ def _storage(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> _Storage:
     memory, the largest first, until the rest fits ``plan.budget``: an
     operand that lived in a moved buffer is read in place, a frame goes
     to the CTA's scratch."""
+    if plan.stream:
+        return _rings(fused_op, plan)
     st = _buffers(fused_op, plan)
     if not plan.ctas:
         return st
@@ -616,6 +781,172 @@ def _buffers(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> _Storage:
     return st
 
 
+def _lags(fused_op: stencil.FusedEpochOp) -> dict:
+    """Each region value's lag in a streaming plan: the planes by which
+    its front (the plane it computes while the operands load plane ``z``:
+    ``z - lag``) trails the operands'.  An apply trails each operand by
+    that operand's highest dim-0 tap, a mask its input."""
+    kept = _LAGS.get(fused_op)
+    if kept is not None:
+        return kept
+    lag = {a: 0 for a in fused_op.body.args}
+    for op in fused_op.body.ops[:-1]:
+        if isinstance(op, stencil.ApplyOp):
+            fronts = [lag[op.operands[k]] + hi[0] for k, (_, hi) in op.access_extents().items()]
+            for r in op.results:
+                lag[r] = max(fronts, default=0)
+        else:  # comm.boundary_mask
+            lag[op.results[0]] = lag[op.temp]
+    _LAGS[fused_op] = lag
+    return lag
+
+
+def _readers(fused_op: stencil.FusedEpochOp) -> dict:
+    """Region value -> the ops that read it, the fused_yield included."""
+    readers: dict = {}
+    for op in fused_op.body.ops:
+        for o in op.operands:
+            readers.setdefault(o, []).append(op)
+    return readers
+
+
+def _queue_options(op: stencil.ApplyOp, plan: TilePlan, lag: dict) -> list:
+    """The register queues a streaming plan's walk of ``op`` may keep:
+    ``[(kind, k, lo, top), …]``, stars first.  A queue holds, for each of a
+    thread's rows, operand ``k``'s values at its column for the planes
+    ``lo`` to ``top`` (relative to the plane it computes, oldest first); it
+    moves one plane on an iteration and loads only its newest plane from
+    the ring, so the ring holds only the planes the other taps read.
+    ``top`` is the highest dim-0 tap (a star: every dim-0 tap lies on the
+    point's own column), or for an operand read only on the point's column
+    (wave's older field) the operand's front, so that its ring keeps a
+    single plane.  None where the walk takes more than one round of the
+    CTA's threads: a thread keeps its column from plane to plane only in
+    one round."""
+    shape = plan.window_shape(op.results[0].type.bounds)[1:]
+    if -(-shape[0] // _plane_r(shape)) * shape[1] > THREADS:
+        return []
+    taps: dict = {}
+    for x in op.body.ops:
+        if isinstance(x, stencil.AccessOp):
+            taps.setdefault(x.temp.index, []).append(tuple(x.offset))
+    stars, columns = [], []
+    for k, offs in sorted(taps.items()):
+        if any(o[0] and o[1:] != (0, 0) for o in offs):
+            continue  # a dim-0 tap off the point's column
+        lo, hi = min(0, *(o[0] for o in offs)), max(0, *(o[0] for o in offs))
+        if all(o[1:] == (0, 0) for o in offs):
+            top = lag[op.results[0]] - lag[op.operands[k]]
+            if top > lo:
+                columns.append(("column", k, lo, top))
+        elif hi > lo:
+            stars.append(("star", k, lo, hi))
+    return stars + columns
+
+
+def _column_loads(op: stencil.ApplyOp, rows: int, queued: dict) -> int:
+    """The values one column of ``op``'s plane walk reads from shared
+    memory into registers, with the queues ``queued``."""
+    n = 0
+    for (k, (o0, o2)), rs in _plane_rows(op, rows).items():
+        n += sum(1 for row in rs if not (k in queued and o2 == 0 and (o0 or 0 <= row < rows)))
+    return n
+
+
+def _queues(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> dict:
+    """A streaming plan's register queues (:func:`_queue_options`): ``{op:
+    {k: (lo, top)}}``.  Queues live from plane to plane, so every op's
+    count at once; they are handed out in op order, stars before
+    column-only reads, while all queues plus the most values one column
+    loads stay within ``STREAM_REGS`` registers a thread (past that, the
+    card measured spills that cost more than the queues save)."""
+    lag = _lags(fused_op)
+    applies = [op for op in fused_op.body.ops if isinstance(op, stencil.ApplyOp)]
+    rows = {op: _plane_r(plan.window_shape(op.results[0].type.bounds)[1:]) for op in applies}
+    options = {op: _queue_options(op, plan, lag) for op in applies}
+    out: dict = {op: {} for op in applies}
+    loads = {op: _column_loads(op, rows[op], {}) for op in applies}
+    held = 0
+    for kind in ("star", "column"):
+        for op in applies:
+            for what, k, lo, top in options[op]:
+                if what != kind:
+                    continue
+                trial = {**out[op], k: (lo, top)}
+                mine = _column_loads(op, rows[op], trial)
+                more = rows[op] * (top - lo + 1)
+                most = max([mine] + [n for o, n in loads.items() if o is not op])
+                if held + more + most <= STREAM_REGS:
+                    out[op], loads[op] = trial, mine
+                    held += more
+    return out
+
+
+def _ring_low(op: stencil.ApplyOp, k: int, queued: dict) -> int:
+    """The lowest dim-0 offset at which ``op`` reads operand ``k`` from its
+    ring: its lowest dim-0 tap, or with a queue (:func:`_queues`) the
+    plane its other taps read (0), else the newest plane it loads
+    (``queued``: the op's queues, :func:`_queues`)."""
+    if k not in queued:
+        return op.access_extents()[k][0][0]
+    plane = [x.offset[0] for x in op.body.ops
+             if isinstance(x, stencil.AccessOp) and x.temp.index == k and tuple(x.offset[1:]) != (0, 0)]
+    return min(plane + [queued[k][1]])
+
+
+def _rings(fused_op: stencil.FusedEpochOp, plan: TilePlan) -> _Storage:
+    """A streaming plan's buffers: a ring of planes in shared memory for
+    every value held on chip, as deep as its front minus the lowest plane
+    a reader still needs (that reader's front plus the lowest dim-0 offset
+    it reads from the ring, :func:`_ring_low`), plus one; with
+    ``plan.prefetch`` one more for each operand.  A value
+    read only at its own front (by a mask, or copied out as an escape)
+    keeps one plane.  A mask works in place when it is its input's only
+    reader; an escape that an apply writes and nothing else reads goes
+    straight to device memory and has no ring."""
+    lag = _lags(fused_op)
+    queues = _queues(fused_op, plan)
+    need: dict = {}
+    for op in fused_op.body.ops:
+        if isinstance(op, stencil.ApplyOp):
+            queued = queues[op]
+            for k in op.access_extents():
+                o = op.operands[k]
+                low = _ring_low(op, k, queued)
+                need[o] = max(need.get(o, 1), lag[op.results[0]] - low - lag[o] + 1)
+        for o in op.operands:
+            need.setdefault(o, 1)
+    escapes = set(_escapes(fused_op))
+    readers = _readers(fused_op)
+    st = _Storage({}, set(), [])
+
+    def ring(v, planes: int) -> None:
+        shape = plan.window_shape(v.type.bounds)
+        st.slot_of[v] = s = len(st.slot_floats)
+        st.plane[s] = -(-_points(shape[1:]) // 4) * 4
+        st.depth[s] = planes
+        st.slot_floats.append(planes * st.plane[s])
+
+    for a in fused_op.body.args:
+        ring(a, need.get(a, 1) + plan.prefetch)
+    for op in fused_op.body.ops[:-1]:
+        if isinstance(op, stencil.ApplyOp):
+            for r in op.results:
+                if len(op.results) == 1 and r in escapes and len(readers[r]) == 1:
+                    st.direct.add(r)
+                else:
+                    ring(r, need.get(r, 1))
+        else:  # comm.boundary_mask
+            x, r = op.temp, op.results[0]
+            if readers[x] == [op]:
+                s = st.slot_of[r] = st.slot_of[x]  # in place: the mask is its only reader
+                st.depth[s] = max(st.depth[s], need.get(r, 1))
+                st.slot_floats[s] = st.depth[s] * st.plane[s]
+            else:
+                ring(r, need.get(r, 1))
+    return st
+
+
 # --------------------------------------------------------------------------
 # Code generation
 # --------------------------------------------------------------------------
@@ -652,7 +983,8 @@ def _outside_owned(plan: TilePlan, bounds: stencil.Bounds) -> Optional[str]:
 
 
 def _walk(shape: tuple, column: Callable[[int], list], point: Callable[[int], list],
-          skip: Optional[str] = None) -> list:
+          skip: Optional[str] = None, first: int = 0, rows: Optional[int] = None,
+          pad: bool = True) -> list:
     """A loop over the points of a frame of ``shape`` (a value's window) in
     register-blocked columns: work item ``q`` is column ``c`` of the minor
     dims (``i1``, ``i2`` once per column, no division per point) and the
@@ -661,14 +993,20 @@ def _walk(shape: tuple, column: Callable[[int], list], point: Callable[[int], li
     the first row of the last chunk), ``point(j)`` those of point ``a + j``
     in a block of its own (``i0``, and ``p``, its index in the frame's
     buffer).  Points past a ragged last chunk and points where ``skip``
-    holds are not computed."""
+    holds are not computed.  ``first`` names the frame's dims from
+    ``i{first}`` on: a streaming plan walks a plane (``first`` 1, rows
+    ``i1`` and columns ``i2``) at the plane index ``i0`` around it, with
+    ``rows`` points a thread (:func:`_plane_r`) in place of ``R`` and
+    (``pad`` False) its columns not padded to whole warps: a warp may then
+    span two chunks, which costs a few bank conflicts where padding a
+    narrow plane would idle up to half its lanes."""
     rank = len(shape)
-    r = R_BY_RANK[rank]
+    r = rows or R_BY_RANK[rank]
     h = shape[0]
     cols = 1
     for w in shape[1:]:
         cols *= w
-    cpad = _padded_columns(shape)
+    cpad = _padded_columns(shape) if pad else cols
     chunks = -(-h // r)
     a_last = (chunks - 1) * r
     lines = [f"  for (int q = threadIdx.x; q < {chunks * cpad}; q += kThreads) {{"]
@@ -680,23 +1018,23 @@ def _walk(shape: tuple, column: Callable[[int], list], point: Callable[[int], li
         if cpad != cols:
             lines.append(f"    if (c >= {cols}) continue;")
         if rank == 2:
-            lines.append("    const int i1 = c;")
+            lines.append(f"    const int i{first + 1} = c;")
         else:
-            lines.append(f"    const int i1 = c / {shape[2]};")
-            lines.append(f"    const int i2 = c % {shape[2]};")
+            lines.append(f"    const int i{first + 1} = c / {shape[2]};")
+            lines.append(f"    const int i{first + 2} = c % {shape[2]};")
     lines.append(f"    const int pc = a * {cols}" + ("" if rank == 1 else " + c") + ";")
     lines += column(a_last)
     for j in range(r):
         conds = []
         if a_last + j >= h:
-            conds.append(f"i0 < {h}")
+            conds.append(f"i{first} < {h}")
         if skip:
             conds.append(f"!({skip})")
-        lines += ["    {", f"      const int i0 = a + {j};"]
+        lines += ["    {", f"      const int i{first} = a + {j};"]
         if conds:
             lines.append(f"      if ({' && '.join(conds)}) {{")
         body = point(j)
-        if any("[p]" in s for s in body):
+        if any("[p]" in s or " + p]" in s for s in body):
             lines.append(f"      const int p = pc + {j * cols};")
         lines += body + (["      }"] if conds else []) + ["    }"]
     return lines + ["  }", "  __syncthreads();"]
@@ -706,11 +1044,39 @@ def _tag(row: int) -> str:
     return f"m{-row}" if row < 0 else str(row)
 
 
+def _plus(expr: str, n: int) -> str:
+    """C expression ``expr + n``, written without ``+ -``."""
+    return expr if n == 0 else f"{expr} + {n}" if n > 0 else f"{expr} - {-n}"
+
+
+def _box_of(boxes: dict, mask_op) -> dict:
+    """``{dim: j}``: the dims a boundary_mask tests, each against the box
+    bounds ``box{j}_lo``/``box{j}_hi`` of the launch's arguments (empty
+    when it keeps every point); ``boxes`` is :func:`_box_keys`."""
+    return {d: j for (m, d), j in sorted(boxes.items(), key=lambda kv: kv[0][1])
+            if m is mask_op}
+
+
+def _fused_masks(fused_op: stencil.FusedEpochOp) -> dict:
+    """apply -> the boundary_mask that is the only reader of its one
+    result: such a mask is applied as the apply writes its frame, into the
+    buffer the two share."""
+    readers = _readers(fused_op)
+    mask_of = {}
+    for op in fused_op.body.ops:
+        if isinstance(op, stencil.ApplyOp) and len(op.results) == 1:
+            rd = readers.get(op.results[0], [])
+            if len(rd) == 1 and isinstance(rd[0], comm.BoundaryMaskOp):
+                mask_of[op] = rd[0]
+    return mask_of
+
+
 def emit_epoch_cuda(
     fused_op: stencil.FusedEpochOp,
     tile: Optional[Sequence[int]] = None,
     ptr_align: int = 16,
     scratch: bool = False,
+    stream=None,
 ) -> str:
     """CUDA C++ source of K2 for one fused epoch at one tile: a
     ``__global__`` kernel with one CTA per tile, the C launcher
@@ -720,14 +1086,16 @@ def emit_epoch_cuda(
     operand pointer has; it bounds the width of the window copies.  The
     launcher takes, after the output pointers, the ``int`` box bounds of
     :func:`box_args`, then the slot count (each slot's operands and
-    escapes one bounds' size past the last's).
+    escapes one bounds' size past the last's).  ``tile``, ``scratch`` and
+    ``stream`` choose the plan as :func:`plan_epoch` does.
 
     A scratch plan's kernel (``plan_epoch(fused_op, tile, scratch).ctas``
     > 0) has its CTAs loop over the (slot, tile) pairs, and its launcher
     takes, after the slot count, the scratch (``ctas`` times
     ``_storage(...).scratch_floats`` floats of device memory) and ``ctas``,
-    the CTAs to launch (1 to ``plan.ctas``)."""
-    plan = plan_epoch(fused_op, tile, scratch)
+    the CTAs to launch (1 to ``plan.ctas``).  A streaming plan's kernel
+    has the tiled kernel's launcher; each CTA walks its tile's planes."""
+    plan = plan_epoch(fused_op, tile, scratch, stream)
     st = _storage(fused_op, plan)
     offsets = st.offsets()
     rank = plan.core.rank
@@ -741,24 +1109,12 @@ def emit_epoch_cuda(
     def wshape(v) -> tuple:
         return plan.window_shape(v.type.bounds)
 
-    def buf(v) -> str:
-        return f"s{st.slot_of[v]}"
-
-    def strides(v) -> tuple:
-        """A buffer's strides: its window's, or an operand's read in place."""
-        return _k1._strides(v.type.bounds.shape if v in st.in_place else wshape(v))
-
-    def read(v, index: str) -> str:
-        """Point ``index`` (flat, by :func:`strides`) of ``v``'s window."""
-        if v in st.in_place:
-            return f"win{args.index(v)}[{index}]"
-        return f"{buf(v)}[{index}]"
-
+    walk = (f"up to {STREAM_ROWS} points per thread along dim 1, planes streamed along dim 0"
+            if plan.stream else f"{R_BY_RANK[rank]} points per thread along dim 0")
     src = [
         "// Generated by repro_torch/kernels/epoch_kernel.py (kernel K2).",
         f"// core {plan.core.lb}..{plan.core.ub}, tile {plan.tile}, grid "
-        f"{plan.grid} ({plan.n_tiles} CTAs), {smem} bytes of shared memory, "
-        f"{R_BY_RANK[rank]} points per thread along dim 0",
+        f"{plan.grid} ({plan.n_tiles} CTAs), {smem} bytes of shared memory, {walk}",
     ]
     for k, a in enumerate(args):
         src.append(f"// in{k}: bounds {a.type.bounds.lb}..{a.type.bounds.ub}, window {wshape(a)}")
@@ -770,6 +1126,13 @@ def emit_epoch_cuda(
             f"slots' tiles, {4 * st.scratch_floats} bytes of device-memory scratch each; "
             f"read in place: {[f'in{args.index(a)}' for a in args if a in st.in_place]}; "
             f"in scratch: {[f's{s}' for s, n in sorted(st.device.items()) if n]}"
+        )
+    if plan.stream:
+        src.append(
+            "// streaming plan: rings of " + ", ".join(
+                f"s{s} {st.depth[s]} x {st.plane[s]}" for s in sorted(st.depth))
+            + " floats (planes x floats a plane), "
+            + ("operands one plane ahead" if plan.prefetch else "no prefetch plane")
         )
     src += [f'#include "{_k1._HEADER}"', "", "constexpr int kThreads = "
             f"K1_BLOCK_THREADS({THREADS});", ""]
@@ -824,6 +1187,88 @@ def emit_epoch_cuda(
         src.append(f"  const bool first{d} = g{d} == 0;")
         src.append(f"  const bool last{d} = g{d} == {plan.grid[d] - 1};")
         src.append(f"  (void)first{d}; (void)last{d};")
+    if plan.stream:
+        src += _stream_body(fused_op, plan, st, boxes, ptr_align)
+    else:
+        src += _tile_body(fused_op, plan, st, boxes, ptr_align)
+    if looping:
+        # a barrier at the end keeps the next tile's writes behind this
+        # tile's reads
+        if src[-1] != "  __syncthreads();":
+            src.append("  __syncthreads();")
+        src = top + ["  " + line if line else line for line in src] + ["  }"]
+    elif src[-1] == "  __syncthreads();":
+        src.pop()  # nothing follows the last phase
+    src += ["}", ""]
+
+    c_params = [f"const void* in{k}" for k in range(n_in)] + [
+        f"void* out{j}" for j in range(n_out)
+    ] + box_params + ["int slots"] + (["void* scratch", "int ctas"] if looping else [])
+    call_args = [f"static_cast<const float*>(in{k})" for k in range(n_in)] + [
+        f"static_cast<float*>(out{j})" for j in range(n_out)
+    ] + [p.split()[1] for p in box_params] + (
+        ["slots", "static_cast<float*>(scratch)"] if looping else [])
+    opt_in = []
+    if smem > 48 * 1024:
+        opt_in = [
+            f"  const int attr = static_cast<int>(K1_OPT_IN_SMEM(k2_epoch, {smem}));",
+            "  if (attr != 0) return attr;",
+        ]
+    src += [f"K1_EXPORT int {_LAUNCHER}(" + ", ".join(c_params + ["void* stream"]) + ") {"]
+    if looping:
+        # the grid is the CTAs the scratch was sized for, each looping over
+        # the slots' tiles with a 64-bit index: any slot count fits
+        src += [f"  if (slots < 1 || ctas < 1 || ctas > {plan.ctas}) return {_k1._INVALID_VALUE};"]
+        grid = "static_cast<unsigned int>(ctas)"
+    else:
+        src += [f"  if (slots < 1 || slots > {_k1._MAX_GRID // plan.n_tiles}) "
+                f"return {_k1._INVALID_VALUE};"]
+        grid = f"static_cast<unsigned int>(slots) * {plan.n_tiles}u"
+    src += opt_in
+    src += [
+        f"  K1_LAUNCH(k2_epoch, {grid}, kThreads, "
+        f"{smem}, stream,",
+        "            " + ", ".join(call_args) + ");",
+        "  return k1::launch_status();",
+        "}",
+        "",
+        f"K1_EXPORT int {_OCCUPANCY}(void* ctas_per_sm) {{",
+        *opt_in,
+        "  return static_cast<int>(K1_OCCUPANCY(static_cast<int*>(ctas_per_sm), k2_epoch, "
+        f"kThreads, {smem}));",
+        "}",
+        "",
+    ]
+    return _graphs.name_kernel(src, _graphs.K2_KERNEL)
+
+
+def _tile_body(fused_op: stencil.FusedEpochOp, plan: TilePlan, st: _Storage, boxes: dict,
+               ptr_align: int) -> list:
+    """The kernel lines of a tiled or scratch plan after the tile's
+    indices: every operand's window loaded, then each op's frame."""
+    offsets = st.offsets()
+    rank = plan.core.rank
+    args = list(fused_op.body.args)
+    escapes = _escapes(fused_op)
+    looping = plan.ctas > 0
+    src: list = []
+
+    def wshape(v) -> tuple:
+        return plan.window_shape(v.type.bounds)
+
+    def buf(v) -> str:
+        return f"s{st.slot_of[v]}"
+
+    def strides(v) -> tuple:
+        """A buffer's strides: its window's, or an operand's read in place."""
+        return _k1._strides(v.type.bounds.shape if v in st.in_place else wshape(v))
+
+    def read(v, index: str) -> str:
+        """Point ``index`` (flat, by :func:`strides`) of ``v``'s window."""
+        if v in st.in_place:
+            return f"win{args.index(v)}[{index}]"
+        return f"{buf(v)}[{index}]"
+
     for k, a in enumerate(args):
         if a in st.in_place:
             origin = " + ".join(f"t{d} * {x}LL" for d, x in enumerate(strides(a)))
@@ -865,11 +1310,7 @@ def emit_epoch_cuda(
         src += ["  K1_CP_ASYNC_COMMIT();", "  K1_CP_ASYNC_WAIT(0);", "  __syncthreads();"]
 
     def box_of(mask_op) -> dict:
-        """``{dim: j}``: the dims a boundary_mask tests, each against the
-        box bounds ``box{j}_lo``/``box{j}_hi`` of the launch's arguments
-        (empty when it keeps every point)."""
-        return {d: j for (m, d), j in sorted(boxes.items(), key=lambda kv: kv[0][1])
-                if m is mask_op}
+        return _box_of(boxes, mask_op)
 
     def mask_column(mask_op) -> list:
         """A mask's box test, the part computed once per column: along dim
@@ -899,18 +1340,7 @@ def emit_epoch_cuda(
             terms += [f"m_lo >= {-row}", f"m_hi < {-row}"]
         return " && ".join(terms)
 
-    # a mask that is the only reader of an apply's result is applied as the
-    # apply writes its frame, into the buffer the two share
-    readers: dict = {}
-    for op in fused_op.body.ops:
-        for o in op.operands:
-            readers.setdefault(o, []).append(op)
-    mask_of = {}
-    for op in fused_op.body.ops:
-        if isinstance(op, stencil.ApplyOp) and len(op.results) == 1:
-            rd = readers.get(op.results[0], [])
-            if len(rd) == 1 and isinstance(rd[0], comm.BoundaryMaskOp):
-                mask_of[op] = rd[0]
+    mask_of = _fused_masks(fused_op)
 
     def no_column(a_last) -> list:
         return []
@@ -1015,62 +1445,308 @@ def emit_epoch_cuda(
             if r in escapes:
                 src.append(f"  // escape of op {n}")
                 src += copy_out(r)
-    if looping:
-        # a barrier at the end keeps the next tile's writes behind this
-        # tile's reads
-        if src[-1] != "  __syncthreads();":
-            src.append("  __syncthreads();")
-        src = top + ["  " + line if line else line for line in src] + ["  }"]
-    elif src[-1] == "  __syncthreads();":
-        src.pop()  # nothing follows the last phase
-    src += ["}", ""]
+    return src
 
-    c_params = [f"const void* in{k}" for k in range(n_in)] + [
-        f"void* out{j}" for j in range(n_out)
-    ] + box_params + ["int slots"] + (["void* scratch", "int ctas"] if looping else [])
-    call_args = [f"static_cast<const float*>(in{k})" for k in range(n_in)] + [
-        f"static_cast<float*>(out{j})" for j in range(n_out)
-    ] + [p.split()[1] for p in box_params] + (
-        ["slots", "static_cast<float*>(scratch)"] if looping else [])
-    opt_in = []
-    if smem > 48 * 1024:
-        opt_in = [
-            f"  const int attr = static_cast<int>(K1_OPT_IN_SMEM(k2_epoch, {smem}));",
-            "  if (attr != 0) return attr;",
+
+@functools.lru_cache(maxsize=4096)
+def _plane_rows(apply_op: stencil.ApplyOp, rows: int) -> dict:
+    """The register-blocked column of one apply in a plane walk:
+    ``{(operand, (dim-0 offset, dim-2 offset)): [row, …]}``, each row along
+    dim 1 (relative to the column's first point) read once into a
+    register for the column's ``rows`` points (:func:`_k1.column_rows`
+    with dim 1 as the rows; kept, as the plan search asks for the same ones
+    many times: read-only)."""
+    taps: dict = {}
+    for x in apply_op.body.ops:
+        if isinstance(x, stencil.AccessOp):
+            o0, o1, o2 = x.offset
+            taps.setdefault((x.temp.index, (o0, o2)), set()).add(o1)
+    return {
+        key: sorted({j + o1 for j in range(rows) for o1 in s1})
+        for key, s1 in sorted(taps.items())
+    }
+
+
+def _stream_body(fused_op: stencil.FusedEpochOp, plan: TilePlan, st: _Storage, boxes: dict,
+                 ptr_align: int) -> list:
+    """The kernel lines of a streaming plan after the tile's indices.
+    Iteration ``it`` loads the operands' window plane ``it`` into their
+    rings (plane ``i`` of a value's window in slot ``i % depth``; with a
+    prefetch plane, plane ``it + 1`` while the CTA computes), then every
+    op computes its value's plane at its lag (:func:`_lags`): plane ``i0
+    = it + c`` of its window, where ``c`` aligns the values' fronts; a
+    value outside its window at that iteration is skipped.  Each plane is
+    a 2-D frame walked by :func:`_walk` (rows along dim 1, the columns of
+    dim 2 unpadded); a dim-0 tap reads the ring slot of its plane.  One
+    ``__syncthreads`` follows each op's plane (a skew of one more plane a
+    sub-step would do with one an iteration, but its deeper rings force
+    smaller tiles, which measured slower: PERF.md)."""
+    offsets = st.offsets()
+    args = list(fused_op.body.args)
+    escapes = _escapes(fused_op)
+    lag = _lags(fused_op)
+    mask_of = _fused_masks(fused_op)
+    queues = _queues(fused_op, plan)
+    values = _temp_values(fused_op)
+    lb0 = {v: v.type.bounds.lb[0] for v in values}
+    w0 = {v: plan.window_shape(v.type.bounds)[0] for v in values}
+    zmin = min(lb0[v] + lag[v] for v in values)
+    c = {v: zmin - lag[v] - lb0[v] for v in values}
+    n_iter = max(w0[v] - c[v] for v in values)
+
+    def pshape(v) -> tuple:
+        return plan.window_shape(v.type.bounds)[1:]
+
+    def buf(v) -> str:
+        return f"s{st.slot_of[v]}"
+
+    def walk(v, column, point, skip=None) -> list:
+        """:func:`_walk` of ``v``'s plane, without its barrier."""
+        return _walk(pshape(v), column, point, skip, first=1, rows=_plane_r(pshape(v)),
+                     pad=False)[:-1]
+
+    def ring(v, plane: str) -> str:
+        """The first float of window plane ``plane`` in ``v``'s ring."""
+        s = st.slot_of[v]
+        return f"({plane}) % {st.depth[s]} * {st.plane[s]}"
+
+    def box_of(mask_op) -> dict:
+        return _box_of(boxes, mask_op)
+
+    def mask_column(mask_op) -> list:
+        """A mask's box test, the part computed once per column: along dim
+        1 (the rows) the offsets of the column's first row from the box's
+        ``lo`` and ``hi`` (``m_lo``, ``m_hi``), along dim 2 and the plane's
+        dim 0 whether the column lies inside the box (``m_in``)."""
+        lb = mask_op.temp.type.bounds.lb
+        lines, inside = [], []
+        for d, j in box_of(mask_op).items():
+            if d == 1:
+                lines += [f"    const int m_lo = a + t1 + {lb[1]} - box{j}_lo;",
+                          f"    const int m_hi = a + t1 + {lb[1]} - box{j}_hi;"]
+            else:
+                inside.append(f"t{d} + i{d} + {lb[d]} >= box{j}_lo && "
+                              f"t{d} + i{d} + {lb[d]} < box{j}_hi")
+        if inside:
+            lines.append(f"    const bool m_in = {' && '.join(inside)};")
+        return lines
+
+    def mask_point(mask_op, row: int) -> str:
+        dims = box_of(mask_op)
+        terms = ["m_in"] if any(d != 1 for d in dims) else []
+        if 1 in dims:
+            terms += [f"m_lo >= {-row}", f"m_hi < {-row}"]
+        return " && ".join(terms)
+
+    def no_column(a_last) -> list:
+        return []
+
+    def copy_out(v, w: str = "w") -> list:
+        def point(j):
+            return [
+                f"      out{e}[{_global_index(x.type.bounds.shape)}] = {buf(v)}[{w} + p];"
+                for e, x in enumerate(escapes) if x is v
+            ]
+
+        return walk(v, no_column, point, _outside_owned(plan, v.type.bounds))
+
+    def at_plane(v, lines: list, early: int = 0) -> list:
+        """``lines`` (a plane walk, without its barrier) in a block where
+        ``i0`` is ``v``'s plane of this iteration, run only where that
+        plane lies in ``v``'s window (or up to ``early`` planes before it,
+        for the register queues); ``w`` is its slot in ``v``'s ring."""
+        head = ["  {", f"    const int i0 = {_plus('it', c[v])};"]
+        cond = ([f"i0 >= {-early}"] if c[v] < -early else []) + [f"i0 < {w0[v]}"]
+        head.append(f"    if ({' && '.join(cond)}) {{")
+        if v in st.slot_of:
+            head.append(f"      const int w = {ring(v, 'i0')};")
+        return head + ["    " + x for x in lines] + ["    }", "  }"]
+
+    src = []
+    # the operands' window planes of iteration it -> their rings, by
+    # asynchronous copies
+    src.append("  auto load = [&](const int it) {")
+    for k, a in enumerate(args):
+        ow = plan.window_shape(a.type.bounds)
+        s = st.slot_of[a]
+        v = _k1.copy_width((a.type.bounds.shape[-1], ow[-1], plan.tile[-1], offsets[s],
+                            st.plane[s]), ptr_align)
+        nv = ow[-1] // v
+        src += [
+            f"    {{  // in{k}: planes of {ow[1:]}, {4 * v}-byte copies",
+            f"      const int i0 = {_plus('it', c[a])};",
+            f"      if (i0 {'>= 0 && i0 ' if c[a] < 0 else ''}< {ow[0]}) {{",
+            f"        float* const dst = {buf(a)} + {ring(a, 'i0')};",
+            f"        for (int q = threadIdx.x; q < {ow[1] * nv}; q += kThreads) {{",
+            f"          const int i1 = q / {nv};",
+            f"          const int i2 = q % {nv} * {v};",
+            f"          K1_CP_ASYNC(dst + q * {v}, in{k} + {_global_index(a.type.bounds.shape)}, "
+            f"{4 * v});",
+            "        }",
+            "      }",
+            "    }",
         ]
-    src += [f"K1_EXPORT int {_LAUNCHER}(" + ", ".join(c_params + ["void* stream"]) + ") {"]
-    if looping:
-        # the grid is the CTAs the scratch was sized for, each looping over
-        # the slots' tiles with a 64-bit index: any slot count fits
-        src += [f"  if (slots < 1 || ctas < 1 || ctas > {plan.ctas}) return {_k1._INVALID_VALUE};"]
-        grid = "static_cast<unsigned int>(ctas)"
+    src.append("  };")
+    if plan.prefetch:
+        src += ["  load(0);", "  K1_CP_ASYNC_COMMIT();"]
+    loop = len(src)  # the register queues are declared here, before the loop
+    src.append(f"  for (int it = 0; it < {n_iter}; ++it) {{")
+    if plan.prefetch:
+        # this iteration's planes have landed and the last iteration's
+        # reads are done, so the next planes may take their slots
+        src += ["    K1_CP_ASYNC_WAIT(0);", "    __syncthreads();", "    load(it + 1);",
+                "    K1_CP_ASYNC_COMMIT();"]
     else:
-        src += [f"  if (slots < 1 || slots > {_k1._MAX_GRID // plan.n_tiles}) "
-                f"return {_k1._INVALID_VALUE};"]
-        grid = f"static_cast<unsigned int>(slots) * {plan.n_tiles}u"
-    src += opt_in
-    src += [
-        f"  K1_LAUNCH(k2_epoch, {grid}, kThreads, "
-        f"{smem}, stream,",
-        "            " + ", ".join(call_args) + ");",
-        "  return k1::launch_status();",
-        "}",
-        "",
-        f"K1_EXPORT int {_OCCUPANCY}(void* ctas_per_sm) {{",
-        *opt_in,
-        "  return static_cast<int>(K1_OCCUPANCY(static_cast<int*>(ctas_per_sm), k2_epoch, "
-        f"kThreads, {smem}));",
-        "}",
-        "",
-    ]
-    return _graphs.name_kernel(src, _graphs.K2_KERNEL)
+        src += ["    load(it);", "    K1_CP_ASYNC_COMMIT();", "    K1_CP_ASYNC_WAIT(0);",
+                "    __syncthreads();"]
+    body: list = []
+    decls: list = []
+    for n, op in enumerate(fused_op.body.ops[:-1]):
+        phase: list = []
+        if isinstance(op, stencil.ApplyOp):
+            r0 = op.results[0]
+            rb = r0.type.bounds
+            mask = mask_of.get(op)
+            rows_ = _plane_r(pshape(r0))
+            items = -(-pshape(r0)[0] // rows_) * pshape(r0)[1]
+            groups = _plane_rows(op, rows_)
+            queued = queues[op]
+            names: dict = {}
+            pre = []  # the plane of each ring read in its operand's ring
+            early = 0  # iterations before its first plane that fill the queues
+            for k in sorted({k for k, _ in groups}):
+                o = op.operands[k]
+                shift0 = rb.lb[0] - o.type.bounds.lb[0]
+                offs = {o0 for kk, (o0, o2) in groups if kk == k
+                        if k not in queued or (o0, o2) == (0, 0) or not o0}
+                if k in queued:
+                    offs.add(queued[k][1])
+                    early = max(early, shift0 + queued[k][1])
+                    for j in range(rows_):
+                        for d in range(queued[k][0], queued[k][1] + 1):
+                            decls.append(f"  K1_PER_THREAD(q{n}_{k}_{j}_{_tag(d)}, {items});")
+                for off0 in sorted(offs):
+                    pre.append(f"  const int r{k}_{_tag(off0)} = "
+                               f"{ring(o, _plus('i0', shift0 + off0))};")
+
+            def column(a_last, op=op, rb=rb, groups=groups, names=names, mask=mask, n=n,
+                       queued=queued, rows_=rows_, early=early) -> list:
+                lines = mask_column(mask) if mask is not None else []
+                for k in sorted({k for k, _ in groups}):
+                    o = op.operands[k]
+                    pw = pshape(o)
+                    shift = [q - l for q, l in zip(rb.lb, o.type.bounds.lb)]
+                    lines.append(f"    const int b{k} = (a + {shift[1]}) * {pw[1]} + i2 + {shift[2]};")
+                for k, (lo, hi) in sorted(queued.items()):
+                    # each row's queue moves one plane on, then takes the
+                    # newest plane from the ring
+                    o = op.operands[k]
+                    pw = pshape(o)
+                    shift0 = rb.lb[0] - o.type.bounds.lb[0]
+                    shift1 = rb.lb[1] - o.type.bounds.lb[1]
+                    for j in range(rows_):
+                        q = [f"K1_MINE(q{n}_{k}_{j}_{_tag(d)}, q)" for d in range(lo, hi + 1)]
+                        lines += [f"    {a} = {b};" for a, b in zip(q, q[1:])]
+                        expr = f"{buf(o)}[r{k}_{_tag(hi)} + b{k} + {j * pw[1]}]"
+                        guards = []
+                        if a_last + shift1 + j >= pw[0]:
+                            guards.append(f"a < {pw[0] - shift1 - j}")
+                        if shift0 + hi < early:
+                            guards.append(f"i0 >= {-(shift0 + hi)}")
+                        if w0[r0] - 1 + shift0 + hi >= w0[o]:  # past the operand's last plane
+                            guards.append(f"i0 < {w0[o] - shift0 - hi}")
+                        if guards:
+                            expr = f"({' && '.join(guards)}) ? {expr} : 0.0f"
+                        lines.append(f"    {q[-1]} = {expr};")
+                        for d in range(lo, hi + 1):
+                            names[(k, (d, 0), j)] = q[d - lo]
+                if early:
+                    lines.append("    if (i0 < 0) continue;  // the queues fill before the first plane")
+                for g, ((k, (off0, off2)), rows) in enumerate(groups.items()):
+                    o = op.operands[k]
+                    pw = pshape(o)
+                    shift1 = rb.lb[1] - o.type.bounds.lb[1]
+                    for row in rows:
+                        if (k, (off0, off2), row) in names:
+                            continue
+                        name = f"x{k}_{g}_{_tag(row)}"
+                        expr = f"{buf(o)}[r{k}_{_tag(off0)} + b{k} + {row * pw[1] + off2}]"
+                        if a_last + shift1 + row >= pw[0]:  # past a ragged chunk's plane
+                            expr = f"(a < {pw[0] - shift1 - row}) ? {expr} : 0.0f"
+                        lines.append(f"    const float {name} = {expr};")
+                        names[(k, (off0, off2), row)] = name
+                return lines
+
+            def index(d, rb=rb):
+                return (
+                    f"static_cast<float>(t{d} + i{d}) + "
+                    f"{_k1._f32_literal(float(rb.lb[d]))}"
+                )
+
+            def store(k, v, row, op=op, mask=mask):
+                res = op.results[k]
+                if res in st.direct:
+                    return " ".join(
+                        f"out{e}[{_global_index(res.type.bounds.shape)}] = {v};"
+                        for e, x in enumerate(escapes) if x is res
+                    )
+                if mask is not None and box_of(mask):
+                    return f"{buf(mask.results[0])}[w + p] = ({mask_point(mask, row)}) ? {v} : 0.0f;"
+                return f"{buf(res)}[w{k if k else ''} + p] = {v};"
+
+            def point(j, op=op, names=names, index=index, store=store) -> list:
+                def load(k, offset):
+                    return names[(k, (offset[0], offset[2]), j + offset[1])]
+
+                return _k1.emit_body(op, load, index, lambda k, v: store(k, v, j),
+                                     indent="      ")
+
+            skip = _outside_owned(plan, rb) if r0 in st.direct else None
+            extra = [f"  const int w{k} = {ring(x, 'i0')};"
+                     for k, x in enumerate(op.results) if k and x in st.slot_of]
+            lines = pre + extra + walk(r0, column, point, skip)
+            copies = []
+            for k, x in enumerate(op.results):
+                if x in escapes and x not in st.direct:
+                    copies += copy_out(x, f"w{k if k else ''}")
+            if copies and early:
+                copies = ["  if (i0 >= 0) {"] + ["  " + x for x in copies] + ["  }"]
+            phase = [f"  // op {n}: stencil.apply, planes {pshape(r0)} at lag {lag[r0]}"
+                     + (f", then op {n + 1}'s mask" if mask is not None else "")
+                     + (f", dim-0 taps of {sorted(queued)} in registers" if queued else "")]
+            phase += at_plane(r0, lines + copies, early)
+        else:  # comm.boundary_mask
+            x, res = op.temp, op.results[0]
+            lines = []
+            if not any(m is op for m in mask_of.values()):
+                xp = f"{buf(x)}[wx + p]"
+                if box_of(op):
+                    lines = walk(res, lambda a_last, op=op: mask_column(op),
+                                 lambda j, op=op, xp=xp: [
+                                     f"      {buf(res)}[w + p] = ({mask_point(op, j)}) ? {xp} : 0.0f;"])
+                elif st.slot_of[res] != st.slot_of[x]:
+                    lines = walk(res, no_column, lambda j, xp=xp: [f"      {buf(res)}[w + p] = {xp};"])
+                if lines:
+                    lines = [f"  const int wx = {ring(x, 'i0')};"] + lines
+            if res in escapes:
+                lines += copy_out(res)
+            if lines:
+                phase = [f"  // op {n}: comm.boundary_mask"] + at_plane(res, lines)
+        if phase:
+            body += phase + ["  __syncthreads();"]
+    if plan.prefetch and body:
+        body.pop()  # the next iteration's barrier comes before its loads
+    src[loop:loop] = decls
+    src += ["  " + line for line in body]
+    src += ["  }", "  K1_CP_ASYNC_WAIT(0);"]
+    return src
 
 
 # --------------------------------------------------------------------------
 # Entry point
 # --------------------------------------------------------------------------
 
-# fused op -> {(tile, pointer alignment, scratch forced): _Kernel}: a time
+# fused op -> {(tile, pointer alignment, scratch forced, stream): _Kernel}: a time
 # loop launches the same epoch at the same tile every call, so its source
 # is emitted once
 _BOUND: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -1097,14 +1773,14 @@ class _Kernel:
 
 
 def _kernel_for(fused_op: stencil.FusedEpochOp, tile: Optional[tuple], ptr_align: int = 16,
-                scratch: bool = False) -> _Kernel:
-    key = (tile, ptr_align, scratch)
+                scratch: bool = False, stream=None) -> _Kernel:
+    key = (tile, ptr_align, scratch, stream)
     with _k1._LIBS_LOCK:
         per_op = _BOUND.setdefault(fused_op, {})
         kernel = per_op.get(key)
     if kernel is None:
-        plan = plan_epoch(fused_op, tile, scratch)
-        source = emit_epoch_cuda(fused_op, tile, ptr_align, scratch)
+        plan = plan_epoch(fused_op, tile, scratch, stream)
+        source = emit_epoch_cuda(fused_op, tile, ptr_align, scratch, stream)
         _graphs.register(source, fused_op)
         n_ptrs = len(fused_op.operands) + len(fused_op.results)
         n_ints = 2 * len(set(_box_keys(fused_op).values())) + 1  # the boxes, the slots
@@ -1126,6 +1802,7 @@ def run_epoch_cuda(
     coords=None,
     out: Optional[Sequence[Optional[torch.Tensor]]] = None,
     scratch: bool = False,
+    stream=None,
 ) -> list:
     """Entry point used by the lowering's ``cuda`` backend: one fused epoch
     on the rank at mesh coordinate ``coords`` (a mesh axis name → its
@@ -1141,7 +1818,8 @@ def run_epoch_cuda(
     The kernel takes each mask's box at ``coords`` as launch arguments
     (:func:`box_args`) and tests every point against it, so on the card
     ``masks`` must be None.  ``tile`` overrides the default plan;
-    ``scratch`` forces a scratch plan (:func:`plan_epoch`).  A scratch
+    ``scratch`` forces a scratch plan, ``stream`` a streaming plan or
+    none (:func:`plan_epoch`).  A scratch
     plan's launch takes a scratch of device memory, allocated here.  Each
     call counts in ``dispatch_stats().fused_epoch_calls``, each launch in
     ``fused_epoch_launches``."""
@@ -1167,6 +1845,8 @@ def run_epoch_cuda(
                 f"shape {tuple(arg.type.bounds.shape)}"
             )
     tile = None if tile is None else tuple(int(t) for t in tile)
+    if stream is not None and not isinstance(stream, bool):
+        stream = tuple(int(t) for t in stream)
     out = list(out) if out is not None else [None] * len(fused_op.results)
     if len(out) != len(fused_op.results):
         raise ValueError(f"{len(out)} out tensors for an epoch of {len(fused_op.results)} escapes")
@@ -1179,8 +1859,8 @@ def run_epoch_cuda(
             )
     with _obs.span("cuda:fused_epoch", cat="kernel", rank=None, device=dev.type):
         if dev.type == "cpu":
-            if tile is not None or scratch:
-                plan_epoch(fused_op, tile, scratch)  # refuse what the kernel would refuse
+            if tile is not None or scratch or stream is not None:
+                plan_epoch(fused_op, tile, scratch, stream)  # refuse what the kernel would refuse
             if masks is None:
                 masks = region_masks(fused_op, dev, coords)
             if len(masks) != len(_mask_ops(fused_op)):
@@ -1206,7 +1886,8 @@ def run_epoch_cuda(
             if o is None else o
             for r, o in zip(fused_op.results, out)
         ]
-        kernel = _kernel_for(fused_op, tile, _k1.ptr_alignment(arrays, len(shapes[0])), scratch)
+        kernel = _kernel_for(fused_op, tile, _k1.ptr_alignment(arrays, len(shapes[0])), scratch,
+                             stream)
         grid = []
         if kernel.plan.ctas:
             ctas = kernel.ctas(dev, (slots or 1) * kernel.plan.n_tiles)
@@ -1215,10 +1896,10 @@ def run_epoch_cuda(
                               device=dev)
             grid = [buf.data_ptr(), ctas]
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
+            cuda_stream = torch.cuda.current_stream(dev).cuda_stream
             status = kernel.fn(
                 *[a.data_ptr() for a in arrays], *[o.data_ptr() for o in outs],
-                *box_args(fused_op, coords), slots or 1, *grid, stream,
+                *box_args(fused_op, coords), slots or 1, *grid, cuda_stream,
             )
         if status != 0:
             raise RuntimeError(f"K2 launch failed with CUDA error {status}")

@@ -237,7 +237,9 @@ def tile_candidates(program, target) -> list:
     ``target``'s pipeline; a tile must suit every epoch of the program,
     so a tile K2 cannot take is never offered.  Where an epoch's default
     plan keeps buffers in device memory (no tile fits shared memory),
-    only ``None``: an explicit tile means shared memory alone."""
+    only ``None``: an explicit tile means shared memory alone.  Where it
+    streams planes (rank 3), ``None`` (the streaming plan) and then the
+    two least costly tiles that fit, none of them set aside as chosen."""
     from repro_torch import api
     from repro_torch.core.dialects import stencil
     from repro_torch.kernels import epoch_kernel as k2
@@ -246,11 +248,12 @@ def tile_candidates(program, target) -> list:
     epochs = [op for op in local.body.ops if isinstance(op, stencil.FusedEpochOp)]
     if not epochs:
         return [None]
-    if any(k2.plan_epoch(e).ctas for e in epochs):
+    plans = [k2.plan_epoch(e) for e in epochs]
+    if any(p.ctas for p in plans):
         return [None]
     first = epochs[0]
     core = k2._core(first)
-    chosen = k2.choose_tile(first)
+    chosen = None if plans[0].stream else plans[0].tile
     cands = itertools.product(*(
         k2._divisors_at_most(n, cap) for n, cap in zip(core.shape, k2.TILE_LIMIT[core.rank])
     ))

@@ -1,12 +1,19 @@
-"""Deep 3-D fused epochs: K2's scratch plans, planned and run on the CPU.
+"""Deep 3-D fused epochs: K2's streaming and scratch plans, planned and
+run on the CPU.
 
-Where no tile's buffers fit shared memory (heat so4 k=8 needs 241,328 B
-even for a tile of one point), K2 keeps buffers in device memory, its
-CTAs looping over the tiles (``kernels/epoch_kernel.py``).  Here:
+A 3-D epoch's default plan is the least costly of the tiles whose
+buffers fit shared memory and the streaming plans (a minor tile, the
+core walked plane by plane through rings of shared memory) that fit 227
+KB; where neither fits (heat so4 k=8 needs 241,328 B even for a tile of
+one point, heat and wave so8 k=8 have no streaming plan either), K2
+keeps buffers in device memory, its CTAs looping over the tiles
+(``kernels/epoch_kernel.py``).  Here:
 
 - every 3-D heat and wave fused epoch with so ∈ {2, 4, 8} and k ∈ {1, 2,
-  4, 8} at 1024³ gets a plan (host code only), its scratch under
-  ``SCRATCH_CAP``;
+  4, 8} at 1024³ gets a plan (host code only): a streaming plan whose
+  rings fit 227 KB, except heat and wave so8 k=8 (no stream fits) and
+  wave so8 k=4 (its stream ran slower on the card), whose scratch plans
+  stay under ``SCRATCH_CAP``;
 - the plans that fit shared memory are what they were: the tiles and the
   generated sources (named by a hash of their lines) of chip_smoke's
   phase-6 cases;
@@ -14,10 +21,11 @@ CTAs looping over the tiles (``kernels/epoch_kernel.py``).  Here:
   2×2×1 mesh of CPU ranks: the fused route bitwise equal to the unfused
   one and within 1e-5 of the reference's fused Pallas target in interpret
   mode (XLA may fuse a*b+c; eager torch rounds each op);
-- the tuner's 3-D space holds fused k=8 candidates (K2's own plan only).
+- the tuner's 3-D space holds fused k=8 candidates (K2's own plan only),
+  and offers a streaming epoch's own plan (``None``) first.
 
 Tensors lie on the CPU, so the K2 wrapper runs its plain version; the
-generated scratch sources run on the host in
+generated streaming and scratch sources run on the host in
 ``tests/test_torch_host_kernels.py`` and on the card in ``chip_smoke.py``.
 """
 import numpy as np
@@ -52,25 +60,39 @@ def _epoch(prog, k, tile=None):
 @pytest.mark.parametrize("so", [2, 4, 8])
 @pytest.mark.parametrize("kind", ["heat", "wave"])
 def test_every_3d_fused_epoch_at_1024_cubed_gets_a_plan(kind, so, k):
-    """K2 plans every fig-7 3-D epoch at the paper's size.  A plan keeps
-    buffers in device memory only where no tile fits shared memory, then
-    sizes its scratch for one or two CTAs an SM, within the cap."""
+    """K2 plans every fig-7 3-D epoch at the paper's size.  Every one but
+    heat and wave so8 k=8 has a streaming plan whose rings fit the 227 KB
+    a CTA may use, and all but those two and wave so8 k=4 take it (among
+    them heat so4 k=8 and wave so4 k=8, which no tile of shared memory
+    holds, and heat so8 k=4, whose tiles shrink to 2×2×2).  Heat and wave
+    so8 k=8 keep buffers in device memory, their scratch sized for one or
+    two CTAs an SM, within the cap; so does wave so8 k=4, whose stream
+    ran slower on the card than its scratch plan (a one-CTA-an-SM stream's
+    cost weighs ``STREAM_WEIGHT`` times a scratch plan's)."""
     op = _epoch(getattr(P, kind)("repro_torch", (1024,) * 3, so), k)
     plan = k2.plan_epoch(op)
     st = k2._storage(op, plan)
     assert all(n % t == 0 for n, t in zip(plan.core.shape, plan.tile))
-    if plan.ctas:
+    assert st.smem_bytes <= k2.SMEM_PER_BLOCK
+    no_stream = (kind, so, k) in {("heat", 8, 8), ("wave", 8, 8)}
+    scratch = no_stream or (kind, so, k) == ("wave", 8, 4)
+    assert bool(plan.ctas) == scratch and plan.stream == (not scratch)
+    if scratch:
         assert plan.ctas in (k2.SMS, 2 * k2.SMS) and st.scratch_floats > 0
         assert 0 < k2.scratch_bytes(op, plan) <= k2.SCRATCH_CAP
-        assert st.smem_bytes <= k2.SMEM_PER_BLOCK
         with pytest.raises(ValueError, match="shared memory"):
             k2.plan_epoch(op, (1, 1, 1))  # not even one point fits on chip
+    if no_stream:
+        with pytest.raises(ValueError, match="no streaming plan"):
+            k2.plan_epoch(op, stream=True)
+    elif scratch:
+        stream = k2.plan_epoch(op, stream=True)
+        assert stream.stream and k2._storage(op, stream).smem_bytes <= k2.SMEM_PER_BLOCK
+        assert k2.STREAM_WEIGHT * k2.tile_cost(op, stream) > k2.tile_cost(op, plan)
     else:
-        assert k2.scratch_bytes(op, plan) == 0 and st.smem_bytes <= k2.SMEM_PER_BLOCK
-    deep = {("heat", 4, 8), ("heat", 8, 8), ("wave", 4, 8), ("wave", 8, 4), ("wave", 8, 8)}
-    assert bool(plan.ctas) == ((kind, so, k) in deep)
+        assert k2.scratch_bytes(op, plan) == 0 and st.depth and plan.n_tiles >= k2.MIN_CTAS
     src = k2.emit_epoch_cuda(op)
-    assert ("K1_SCRATCH_TILE" in src) == bool(plan.ctas)
+    assert ("K1_SCRATCH_TILE" in src) == scratch and ("streaming plan" in src) == plan.stream
 
 
 # chip_smoke's phase-6 epochs (its stencil.index chain is the tests'
@@ -154,7 +176,7 @@ def test_deep_3d_epochs_fused_equal_unfused_and_reference(name, where):
         "mesh": MESH_2X2X1, "strategy": make_strategy_3d((2, 2, 1))}
     fused = api.compile(prog, _fused(k, **dist))
     (op,) = fused.kernel_epochs()
-    assert k2.plan_epoch(op).ctas > 0  # the card would run a scratch plan
+    assert k2.plan_epoch(op).stream  # the card would stream planes
     tstate = state_from_numpy(prog, state, device="cpu")
     got = fused.time_loop(tstate, steps)
     unfused = api.compile(prog, Target(backend="cuda", exchange_every=k, device="cpu",
@@ -168,8 +190,8 @@ def test_deep_3d_epochs_fused_equal_unfused_and_reference(name, where):
 
 def test_tuner_offers_fused_k8_in_3d():
     """Heat so4 in 3-D: the tuner's space holds the fused k=8 epoch (K2's
-    own scratch plan, no explicit tile), which it used to drop because no
-    tile fit shared memory; k=4 still varies K2's tile."""
+    own plan, no explicit tile), which it used to drop because no tile fit
+    shared memory; k=4 still varies K2's tile."""
     prog = P.heat("repro_torch", (32, 32, 32), 4)
     cands = enumerate_candidates(prog, devices=[CPU], backends=("cuda",), exchange_every=(4, 8),
                                  overlap=(False,), fused_epoch=(True,))
@@ -180,12 +202,30 @@ def test_tuner_offers_fused_k8_in_3d():
     assert tile_candidates(prog, _fused(8)) == [None]
 
 
+def test_tuner_offers_a_streaming_epoch_its_own_plan_first():
+    """Heat so4 k=4 at 128³ streams planes by default (a 16×16 minor tile,
+    the core in 16-plane segments): the tuner offers ``None`` (the
+    streaming plan) first, then two tiles of shared memory that K2 takes
+    as tiled plans, in order of their cost, the same 16³ among them."""
+    prog = P.heat("repro_torch", (128, 128, 128), 4)
+    op = _epoch(prog, 4)
+    assert k2.plan_epoch(op).stream and k2.plan_epoch(op).tile == (16, 16, 16)
+    tiles = tile_candidates(prog, _fused(4))
+    assert (16, 16, 16) in tiles
+    assert tiles[0] is None and len(tiles) == 3
+    plans = [k2.plan_epoch(op, t) for t in tiles[1:]]
+    assert all(p.tile == t and not p.stream and not p.ctas for p, t in zip(plans, tiles[1:]))
+    costs = [k2.tile_cost(op, p) for p in plans]
+    assert costs == sorted(costs)
+
+
 def test_chip_smoke_phase_20_on_the_cpu(monkeypatch, capsys):
     """``chip_smoke.deep_phase`` at 32³ on the CPU, the compiled step's ring
     forced on and each CUDA graph replaced by the stand-in of
     ``tests/test_torch_obs.py``: every check passes (the plain versions
     launch nothing, so the launch counts are 0 here), and each main-path
-    case gets a kernels-line record."""
+    case gets a kernels-line record naming its plan: streaming for all
+    but heat so8 k=8's scratch plan."""
     import contextlib
     import sys
     from pathlib import Path
@@ -216,7 +256,11 @@ def test_chip_smoke_phase_20_on_the_cpu(monkeypatch, capsys):
         api.clear_cache()
     out = capsys.readouterr().out
     assert "phase 20:" in out and "bitwise equal to one device" in out
-    assert out.count("jit=True, donate=True: bitwise jit=False") == 5
+    assert out.count("jit=True, donate=True: bitwise jit=False") == 6
     assert [r["name"].split("[")[1].split(" ")[0] for r in records] == [
-        "heat3d_so4", "heat3d_so4", "heat3d_so8", "wave3d_so4", "wave3d_so8"]
+        "heat3d_so4", "heat3d_so4", "heat3d_so8", "heat3d_so8", "wave3d_so4", "wave3d_so8"]
+    assert [r["name"].rsplit(" ", 1)[1] for r in records] == [
+        "stream]", "stream]", "scratch]", "stream]", "stream]", "stream]"]  # 32³'s plans
+    assert out.count(", streaming: K2 bitwise its plain version") == 4
+    assert "streaming forced: K2 bitwise its plain version" in out
     assert all(r["launches"] == 0 and r["max_abs_err"] == 0 for r in records)

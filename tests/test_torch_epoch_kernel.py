@@ -284,10 +284,12 @@ def test_tile_shrinks_to_the_budget_and_refuses_what_cannot_fit():
     with pytest.raises(ValueError, match="does not divide"):
         k2.plan_epoch(op, (64,))
     # a 16-point halo in 3D: a window of 33³ floats even for one point, so
-    # no tile lets two CTAs share an SM; the largest one CTA can hold wins
+    # no tile lets two CTAs share an SM; of the tiles (streaming plans left
+    # out) the largest one CTA can hold wins, and the default plan streams
     op3 = _epoch(P.heat("repro_torch", (96, 96, 96), 8), 4)
-    plan3 = k2.plan_epoch(op3)
-    assert plan3.tile == (2, 2, 2)
+    plan3 = k2.plan_epoch(op3, stream=False)
+    assert plan3.tile == (2, 2, 2) and not plan3.stream
+    assert k2.plan_epoch(op3).stream
     assert k2.SMEM_TWO_BLOCKS < k2._storage(op3, plan3).smem_bytes <= k2.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="shared memory"):
         k2.plan_epoch(op3, (96, 96, 96))

@@ -58,8 +58,9 @@ HOST_HEADER = r"""// Host stand-in for the kernels' header stencil_apply_common.
 // over the grid; shared memory is a host buffer filled with NaN before each
 // CTA (a point that reads shared memory nothing wrote comes out NaN), and
 // before each tile of a K2 scratch plan its CTA's scratch and shared memory
-// are filled with NaN again; cp.async is a copy that first checks the
-// alignment its size needs; __syncthreads does nothing.
+// are filled with NaN again; a value a K2 streaming plan's thread keeps
+// across iterations is one per work item; cp.async is a copy that first
+// checks the alignment its size needs; __syncthreads does nothing.
 #pragma once
 
 #include <math.h>
@@ -113,6 +114,8 @@ inline float __int_as_float(unsigned int bits) {
 #define K1_OPT_IN_SMEM(kernel, bytes) 0
 #define K1_OCCUPANCY(blocks, kernel, threads, smem) (*(blocks) = 1, 0)
 #define K1_SCRATCH_TILE(scratch, floats) k1_host::scratch_tile((scratch), (floats))
+#define K1_PER_THREAD(name, items) float name[items]
+#define K1_MINE(name, item) name[item]
 #define K1_LAUNCH(kernel, grid, block, smem_bytes, stream, ...)                      \
   do {                                                                               \
     gridDim.x = static_cast<unsigned int>(grid);                                     \
@@ -223,9 +226,10 @@ K2_CASES = {
 
 
 # K2 scratch plans, whose CTAs loop over tiles with buffers in device
-# memory: name -> (program, k, tile, scratch forced, mesh coords).  No
-# tile of heat so4 k=8 or wave so8 k=4 fits shared memory (their default
-# plans keep some buffers on chip and some in scratch); the forced case
+# memory: name -> (program, k, tile, scratch forced, mesh coords), each
+# planned with streaming plans left out (``stream=False``).  No tile of
+# heat so4 k=8 or wave so8 k=4 fits shared memory (their plans keep some
+# buffers on chip and some in scratch); the forced case
 # puts every buffer of an epoch that fits in device memory, at the tile of
 # "heat3d-so4-k2"; the corner is a rank's epoch of a 2×2×1 mesh
 K2_SCRATCH_CASES = {
@@ -234,6 +238,23 @@ K2_SCRATCH_CASES = {
     "heat3d-so4-k2-forced": (lambda: P.heat("repro_torch", (12, 10, 16), 4), 2, (4, 5, 8), True,
                              None),
     "heat3d-so4-k8-2x2x1-corner": (lambda: P.heat("repro_torch", (40, 32, 16), 4), 8, None, False,
+                                   {"x": 1, "y": 0}),
+}
+
+# K2 streaming plans (rank 3: a minor tile, the core walked plane by plane
+# through rings in shared memory): name -> (program, k, stream, mesh
+# coords), ``stream`` as ``plan_epoch`` takes it.  Heat so4 k=8 and wave
+# so8 k=4 at their least costly streaming plan; heat so4 k=2 at the minor
+# tile of "heat3d-so4-k2"; wave so4 k=2 in three dim-0 segments (the
+# carried escape's overhang planes written by the first and last
+# segments); a rank's keep box on a 2×2×1 mesh
+K2_STREAM_CASES = {
+    "heat3d-so4-k8": (lambda: P.heat("repro_torch", (20, 16, 16), 4), 8, (8, 8), None),
+    "wave3d-so8-k4": (lambda: P.wave("repro_torch", (20, 16, 18), 8), 4, (8, 9), None),
+    "heat3d-so4-k2": (lambda: P.heat("repro_torch", (12, 10, 16), 4), 2, (5, 8), None),
+    "wave3d-so4-k2-segments": (lambda: P.wave("repro_torch", (12, 10, 16), 4), 2, (4, 5, 8),
+                               None),
+    "heat3d-so4-k8-2x2x1-corner": (lambda: P.heat("repro_torch", (40, 32, 16), 4), 8, (8, 16),
                                    {"x": 1, "y": 0}),
 }
 
@@ -316,7 +337,12 @@ def built(tmp_path_factory):
         shapes = [a.type.bounds.shape for a in op.body.args]
         add(("k2-scratch", name), (op, tile, forced, coords),
             k2.emit_epoch_cuda(op, tile, ptr_align=_pool_align(shapes, len(shapes[0])),
-                               scratch=forced))
+                               scratch=forced, stream=False))
+    for name, (prog, k, stream, coords) in K2_STREAM_CASES.items():
+        op = _epoch(prog(), k, None if coords is None else MESH_2X2X1)
+        shapes = [a.type.bounds.shape for a in op.body.args]
+        add(("k2-stream", name), (op, stream, coords),
+            k2.emit_epoch_cuda(op, ptr_align=_pool_align(shapes, len(shapes[0])), stream=stream))
     (heat,) = K1_CASES["heat2d-so4-zero"]()
     add(("k1", "unaligned"), heat, k1.emit_apply_cuda(*_spec(heat), ptr_align=4))
     op = _epoch(P.heat("repro_torch", (48, 40), 4), 4)
@@ -559,7 +585,7 @@ def test_k2_pooled_source_on_host_matches_plain_and_solo_launches(built, name):
 def _scratch_launch(op, tile, forced, path, arrays, coords=None, slots=1, ctas=None):
     """One launch of a K2 scratch source, by default on as many CTAs as its
     plan sizes its scratch for (at most one a (slot, tile) pair)."""
-    plan = k2.plan_epoch(op, tile, forced)
+    plan = k2.plan_epoch(op, tile, forced, stream=False)
     assert plan.ctas > 0
     ctas = min(plan.ctas, slots * plan.n_tiles) if ctas is None else ctas
     return _run(path, "k2_epoch_launch", arrays, [r.type.bounds.shape for r in op.results],
@@ -580,7 +606,7 @@ def test_k2_scratch_source_on_host_matches_plain_version(built, name):
     keep box on a 2×2×1 mesh.  Scratch and shared memory are NaN before
     every tile."""
     ((op, tile, forced, coords), path), = built["k2-scratch", name]
-    plan = k2.plan_epoch(op, tile, forced)
+    plan = k2.plan_epoch(op, tile, forced, stream=False)
     st = k2._storage(op, plan)
     assert plan.ctas and st.scratch_floats and st.in_place
     assert forced or plan.ctas < plan.n_tiles  # so a CTA takes several tiles
@@ -619,7 +645,7 @@ def test_k2_scratch_grid_smaller_than_the_tiles(built, ctas):
     got = _scratch_launch(op, tile, forced, path, arrays, ctas=ctas)
     for g, w in zip(got, _plain(op, arrays)):
         assert torch.equal(g, w)
-    plan = k2.plan_epoch(op, tile, forced)
+    plan = k2.plan_epoch(op, tile, forced, stream=False)
     floats = k2._storage(op, plan).scratch_floats
     outs = [r.type.bounds.shape for r in op.results]
     for bad in (0, plan.ctas + 1):
@@ -639,5 +665,62 @@ def test_k2_scratch_pooled_source_matches_plain_and_solo_launches(built):
     want = _plain(op, arrays)
     for b in range(POOL_SLOTS):
         solo = _scratch_launch(op, tile, forced, path, [a[b].clone() for a in arrays])
+        for g, w, o in zip(got, want, solo):
+            assert torch.equal(g[b], w[b]) and torch.equal(g[b], o)
+
+
+@pytest.mark.parametrize("name", sorted(K2_STREAM_CASES))
+def test_k2_stream_source_on_host_matches_plain_version(built, name):
+    """K2's streaming plans, every CTA walking its tile's planes through
+    rings of shared memory (NaN until written), bitwise equal to the plain
+    version: heat so4 k=8 and wave so8 k=4 (wave's older field read at a
+    deeper lag than its taps, its carried escape over [-r, n+r) written as
+    the stream passes its first and last planes), heat so4 k=2, wave in
+    dim-0 segments, and a rank's keep box on a 2×2×1 mesh."""
+    ((op, stream, coords), path), = built["k2-stream", name]
+    plan = k2.plan_epoch(op, stream=stream)
+    st = k2._storage(op, plan)
+    assert plan.stream and st.smem_bytes <= k2.SMEM_PER_BLOCK
+    assert (plan.grid[0] > 1) == name.endswith("segments")
+    assert "streaming plan" in path.with_suffix(".cpp").read_text()
+    if name.startswith("wave"):
+        carried = [e for e in op.results if e.type.bounds.lb[0] < plan.core.lb[0]]
+        assert carried  # an escape wider than the core along dim 0
+    arrays = _inputs([a.type.bounds.shape for a in op.body.args], seed=7)
+    got = _run(path, "k2_epoch_launch", arrays, [r.type.bounds.shape for r in op.results],
+               k2.box_args(op, coords))
+    want = _plain(op, arrays, coords)
+    assert len(got) == len(want) == len(op.results)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k2_stream_equals_tiled_on_the_same_minor_tile(built):
+    """3-D heat so4 k=2 streamed at a 5×8 minor tile and tiled at 4×5×8 in
+    shared memory: bitwise equal, and to the plain version."""
+    ((op, stream, _), path), = built["k2-stream", "heat3d-so4-k2"]
+    ((op_t, tile), path_t), = built["k2", "heat3d-so4-k2"]
+    assert tile[1:] == stream and not k2.plan_epoch(op_t, tile).stream
+    arrays = _inputs([a.type.bounds.shape for a in op.body.args], seed=8)
+    (got,) = _run(path, "k2_epoch_launch", arrays, [op.results[0].type.bounds.shape],
+                  k2.box_args(op))
+    (tiled,) = _run(path_t, "k2_epoch_launch", arrays, [op_t.results[0].type.bounds.shape],
+                    k2.box_args(op_t))
+    assert torch.equal(got, tiled) and torch.equal(got, _plain(op, arrays)[0])
+
+
+@pytest.mark.parametrize("name", ["heat3d-so4-k2", "wave3d-so4-k2-segments"])
+def test_k2_stream_pooled_source_matches_plain_and_solo_launches(built, name):
+    """A streaming source launched with a slot count of 3 over ``[3,
+    *bounds]`` operands: each slot bitwise equal to the plain version and
+    to a launch on that slot alone."""
+    ((op, _, _), path), = built["k2-stream", name]
+    shapes = [a.type.bounds.shape for a in op.body.args]
+    arrays = _pool_inputs(shapes, seed=9)
+    outs = [r.type.bounds.shape for r in op.results]
+    got = _run(path, "k2_epoch_launch", arrays, outs, k2.box_args(op), slots=POOL_SLOTS)
+    want = _plain(op, arrays)
+    for b in range(POOL_SLOTS):
+        solo = _run(path, "k2_epoch_launch", [a[b].clone() for a in arrays], outs, k2.box_args(op))
         for g, w, o in zip(got, want, solo):
             assert torch.equal(g[b], w[b]) and torch.equal(g[b], o)
