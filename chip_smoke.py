@@ -198,7 +198,16 @@ check raises and the script exits non-zero:
    1e-4 of its largest magnitude, one rank's state bytes against flat;
    (c) a ``Trainer(state_shardings=...)`` of qwen2-7b (1 layer) on (1, 4),
    its step-2 snapshot resumed on (2, 2) and on one device, each restored
-   state bitwise the saved one; under 150 s and 70 GiB.  ``python3
+   state bitwise the saved one; (g) the tensor-parallel decode
+   (``launch.steps.ShardedDecode``) with one position a row: qwen2-7b at
+   published width, 4 layers, float32, B=8 prompts of seeded lengths
+   16-250 prefilled flat one at a time, grown to T=512 and stacked (8
+   depths), 16 steps each row at its own position, fed the flat run's
+   greedy tokens, on (1, 4) ``heads``, (2, 8) ``seq``, (1, 8) ``seq_all``
+   and (8, 1) ``batch``: logits within 2e-5 and the cache within 2e-5 /
+   1e-4 of the flat ``lm.decode_step`` at every step, ms a step against
+   flat, one rank's cache bytes, and a ``[B]`` of equal positions bitwise
+   the scalar position; under 150 s and 70 GiB.  ``python3
    chip_smoke.py --phase 18`` runs phase 0 and phase 18 alone, and on four
    cards adds one process per card over NCCL: (d) (a) and (b) bitwise the
    stacked ranks (a checksum of each block), (e) (c) saved on (1, 4)
@@ -208,7 +217,9 @@ check raises and the script exits non-zero:
    a barrier (the slowest process), its step-1 loss within 2e-3 of the
    flat forward on one card (measured 1.8e-04 apart on four H100 80GB
    HBM3 at 700 W, where bf16's own spread against float32 was 3.1e-05);
-   under 300 s and 75 GiB a card.
+   (h) (g)'s decode on (1, 4) and (2, 2) processes, every step's logits
+   block and the last cache blocks bitwise the stacked ranks'; under 300 s
+   and 75 GiB a card.
 
 19. the serving engine's slot axis, context parallelism and the sharded
    train step's microbatches and int8 compression over one process a card
@@ -354,6 +365,13 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _seconds(fn, dev) -> float:
@@ -3333,6 +3351,197 @@ def tp_flat_trainer(dev, cfg, directory, B, S):
                       checkpoint_dir=directory), device=dev)
 
 
+# Phase 18 (g)/(h): the tensor-parallel decode with one position a row.
+# qwen2-7b has 4 KV heads: each mesh gives one cache layout
+# (``dist.sharding.kv_cache_layout``); (h) runs two of them over processes.
+TP_DECODE_MESHES = {(1, 4): "heads", (2, 8): "seq", (1, 8): "seq_all", (8, 1): "batch"}
+TP_DECODE_PROCESS_MESHES = ((1, 4), (2, 2))
+
+
+def tp_decode_rows(dev, cfg, params, B, T, prompt_lens, seed):
+    """``B`` prompts of distinct seeded lengths in ``prompt_lens`` (lowest,
+    highest), each prefilled flat alone, its cache grown to ``T``
+    (``lm.grow_cache``), the rows stacked into one ``[B]`` cache, so that
+    the rows sit at ``B`` depths.  Returns ``(cache, positions [B], the
+    prefills' greedy tokens [B])``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+
+    rng = np.random.default_rng(seed)
+    lens = [int(n) for n in rng.choice(np.arange(prompt_lens[0], prompt_lens[1] + 1), B,
+                                       replace=False)]
+    caches, first = [], []
+    for n in lens:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(dev)
+        logits, cache = lm.forward_prefill(params, cfg, toks, q_chunk=min(n, 512))
+        caches.append(lm.grow_cache(cfg, cache, T, n))
+        first.append(int(logits[0, :cfg.vocab_size].argmax()))
+    cache = {k: {n: torch.cat([c[k][n] for c in caches], dim=1) for n in caches[0][k]}
+             for k in caches[0]}
+    return cache, torch.tensor(lens, device=dev), torch.tensor(first, device=dev)
+
+
+def tp_decode_flat(dev, cfg, params, cache, pos, tok, steps):
+    """``steps`` flat ``lm.decode_step`` s from ``cache`` (written in place),
+    each row at its own position ``pos + step``, each step fed the last
+    one's greedy tokens.  Returns ``(feeds, logits, caches, seconds)``: the
+    tokens fed at each step, the logits and a copy of the cache after it,
+    and its seconds (host clock, the card synchronized)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    feeds, outs, caches, secs = [], [], [], []
+    for i in range(steps):
+        feeds.append(tok)
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = lm.decode_step(params, cfg, tok, pos + i, cache)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+        outs.append(logits)
+        caches.append(lm.tree_map(torch.clone, cache))
+        tok = logits[:, :cfg.vocab_size].argmax(-1)
+    return feeds, outs, caches, secs
+
+
+def tp_decode_case(dev, cfg, params, mesh, cache0, pos0, feeds, *, flat=None, digests=False):
+    """``launch.steps.ShardedDecode`` of ``cfg`` on ``mesh`` (stacked ranks
+    on ``dev``, or this process's rank of a process mesh): the parameters
+    and ``cache0`` placed (``place_tree``), one step for each of ``feeds``
+    at the ``[B]`` positions ``pos0 + step``.  Returns a record: the cache
+    layout, each step's seconds (host clock, synchronized), one rank's
+    cache bytes against flat; against ``flat`` (the flat run's logits and
+    caches a step, :func:`tp_decode_flat`) the worst logits and cache
+    errors over the steps; with ``digests`` per rank the checksum of its
+    logits block at every step and of its cache blocks after the last."""
+    import torch
+
+    from repro_torch.dist.sharding import (
+        block_bytes, gather_placed, gather_tree, kv_cache_layout, place, place_tree, rank_block,
+    )
+    from repro_torch.launch.steps import ShardedDecode
+    from repro_torch.models import lm
+
+    _, B, T = cache0["slot0"]["k"].shape[:3]
+    dec = ShardedDecode(cfg, mesh, B, T)
+    placed = place_tree(params, dec.param_specs, mesh)
+    cache = place_tree(cache0, dec.cache_specs, mesh)
+    shapes = lm.init_cache(cfg, B, T, device="meta")
+    rec = {"layout": kv_cache_layout(B, T, cfg.n_kv_heads, mesh), "s": [],
+           "logits_err": 0.0, "cache_err": 0.0, "logits_ok": True, "cache_ok": True,
+           "cache_bytes": block_bytes(shapes, dec.cache_specs, mesh),
+           "flat_cache_bytes": sum(t.numel() * t.element_size()
+                                   for t in lm.leaves(shapes).values())}
+    ranks = (mesh.process_rank,) if mesh.processes else range(mesh.size)
+    if digests:
+        rec["digests"] = {r: {} for r in ranks}
+    for i, tok in enumerate(feeds):
+        tok = place(tok, mesh, dec.token_spec)
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits = dec(placed, tok, pos0 + i, cache)
+        _sync(dev)
+        rec["s"].append(time.perf_counter() - t0)
+        if flat is not None:
+            f_logits, f_caches = flat[0][i], flat[1][i]
+            got = gather_placed(logits, mesh, dec.logits_spec)
+            rec["logits_err"] = max(rec["logits_err"], float((got - f_logits).abs().max()))
+            rec["logits_ok"] &= bool(torch.allclose(got, f_logits, rtol=2e-5, atol=2e-5))
+            got = lm.leaves(gather_tree(cache, dec.cache_specs, mesh))
+            for path, want in lm.leaves(f_caches).items():
+                rec["cache_err"] = max(rec["cache_err"], float((got[path] - want).abs().max()))
+                rec["cache_ok"] &= bool(torch.allclose(got[path], want, rtol=2e-5, atol=1e-4))
+            del got
+        for r in rec.get("digests", ()):
+            block = logits if mesh.processes else rank_block(logits, mesh, dec.logits_spec, r)
+            rec["digests"][r][f"logits {i}"] = words_checksum(block)
+    for r in rec.get("digests", ()):
+        for path, x in lm.leaves(cache).items():
+            spec = lm.leaves(dec.cache_specs)[path]
+            rec["digests"][r][f"cache {path}"] = words_checksum(
+                x if mesh.processes else rank_block(x, mesh, spec, r))
+    return rec
+
+
+def tp_decode_part(dev, *, cut, card, layers, decode, prompt_lens, meshes, digests, peak,
+                   free) -> dict:
+    """Phase 18 (g) (see :func:`tp_phase`).  Returns what (h) holds the
+    processes to: the tokens fed at each step and, with ``digests``, each
+    rank's checksums on every mesh of ``TP_DECODE_PROCESS_MESHES``."""
+    import statistics
+
+    import torch
+
+    from repro_torch.dist.sharding import place, place_tree
+    from repro_torch.launch.steps import ShardedDecode
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    B, T, steps = decode
+    cfg = tp_config(TP_DENSE, layers, cut)
+    params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(SEED + 184),
+                            device=dev)
+    cache0, pos0, tok0 = tp_decode_rows(dev, cfg, params, B, T, prompt_lens, SEED + 185)
+    feeds, f_logits, f_caches, f_s = tp_decode_flat(
+        dev, cfg, params, lm.tree_map(torch.clone, cache0), pos0, tok0, steps)
+    med = lambda xs: statistics.median(xs) * 1e3  # noqa: E731
+    log(f"  (g) ShardedDecode of qwen2-7b (d_model {cfg.d_model}, {cfg.n_kv_heads} KV heads), "
+        f"{layers} layers, float32, B={B} "
+        f"rows prefilled alone at positions {pos0.tolist()}, T={T}, {steps} steps each row at "
+        f"its own position, fed the flat run's greedy tokens: flat lm.decode_step "
+        f"{med(f_s):.3f} ms a step (median; first {f_s[0] * 1e3:.3f})")
+    out = {"feeds": [f.tolist() for f in feeds], "digests": {}, "ms": {}}
+    runs = dict(meshes)
+    if digests:
+        for shape in TP_DECODE_PROCESS_MESHES:
+            runs.setdefault(shape, None)
+    for shape, want in runs.items():
+        mesh = tp_meshes(dev, shape)
+        rec = tp_decode_case(dev, cfg, params, mesh, cache0, pos0, feeds,
+                             flat=(f_logits, f_caches),
+                             digests=digests and shape in TP_DECODE_PROCESS_MESHES)
+        if want is not None:
+            check(rec["layout"] == want,
+                  f"phase 18 (g) {shape}: the cache layout is {rec['layout']}, not {want}")
+        check(rec["logits_ok"], f"phase 18 (g) {shape}: logits {rec['logits_err']:.3e} from "
+                                "the flat decode's, over 2e-5")
+        check(rec["cache_ok"], f"phase 18 (g) {shape}: the cache {rec['cache_err']:.3e} from "
+                               "the flat decode's, over 2e-5 / 1e-4")
+        if "digests" in rec:
+            out["digests"][shape] = rec["digests"]
+        out["ms"][shape] = med(rec["s"])
+        log(f"  (g) {shape} {rec['layout']}: {med(rec['s']):.3f} ms a step against "
+            f"{med(f_s):.3f} flat ({med(rec['s']) / med(f_s):.2f}x; first step "
+            f"{rec['s'][0] * 1e3:.3f}); logits within {rec['logits_err']:.2e} of flat at every "
+            f"step (limit 2e-5), the cache within {rec['cache_err']:.2e} (2e-5 / 1e-4); one "
+            f"rank's cache {rec['cache_bytes'] / 1e6:.1f} MB against "
+            f"{rec['flat_cache_bytes'] / 1e6:.1f} MB flat; peak {peak():.2f} GiB")
+        free()
+    del f_caches, f_logits
+    # a [B] of equal positions against the scalar position, bitwise
+    shape = next(iter(meshes))
+    mesh = tp_meshes(dev, shape)
+    p = int(pos0.max())
+    got = []
+    for pos in (p, torch.full((B,), p, device=dev)):
+        dec = ShardedDecode(cfg, mesh, B, T)
+        cache = place_tree(cache0, dec.cache_specs, mesh)
+        logits = dec(place_tree(params, dec.param_specs, mesh),
+                     place(feeds[0], mesh, dec.token_spec), pos, cache)
+        got.append((logits, lm.leaves(cache)))
+    (a, ca), (b, cb) = got
+    check(torch.equal(a, b) and all(torch.equal(ca[k], cb[k]) for k in ca),
+          f"phase 18 (g) {shape}: a [B] of equal positions differs from the scalar position")
+    del got, a, b, ca, cb, cache, params, cache0
+    free()
+    log(f"  (g) a [B] of {p}s on {shape}: logits and every cache leaf bitwise the scalar "
+        f"position's; (g) {time.perf_counter() - t0:.1f} s, peak {peak():.2f} GiB; {card}")
+    return out
+
+
 def words_checksum(t) -> str:
     """A checksum of a float32 or int32 tensor's bits, computed where the
     tensor lies: the plain int64 sum of its 32-bit words and their sum
@@ -3500,7 +3709,7 @@ def psum_variant(*, drop_layer=None, float32=False):
 
 
 def tp_child(rank, world, tmp, spec):
-    """One process of phase 18's four-card part (d)-(f), on ``cuda:rank``
+    """One process of phase 18's four-card part (d)-(f) and (h), on ``cuda:rank``
     over NCCL (gloo on the CPU for a rehearsal); it rewrites
     ``<tmp>/rank<r>.json`` after every part and logs its progress to
     ``<tmp>/rank<r>.log``."""
@@ -3620,6 +3829,30 @@ def tp_child(rank, world, tmp, spec):
         free()
         save()
         note("(f)")
+        # (h) (g)'s per-row decode on process meshes, checksums of every block
+        import statistics
+
+        from repro_torch.models import lm
+
+        d = spec["decode"]
+        cfg = tp_config(TP_DENSE, d["layers"], cut)
+        params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(SEED + 184),
+                                device=dev)
+        B, T, _ = d["shape"]
+        cache0, pos0, _ = tp_decode_rows(dev, cfg, params, B, T, d["prompt_lens"], SEED + 185)
+        feeds = [torch.tensor(f, device=dev) for f in d["feeds"]]
+        out["h"] = {}
+        for shape in TP_DECODE_PROCESS_MESHES:
+            mesh = processes.process_mesh(shape, ("data", "model"))
+            rec = tp_decode_case(dev, cfg, params, mesh, cache0, pos0, feeds, digests=True)
+            out["h"][str(list(shape))] = {"digests": rec["digests"][rank], "layout": rec["layout"],
+                                          "ms": statistics.median(rec["s"]) * 1e3}
+            del rec
+            free()
+            save()
+            note(f"(h) {shape}")
+        del params, cache0
+        free()
         out["done"] = True
         save()
         processes.barrier()
@@ -3635,7 +3868,9 @@ def tp_child(rank, world, tmp, spec):
 
 
 def tp_phase(dev, *, card="", cut=None, dense_layers=4, moe_layers=8, trainer_layers=1,
-             tokens=(2, 2048), full_layers=28, full_tokens=(4, 4096), processes=None) -> None:
+             tokens=(2, 2048), full_layers=28, full_tokens=(4, 4096), decode_layers=4,
+             decode=(8, 512, 16), prompt_lens=(16, 250), decode_meshes=None,
+             processes=None) -> None:
     """Phase 18: tensor and data parallelism of the language models
     (``train_step.ShardedTrainStep``, ``Trainer(state_shardings=...)``).
 
@@ -3650,7 +3885,18 @@ def tp_phase(dev, *, card="", cut=None, dense_layers=4, moe_layers=8, trainer_la
     ``Trainer(state_shardings=...)`` of (a)'s config (``trainer_layers``
     deep) on (1, 4), 3 steps with a snapshot at step 2, resumed on (2, 2)
     and on one device (the flat trainer): each restored state bitwise the
-    snapshot, step 3's loss within 1e-5 of the uninterrupted run's.
+    snapshot, step 3's loss within 1e-5 of the uninterrupted run's; (g)
+    the tensor-parallel decode, one position a row (:func:`tp_decode_part`):
+    qwen2-7b, ``decode_layers`` layers, float32, ``decode`` = (B, T,
+    steps): B prompts of distinct seeded lengths in ``prompt_lens``
+    prefilled flat one at a time, grown to T and stacked, ``steps`` steps
+    of ``ShardedDecode`` at ``[B]`` positions fed the flat run's greedy
+    tokens on each mesh of ``decode_meshes`` (mesh shape: the cache layout
+    it must give; default :data:`TP_DECODE_MESHES`): logits within 2e-5
+    and the cache within 2e-5 / 1e-4 of the flat ``lm.decode_step`` at
+    every step, ms a step against flat, one rank's cache bytes against
+    flat; on the first mesh a ``[B]`` of equal positions bitwise the
+    scalar position.
 
     With ``processes`` (four cards: ``python3 chip_smoke.py --phase 18``;
     or gloo processes on the CPU for a rehearsal) four processes then run
@@ -3669,7 +3915,10 @@ def tp_phase(dev, *, card="", cut=None, dense_layers=4, moe_layers=8, trainer_la
     row-parallel psum dropped (:func:`psum_variant`) must read more than
     1e-5 from it; step 1's bfloat16 loss within ``TP_BF16_LOSS_TOL`` of the
     flat bfloat16 forward, where the bfloat16 forward with that psum
-    dropped must read more than it.
+    dropped must read more than it; (h) (g) on the process meshes of
+    ``TP_DECODE_PROCESS_MESHES``, every step's logits block and the last
+    cache blocks of each rank bitwise (g)'s stacked ranks (the stacked
+    side runs the meshes (g) lacks too).
 
     The phase must take under 150 s and 70 GiB on one card, 300 s and 75
     GiB a card with its processes."""
@@ -3773,20 +4022,29 @@ def tp_phase(dev, *, card="", cut=None, dense_layers=4, moe_layers=8, trainer_la
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     reports["c"] = saved
+
+    # (g) the tensor-parallel decode, one position a row, on each cache layout
+    decoded = tp_decode_part(dev, cut=cut, card=card, layers=decode_layers, decode=decode,
+                             prompt_lens=prompt_lens, meshes=decode_meshes or TP_DECODE_MESHES,
+                             digests=bool(processes), peak=peak, free=free)
     check(peak() < max_gib, f"phase 18: peaked at {peak():.2f} GiB, over {max_gib}")
     if processes:
         tp_processes_part(dev, processes, stacked, cases, cut=cut, card=card, tokens=tokens,
                           trainer_layers=trainer_layers, full_layers=full_layers,
-                          full_tokens=full_tokens, max_s=max_s - (time.perf_counter() - t18))
+                          full_tokens=full_tokens, decoded=decoded,
+                          decode=dict(layers=decode_layers, shape=list(decode),
+                                      prompt_lens=list(prompt_lens)),
+                          max_s=max_s - (time.perf_counter() - t18))
     sec = time.perf_counter() - t18
     log(f"phase 18: {sec:.1f} s; {card}")
     check(sec < max_s, f"phase 18 took {sec:.1f} s, more than {max_s} s")
 
 
 def tp_processes_part(dev, world, stacked, cases, *, cut, card, tokens, trainer_layers,
-                      full_layers, full_tokens, max_s) -> None:
-    """Phase 18 (d)-(f) over ``world`` processes (see :func:`tp_phase`),
-    in the ``max_s`` seconds left of the phase."""
+                      full_layers, full_tokens, decoded, decode, max_s) -> None:
+    """Phase 18 (d)-(f) and (h) over ``world`` processes (see
+    :func:`tp_phase`), in the ``max_s`` seconds left of the phase;
+    ``decoded`` is what (g) returned, ``decode`` (g)'s sizes."""
     import dataclasses
     import gc
     import math
@@ -3800,12 +4058,13 @@ def tp_processes_part(dev, world, stacked, cases, *, cut, card, tokens, trainer_
             "device": "cuda" if on_card else "cpu", "reduced": cut is not None,
             "cases": [list(c) for c in cases], "tokens": list(tokens),
             "trainer_layers": trainer_layers, "full_layers": full_layers,
-            "full_tokens": list(full_tokens), "dump_s": max(max_s - 20, 30.0)}
+            "full_tokens": list(full_tokens), "dump_s": max(max_s - 20, 30.0),
+            "decode": dict(decode, feeds=decoded["feeds"])}
     gc.collect()
     if on_card:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
-    log(f"phase 18 (d)-(f): {world} processes over {'NCCL' if on_card else 'gloo'}; {card}")
+    log(f"phase 18 (d)-(f), (h): {world} processes over {'NCCL' if on_card else 'gloo'}; {card}")
     try:
         ctx = multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=tp_child, args=(r, world, tmp, spec)) for r in range(world)]
@@ -3961,6 +4220,25 @@ def tp_processes_part(dev, world, stacked, cases, *, cut, card, tokens, trainer_
                        "phase 18 (f): a process peaked over 75 GiB")
         else:
             verify(False, "phase 18 (f): did not end on every process")
+        # (h) the per-row decode over processes, every block bitwise the stacked ranks
+        for shape in TP_DECODE_PROCESS_MESHES:
+            key = str(list(shape))
+            if not all(key in res.get("h", {}) for res in results):
+                verify(False, f"phase 18 (h) {shape}: did not end on every process")
+                continue
+            want = decoded["digests"][shape]
+            bad = [(r, k) for r, res in enumerate(results)
+                   for k, v in res["h"][key]["digests"].items() if want[r].get(k) != v]
+            verify(not bad and all(len(res["h"][key]["digests"]) == len(want[r])
+                                   for r, res in enumerate(results)),
+                   f"phase 18 (h) {shape}: {len(bad)} block(s) differ from the stacked ranks, "
+                   f"first {bad[:3]}")
+            ms = [res["h"][key]["ms"] for res in results]
+            log(f"  (h) (g)'s decode on {shape} {results[0]['h'][key]['layout']} over {world} "
+                f"processes: every step's logits block and the last cache blocks of each rank "
+                f"bitwise the stacked ranks' ({len(want[0])} checksums a rank); "
+                f"{max(ms):.3f} ms a step (median, the slowest process) against "
+                f"{decoded['ms'][shape]:.3f} stacked on one card")
         check(codes == [0] * world, f"phase 18: the processes exited with {codes} "
                                     f"({len(hung)} still running after {wait_s:.1f} s were stopped)")
         check(not failed, f"phase 18: {len(failed)} check(s) failed: {failed}")

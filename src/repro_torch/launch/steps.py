@@ -329,8 +329,12 @@ class ShardedDecode:
     """``lm.decode_step`` tensor- and data-parallel over ``mesh`` for a
     global batch of ``B`` rows against a cache of ``T`` positions (and
     ``memory_len`` encoder positions): placed parameters, a placed
-    ``[B]`` token and a placed cache (``self.cache_specs``, written in
-    place) in, one position for every row; the placed logits out."""
+    ``[B]`` token, the positions and a placed cache (``self.cache_specs``,
+    written in place) in; the placed logits out.  ``pos`` is one position
+    for every row (an int or a 0-d tensor) or every row's own, a ``[B]``
+    integer tensor the same on every process (as the serving engine's
+    slots decode at different depths; placed by ``P()`` it may carry
+    size-1 mesh dims in front): each rank takes its rows' positions."""
 
     def __init__(self, cfg: ModelConfig, mesh, B: int, T: int,
                  rules: Optional[ShardingRules] = None, memory_len: int = 0):

@@ -59,6 +59,7 @@ from repro_torch.dist.sharding import (
     enter,
     own,
     per_rank,
+    place,
     pmax,
     psum,
     relayout,
@@ -299,13 +300,29 @@ def _decode_local_attention(qg, k, v, ok, cfg, dtype):
     return einsum_lp("bkgt,btkd->bkgd", torch.softmax(s, dim=-1), v, dtype)
 
 
-def write_slot(placed, new, spec, slot, mesh):
+def row_positions(pos, B: int, device) -> torch.Tensor:
+    """``pos`` as every row's global position, ``[B]``: an int or a 0-d
+    tensor is the position of every row; a ``[B]`` tensor (the same on
+    every process, or placed by ``P()``: size-1 mesh dims in front) holds
+    one position a row."""
+    pos = torch.as_tensor(pos, device=device)
+    if pos.ndim == 0:
+        return pos.expand(B)
+    if pos.shape[-1] != B or pos.numel() != B:
+        raise ValueError(f"pos {tuple(pos.shape)}: a position for every row or one per row "
+                         f"([{B}])")
+    return pos.reshape(B)
+
+
+def write_slot(placed, new, spec, slots, mesh):
     """Write ``new`` (stacked ``[*mesh, B, 1, Kh, hd]`` in ``spec``'s
-    layout) into a placed ``[B, T, Kh, hd]`` cache of ``spec`` at global
-    slot ``slot`` (a 0-d tensor), in place: the rank whose block of T
-    holds the slot takes it, the others keep theirs."""
+    layout) into a placed ``[B, T, Kh, hd]`` cache of ``spec`` in place,
+    global row ``b`` at global slot ``slots[b]`` (``slots``: ``[B]``, the
+    same on every process): the rank whose block of T holds a row's slot
+    writes that row, the others keep theirs."""
     new = to_placed(new, mesh, spec)
     t_axes = _entry(spec, 1)
+    rows = place(slots, mesh, P(*tuple(spec)[:1]))  # the rows' slots as the cache holds its rows
     lead = () if mesh.processes else tuple(placed.shape[:_lead(mesh)])
     k = len(lead)
     T_loc = placed.shape[k + 1]
@@ -319,12 +336,12 @@ def write_slot(placed, new, spec, slot, mesh):
             i = names.index(a)
             t0 = t0 * mesh.shape[a] + torch.arange(lead[i], device=placed.device).reshape(
                 [lead[i] if j == i else 1 for j in range(k)])
-        t0 = t0 * T_loc
-    local = slot.long() - t0
+        t0 = (t0 * T_loc)[..., None]
+    local = rows.long() - t0
     ok = (local >= 0) & (local < T_loc)
-    idx = local.clamp(0, T_loc - 1).reshape(*local.shape, 1, 1, 1, 1).expand(new.shape)
+    idx = local.clamp(0, T_loc - 1).reshape(*local.shape, 1, 1, 1).expand(new.shape)
     old = placed.gather(k + 1, idx)
-    okb = ok.reshape(*ok.shape, 1, 1, 1, 1)
+    okb = ok.reshape(*ok.shape, 1, 1, 1)
     placed.scatter_(k + 1, idx, torch.where(okb, new.to(placed.dtype), old))
 
 
@@ -336,10 +353,13 @@ def _entry(spec, d) -> tuple:
 def decode_self_attention(p, x, kc, vc, kspec, pos, cfg, kind, dtype, mesh, B: int):
     """One-token decode of the rank's heads against the placed cache
     ``kc``/``vc`` (a supercell's ``[B, T, Kh, hd]`` laid out by ``kspec``,
-    written in place): the flat softmax where the cache holds heads or
-    batch blocks, the distributed flash-decode over T where it is
+    written in place) at ``pos`` (:func:`row_positions`: one position for
+    every row, or one a row): the flat softmax where the cache holds heads
+    or batch blocks, the distributed flash-decode over T where it is
     sequence-sharded (the queries all-gathered first, the rank's heads
-    taken after)."""
+    taken after).  Each row writes its slot (``pos % T``: a rolling local
+    cache wraps per row) on the rank whose block of T holds it, and reads
+    the entries of its own window."""
     L = _lead(mesh)
     q_axes, _ = _heads(cfg)
     B_loc = x.shape[L]
@@ -347,31 +367,31 @@ def decode_self_attention(p, x, kc, vc, kspec, pos, cfg, kind, dtype, mesh, B: i
     t_axes = _entry(kspec, 1)
     T = local_shape[1] * axes_size(mesh, t_axes)
     dev = x.device
-    pos = torch.as_tensor(pos, device=dev)
-    if pos.ndim:
-        raise NotImplementedError("tensor-parallel decode takes one position for every row")
-    positions = pos.expand(B_loc, 1)
+    pos = row_positions(pos, B, dev)
+    slots = pos % T if T > 0 else torch.zeros_like(pos)
+    # each rank's rows of the token's batch: [*mesh, B_loc, 1]
+    bspec = P(batch_axes(B) or None)
+    positions, slotb = (enter(place(t, mesh, bspec), mesh, bspec)[..., None]
+                        for t in (pos, slots))
     ws = _weights(p)
 
-    def project(x, *ws):
+    def project(x, positions, *ws):
         return attn._project_qkv(_lp(p, ws), x, x, cfg, dtype, positions, positions)
 
-    q, k, v = per_rank(project, x, *ws, mesh=mesh)
-    slot = positions[0, 0] % T if T > 0 else torch.zeros((), dtype=torch.long, device=dev)
+    q, k, v = per_rank(project, x, positions, *ws, mesh=mesh)
     full = (B, T, cfg.n_kv_heads, cfg.head_dim_)
-    write_slot(kc, to_cache(k, full, cfg, mesh, B, whole_t=True), kspec, slot, mesh)
-    write_slot(vc, to_cache(v, full, cfg, mesh, B, whole_t=True), kspec, slot, mesh)
+    write_slot(kc, to_cache(k, full, cfg, mesh, B, whole_t=True), kspec, slots, mesh)
+    write_slot(vc, to_cache(v, full, cfg, mesh, B, whole_t=True), kspec, slots, mesh)
     ck, cv = enter(kc, mesh, kspec), enter(vc, mesh, kspec)
 
+    # each row's valid entries, as the flat decode builds them: [*mesh, B_loc, T]
     window = cfg.local_window if kind == ATTN_LOCAL else 0
-    kv_pos = torch.arange(T, device=dev)[None, :]
-    slotb = slot.reshape(1, 1)
+    kv_pos = torch.arange(T, device=dev)
     abs_pos = torch.where(kv_pos <= slotb, positions - (slotb - kv_pos),
                           positions - (slotb + T - kv_pos))
     valid = (abs_pos >= 0) & (abs_pos <= positions)
     if window > 0:
         valid &= abs_pos > positions - window
-    valid = valid.expand(*ck.shape[:L], B_loc, T)
     hd = cfg.head_dim_
 
     if t_axes:
@@ -713,11 +733,14 @@ def _cell_of(leaf, c: int, mesh):
 
 
 def decode_step(params, cfg, token, pos, cache, cspecs, mesh, B: int):
-    """``lm.decode_step`` in the body: ``token`` stacked, ``cache`` the
-    placed cache (written in place) laid out by ``cspecs``.  Returns the
-    vocab-sharded logits, stacked."""
+    """``lm.decode_step`` in the body: ``token`` stacked, ``pos`` one
+    position for every row (an int or a 0-d tensor) or every row's own
+    (``[B]``, the same on every process; :func:`row_positions`), ``cache``
+    the placed cache (written in place) laid out by ``cspecs``.  Returns
+    the vocab-sharded logits, stacked."""
     dtype = torch_dtype(cfg.dtype)
     L = _lead(mesh)
+    pos = row_positions(pos, B, token.device)
     x = embed_lookup(params["embed"], token.unsqueeze(-1), dtype, cfg, mesh)
     for c, cell_p in enumerate(_cells(params["cells"], cfg.n_supercells, L)):
         for s in range(len(cfg.block_pattern)):

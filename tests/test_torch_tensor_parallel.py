@@ -259,10 +259,15 @@ def test_padded_vocab_is_masked_by_global_index_on_a_vocab_block():
     assert bool((full[..., :cfg.vocab_size] > -1e8).all())
 
 
+# phase 18 (g) at reduced sizes: 2 KV heads give each layout on these meshes
+_DECODE = dict(decode=(8, 32, 3), prompt_lens=(4, 24),
+               decode_meshes={(2, 2): "heads", (2, 4): "seq", (1, 4): "seq_all", (4, 1): "batch"})
+
+
 def test_chip_smoke_phase_18_on_the_cpu(capsys):
-    """``chip_smoke.tp_phase`` (one card's part, (a)-(c)) with the configs
-    at their reduced sizes on the CPU: every check passes and its lines
-    are logged."""
+    """``chip_smoke.tp_phase`` (one card's part, (a)-(c) and (g)) with the
+    configs at their reduced sizes on the CPU: every check passes and its
+    lines are logged."""
     import sys
     from pathlib import Path
 
@@ -273,10 +278,14 @@ def test_chip_smoke_phase_18_on_the_cpu(capsys):
     finally:
         sys.path.remove(root)
     chip_smoke.tp_phase(torch.device("cpu"), card="the CPU", cut=reduced_config, dense_layers=2,
-                        moe_layers=2, trainer_layers=1, tokens=(2, 16))
+                        moe_layers=2, trainer_layers=1, tokens=(2, 16), **_DECODE)
     out = capsys.readouterr().out
     assert "phase 18:" in out and out.count("from flat), every gradient leaf") == 3
     assert "resumed on (2, 2) and on one device" in out
+    # (g): the per-row decode on each layout of the reduced config's 2 KV heads
+    for shape, layout in _DECODE["decode_meshes"].items():
+        assert f"(g) {shape} {layout}: " in out
+    assert out.count(" ms a step against ") == 4 and "bitwise the scalar position's" in out
 
 
 _PHASE18 = """
@@ -288,25 +297,26 @@ from repro_torch.configs.base import reduced_config
 if __name__ == "__main__":
     chip_smoke.tp_phase(torch.device("cpu"), card="the CPU", cut=reduced_config, dense_layers=2,
                         moe_layers=2, trainer_layers=1, tokens=(2, 16), full_layers=4,
-                        full_tokens=(2, 32), processes=4)
+                        full_tokens=(2, 32), processes=4, **{decode})
     print("PHASE 18 OK")
 """
 
 
 def test_chip_smoke_phase_18_processes_on_the_cpu(tmp_path):
-    """``chip_smoke.tp_phase`` with its process part, (d)-(f), over four
-    gloo processes at reduced sizes: every block bitwise the stacked
-    ranks, the snapshot resumed across layouts, and (f)'s gates (the
-    sharded float32 forward within 1e-5 of flat, the planted fault seen
-    by that limit, step 1's bf16 loss nearer flat than the fault's); a
-    rehearsal of the phase four cards run over NCCL."""
+    """``chip_smoke.tp_phase`` with its process part, (d)-(f) and (h), over
+    four gloo processes at reduced sizes: every block bitwise the stacked
+    ranks (the per-row decode's too), the snapshot resumed across layouts,
+    and (f)'s gates (the sharded float32 forward within 1e-5 of flat, the
+    planted fault seen by that limit, step 1's bf16 loss nearer flat than
+    the fault's); a rehearsal of the phase four cards run over NCCL."""
     import os
     import subprocess
     import sys
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = tmp_path / "phase18.py"
-    script.write_text(_PHASE18.format(root=root, src=os.path.join(root, "src")))
+    script.write_text(_PHASE18.format(root=root, src=os.path.join(root, "src"),
+                                      decode=repr(_DECODE)))
     env = dict(os.environ, TMPDIR=str(tmp_path))
     proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
                           timeout=240, env=env)
@@ -314,6 +324,7 @@ def test_chip_smoke_phase_18_processes_on_the_cpu(tmp_path):
         f"STDOUT:\n{proc.stdout[-4000:]}\nSTDERR:\n{proc.stderr[-4000:]}"
     )
     assert "with the psum dropped" in proc.stdout
+    assert proc.stdout.count("last cache blocks of each rank bitwise the stacked ranks'") == 2
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
