@@ -3542,6 +3542,232 @@ def tp_decode_part(dev, *, cut, card, layers, decode, prompt_lens, meshes, diges
     return out
 
 
+# Phase 18 (i)/(j): MoE on the reference's single-rank route.  Granite's 32
+# experts split over no model axis of (4, 1) (one rank) or of (1, 3) (32 % 3):
+# every rank routes the global tokens with the capacity of all of them.
+TP_MOE_MESHES = ((4, 1), (1, 3))
+TP_MOE_PROCESS_MESH = (4, 1)
+
+
+class moe_drops:
+    """Inside the ``with``, every MoE dispatch's dropped assignments and
+    its assignments, a pair a call in call order (``.counts``): a stacked
+    rank dispatches its own tokens in a call of its own (``per_rank``)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.plain = plain = moe._dispatch_scatter
+        self.counts = []
+
+        def dispatch(xt, gate_idx, E, C):
+            buf, dest, kept = plain(xt, gate_idx, E, C)
+            self.counts.append((int((~kept).sum()), kept.numel()))
+            return buf, dest, kept
+
+        moe._dispatch_scatter = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._dispatch_scatter = self.plain
+        return False
+
+
+def tp_moe_flat_infer(cfg, params, toks, steps, feeds=None):
+    """The flat prefill of ``toks`` and ``steps`` decode steps from its
+    cache (grown by ``steps``), each step fed ``feeds[i]`` or, without
+    ``feeds``, the last step's greedy tokens.  Returns ``(logits a step
+    (the prefill's first), feeds, seconds a step (the prefill's first))``."""
+    import torch
+
+    from repro_torch.models import lm
+
+    S = toks.shape[1]
+    outs, secs, fed = [], [], []
+    with torch.no_grad():
+        _sync(toks.device)
+        t0 = time.perf_counter()
+        logits, cache = lm.forward_prefill(params, cfg, toks, q_chunk=min(1024, S))
+        _sync(toks.device)
+        secs.append(time.perf_counter() - t0)
+        cache = lm.grow_cache(cfg, cache, S + steps, S)
+        outs.append(logits)
+        for i in range(steps):
+            tok = feeds[i] if feeds is not None else outs[-1][:, :cfg.vocab_size].argmax(-1)
+            fed.append(tok)
+            _sync(toks.device)
+            t0 = time.perf_counter()
+            logits, cache = lm.decode_step(params, cfg, tok, S + i, cache)
+            _sync(toks.device)
+            secs.append(time.perf_counter() - t0)
+            outs.append(logits)
+    return outs, fed, secs
+
+
+def tp_moe_infer(cfg, params, mesh, toks, feeds, *, digests=False):
+    """``ShardedPrefill`` of ``toks`` on ``mesh`` (stacked ranks, or this
+    process's rank of a process mesh) and one ``ShardedDecode`` step for
+    each of ``feeds`` at positions S, S+1, ... from the prefill's own cache
+    (gathered, grown, placed).  Returns ``(logits a step, gathered (the
+    prefill's first), seconds a step, per rank the checksums of its logits
+    blocks)``."""
+    from repro_torch.dist.sharding import (
+        gather_placed, gather_tree, place, place_tree, rank_block,
+    )
+    from repro_torch.launch.steps import ShardedDecode, ShardedPrefill
+    from repro_torch.models import lm
+
+    dev = toks.device
+    B, S = toks.shape
+    T = S + len(feeds)
+    pre = ShardedPrefill(cfg, mesh, B, S, q_chunk=min(1024, S))
+    placed = place_tree(params, pre.param_specs, mesh)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = pre(placed, {"tokens": place(toks, mesh, pre.batch_specs["tokens"])})
+    _sync(dev)
+    secs = [time.perf_counter() - t0]
+    blocks = [(logits, pre.logits_spec)]
+    dec = ShardedDecode(cfg, mesh, B, T)
+    cache = place_tree(lm.grow_cache(cfg, gather_tree(cache, pre.cache_specs, mesh), T, S),
+                       dec.cache_specs, mesh)
+    for i, tok in enumerate(feeds):
+        tok = place(tok, mesh, dec.token_spec)
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits = dec(placed, tok, S + i, cache)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+        blocks.append((logits, dec.logits_spec))
+    ranks = (mesh.process_rank,) if mesh.processes else range(mesh.size)
+    sums = {r: {f"logits {i}": words_checksum(x if mesh.processes else rank_block(x, mesh, s, r))
+                for i, (x, s) in enumerate(blocks)} for r in ranks} if digests else {}
+    return [gather_placed(x, mesh, s) for x, s in blocks], secs, sums
+
+
+def tp_moe_part(dev, *, cut, card, layers, tokens, capacity, meshes, steps, digests, peak,
+                free) -> dict:
+    """Phase 18 (i) (see :func:`tp_phase`).  Returns what (j) holds the
+    processes to: the decode's feeds and, with ``digests``, each rank's
+    checksums on :data:`TP_MOE_PROCESS_MESH`."""
+    import statistics
+
+    import torch
+
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    B, S = tokens
+    cfg = tp_config(TP_MOE, layers, cut, capacity=capacity)
+    seed, toks = SEED + 186, tp_tokens(cfg, B, S, dev, SEED + 187)
+    on_card = dev.type == "cuda"
+    med = lambda xs: statistics.median(xs) * 1e3  # noqa: E731
+
+    def reset():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    free()
+    reset()
+    tf = time.perf_counter()
+    with moe_routing() as f_route:
+        flat = tp_flat(dev, cfg, toks, seed)
+    f_s, f_peak = time.perf_counter() - tf, peak()
+    params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                            device=dev)
+    with moe_routing() as f_iroute, moe_drops() as f_drops:
+        f_out, feeds, f_secs = tp_moe_flat_infer(cfg, params, toks, steps)
+    dropped = sum(d for d, _ in f_drops.counts[:cfg.n_layers])
+    assigned = sum(n for _, n in f_drops.counts[:cfg.n_layers])
+    log(f"  (i) granite-moe-1b-a400m (d_model {cfg.d_model}, {cfg.moe.num_experts} experts, "
+        f"top-{cfg.moe.top_k}, capacity factor {cfg.moe.capacity_factor}), {layers} layers, "
+        f"float32, {B}x{S} tokens, MoE on the single-rank route: flat train step "
+        f"{f_s * 1e3:.0f} ms (peak {f_peak:.2f} GiB), prefill {f_secs[0] * 1e3:.1f} ms, "
+        f"decode {med(f_secs[1:]):.3f} ms a step (median of {steps}); the prefill dropped "
+        f"{dropped} of {assigned} assignments over its {cfg.n_layers} layers")
+    out = {"feeds": [f.tolist() for f in feeds], "digests": {}, "peak_gib": f_peak}
+    for shape in meshes:
+        tm = time.perf_counter()
+        mesh = tp_meshes(dev, shape)
+        n = mesh.size
+        keep = digests and shape == TP_MOE_PROCESS_MESH
+        free()
+        reset()
+        with moe_routing() as s_route:
+            rec = tp_grads_case(dev, cfg, mesh, toks, seed, flat=flat, digests=keep)
+        s_peak = peak()
+        calls = s_route.calls
+        check(len(calls) == n * len(f_route.calls) and all(
+            torch.equal(calls[i], calls[i - i % n]) for i in range(len(calls))),
+            f"phase 18 (i) {shape}: the ranks did not route every token alike")
+        ties = ""
+        if any(not torch.equal(a, b) for a, b in zip(calls[::n], f_route.calls)):
+            # a top-k near-tie routed otherwise: the flat step again with the
+            # sharded step's choices there (see moe_routing)
+            unpinned = (rec["loss_err"], rec["grad_err"], rec["grad_worst"])
+            with moe_routing(pin=calls[::n]) as pinned:
+                pflat = tp_flat(dev, cfg, toks, seed)
+            rec = tp_grads_case(dev, cfg, mesh, toks, seed, flat=pflat, digests=keep)
+            del pflat
+            check(pinned.pinned > 0 and pinned.gap < 1e-5,
+                  f"phase 18 (i) {shape}: {pinned.pinned} token(s) pinned, the largest margin "
+                  f"{pinned.gap:.3e} (a routing difference that is no near-tie)")
+            ties = (f"; {pinned.pinned} token routing(s) differed from flat at top-k near-ties "
+                    f"(margin <= {pinned.gap:.2e}; unpinned: loss {unpinned[0]:.2e}, gradient "
+                    f"{unpinned[2]} {unpinned[1]:.2e}), so the flat step took the sharded "
+                    "step's choices there")
+        del calls, s_route
+        check(rec["loss_err"] <= 1e-5,
+              f"phase 18 (i) {shape}: loss {rec['loss']:.7f} is {rec['loss_err']:.3e} from flat")
+        check(rec["grad_err"] <= 1e-4,
+              f"phase 18 (i) {shape}: gradient {rec['grad_worst']} is {rec['grad_err']:.3e} of its "
+              "largest magnitude from flat")
+        free()
+        with moe_routing() as s_iroute, moe_drops() as s_drops:
+            got, secs, sums = tp_moe_infer(cfg, params, mesh, toks, feeds, digests=keep)
+        want = f_out
+        if any(not torch.equal(a, b) for a, b in zip(s_iroute.calls[::n], f_iroute.calls)):
+            with moe_routing(pin=s_iroute.calls[::n]) as pinned:
+                want = tp_moe_flat_infer(cfg, params, toks, steps, feeds)[0]
+            check(pinned.pinned > 0 and pinned.gap < 1e-5,
+                  f"phase 18 (i) {shape}: prefill/decode: {pinned.pinned} token(s) pinned, the "
+                  f"largest margin {pinned.gap:.3e}")
+            ties += (f"; prefill/decode: {pinned.pinned} token routing(s) at near-ties pinned "
+                     f"(margin <= {pinned.gap:.2e})")
+        else:
+            # every rank drops what flat drops, layer by layer, step by step
+            check(s_drops.counts[::n] == f_drops.counts and all(
+                s_drops.counts[i] == s_drops.counts[i - i % n] for i in range(len(s_drops.counts))),
+                f"phase 18 (i) {shape}: the ranks' drops differ from flat's")
+        p_err = float((got[0] - want[0]).abs().max())
+        d_err = max(float((g - w).abs().max()) for g, w in zip(got[1:], want[1:]))
+        check(torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-5),
+              f"phase 18 (i) {shape}: prefill logits {p_err:.3e} from flat, over 1e-5")
+        check(all(torch.allclose(g, w, rtol=2e-5, atol=2e-5) for g, w in zip(got[1:], want[1:])),
+              f"phase 18 (i) {shape}: decode logits {d_err:.3e} from flat, over 2e-5")
+        r_dropped = sum(d for d, _ in s_drops.counts[:n * cfg.n_layers:n])
+        if keep:
+            out["digests"] = {r: dict(rec["digests"][r], **sums[r]) for r in rec["digests"]}
+        log(f"  (i) {shape}, {n} ranks stacked: loss {rec['loss']:.6f} ({rec['loss_err']:.2e} "
+            f"from flat; every gradient leaf within {rec['grad_err']:.2e} of its max, worst "
+            f"{rec['grad_worst']}); train step {rec['ms']:.0f} ms against {f_s * 1e3:.0f} flat "
+            f"({rec['ms'] / (f_s * 1e3):.2f}x), peak {s_peak:.2f} GiB for the {n} ranks "
+            f"(flat {f_peak:.2f}); prefill logits within {p_err:.2e} of flat (limit 1e-5), "
+            f"{secs[0] * 1e3:.1f} ms against {f_secs[0] * 1e3:.1f}; decode logits within "
+            f"{d_err:.2e} (limit 2e-5) at each of {steps} steps, {med(secs[1:]):.3f} ms a step "
+            f"(median) against {med(f_secs[1:]):.3f} flat; each rank's prefill dropped "
+            f"{r_dropped} of {assigned} assignments (flat {dropped}){ties}; "
+            f"{time.perf_counter() - tm:.1f} s")
+        out["peak_gib"] = max(out["peak_gib"], s_peak)
+        del got, want, secs
+    del flat, params, f_out
+    free()
+    log(f"  (i) {time.perf_counter() - t0:.1f} s, peak {peak():.2f} GiB; {card}")
+    return out
+
+
 def words_checksum(t) -> str:
     """A checksum of a float32 or int32 tensor's bits, computed where the
     tensor lies: the plain int64 sum of its 32-bit words and their sum
@@ -3853,6 +4079,29 @@ def tp_child(rank, world, tmp, spec):
             note(f"(h) {shape}")
         del params, cache0
         free()
+        # (j) (i)'s (4, 1) on processes, checksums of every block
+        m = spec["moe"]
+        cfg = tp_config(TP_MOE, m["layers"], cut, capacity=m["capacity"])
+        B, S = m["tokens"]
+        mesh = processes.process_mesh(TP_MOE_PROCESS_MESH, ("data", "model"))
+        toks = tp_tokens(cfg, B, S, dev, SEED + 187)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        rec = tp_grads_case(dev, cfg, mesh, toks, SEED + 186, digests=True)
+        free()
+        params = lm.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(SEED + 186),
+                                device=dev)
+        _, secs, sums = tp_moe_infer(cfg, params, mesh, toks,
+                                     [torch.tensor(f, device=dev) for f in m["feeds"]],
+                                     digests=True)
+        out["j"] = {"digests": dict(rec["digests"][rank], **sums[rank]), "loss": rec["loss"],
+                    "ms": rec["ms"], "prefill_ms": secs[0] * 1e3,
+                    "decode_ms": statistics.median(secs[1:]) * 1e3,
+                    "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0}
+        del rec, params, toks
+        free()
+        save()
+        note("(j)")
         out["done"] = True
         save()
         processes.barrier()
@@ -3870,6 +4119,7 @@ def tp_child(rank, world, tmp, spec):
 def tp_phase(dev, *, card="", cut=None, dense_layers=4, moe_layers=8, trainer_layers=1,
              tokens=(2, 2048), full_layers=28, full_tokens=(4, 4096), decode_layers=4,
              decode=(8, 512, 16), prompt_lens=(16, 250), decode_meshes=None,
+             moe_tokens=(8, 2048), moe_capacity=None, moe_meshes=TP_MOE_MESHES, moe_steps=8,
              processes=None) -> None:
     """Phase 18: tensor and data parallelism of the language models
     (``train_step.ShardedTrainStep``, ``Trainer(state_shardings=...)``).
@@ -3896,7 +4146,19 @@ def tp_phase(dev, *, card="", cut=None, dense_layers=4, moe_layers=8, trainer_la
     and the cache within 2e-5 / 1e-4 of the flat ``lm.decode_step`` at
     every step, ms a step against flat, one rank's cache bytes against
     flat; on the first mesh a ``[B]`` of equal positions bitwise the
-    scalar position.
+    scalar position; (i) MoE on the reference's single-rank route
+    (:func:`tp_moe_part`): granite-moe-1b-a400m, ``moe_layers`` layers,
+    capacity factor ``moe_capacity`` (default the published 1.25: tokens
+    drop), float32, ``moe_tokens`` (B, S) on each mesh of ``moe_meshes``
+    (default (4, 1) and (1, 3): no model axis of more than one rank holds
+    the 32 experts), against the flat port without a mesh: the train
+    step's loss within 1e-5 and every gradient leaf within 1e-4 of its
+    largest magnitude, the prefill's logits within 1e-5, ``moe_steps``
+    decode steps from the prefill's own cache, fed the flat run's greedy
+    tokens, within 2e-5; every rank routes every token alike and drops
+    what flat drops (a top-k near-tie pins flat to the sharded run's
+    choices, :class:`moe_routing`); ms against flat, dropped assignments,
+    the card's peak.
 
     With ``processes`` (four cards: ``python3 chip_smoke.py --phase 18``;
     or gloo processes on the CPU for a rehearsal) four processes then run
@@ -3918,7 +4180,10 @@ def tp_phase(dev, *, card="", cut=None, dense_layers=4, moe_layers=8, trainer_la
     dropped must read more than it; (h) (g) on the process meshes of
     ``TP_DECODE_PROCESS_MESHES``, every step's logits block and the last
     cache blocks of each rank bitwise (g)'s stacked ranks (the stacked
-    side runs the meshes (g) lacks too).
+    side runs the meshes (g) lacks too); (j) (i) on a (4, 1) process mesh
+    (:data:`TP_MOE_PROCESS_MESH`): the loss and every block of the
+    gradients and the updated state, the prefill's and every decode
+    step's logits blocks bitwise (i)'s stacked ranks, a process's peak.
 
     The phase must take under 150 s and 70 GiB on one card, 300 s and 75
     GiB a card with its processes."""
@@ -4028,12 +4293,21 @@ def tp_phase(dev, *, card="", cut=None, dense_layers=4, moe_layers=8, trainer_la
                              prompt_lens=prompt_lens, meshes=decode_meshes or TP_DECODE_MESHES,
                              digests=bool(processes), peak=peak, free=free)
     check(peak() < max_gib, f"phase 18: peaked at {peak():.2f} GiB, over {max_gib}")
+    # (i) MoE on the reference's single-rank route
+    moe = tp_moe_part(dev, cut=cut, card=card, layers=moe_layers, tokens=moe_tokens,
+                      capacity=moe_capacity, meshes=moe_meshes, steps=moe_steps,
+                      digests=bool(processes), peak=peak, free=free)
+    check(moe["peak_gib"] < max_gib, f"phase 18 (i): peaked at {moe['peak_gib']:.2f} GiB, over "
+                                     f"{max_gib}")
     if processes:
         tp_processes_part(dev, processes, stacked, cases, cut=cut, card=card, tokens=tokens,
                           trainer_layers=trainer_layers, full_layers=full_layers,
                           full_tokens=full_tokens, decoded=decoded,
                           decode=dict(layers=decode_layers, shape=list(decode),
                                       prompt_lens=list(prompt_lens)),
+                          moe=dict(layers=moe_layers, tokens=list(moe_tokens),
+                                   capacity=moe_capacity, steps=moe_steps, feeds=moe["feeds"],
+                                   digests=moe["digests"]),
                           max_s=max_s - (time.perf_counter() - t18))
     sec = time.perf_counter() - t18
     log(f"phase 18: {sec:.1f} s; {card}")
@@ -4041,10 +4315,11 @@ def tp_phase(dev, *, card="", cut=None, dense_layers=4, moe_layers=8, trainer_la
 
 
 def tp_processes_part(dev, world, stacked, cases, *, cut, card, tokens, trainer_layers,
-                      full_layers, full_tokens, decoded, decode, max_s) -> None:
-    """Phase 18 (d)-(f) and (h) over ``world`` processes (see
+                      full_layers, full_tokens, decoded, decode, moe, max_s) -> None:
+    """Phase 18 (d)-(f), (h) and (j) over ``world`` processes (see
     :func:`tp_phase`), in the ``max_s`` seconds left of the phase;
-    ``decoded`` is what (g) returned, ``decode`` (g)'s sizes."""
+    ``decoded`` is what (g) returned, ``decode`` (g)'s sizes, ``moe``
+    (i)'s sizes, feeds and stacked checksums."""
     import dataclasses
     import gc
     import math
@@ -4059,12 +4334,13 @@ def tp_processes_part(dev, world, stacked, cases, *, cut, card, tokens, trainer_
             "cases": [list(c) for c in cases], "tokens": list(tokens),
             "trainer_layers": trainer_layers, "full_layers": full_layers,
             "full_tokens": list(full_tokens), "dump_s": max(max_s - 20, 30.0),
-            "decode": dict(decode, feeds=decoded["feeds"])}
+            "decode": dict(decode, feeds=decoded["feeds"]),
+            "moe": {k: v for k, v in moe.items() if k != "digests"}}
     gc.collect()
     if on_card:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
-    log(f"phase 18 (d)-(f), (h): {world} processes over {'NCCL' if on_card else 'gloo'}; {card}")
+    log(f"phase 18 (d)-(f), (h), (j): {world} processes over {'NCCL' if on_card else 'gloo'}; {card}")
     try:
         ctx = multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=tp_child, args=(r, world, tmp, spec)) for r in range(world)]
@@ -4239,6 +4515,26 @@ def tp_processes_part(dev, world, stacked, cases, *, cut, card, tokens, trainer_
                 f"bitwise the stacked ranks' ({len(want[0])} checksums a rank); "
                 f"{max(ms):.3f} ms a step (median, the slowest process) against "
                 f"{decoded['ms'][shape]:.3f} stacked on one card")
+        # (j) (i)'s (4, 1) over processes, every block bitwise the stacked ranks
+        if all("j" in res for res in results):
+            want = moe["digests"]
+            bad = [(r, k) for r, res in enumerate(results)
+                   for k, v in res["j"]["digests"].items() if want[r].get(k) != v]
+            verify(not bad and all(len(res["j"]["digests"]) == len(want[r])
+                                   for r, res in enumerate(results)),
+                   f"phase 18 (j): {len(bad)} block(s) differ from the stacked ranks, first "
+                   f"{bad[:3]}")
+            js = [res["j"] for res in results]
+            log(f"  (j) (i)'s granite on {TP_MOE_PROCESS_MESH} over {world} processes: loss "
+                f"{js[0]['loss']:.6f}; the loss, every gradient and updated-state block, the "
+                f"prefill's and each decode step's logits blocks of each rank bitwise (i)'s "
+                f"stacked ranks ({len(want[0])} checksums a rank); train step "
+                f"{max(j['ms'] for j in js):.0f} ms, prefill {max(j['prefill_ms'] for j in js):.1f} "
+                f"ms, decode {max(j['decode_ms'] for j in js):.3f} ms a step (median; the slowest "
+                f"process each); a process's peak "
+                f"{', '.join('%.2f' % j['peak_gib'] for j in js)} GiB")
+        else:
+            verify(False, "phase 18 (j): did not end on every process")
         check(codes == [0] * world, f"phase 18: the processes exited with {codes} "
                                     f"({len(hung)} still running after {wait_s:.1f} s were stopped)")
         check(not failed, f"phase 18: {len(failed)} check(s) failed: {failed}")

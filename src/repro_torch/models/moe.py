@@ -296,14 +296,22 @@ def moe_apply(p, x, cfg, dtype, ep_axis: str = "model"):
     """x: [B,S,D] → ([B,S,D], aux).  Uses EP over ``ep_axis`` when a mesh
     with that axis is active and E % axis_size == 0."""
     mesh = active_mesh()
-    B, S, D = x.shape
-    E, K = cfg.moe.num_experts, cfg.moe.top_k
-    cf = cfg.moe.capacity_factor
+    E = cfg.moe.num_experts
     if (mesh is not None and ep_axis in mesh.shape and E % mesh.shape[ep_axis] == 0
             and mesh.shape[ep_axis] > 1):
         return _ep_apply(p, x, cfg, dtype, mesh, ep_axis)
+    return single_rank(p, x, cfg, dtype)
 
-    # ---- single-rank path (no mesh / EP not possible) ----
+
+def single_rank(p, x, cfg, dtype):
+    """The single-rank path (no mesh, or expert parallelism not possible):
+    x [B,S,D] → ([B,S,D], aux), every token routed into one buffer whose
+    capacity is that of all ``B·S`` tokens, the aux losses theirs.  The
+    tensor-parallel body runs it on each rank over the gathered global
+    tokens (``models.tp.moe``)."""
+    B, S, D = x.shape
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    cf = cfg.moe.capacity_factor
     xt = x.reshape(B * S, D)
     gate_vals, gate_idx, aux = _route(p, xt, cfg, dtype)
     C = max(1, int(B * S * K * cf) // E)

@@ -20,8 +20,16 @@ GSPMD inserts for the reference's specs (the Megatron layout of
   are whole and each rank's query heads read their own group's KV head,
   as GSPMD's slicing does;
 - SwiGLU: ``wi``/``wu`` column-parallel, ``wo`` row-parallel, a psum;
-- MoE: the expert-parallel blocks of ``moe`` (all-to-alls over the
-  expert axis), the router replicated;
+- MoE, by the reference's rule (``moe.moe_apply``): where the experts
+  split over a mesh axis of more than one rank (``"model"``: E % model
+  == 0, model > 1), the expert-parallel blocks of ``moe`` (all-to-alls
+  over that axis, the router replicated); otherwise the reference's
+  single-rank route, which GSPMD runs over the global token set: each
+  rank all-gathers the batch's rows, routes and dispatches every token
+  with the capacity of all ``B·S`` of them, runs the experts on its
+  weights (its columns of ``d_ff`` where ``"mlp"`` splits them, the
+  partial outputs psummed), keeps its own rows, and returns the aux
+  losses of the global tokens;
 - mamba: ``in_proj`` is ``[x; z]`` along the dim ``"mlp"`` shards, so a
   rank's column block is not a block of ``x`` and of ``z``: the product's
   blocks are all-gathered and each rank takes its channels of both;
@@ -43,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -50,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA, MLSTM, SLSTM
 from repro_torch.dist.sharding import (
     PartitionSpec as P,
+    _valid_spec,
     active_context,
     active_rules,
     all_gather,
@@ -98,6 +108,14 @@ def norm(x, gamma, eps, mesh):
 def batch_axes(B: int) -> tuple:
     """The axes the batch of ``B`` rows is split over (``"batch"`` clamped)."""
     return clamp_axes("batch", B)
+
+
+def global_rows(n_local: int, mesh) -> int:
+    """The global rows of a batch that every batch axis splits, each rank
+    holding ``n_local`` rows (a batch that some batch axis cannot split
+    has fewer: its caller passes them)."""
+    axes = tuple(a for a in _entry(P(active_rules().physical("batch")), 0) if a in mesh.shape)
+    return n_local * axes_size(mesh, axes)
 
 
 # -- embedding / logits / loss ------------------------------------------------
@@ -177,21 +195,49 @@ def swiglu(p, x, dtype, d_ff, mesh):
     return psum(y, clamp_axes("mlp", d_ff), mesh)
 
 
-def moe(p, x, cfg, dtype, mesh):
-    """The expert-parallel blocks of ``moe`` on the body's stacked ranks
-    (experts over ``"expert"``'s axis); the aux losses per rank."""
+def moe(p, x, cfg, dtype, mesh, B: int):
+    """MoE on the body's stacked ranks, of a batch of ``B`` global rows:
+    the expert-parallel blocks of ``moe`` where the experts split over one
+    mesh axis of more than one rank (``"expert"``'s axis: under the
+    default rules the reference's rule, E % model == 0 and model > 1),
+    else :func:`moe_single_rank`; the aux losses per rank."""
     axes = clamp_axes("expert", cfg.moe.num_experts)
-    if len(axes) != 1:
-        raise NotImplementedError(
-            f"tensor parallelism needs the experts over one mesh axis; {cfg.moe.num_experts} "
-            f"experts on {dict(mesh.shape)} give {axes}"
-        )
+    if len(axes) != 1 or mesh.shape[axes[0]] == 1:
+        return moe_single_rank(p, x, cfg, dtype, mesh, B)
     L = _lead(mesh)
     B_loc, S = x.shape[L], x.shape[L + 1]
     small = (B_loc * S) % mesh.shape[axes[0]] != 0
     block = moe_mod.ep_blocks(cfg, dtype, mesh, axes[0])[small]
     y, lb, z = block(p["router"], p["wi"], p["wu"], p["wo"], x)
     return y.to(dtype), {"moe_lb_loss": lb, "moe_z_loss": z}
+
+
+def moe_single_rank(p, x, cfg, dtype, mesh, B: int):
+    """The reference's single-rank route (``moe.single_rank``) as GSPMD
+    runs it, over the global token set: every rank all-gathers the rows of
+    the batch's axes (global row order), runs the route on all ``B·S``
+    tokens with its expert weights (whole experts; a block of ``d_ff``
+    columns of ``wi``/``wu`` and rows of ``wo`` where the weights' spec
+    gives ``"mlp"`` an axis, their partial outputs psummed over it after
+    the combine) and keeps its own rows.  Each rank's rows depend on every
+    token (the capacity, the slot order); the all-gather's backward sums
+    the ranks' cotangents before each rank takes its block.  The aux
+    losses are the global tokens', the same on every rank."""
+    b_axes = tuple(a for a in batch_axes(B) if mesh.shape[a] > 1)
+    E, D, d_ff = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    rules = active_rules()
+    w_spec = _valid_spec(mesh, P(rules.physical("expert"), None, rules.physical("mlp")),
+                         (E, D, d_ff))
+    xg = all_gather(x, b_axes, mesh, 0) if b_axes else x
+
+    def local(x, router, wi, wu, wo):
+        y, aux = moe_mod.single_rank({"router": router, "wi": wi, "wu": wu, "wo": wo}, x, cfg,
+                                     dtype)
+        return y, aux["moe_lb_loss"], aux["moe_z_loss"]
+
+    y, lb, z = per_rank(local, xg, p["router"], p["wi"], p["wu"], p["wo"], mesh=mesh)
+    y = own(y, b_axes, mesh, 0) if b_axes else y
+    return psum(y, _entry(w_spec, 2), mesh), {"moe_lb_loss": lb, "moe_z_loss": z}
 
 
 # -- attention ----------------------------------------------------------------
@@ -583,12 +629,12 @@ def _cells(tree, n: int, L: int) -> list:
     return list(torch.unbind(tree, L))
 
 
-def _ffn_part(slot_p, x, cfg, dtype, aux, mesh):
+def _ffn_part(slot_p, x, cfg, dtype, aux, mesh, B: int):
     if cfg.d_ff <= 0:
         return x, aux
     h = norm(x, slot_p["norm_ffn"], cfg.norm_eps, mesh)
     if "moe" in slot_p:
-        y, moe_aux = moe(slot_p["moe"], h, cfg, dtype, mesh)
+        y, moe_aux = moe(slot_p["moe"], h, cfg, dtype, mesh, B)
         aux = {k: aux.get(k, 0.0) + v for k, v in moe_aux.items()} if aux is not None else None
     else:
         y = swiglu(slot_p["ffn"], h, dtype, cfg.d_ff, mesh)
@@ -604,7 +650,7 @@ def embed_inputs(params, cfg, tokens, modality, dtype, mesh):
     return x
 
 
-def encode(params, cfg, frames, dtype, mesh):
+def encode(params, cfg, frames, dtype, mesh, B: int):
     L = _lead(mesh)
     x = frames.to(dtype)
     enc_cfg = dataclasses.replace(cfg, block_pattern=(ATTN,))
@@ -612,14 +658,14 @@ def encode(params, cfg, frames, dtype, mesh):
         h = norm(x, lp["norm_mixer"], cfg.norm_eps, mesh)
         y, _, _ = attend(lp["attn"], h, h, enc_cfg, dtype, mesh, causal=False)
         x = x + y
-        x, _ = _ffn_part(lp, x, enc_cfg, dtype, None, mesh)
+        x, _ = _ffn_part(lp, x, enc_cfg, dtype, None, mesh, B)
     return norm(x, params["encoder"]["norm"], cfg.norm_eps, mesh)
 
 
-def run_slot(slot_p, x, cfg, slot, dtype, memory, aux, q_chunk, mesh):
-    """One slot of a supercell (train and prefill): ``(x, aux, state)``,
-    ``state`` what the slot's cache keeps (K/V as computed, or the
-    recurrent states)."""
+def run_slot(slot_p, x, cfg, slot, dtype, memory, aux, q_chunk, mesh, B: int):
+    """One slot of a supercell (train and prefill) of a batch of ``B``
+    global rows: ``(x, aux, state)``, ``state`` what the slot's cache
+    keeps (K/V as computed, or the recurrent states)."""
     kind = cfg.layer_kind(slot)
     h = norm(x, slot_p["norm_mixer"], cfg.norm_eps, mesh)
     if kind in (ATTN, ATTN_LOCAL):
@@ -638,7 +684,7 @@ def run_slot(slot_p, x, cfg, slot, dtype, memory, aux, q_chunk, mesh):
         hc = norm(x, slot_p["norm_cross"], cfg.norm_eps, mesh)
         y, _, _ = attend(slot_p["cross"], hc, memory, cfg, dtype, mesh, causal=False)
         x = x + y
-    x, aux = _ffn_part(slot_p, x, cfg, dtype, aux, mesh)
+    x, aux = _ffn_part(slot_p, x, cfg, dtype, aux, mesh, B)
     return x, aux, state
 
 
@@ -649,15 +695,18 @@ def _init_aux(cfg, x, mesh):
     return {"moe_lb_loss": z, "moe_z_loss": z}
 
 
-def forward_train(params, cfg, tokens, modality, remat: bool, q_chunk: int, mesh):
+def forward_train(params, cfg, tokens, modality, remat: bool, q_chunk: int, mesh,
+                  B: Optional[int] = None):
     """``lm.forward_train`` in the body: ``(vocab-sharded logits, aux)``,
     stacked; a remat'd supercell runs again in the backward inside the
-    same body."""
+    same body.  ``B``: the batch's global rows (default
+    :func:`global_rows`: a batch that every batch axis splits)."""
     dtype = torch_dtype(cfg.dtype)
     L = _lead(mesh)
+    B = global_rows(tokens.shape[L], mesh) if B is None else B
     memory = None
     if cfg.is_encoder_decoder:
-        memory = encode(params, cfg, modality, dtype, mesh)
+        memory = encode(params, cfg, modality, dtype, mesh, B)
         x = embed_inputs(params, cfg, tokens, None, dtype, mesh)
     else:
         x = embed_inputs(params, cfg, tokens, modality, dtype, mesh)
@@ -668,7 +717,7 @@ def forward_train(params, cfg, tokens, modality, remat: bool, q_chunk: int, mesh
         with use_context(ctx):
             for s in range(len(cfg.block_pattern)):
                 x, aux, _ = run_slot(cell_p[f"slot{s}"], x, cfg, s, dtype, memory, aux, q_chunk,
-                                     mesh)
+                                     mesh, B)
         return x, aux
 
     remat = remat and torch.is_grad_enabled()
@@ -691,7 +740,7 @@ def forward_prefill(params, cfg, tokens, modality, q_chunk: int, mesh, B: int):
     L = _lead(mesh)
     memory = None
     if cfg.is_encoder_decoder:
-        memory = encode(params, cfg, modality, dtype, mesh)
+        memory = encode(params, cfg, modality, dtype, mesh, B)
         x = embed_inputs(params, cfg, tokens, None, dtype, mesh)
     else:
         x = embed_inputs(params, cfg, tokens, modality, dtype, mesh)
@@ -703,7 +752,7 @@ def forward_prefill(params, cfg, tokens, modality, q_chunk: int, mesh, B: int):
         for s in range(len(cfg.block_pattern)):
             slot_p = cell_p[f"slot{s}"]
             kind = cfg.layer_kind(s)
-            x, _, state = run_slot(slot_p, x, cfg, s, dtype, memory, None, q_chunk, mesh)
+            x, _, state = run_slot(slot_p, x, cfg, s, dtype, memory, None, q_chunk, mesh, B)
             if kind in (ATTN, ATTN_LOCAL):
                 T = _slot_cache_len(cfg, s, S)
                 kc, vc = (t.narrow(L + 1, S - T, T) for t in state)
@@ -771,5 +820,5 @@ def decode_step(params, cfg, token, pos, cache, cspecs, mesh, B: int):
                 hc = norm(x, slot_p["norm_cross"], cfg.norm_eps, mesh)
                 x = x + cross_decode_attention(slot_p["cross"], hc, sc["ck"], sc["cv"], sp["ck"],
                                                cfg, dtype, mesh)
-            x, _ = _ffn_part(slot_p, x, cfg, dtype, None, mesh)
+            x, _ = _ffn_part(slot_p, x, cfg, dtype, None, mesh, B)
     return logits(params, cfg, x.select(L + 1, 0), dtype, mesh)

@@ -251,7 +251,7 @@ class ShardedTrainStep:
         if "modality" in batch:
             modality = enter(batch["modality"], mesh, self.mb_specs["modality"])
         logits, aux = tp.forward_train(body, cfg, tokens, modality, self.options.remat,
-                                       self.options.q_chunk, mesh)
+                                       self.options.q_chunk, mesh, self.rows)
         ce, zloss = tp.cross_entropy(cfg, logits, tokens, self.rows, mesh, Z_LOSS)
         del logits, body
         ce, zloss = leave(ce, mesh, P()), leave(zloss, mesh, P())

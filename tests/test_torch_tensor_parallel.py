@@ -259,15 +259,17 @@ def test_padded_vocab_is_masked_by_global_index_on_a_vocab_block():
     assert bool((full[..., :cfg.vocab_size] > -1e8).all())
 
 
-# phase 18 (g) at reduced sizes: 2 KV heads give each layout on these meshes
+# phase 18 (g) at reduced sizes: 2 KV heads give each layout on these meshes;
+# (i) at a capacity factor at which the reduced granite drops tokens
 _DECODE = dict(decode=(8, 32, 3), prompt_lens=(4, 24),
-               decode_meshes={(2, 2): "heads", (2, 4): "seq", (1, 4): "seq_all", (4, 1): "batch"})
+               decode_meshes={(2, 2): "heads", (2, 4): "seq", (1, 4): "seq_all", (4, 1): "batch"},
+               moe_tokens=(4, 16), moe_capacity=0.5, moe_steps=2)
 
 
 def test_chip_smoke_phase_18_on_the_cpu(capsys):
-    """``chip_smoke.tp_phase`` (one card's part, (a)-(c) and (g)) with the
-    configs at their reduced sizes on the CPU: every check passes and its
-    lines are logged."""
+    """``chip_smoke.tp_phase`` (one card's part, (a)-(c), (g) and (i)) with
+    the configs at their reduced sizes on the CPU: every check passes and
+    its lines are logged."""
     import sys
     from pathlib import Path
 
@@ -286,6 +288,10 @@ def test_chip_smoke_phase_18_on_the_cpu(capsys):
     for shape, layout in _DECODE["decode_meshes"].items():
         assert f"(g) {shape} {layout}: " in out
     assert out.count(" ms a step against ") == 4 and "bitwise the scalar position's" in out
+    # (i): MoE on the single-rank route on (4, 1) and (1, 3), tokens dropped
+    for shape in ((4, 1), (1, 3)):
+        assert f"(i) {shape}, " in out
+    assert "the prefill dropped 0 of" not in out
 
 
 _PHASE18 = """
@@ -303,9 +309,10 @@ if __name__ == "__main__":
 
 
 def test_chip_smoke_phase_18_processes_on_the_cpu(tmp_path):
-    """``chip_smoke.tp_phase`` with its process part, (d)-(f) and (h), over
-    four gloo processes at reduced sizes: every block bitwise the stacked
-    ranks (the per-row decode's too), the snapshot resumed across layouts,
+    """``chip_smoke.tp_phase`` with its process part, (d)-(f), (h) and
+    (j), over four gloo processes at reduced sizes: every block bitwise the
+    stacked ranks (the per-row decode's and (i)'s MoE on the single-rank
+    route too), the snapshot resumed across layouts,
     and (f)'s gates (the sharded float32 forward within 1e-5 of flat, the
     planted fault seen by that limit, step 1's bf16 loss nearer flat than
     the fault's); a rehearsal of the phase four cards run over NCCL."""
@@ -325,6 +332,7 @@ def test_chip_smoke_phase_18_processes_on_the_cpu(tmp_path):
     )
     assert "with the psum dropped" in proc.stdout
     assert proc.stdout.count("last cache blocks of each rank bitwise the stacked ranks'") == 2
+    assert "(j) (i)'s granite on (4, 1) over 4 processes" in proc.stdout
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")

@@ -20,6 +20,16 @@ store under ``DIRECTORY``); every process joins the world with
   uninterrupted (1, 4) run's; and a checkpoint written by the reference's
   ``Checkpointer`` (the launcher writes it with JAX before it spawns)
   resumed onto a (2, 2) process mesh, bitwise;
+- ``moe`` — reduced granite-moe-1b-a400m and jamba (float32, capacity
+  factor 0.5: tokens drop) on a (data=2, model=1) world of two processes
+  and a (1, 3) world of three: MoE on the reference's single-rank route
+  (no model axis of more than one rank holds the experts), one
+  ``ShardedTrainStep``'s loss, metrics and every gradient block, the
+  ``ShardedPrefill`` logits and cache blocks and two ``ShardedDecode``
+  steps' logits bitwise the stacked single controller's;
+- ``gspmd-moe`` (no processes) — :func:`gspmd` for reduced
+  granite-moe-1b-a400m at capacity factor 0.5 on (data=2, model=1),
+  where the reference takes its single-rank route under GSPMD;
 - ``gspmd`` (no processes; 8 virtual XLA devices) — two of the port's
   stacked (data=2, model=4) train steps, each against the reference's
   ``build_step("train")`` jitted with its own in/out shardings from the
@@ -128,6 +138,69 @@ def _check_train(n, rank, directory):
                       flush=True)
 
 
+def _with_capacity(cfg, capacity):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=capacity))
+
+
+def _check_moe(n, rank, directory):
+    """MoE on the single-rank route over ``n`` processes ((2, 1) or (1, 3)):
+    the train step, prefill and decode bitwise the stacked ranks."""
+    from repro_torch.dist import processes
+    from repro_torch.dist.sharding import place, place_tree
+    from repro_torch.launch.steps import ShardedDecode, ShardedPrefill
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import ShardedTrainStep, TrainOptions
+
+    shape = {2: (2, 1), 3: (1, 3)}[n]
+    smesh, pmesh = _stacked_mesh(shape), processes.process_mesh(shape, ("data", "model"))
+    for arch in ("granite-moe-1b-a400m", "jamba-v0.1-52b"):
+        what = f"{arch} {shape}"
+        cfg = _with_capacity(_cfg(arch), 0.5)
+        params = lm.init_params(cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+        tokens = torch.from_numpy(_tokens(cfg)).long()
+        opts = TrainOptions(remat=True, q_chunk=8)
+        ss = ShardedTrainStep(cfg, opt.OptimizerConfig(), opts, smesh, B)
+        ps = ShardedTrainStep(cfg, opt.OptimizerConfig(), opts, pmesh, B)
+        pspecs = ss.state_specs["params"]
+        (sl, sm), sg = ss.value_and_grad(place_tree(params, pspecs, smesh),
+                                         ss.place_batch({"tokens": tokens}))
+        (pl, pm), pg = ps.value_and_grad(place_tree(params, pspecs, pmesh),
+                                         ps.place_batch({"tokens": tokens}))
+        _same(pl, sl, f"{what} loss")
+        for k in sm:
+            _same(pm[k], sm[k], f"{what} {k}")
+        for (path, g, spec), (_, h, _) in zip(_leaves_with_specs(sg, pspecs),
+                                              _leaves_with_specs(pg, pspecs)):
+            _same(h, own_block(g, smesh, spec, rank), f"{what} grad {path}")
+        _, f_cache = lm.forward_prefill(params, cfg, tokens, q_chunk=8)
+        f_cache = lm.grow_cache(cfg, f_cache, S + 2, S)
+        outs = []
+        for mesh in (smesh, pmesh):
+            pre = ShardedPrefill(cfg, mesh, B, S, q_chunk=8)
+            placed = place_tree(params, pre.param_specs, mesh)
+            logits, cache = pre(placed, {"tokens": place(tokens, mesh, pre.batch_specs["tokens"])})
+            dec = ShardedDecode(cfg, mesh, B, S + 2)
+            grown = place_tree(f_cache, dec.cache_specs, mesh)
+            steps = [logits]
+            rng = np.random.default_rng(3)
+            for pos in (S, S + 1):
+                tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B,)))
+                steps.append(dec(placed, place(tok, mesh, dec.token_spec), pos, grown))
+            outs.append((steps, cache, pre, dec))
+        (s_steps, s_cache, pre, dec), (p_steps, p_cache, _, _) = outs
+        names = ("prefill logits", "decode step 1 logits", "decode step 2 logits")
+        specs = (pre.logits_spec, dec.logits_spec, dec.logits_spec)
+        for x, y, spec, name in zip(s_steps, p_steps, specs, names):
+            _same(y, own_block(x, smesh, spec, rank), f"{what} {name}")
+        for (path, x, spec), (_, y, _) in zip(_leaves_with_specs(s_cache, pre.cache_specs),
+                                              _leaves_with_specs(p_cache, pre.cache_specs)):
+            _same(y, own_block(x, smesh, spec, rank), f"{what} prefill cache {path}")
+        if rank == 0:
+            print(f"ok: {what} processes: loss {float(pl):.6f}, gradients, prefill and decode "
+                  "bitwise the stacked ranks", flush=True)
+
+
 def _trainer(mesh, directory, total, ckpt="ckpt"):
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.train import optimizer as opt
@@ -210,8 +283,8 @@ def child(rank, n, scenario, directory, store):
     processes.init(device="cpu", rank=rank, world_size=n, local_rank=rank, timeout_s=120,
                    init_method=f"file://{os.path.abspath(os.path.join(directory, store))}")
     try:
-        {"train": _check_train, "write": _write_run, "resume": _resume}[scenario](
-            n, rank, directory)
+        {"train": _check_train, "write": _write_run, "resume": _resume, "moe": _check_moe}[
+            scenario](n, rank, directory)
         processes.barrier()
     except BaseException:
         import traceback
@@ -309,7 +382,7 @@ def _pick(tree, path):
     return tree
 
 
-def gspmd(directory):
+def gspmd(directory, shape=(2, 4), archs=("qwen2-7b", "granite-moe-1b-a400m"), capacity=None):
     """Two steps of the port's stacked (2, 4) train step against the
     reference's GSPMD step from the same state: each step's gradients
     (the reference's ``value_and_grad`` jitted under the same mesh and
@@ -324,7 +397,8 @@ def gspmd(directory):
     norm, clip, moments, bias correction, decay mask, learning rate) within
     1e-6 of each leaf's largest magnitude; the parameters against the
     GSPMD step's over the elements whose gradient is held (at least 1e-4 of
-    its leaf's largest)."""
+    its leaf's largest).  ``shape``: the mesh (data, model); ``capacity``:
+    the MoE capacity factor on both sides (default the config's)."""
     jax = _jax()
     import jax.numpy as jnp
 
@@ -342,11 +416,14 @@ def gspmd(directory):
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import ShardedTrainStep, TrainOptions
 
-    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
-    tmesh = _stacked_mesh((2, 4))
+    n = int(np.prod(shape))
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:n]).reshape(shape), ("data", "model"))
+    tmesh = _stacked_mesh(shape)
     radamw = jax.jit(lambda g, o, p: ropt.adamw_update(ropt.OptimizerConfig(), g, o, p))
-    for arch in ("qwen2-7b", "granite-moe-1b-a400m"):
+    for arch in archs:
         rcfg, cfg = cfgs(arch, dtype="float32")
+        if capacity is not None:
+            rcfg, cfg = _with_capacity(rcfg, capacity), _with_capacity(cfg, capacity)
         fn, _, in_sh, out_sh = rsteps.build_step(rcfg, RShape("t", S, B, "train"), jmesh)
         rloss = rloss_fn(rcfg, RTrainOptions(q_chunk=S))
 
@@ -410,7 +487,7 @@ def gspmd(directory):
                         what.format("adamw"), 1e-6)
             assert int(new["opt_state"]["count"]) == int(want[1]["count"]) == t + 1
             np_state = new
-        print(f"ok: {arch} (2, 4), two steps against the reference's GSPMD step (loss "
+        print(f"ok: {arch} {shape}, two steps against the reference's GSPMD step (loss "
               f"{float(met['loss']):.6f}, grad_norm {float(met['grad_norm']):.6f}); the worst of "
               "each check as a share of its tolerance: "
               + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()), flush=True)
@@ -425,8 +502,13 @@ def main(argv):
         spawn(4, "write", directory)
         spawn(4, "resume", directory)
         resume_on_one_device(directory)
+    elif scenario == "moe":
+        spawn(2, "moe", directory)
+        spawn(3, "moe", directory)
     elif scenario == "gspmd":
         gspmd(directory)
+    elif scenario == "gspmd-moe":
+        gspmd(directory, (2, 1), ("granite-moe-1b-a400m",), capacity=0.5)
     else:
         raise SystemExit(f"unknown scenario {scenario!r}")
     print("ALL OK")
